@@ -1,0 +1,94 @@
+"""Default configuration: own copy of the ``siammot_tpu.configs.defaults``
+keys that the inference slice reads, with the same names and values, so
+the JAX package's YAML overlays and ``merge_from_list`` options apply
+unchanged.  ``TPU.*`` keeps its name for that reason; on the card it
+holds the same static capacities and dtypes.
+"""
+
+from .node import CfgNode as CN
+
+_C = CN()
+
+_C.MODEL = CN()
+_C.MODEL.BACKBONE = CN()
+_C.MODEL.BACKBONE.CONV_BODY = "DLA-34-FPN"
+
+_C.MODEL.DLA = CN()
+_C.MODEL.DLA.DLA_STAGE2_OUT_CHANNELS = 64
+_C.MODEL.DLA.DLA_STAGE3_OUT_CHANNELS = 128
+_C.MODEL.DLA.DLA_STAGE4_OUT_CHANNELS = 256
+_C.MODEL.DLA.DLA_STAGE5_OUT_CHANNELS = 512
+_C.MODEL.DLA.BACKBONE_OUT_CHANNELS = 128
+_C.MODEL.DLA.STAGE_WITH_DCN = (False, False, False, False, False, False)
+
+_C.MODEL.RPN = CN()
+_C.MODEL.RPN.ANCHOR_STRIDE = (4, 8, 16, 32, 64)
+_C.MODEL.RPN.ANCHOR_SIZES = (32, 64, 128, 256, 512)
+_C.MODEL.RPN.ASPECT_RATIOS = (0.5, 1.0, 2.0)
+_C.MODEL.RPN.PRE_NMS_TOP_N_TEST = 1000
+_C.MODEL.RPN.POST_NMS_TOP_N_TEST = 300
+_C.MODEL.RPN.FPN_POST_NMS_TOP_N_TEST = 300
+_C.MODEL.RPN.NMS_THRESH = 0.7
+_C.MODEL.RPN.MIN_SIZE = 0
+
+_C.MODEL.ROI_HEADS = CN()
+_C.MODEL.ROI_HEADS.BBOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
+_C.MODEL.ROI_HEADS.SCORE_THRESH = 0.05
+_C.MODEL.ROI_HEADS.NMS = 0.5
+
+_C.MODEL.ROI_BOX_HEAD = CN()
+_C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 7
+_C.MODEL.ROI_BOX_HEAD.POOLER_SCALES = (0.25, 0.125, 0.0625, 0.03125)
+_C.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 2
+_C.MODEL.ROI_BOX_HEAD.NUM_CLASSES = 2
+_C.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM = 1024
+
+_C.MODEL.TRACK_HEAD = CN()
+_C.MODEL.TRACK_HEAD.TRACKTOR = False
+_C.MODEL.TRACK_HEAD.POOLER_SCALES = (0.25, 0.125, 0.0625, 0.03125)
+_C.MODEL.TRACK_HEAD.POOLER_RESOLUTION = 15
+_C.MODEL.TRACK_HEAD.POOLER_SAMPLING_RATIO = 2
+_C.MODEL.TRACK_HEAD.PAD_PIXELS = 512
+_C.MODEL.TRACK_HEAD.SEARCH_REGION = 2.0
+_C.MODEL.TRACK_HEAD.MINIMUM_SREACH_REGION = 0
+_C.MODEL.TRACK_HEAD.TRACK_THRESH = 0.4
+_C.MODEL.TRACK_HEAD.START_TRACK_THRESH = 0.6
+_C.MODEL.TRACK_HEAD.RESUME_TRACK_THRESH = 0.4
+_C.MODEL.TRACK_HEAD.MAX_DORMANT_FRAMES = 1
+_C.MODEL.TRACK_HEAD.EMM = CN()
+_C.MODEL.TRACK_HEAD.EMM.USE_CENTERNESS = True
+_C.MODEL.TRACK_HEAD.EMM.COSINE_WINDOW_WEIGHT = 0.4
+
+_C.INPUT = CN()
+_C.INPUT.PIXEL_MEAN = (0.485, 0.456, 0.406)
+_C.INPUT.PIXEL_STD = (0.229, 0.224, 0.225)
+_C.INPUT.TO_BGR255 = False
+_C.INPUT.AMODAL = False
+
+_C.DATALOADER = CN()
+_C.DATALOADER.SIZE_DIVISIBILITY = 32
+
+_C.TPU = CN()
+# padded track-slot capacity (active + dormant tracks per stream)
+_C.TPU.MAX_TRACKS = 128
+# dtype of the conv trunk, the heads and the EMM predictor
+_C.TPU.COMPUTE_DTYPE = "bfloat16"
+# dtype of the stacked FPN table the window pool reads
+_C.TPU.POOLER_DTYPE = "bfloat16"
+# per-site window sizes of the windowed pool (feature px, rows == cols)
+_C.TPU.WINDOW_BOX = 64
+_C.TPU.WINDOW_TEMPLATE = 64
+_C.TPU.WINDOW_SR = 128
+# space-to-depth DLA stem (the only stem the port runs)
+_C.TPU.S2D_STEM = True
+# kernel toggles of the JAX package; the port implements their default
+# (all on) and rejects a config that turns one off
+_C.TPU.USE_PALLAS = True
+_C.TPU.POOLER_WINDOWED = True
+_C.TPU.DECODE_PALLAS = True
+_C.TPU.MASKED_TRACK_KERNELS = True
+
+
+def get_cfg() -> CN:
+    """Return a fresh clone of the default config."""
+    return _C.clone()

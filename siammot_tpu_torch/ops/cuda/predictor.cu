@@ -1,0 +1,256 @@
+// Masked EMM predictor: the CUDA counterpart of the Pallas kernel
+// siammot_tpu/ops/pallas/predictor.py:emm_predictor_pallas
+// (_predictor_kernel).
+//
+// Per live slot, over a [16, 16, 128] bf16 correlation response x:
+//   tower(x) = bf16(relu(GN32(conv3x3(x) + b)))   (cls and reg towers)
+//   cls, ctr = conv3x3(tower_cls) + b             (2 + 1 channels)
+//   reg      = relu(conv3x3(tower_reg) + b)       (4 channels)
+// Each 3x3 conv is nine shifted [256 x 128] . [128 x 128] products with
+// f32 accumulation; GroupNorm takes f32 statistics over the whole map
+// with var = E[x^2] - E[x]^2; the tower output is rounded to bf16 before
+// the heads, as on the TPU.
+//
+// Bound on the H100: operations.  The towers are 2 x 37.7 M multiply-adds
+// per slot on inputs of 64 KB, so the tensor cores set the pace.  Simple
+// design: one block of 16 warps per live slot, everything resident in
+// shared memory (opted in to 214 KB): the zero-padded input as bf16
+// [18][18][128] and one f32 [256][128] tower buffer.  The tower convs
+// run on the tensor cores through WMMA 16x16x16 bf16 fragments: warp w
+// owns output channels 16*(w%8).. and output rows 8*(w/8)..+7, so each
+// weight fragment is read from global memory (L2) once per warp and used
+// for eight rows.  GroupNorm reduces in shared memory; the 7 head
+// channels are small and run on the CUDA cores, one warp per position,
+// normalising and rounding the tower to bf16 as they read it.  Dead
+// slots write zeros.
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+constexpr int S = 16;        // response size
+constexpr int SP = S + 2;    // padded
+constexpr int C = 128;       // channels
+constexpr int G = 32;        // GroupNorm groups
+constexpr int THREADS = 512; // 16 warps
+
+constexpr size_t XP_BYTES = (size_t)SP * SP * C * 2;    // 82,944
+constexpr size_t ACC_BYTES = (size_t)S * S * C * 4;     // 131,072
+constexpr size_t PART_BYTES = (size_t)2 * 4 * C * 4;    // 4,096
+constexpr size_t STAT_BYTES = (size_t)2 * G * 4;        // 256
+constexpr size_t SMEM = XP_BYTES + ACC_BYTES + PART_BYTES + STAT_BYTES;
+
+typedef __nv_bfloat16 bf16;
+
+// conv3x3(xp) for one tower into acc (f32, [256][128], row-major)
+__device__ void tower_conv(const bf16* xp, const bf16* __restrict__ w,
+                           float* acc) {
+  const int warp = threadIdx.x / 32;
+  const int nt = warp % 8;        // output-channel tile
+  const int y0 = (warp / 8) * 8;  // first of the warp's 8 output rows
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> out[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) wmma::fill_fragment(out[r], 0.f);
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b, bn;
+  // step = (tap, 16-channel input chunk); HWIO weights: rows cin
+  // kc*16.., columns cout nt*16..  The next step's weight fragment is
+  // loaded before this step's products, to hide the L2 latency.
+  constexpr int STEPS = 9 * (C / 16);
+  auto w_at = [&](int step) {
+    return w + ((size_t)(step / (C / 16)) * C + (step % (C / 16)) * 16) * C +
+           nt * 16;
+  };
+  wmma::load_matrix_sync(bn, w_at(0), C);
+  for (int step = 0; step < STEPS; ++step) {
+    b = bn;
+    if (step + 1 < STEPS) wmma::load_matrix_sync(bn, w_at(step + 1), C);
+    const int tap = step / (C / 16), kc = step % (C / 16);
+    const int dy = tap / 3, dx = tap % 3;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      // A rows are the 16 x positions of output row y0 + r, shifted
+      wmma::load_matrix_sync(a, xp + ((y0 + r + dy) * SP + dx) * C + kc * 16,
+                             C);
+      wmma::mma_sync(out[r], a, b, out[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    wmma::store_matrix_sync(acc + (y0 + r) * S * C + nt * 16, out[r], C,
+                            wmma::mem_row_major);
+}
+
+// acc += bias; GroupNorm statistics of the tower into stat[0..G) (mean)
+// and stat[G..2G) (1 / sqrt(var + eps)), var = E[x^2] - E[x]^2
+__device__ void tower_stats(float* acc, const bf16* __restrict__ bias,
+                            float* part, float* stat) {
+  const int t = threadIdx.x;
+  const int c = t % C;
+  const int pb = t / C;  // 4 blocks of 64 positions
+  const float bc = __bfloat162float(bias[c]);
+  float s = 0.f, q = 0.f;
+  for (int p = pb * 64; p < pb * 64 + 64; ++p) {
+    const float v = acc[p * C + c] + bc;
+    acc[p * C + c] = v;
+    s += v;
+    q += v * v;
+  }
+  part[pb * C + c] = s;
+  part[4 * C + pb * C + c] = q;
+  __syncthreads();
+  if (t < G) {
+    float gs = 0.f, gq = 0.f;
+    for (int b = 0; b < 4; ++b)
+      for (int cc = t * (C / G); cc < (t + 1) * (C / G); ++cc) {
+        gs += part[b * C + cc];
+        gq += part[4 * C + b * C + cc];
+      }
+    const float cnt = (float)(S * S * (C / G));
+    const float mean = gs / cnt;
+    const float var = gq / cnt - mean * mean;
+    stat[t] = mean;
+    stat[G + t] = 1.f / sqrtf(var + 1e-5f);
+  }
+  __syncthreads();
+}
+
+// 3x3 head of NOUT channels at one output position over the tower
+// relu(GN(acc)) rounded to bf16 (zero outside the map), one warp per
+// position: lane l owns input channels 4l..4l+3, which are exactly
+// GroupNorm group l; a warp shuffle adds the lanes
+template <int NOUT>
+__device__ void head_conv(const float* acc, const float* stat,
+                          const bf16* __restrict__ scale,
+                          const bf16* __restrict__ shift,
+                          const bf16* __restrict__ w, float (&out)[NOUT],
+                          int py, int px) {
+  const int lane = threadIdx.x % 32;
+  const float mean = stat[lane], rstd = stat[G + lane];
+  float sc[4], sh[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    sc[i] = __bfloat162float(scale[lane * 4 + i]);
+    sh[i] = __bfloat162float(shift[lane * 4 + i]);
+  }
+  float sum[NOUT];
+#pragma unroll
+  for (int o = 0; o < NOUT; ++o) sum[o] = 0.f;
+  for (int dy = 0; dy < 3; ++dy) {
+    const int yy = py + dy - 1;
+    if (yy < 0 || yy >= S) continue;
+    for (int dx = 0; dx < 3; ++dx) {
+      const int xx = px + dx - 1;
+      if (xx < 0 || xx >= S) continue;
+      const float4 v = *(const float4*)(acc + (yy * S + xx) * C + lane * 4);
+      const float vin[4] = {v.x, v.y, v.z, v.w};
+      const bf16* wt = w + ((size_t)(dy * 3 + dx) * C + lane * 4) * NOUT;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float tv = __bfloat162float(__float2bfloat16(
+            fmaxf((vin[i] - mean) * rstd * sc[i] + sh[i], 0.f)));
+#pragma unroll
+        for (int o = 0; o < NOUT; ++o)
+          sum[o] += tv * __bfloat162float(wt[i * NOUT + o]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < NOUT; ++o) {
+    for (int off = 16; off > 0; off /= 2)
+      sum[o] += __shfl_xor_sync(0xffffffff, sum[o], off);
+    out[o] = sum[o];
+  }
+}
+
+struct PredictorParams {
+  const bf16 *wct, *bct, *sct, *oct;  // cls tower conv w/b, GN scale/bias
+  const bf16 *wrt, *brt, *srt, *ort;  // reg tower
+  const bf16 *wcls, *bcls;            // [3,3,C,2], [2]
+  const bf16 *wctr, *bctr;            // [3,3,C,1], [1]
+  const bf16 *wreg, *breg;            // [3,3,C,4], [4]
+};
+
+__global__ void __launch_bounds__(THREADS)
+    predictor_kernel(const bf16* __restrict__ x,
+                     const uint8_t* __restrict__ valid, PredictorParams P,
+                     float* __restrict__ cls, float* __restrict__ ctr,
+                     float* __restrict__ reg) {
+  const int k = blockIdx.x;
+  const int t = threadIdx.x;
+  float* cls_k = cls + (size_t)k * S * S * 2;
+  float* ctr_k = ctr + (size_t)k * S * S;
+  float* reg_k = reg + (size_t)k * S * S * 4;
+  if (!valid[k]) {
+    for (int e = t; e < S * S * 4; e += THREADS) {
+      reg_k[e] = 0.f;
+      if (e < S * S * 2) cls_k[e] = 0.f;
+      if (e < S * S) ctr_k[e] = 0.f;
+    }
+    return;
+  }
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xp = (bf16*)smem;
+  float* acc = (float*)(smem + XP_BYTES);
+  float* part = (float*)(smem + XP_BYTES + ACC_BYTES);
+  float* stat = (float*)(smem + XP_BYTES + ACC_BYTES + PART_BYTES);
+
+  const bf16* xk = x + (size_t)k * S * S * C;
+  for (int e = t; e < SP * SP * C; e += THREADS) {
+    const int c = e % C, p = e / C;
+    const int py = p / SP - 1, px = p % SP - 1;
+    xp[e] = (py >= 0 && py < S && px >= 0 && px < S)
+                ? xk[(py * S + px) * C + c]
+                : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+
+  // cls tower -> cls (2) + ctr (1) heads
+  tower_conv(xp, P.wct, acc);
+  __syncthreads();
+  tower_stats(acc, P.bct, part, stat);
+  const int warp = t / 32, lane = t % 32;
+  for (int p = warp; p < S * S; p += THREADS / 32) {
+    float c2[2], c1[1];
+    head_conv<2>(acc, stat, P.sct, P.oct, P.wcls, c2, p / S, p % S);
+    head_conv<1>(acc, stat, P.sct, P.oct, P.wctr, c1, p / S, p % S);
+    if (lane == 0) {
+      cls_k[p * 2] = c2[0] + __bfloat162float(P.bcls[0]);
+      cls_k[p * 2 + 1] = c2[1] + __bfloat162float(P.bcls[1]);
+      ctr_k[p] = c1[0] + __bfloat162float(P.bctr[0]);
+    }
+  }
+  __syncthreads();
+
+  // reg tower -> reg (4) head
+  tower_conv(xp, P.wrt, acc);
+  __syncthreads();
+  tower_stats(acc, P.brt, part, stat);
+  for (int p = warp; p < S * S; p += THREADS / 32) {
+    float r4[4];
+    head_conv<4>(acc, stat, P.srt, P.ort, P.wreg, r4, p / S, p % S);
+    if (lane == 0)
+      for (int o = 0; o < 4; ++o)
+        reg_k[p * 4 + o] = fmaxf(r4[o] + __bfloat162float(P.breg[o]), 0.f);
+  }
+}
+
+SIAMMOT_API int siammot_emm_predictor(
+    const void* x, const uint8_t* valid, const void* wct, const void* bct,
+    const void* sct, const void* oct, const void* wrt, const void* brt,
+    const void* srt, const void* ort, const void* wcls, const void* bcls,
+    const void* wctr, const void* bctr, const void* wreg, const void* breg,
+    float* cls, float* ctr, float* reg, int K, void* stream) {
+  if (K == 0) return 0;
+  cudaError_t err = set_smem(predictor_kernel, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  PredictorParams P{(const bf16*)wct,  (const bf16*)bct,  (const bf16*)sct,
+                    (const bf16*)oct,  (const bf16*)wrt,  (const bf16*)brt,
+                    (const bf16*)srt,  (const bf16*)ort,  (const bf16*)wcls,
+                    (const bf16*)bcls, (const bf16*)wctr, (const bf16*)bctr,
+                    (const bf16*)wreg, (const bf16*)breg};
+  predictor_kernel<<<K, THREADS, SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)x, valid, P, cls, ctr, reg);
+  return (int)cudaGetLastError();
+}

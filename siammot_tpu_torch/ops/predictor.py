@@ -1,0 +1,128 @@
+"""Kernel 3: the masked EMM predictor.
+
+Replaces ``siammot_tpu/ops/pallas/predictor.py:emm_predictor_pallas``
+(``_predictor_kernel``).  Per live slot: two towers of 3x3 conv (nine
+shifted matmuls, f32 accumulation) + bias + GroupNorm(32) with
+``var = E[x^2] - E[x]^2`` + ReLU, each cast back to the response dtype;
+then cls(2) + centerness(1) on the cls tower and ReLU(reg(4)) on the reg
+tower.  Dead slots write zeros (PARITY.md #11).
+
+On the H100 the towers are bound by operations (2 x 37.7 M
+multiply-adds per slot on 64 KB of input).  The CUDA kernel
+(``cuda/predictor.cu``) keeps one slot entirely in shared memory and runs
+the tower convs on the tensor cores with WMMA bf16 fragments; it takes
+the main path's shapes (16x16 response, 128 channels, bf16).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda
+
+_NAMES = ("cls_tower_conv.kernel", "cls_tower_conv.bias",
+          "cls_tower_gn.scale", "cls_tower_gn.bias",
+          "reg_tower_conv.kernel", "reg_tower_conv.bias",
+          "reg_tower_gn.scale", "reg_tower_gn.bias",
+          "cls.kernel", "cls.bias", "center.kernel", "center.bias",
+          "reg.kernel", "reg.bias")
+_ARGS = (cuda.P, cuda.P) + (cuda.P,) * len(_NAMES) + (cuda.P,) * 3 \
+    + (cuda.I, cuda.P)
+GROUPS = 32
+EPS = 1e-5
+
+
+def emm_predictor(x: torch.Tensor, valid: torch.Tensor,
+                  params: dict) -> torch.Tensor:
+    """Masked fused predictor over [K, S, S, C] responses.
+
+    ``params`` maps the names in ``_NAMES`` to tensors: conv kernels HWIO
+    [3, 3, Cin, Cout], everything in the response's dtype.  Returns
+    (cls [K,S,S,2], center [K,S,S,1], reg [K,S,S,4]) f32.  CUDA tensors
+    launch the kernel; CPU tensors take :func:`emm_predictor_plain`.
+    """
+    if x.device.type == "cpu":
+        return emm_predictor_plain(x, valid, params)
+    k, s, s2, c = x.shape
+    if (s, s2, c) != (16, 16, 128) or x.dtype != torch.bfloat16:
+        raise ValueError(f"predictor kernel takes [K, 16, 16, 128] bf16, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    if valid.dtype != torch.bool or valid.shape != (k,):
+        raise ValueError("predictor: valid must be [K] bool")
+    ps = [params[n] for n in _NAMES]
+    for t in (x, valid, *ps):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("predictor: inputs must be contiguous, on one "
+                             "device")
+    for t in ps:
+        if t.dtype != torch.bfloat16:
+            raise TypeError("predictor: parameters must be bf16")
+        if t.data_ptr() % 32:
+            raise ValueError("predictor: WMMA loads need 32-byte aligned "
+                             "weights")
+    cls = torch.empty((k, s, s, 2), dtype=torch.float32, device=x.device)
+    ctr = torch.empty((k, s, s, 1), dtype=torch.float32, device=x.device)
+    reg = torch.empty((k, s, s, 4), dtype=torch.float32, device=x.device)
+    fn = cuda.function("siammot_emm_predictor", _ARGS)
+    cuda.check("emm_predictor", fn(
+        cuda.ptr(x), cuda.ptr(valid), *[cuda.ptr(t) for t in ps],
+        cuda.ptr(cls), cuda.ptr(ctr), cuda.ptr(reg), k,
+        cuda.stream(x.device)))
+    emm_predictor.launches += 1
+    return cls, ctr, reg
+
+
+emm_predictor.launches = 0
+
+
+def _conv9(xp: torch.Tensor, w: torch.Tensor, s: int) -> torch.Tensor:
+    """Nine shifted [S*S, Cin] @ [Cin, Cout] taps over a zero-padded
+    [K, S+2, S+2, Cin] f32 map -> [K, S*S, Cout] f32."""
+    k, cin = xp.shape[0], xp.shape[-1]
+    acc = 0
+    for dy in range(3):
+        for dx in range(3):
+            win = xp[:, dy:dy + s, dx:dx + s, :].reshape(k, s * s, cin)
+            acc = acc + win @ w[dy, dx].float()
+    return acc
+
+
+def _group_norm(y, scale, bias):
+    """GroupNorm over [K, S*S, C] f32, stats in f32, fast variance."""
+    k, n, c = y.shape
+    yg = y.reshape(k, n, GROUPS, c // GROUPS)
+    mean = yg.mean(dim=(1, 3), keepdim=True)
+    var = (yg * yg).mean(dim=(1, 3), keepdim=True) - mean * mean
+    out = (yg - mean) * torch.rsqrt(var + EPS)
+    return out.reshape(k, n, c) * scale.float() + bias.float()
+
+
+def emm_predictor_plain(x, valid, params):
+    """Plain PyTorch version of the kernel's math (f32 products of the
+    response-dtype inputs, f32 sums, tower rounded to the response dtype
+    before the heads), dead slots zeroed."""
+    k, s, _, c = x.shape
+    p = params
+
+    def pad(t):
+        return F.pad(t.float(), (0, 0, 1, 1, 1, 1))
+
+    xp = pad(x)
+
+    def tower(name):
+        y = _conv9(xp, p[f"{name}_conv.kernel"], s) \
+            + p[f"{name}_conv.bias"].float()
+        y = _group_norm(y, p[f"{name}_gn.scale"], p[f"{name}_gn.bias"])
+        return pad(torch.relu(y).to(x.dtype).reshape(k, s, s, c))
+
+    cls_x = tower("cls_tower")
+    reg_x = tower("reg_tower")
+    cls = _conv9(cls_x, p["cls.kernel"], s) + p["cls.bias"].float()
+    ctr = _conv9(cls_x, p["center.kernel"], s) + p["center.bias"].float()
+    reg = torch.relu(_conv9(reg_x, p["reg.kernel"], s)
+                     + p["reg.bias"].float())
+    live = valid[:, None, None, None]
+    return tuple(torch.where(live, t.reshape(k, s, s, -1),
+                             torch.zeros((), device=x.device))
+                 for t in (cls, ctr, reg))
