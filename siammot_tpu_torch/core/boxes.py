@@ -53,6 +53,27 @@ def min_size_mask(boxes: torch.Tensor, min_size: float) -> torch.Tensor:
     return (w >= min_size) & (h >= min_size)
 
 
+def encode(reference_boxes: torch.Tensor, proposals: torch.Tensor,
+           weights=(10.0, 10.0, 5.0, 5.0)) -> torch.Tensor:
+    """Faster R-CNN box encoding (maskrcnn ``BoxCoder.encode``): the
+    deltas that take ``proposals`` to ``reference_boxes``, [..., 4]."""
+    wx, wy, ww, wh = weights
+    ex_w = proposals[..., 2] - proposals[..., 0] + TO_REMOVE
+    ex_h = proposals[..., 3] - proposals[..., 1] + TO_REMOVE
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+
+    gt_w = reference_boxes[..., 2] - reference_boxes[..., 0] + TO_REMOVE
+    gt_h = reference_boxes[..., 3] - reference_boxes[..., 1] + TO_REMOVE
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+
+    return torch.stack([wx * (gt_cx - ex_cx) / ex_w,
+                        wy * (gt_cy - ex_cy) / ex_h,
+                        ww * torch.log(gt_w / ex_w),
+                        wh * torch.log(gt_h / ex_h)], dim=-1)
+
+
 def decode(rel_codes: torch.Tensor, boxes: torch.Tensor,
            weights=(10.0, 10.0, 5.0, 5.0)) -> torch.Tensor:
     """Faster R-CNN box decoding (maskrcnn ``BoxCoder.decode``).

@@ -35,6 +35,13 @@ class Boxes:
                 for f in dataclasses.fields(self)}
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b, m]]`` for a batch of padded sets: x [B, N, ...],
+    idx [B, M] -> [B, M, ...]."""
+    idx = idx.long().reshape(*idx.shape, *([1] * (x.dim() - 2)))
+    return torch.gather(x, 1, idx.expand(*idx.shape[:2], *x.shape[2:]))
+
+
 def concat_boxes(a: Boxes, b: Boxes) -> Boxes:
     """Concatenate two padded sets (capacity = sum of capacities)."""
     return Boxes(*(torch.cat([getattr(a, f.name), getattr(b, f.name)])

@@ -53,7 +53,7 @@ def main():
     model = SiamMOT(get_cfg(), device="cuda")
     net = model.cast_params(jax_to_torch(load_npz(
         os.path.join(REPO, "fixtures", "bench_weights_f16.npz"))))
-    frames = [torch.as_tensor(f) for f in render_scene(16, 736)]
+    frames = [torch.as_tensor(f) for f in render_scene(16, 736)[0]]
     state = model.empty_state()
 
     def step(i):
@@ -87,7 +87,7 @@ def main():
           f"(nested ops count twice)")
     print(f"{'':16}  kernels: " + ", ".join(
         f"{k}={ms:.4f}" for k, ms, _ in rows
-        if any(n in k for n in ("window_pool_kernel", "xcorr_masked_kernel",
+        if any(n in k for n in ("window_pool_kernel", "xcorr_kernel",
                                 "predictor_kernel", "decode_kernel"))))
 
 

@@ -1,8 +1,11 @@
-"""Region Proposal Network, inference (port of ``siammot_tpu.models.rpn``).
+"""Region Proposal Network (port of ``siammot_tpu.models.rpn``).
 
 Detectron-rounded anchors, the shared 3x3 head, and the fixed-shape
 proposal selection: per-level top-k -> decode (unit weights) -> clip ->
-min-size filter -> one batched NMS over all levels -> top-k over levels.
+min-size filter -> one batched NMS over all levels -> top-k over levels
+(in training the last top-k is shared by the batch); and the training
+loss (maskrcnn ``RPNLossComputation``: anchor matching, balanced
+sampling, objectness BCE and smooth-L1 deltas).
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core import boxes as box_ops
+from ..core.matcher import balanced_sample, match_targets
 from ..core.nms import nms_mask
+from ..core.structures import take_rows
 
 
 def base_anchors(stride: int, size: int,
@@ -77,17 +82,32 @@ class RPNConfig:
     nms_thresh: float
     min_size: int
     amodal: bool
+    # training only (maskrcnn FPN_POST_NMS_PER_BATCH): the final top-n is
+    # taken jointly over the batch instead of per image
+    fpn_post_per_batch: bool = False
+    straddle_thresh: float = 0.0
+    fg_iou: float = 0.7
+    bg_iou: float = 0.3
+    batch_per_image: int = 256
+    positive_fraction: float = 0.5
 
     @staticmethod
-    def from_cfg(cfg) -> "RPNConfig":
+    def from_cfg(cfg, is_train: bool = False) -> "RPNConfig":
         r = cfg.MODEL.RPN
+        phase = "TRAIN" if is_train else "TEST"
         return RPNConfig(
-            pre_nms_top_n=r.PRE_NMS_TOP_N_TEST,
-            post_nms_top_n=r.POST_NMS_TOP_N_TEST,
-            fpn_post_nms_top_n=r.FPN_POST_NMS_TOP_N_TEST,
+            pre_nms_top_n=r[f"PRE_NMS_TOP_N_{phase}"],
+            post_nms_top_n=r[f"POST_NMS_TOP_N_{phase}"],
+            fpn_post_nms_top_n=r[f"FPN_POST_NMS_TOP_N_{phase}"],
             nms_thresh=r.NMS_THRESH,
             min_size=r.MIN_SIZE,
-            amodal=bool(cfg.INPUT.AMODAL))
+            amodal=bool(cfg.INPUT.AMODAL),
+            fpn_post_per_batch=bool(is_train and r.FPN_POST_NMS_PER_BATCH),
+            straddle_thresh=float(r.STRADDLE_THRESH),
+            fg_iou=r.FG_IOU_THRESHOLD,
+            bg_iou=r.BG_IOU_THRESHOLD,
+            batch_per_image=r.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=r.POSITIVE_FRACTION)
 
 
 def topk(x: torch.Tensor, k: int):
@@ -137,7 +157,8 @@ def select_proposals(logits, deltas, anchors_per_level, image_size,
     logits: per level [N, H, W, A]; deltas: per level [N, H, W, 4A];
     anchors_per_level: per level [H*W*A, 4]; image_size (w, h).
     Returns (boxes [N, K, 4], objectness [N, K], valid [N, K]),
-    K = fpn_post_nms_top_n.
+    K = fpn_post_nms_top_n; with ``fpn_post_per_batch`` only the batch's
+    joint top K stay valid.
     """
     k_pre = rcfg.pre_nms_top_n
     lv = []
@@ -162,5 +183,70 @@ def select_proposals(logits, deltas, anchors_per_level, image_size,
     masked = torch.where(keep, scores, torch.full_like(scores, -np.inf))
     _, idx = topk(masked, k)
     sel_boxes = torch.gather(boxes, 1, idx[..., None].expand(n, k, 4))
-    return (sel_boxes, torch.gather(scores, 1, idx),
-            torch.gather(keep, 1, idx))
+    sel_scores = torch.gather(scores, 1, idx)
+    sel_valid = torch.gather(keep, 1, idx)
+    # capping each image at the quota first is lossless: a survivor outside
+    # its own image's top-n has n better ones in that image alone
+    if rcfg.fpn_post_per_batch and n * k > rcfg.fpn_post_nms_top_n:
+        flat = torch.where(sel_valid, sel_scores,
+                           torch.full_like(sel_scores, -np.inf)).reshape(-1)
+        _, gidx = topk(flat, rcfg.fpn_post_nms_top_n)
+        gmask = torch.zeros(n * k, dtype=torch.bool, device=flat.device)
+        sel_valid = sel_valid & gmask.index_fill(0, gidx, True).reshape(n, k)
+    return sel_boxes, sel_scores, sel_valid
+
+
+def smooth_l1(x, beta):
+    ax = x.abs()
+    return torch.where(ax < beta, 0.5 * ax * ax / beta, ax - 0.5 * beta)
+
+
+def rpn_loss(draw, logits, deltas, anchors_per_level, gt, image_size,
+             rcfg: RPNConfig) -> dict:
+    """RPN objectness + box loss, per image over all anchors, then the
+    mean over the batch (``siammot_tpu/models/rpn.py:rpn_loss`` vmapped).
+
+    logits per level [B, H, W, A]; deltas per level [B, H, W, 4A];
+    anchors per level [H*W*A, 4]; gt: Boxes with [B, G] fields.
+    """
+    anchors = torch.cat(list(anchors_per_level))               # [T, 4]
+    b = logits[0].shape[0]
+    obj = torch.cat([l.reshape(b, -1) for l in logits], 1)      # [B, T]
+    dlt = torch.cat([d.reshape(b, -1, 4) for d in deltas], 1)   # [B, T, 4]
+
+    # anchor visibility (straddle_thresh 0: fully inside the image)
+    w, h = image_size
+    st = rcfg.straddle_thresh
+    visible = ((anchors[:, 0] >= -st) & (anchors[:, 1] >= -st)
+               & (anchors[:, 2] < w + st) & (anchors[:, 3] < h + st))
+
+    quality = box_ops.box_iou(gt.boxes, anchors)                # [B, G, T]
+    matches = match_targets(quality, gt.valid,
+                            torch.ones_like(obj, dtype=torch.bool),
+                            rcfg.fg_iou, rcfg.bg_iou,
+                            allow_low_quality_matches=True)
+    del quality
+
+    labels = (matches >= 0).to(obj.dtype)
+    discard = (matches == -2) | ~visible
+    pos_mask = (matches >= 0) & ~discard
+    neg_mask = (matches == -1) & ~discard
+    sampled_pos, sampled_neg = balanced_sample(
+        draw, pos_mask, neg_mask, rcfg.batch_per_image,
+        rcfg.positive_fraction)
+    sampled = sampled_pos | sampled_neg
+    num_sampled = sampled.sum(-1).clamp(min=1)
+
+    matched_gt = take_rows(gt.boxes, matches.clamp(min=0))
+    # unit weights: maskrcnn's RPN BoxCoder (as on the decode side)
+    reg_targets = box_ops.encode(matched_gt, anchors,
+                                 weights=(1.0, 1.0, 1.0, 1.0))
+    l1 = torch.where(sampled_pos[..., None],
+                     smooth_l1(dlt - reg_targets, 1.0 / 9),
+                     torch.zeros_like(dlt))
+    box_l = l1.sum((1, 2)) / num_sampled
+
+    bce = -(labels * F.logsigmoid(obj) + (1 - labels) * F.logsigmoid(-obj))
+    obj_l = torch.where(sampled, bce, torch.zeros_like(bce)).sum(-1) \
+        / num_sampled
+    return {"loss_objectness": obj_l.mean(), "loss_rpn_box_reg": box_l.mean()}

@@ -1,17 +1,23 @@
-"""SiamMOT inference step (port of ``siammot_tpu.models.siammot``).
+"""SiamMOT inference and training steps (port of
+``siammot_tpu.models.siammot``).
 
-DLA-FPN backbone -> RPN -> shared box-head pass over proposals and
-propagated tracks -> EMM track head over K padded slots -> track solver
--> next-frame TrackState, one frame per ``forward_inference`` call.  The
-four kernels of the step (window pool, masked xcorr, masked predictor,
-decode) are CUDA kernels on the card; the convolutions and matrix
-products around them stay ``F.conv2d`` / ``torch.matmul``, as the JAX
-package leaves them to XLA.
+Inference: DLA-FPN backbone -> RPN -> shared box-head pass over
+proposals and propagated tracks -> EMM track head over K padded slots ->
+track solver -> next-frame TrackState, one frame per
+``forward_inference`` call.  Its four kernels (window pool, masked xcorr,
+masked predictor, decode) are CUDA kernels on the card.
+
+Training: ``forward_train`` returns the seven reference losses of a batch
+of frame pairs (RPN, box head, EMM), with the pool's backward (kernel 7)
+and the unmasked xcorr and its gradients (kernel 6) as CUDA kernels.
+The convolutions and matrix products around the kernels stay
+``F.conv2d`` / ``torch.matmul``, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -19,12 +25,15 @@ import torch.nn as nn
 
 from ..core import boxes as box_ops
 from ..core.structures import Boxes, concat_boxes
-from .box_head import BoxHead, BoxHeadConfig, pool_levels, postprocess
+from .box_head import (BoxHead, BoxHeadConfig, box_head_loss, pool_levels,
+                       postprocess, subsample_proposals)
 from .dla import DLA_VARIANTS, build_dla
-from .emm import (EMMConfig, EMMHead, decode_response_fused,
-                  make_search_region, pool_search_region, pool_template)
+from .emm import (EMMConfig, EMMHead, decode_response_fused, emm_loss,
+                  make_search_region, pool_search_region, pool_template,
+                  response_locations)
+from .emm_sampler import sample_track_pairs
 from .fpn import FPN
-from .rpn import (RPNConfig, RPNHead, base_anchors, grid_anchors,
+from .rpn import (RPNConfig, RPNHead, base_anchors, grid_anchors, rpn_loss,
                   select_proposals, topk)
 from .track_solver import SolverConfig, solve
 from .track_state import TrackState, rebuild_state
@@ -70,6 +79,11 @@ class SiamMOTNet(nn.Module):
                            num_classes, window_box)
         self.emm = EMMHead(channels)
 
+    def forward(self, fn, *args):
+        """``fn(self, *args)``: lets ``torch.func.functional_call`` run a
+        whole step with substituted (cast) parameters."""
+        return fn(self, *args)
+
 
 class SiamMOT:
     """Builder + per-frame inference for one configuration.
@@ -86,10 +100,13 @@ class SiamMOT:
                                "for the plain CPU path)")
         tpu = cfg.TPU
         off = [k for k in ("USE_PALLAS", "POOLER_WINDOWED", "DECODE_PALLAS",
-                           "MASKED_TRACK_KERNELS", "S2D_STEM") if not tpu[k]]
+                           "MASKED_TRACK_KERNELS", "S2D_STEM",
+                           "TRAIN_POOLER_WINDOWED") if not tpu[k]]
         if off:
             raise ValueError(f"the port implements only the default "
                              f"kernel path; TPU.{off} must stay True")
+        if tpu.REMAT:
+            raise ValueError("TPU.REMAT is not ported yet")
         if any(cfg.MODEL.DLA.STAGE_WITH_DCN):
             raise ValueError("deformable stages are not ported yet")
         body = cfg.MODEL.BACKBONE.CONV_BODY
@@ -109,6 +126,7 @@ class SiamMOT:
         self.hcfg = BoxHeadConfig.from_cfg(cfg)
         self.scfg = SolverConfig.from_cfg(cfg)
         self.rcfg = RPNConfig.from_cfg(cfg)
+        self.rcfg_train = RPNConfig.from_cfg(cfg, is_train=True)
         self.max_tracks = tpu.MAX_TRACKS
         self.tracktor = cfg.MODEL.TRACK_HEAD.TRACKTOR
         self.window_sr = tpu.WINDOW_SR
@@ -154,6 +172,17 @@ class SiamMOT:
             for m in (net.body, net.fpn, net.rpn):
                 m.to(memory_format=torch.channels_last)
         return net
+
+    def build_master(self, params: dict) -> SiamMOTNet:
+        """The network for training: f32 master parameters on the device,
+        loaded from a state dict (every key must match), with gradients.
+        FrozenBN statistics stay buffers, so nothing moves them."""
+        net = self.build_net().to(device=self.device, dtype=torch.float32)
+        net.load_state_dict(params, strict=True)
+        if self.device.type == "cuda":
+            for m in (net.body, net.fpn, net.rpn):
+                m.to(memory_format=torch.channels_last)
+        return net.train().requires_grad_(True)
 
     def empty_state(self) -> TrackState:
         return TrackState.empty(self.max_tracks, self.ecfg.resolution,
@@ -273,3 +302,115 @@ class SiamMOT:
             act, act.valid, fresh_template, fresh_sr, upd["keep_dormant"],
             upd["next_id"], state.frame_idx)
         return out, new_state
+
+    # -- training step ------------------------------------------------------
+
+    def forward_train(self, net: SiamMOTNet, draws, images: torch.Tensor,
+                      gt: Boxes, image_size=None, frame_sizes=None) -> dict:
+        """Training forward pass -> dict of the seven reference losses
+        (RPN objectness/box, box classifier/box, tracker class/motion/
+        center), differentiable in ``net``'s f32 master parameters.
+
+        images: [B, H, W, 3] uint8 (normalised here) in clip pairs
+        (frame i pairs with i ^ 1); gt: Boxes with [B, G] fields and
+        batch-unique ids; frame_sizes: [B, 2] (w, h) content extents whose
+        pad is re-zeroed; draws: ``draw(shape)`` -> U[0, 1) priorities of
+        the samplers (``core.matcher.uniform_draws``), called in a fixed
+        order.  The forward runs in the compute dtype: each parameter and
+        buffer is cast inside the graph (``functional_call``), so the
+        gradients reach the f32 masters, as the JAX step's ``cast_params``
+        inside the grad does.
+        """
+        b = images.shape[0]
+        if b % 2:
+            raise ValueError(f"training batch must be frame pairs, got {b}")
+        dt = self.compute_dtype
+        cast = {n: t.to(dt) if t.is_floating_point() else t
+                for n, t in itertools.chain(net.named_parameters(),
+                                            net.named_buffers())}
+        return torch.func.functional_call(
+            net, cast, (self._train_losses, draws, images, gt, image_size,
+                        frame_sizes))
+
+    def _train_losses(self, net, draws, images, gt, image_size,
+                      frame_sizes):
+        ecfg, hcfg = self.ecfg, self.hcfg
+        t = self.cfg.MODEL.TRACK_HEAD
+        dt = self.compute_dtype
+        b, h, w = images.shape[:3]
+        image_size = tuple(image_size or (w, h))
+        x = normalize_images(images, self.cfg.INPUT.PIXEL_MEAN,
+                             self.cfg.INPUT.PIXEL_STD,
+                             self.cfg.INPUT.TO_BGR255,
+                             frame_sizes=frame_sizes)
+        feats = net.fpn(net.body(x.to(dt)))                    # NCHW, dt
+        anchors = self.anchors_for((h, w))
+        logits, deltas = net.rpn(feats)
+        logits = [l.float() for l in logits]
+        deltas = [d.float() for d in deltas]
+        losses = rpn_loss(draws, logits, deltas, anchors, gt, image_size,
+                          self.rcfg_train)
+
+        # proposals are data, not a function of the RPN (the reference
+        # builds them without gradients); gt boxes are appended
+        with torch.no_grad():
+            pb, ps, pv = select_proposals(
+                [l.detach() for l in logits], [d.detach() for d in deltas],
+                anchors, image_size, self.rcfg_train)
+        g_cap = gt.boxes.shape[1]
+        m = pb.shape[1] + g_cap
+        props = Boxes(
+            boxes=torch.cat([pb, gt.boxes], 1),
+            scores=torch.cat([ps, torch.ones_like(gt.boxes[..., 0])], 1),
+            ids=torch.full((b, m), -1, dtype=torch.int32,
+                           device=self.device),
+            labels=torch.zeros((b, m), dtype=torch.int32,
+                               device=self.device),
+            valid=torch.cat([pv, gt.valid], 1))
+
+        # every training pool reads one f32 table (its gradient accumulates
+        # there, then flows back to the FPN maps)
+        feats_nhwc = [f.permute(0, 2, 3, 1).float() for f in feats]
+        pack = pack_levels(feats_nhwc[:len(self.box_scales)],
+                           self.box_scales, dtype=torch.float32)
+
+        # ---- box head: balanced subsample -> pooled MLP -> loss
+        sampled, labels, regs = subsample_proposals(
+            draws, props, gt, hcfg, hcfg.batch_per_image)
+        n_samp = sampled.boxes.shape[1]
+        rois = sampled.boxes.reshape(-1, 4)
+        img_idx = torch.arange(b, dtype=torch.int32,
+                               device=self.device).repeat_interleave(n_samp)
+        cl, bd = net.box(pack, rois, pool_levels(rois, len(self.box_scales)),
+                         None, img_idx)
+        losses.update(box_head_loss(cl.float(), bd.float(),
+                                    labels.reshape(-1), regs.reshape(-1, 4),
+                                    sampled.valid.reshape(-1)))
+
+        # ---- track head: sample pairs, pool template and SR, EMM loss
+        n_track = t.PROPOSAL_PER_IMAGE
+        pair_perm = torch.arange(b, device=self.device) ^ 1
+        tr = sample_track_pairs(
+            draws, props, props.scores, gt, gt.map(lambda v: v[pair_perm]),
+            n_track, t.EMM.POS_RATIO, t.EMM.HN_RATIO, t.FG_IOU_THRESHOLD,
+            t.BG_IOU_THRESHOLD)
+        src = tr["src_boxes"].reshape(-1, 4)
+        tar = tr["tar_boxes"].reshape(-1, 4)
+        valid = tr["valid"].reshape(-1)
+        img_idx = torch.arange(b, dtype=torch.int32,
+                               device=self.device).repeat_interleave(
+                                   tr["valid"].shape[1])
+        sr_boxes = make_search_region(tr["pair_boxes"].reshape(-1, 4), ecfg)
+        templates = pool_template(pack, src, ecfg, self.window_template,
+                                  None, img_idx)
+        # SR crops pool from the paired frame; the level is still chosen by
+        # the template box
+        sr_feats = pool_search_region(pack, src, sr_boxes, ecfg,
+                                      self.window_sr, None, img_idx ^ 1)
+        cls_l, ctr_l, reg_l = net.emm.forward_train(sr_feats.to(dt),
+                                                    templates.to(dt))
+        locations = response_locations(sr_boxes, ecfg.sr_size,
+                                       ecfg.resolution, ecfg.pad_pixels, 1)
+        losses.update(emm_loss(cls_l.float(), ctr_l.float(), reg_l.float(),
+                               locations, tar, valid, ecfg))
+        return losses

@@ -14,7 +14,8 @@
 // those spans for its (j, c) outputs, in f32, x first and then y.
 // Neighbouring threads take neighbouring channels, so table reads and
 // output writes are coalesced.  A dead ROI writes zeros and reads
-// nothing; outputs stay in the caller's slot order (no compaction).
+// nothing; outputs stay in the caller's slot order (no compaction).  A
+// null ``valid`` marks every ROI live (the training forward).
 // Only taps with a non-zero weight are read, and those lie inside their
 // FPN level, so the table needs none of the padding the dense form needs.
 #include "common.cuh"
@@ -30,7 +31,7 @@ __global__ void window_pool_kernel(const T* __restrict__ table, int R,
   const int n = blockIdx.x;
   const int i = blockIdx.y;
   float* out_row = out + ((size_t)n * S + i) * S * C;
-  if (!valid[n]) {
+  if (valid != nullptr && !valid[n]) {
     for (int e = threadIdx.x; e < S * C; e += blockDim.x) out_row[e] = 0.f;
     return;
   }

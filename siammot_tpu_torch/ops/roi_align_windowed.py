@@ -7,7 +7,10 @@ stacked table that holds every FPN level.  This module computes the
 window origins and the weights in plain PyTorch, exactly as the JAX
 prologue does (8-aligned column origins, the clamp into the level, the
 bin average folded into the weights); the pool itself is kernel 1
-(``ops/window_pool.py``), which reads these same tensors.
+(``ops/window_pool.py``), which reads these same tensors.  Without
+``valid`` (the training sites) the pool is differentiable in the table,
+with kernel 7 as its backward; the gradient flows on through
+``stack_levels``' pads and concatenation to the per-level maps.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .window_pool import window_pool
+from .window_pool import window_pool, window_pool_train
 
 
 @dataclasses.dataclass
@@ -152,19 +155,23 @@ def roi_align_windowed(table, row_offsets, heights, widths, rois, block_idx,
 
     rois [N, 4] xyxy (padded coords if pad_pixels > 0); block_idx [N] =
     img_idx * num_levels + level; scales [N] spatial scale per ROI;
-    valid [N] bool (dead rows pool to zeros).
+    valid [N] bool (dead rows pool to zeros), or None: every row live and
+    the result differentiable in ``table`` (which must then be f32).
     """
     origins, wy, wx = window_geometry(heights, widths, row_offsets, rois,
                                       block_idx, scales, output_size,
                                       sampling_ratio, window, pad_pixels,
                                       num_levels)
+    if valid is None:
+        return window_pool_train(table, origins, wy, wx)
     return window_pool(table, origins, wy, wx, valid.contiguous())
 
 
 def windowed_pool(pack: LevelPack, rois, img_idx, levels, output_size: int,
                   sampling_ratio: int, window: int, pad_pixels: int = 0,
                   *, valid):
-    """FPN pooling of ``rois`` over a LevelPack (the inference pooler)."""
+    """FPN pooling of ``rois`` over a LevelPack; ``valid=None`` is the
+    differentiable training pool."""
     scales = torch.as_tensor(np.array(pack.scales, np.float32),
                              device=rois.device)[levels.long()]
     return roi_align_windowed(

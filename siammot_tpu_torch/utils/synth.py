@@ -6,7 +6,9 @@ with constant-velocity-plus-noise motion over a smooth textured
 background.  The random draws are the same, in the same order, as the
 originals; ``cv2.resize`` is replaced by the numpy resizes below
 (half-pixel bilinear, and nearest), which may differ from OpenCV's
-fixed-point rounding by one grey level.
+fixed-point rounding by one grey level.  ``train_batches`` cuts two
+scenes into training batches of clip pairs with their sprite boxes as
+ground truth.
 """
 
 from __future__ import annotations
@@ -99,6 +101,8 @@ class Sprite:
             self.y, self.vy = h - self.h, -abs(self.vy)
 
     def draw(self, frame):
+        """Paint the sprite; returns its box (x1, y1, x2, y2), inclusive
+        pixel corners clipped to the frame."""
         x0, y0 = int(round(self.x)), int(round(self.y))
         bw, bh = max(2, int(round(self.w))), max(2, int(round(self.h)))
         x0 = min(max(x0, 0), frame.shape[1] - bw)
@@ -107,13 +111,18 @@ class Sprite:
         mask = _resize_nearest(self.mask, bw, bh)
         region = frame[y0:y0 + bh, x0:x0 + bw]
         region[mask] = tex[mask]
+        x1, y1 = max(x0, 0), max(y0, 0)
+        return (x1, y1, min(x0 + bw, frame.shape[1]) - 1,
+                min(y0 + bh, frame.shape[0]) - 1)
 
 
 def render_scene(n_frames: int, hp: int, seed: int = 42,
                  h: int = H, w: int = W):
     """Crowded sprite scene: ``n_frames`` uint8 frames [1, hp, w, 3], the
     content in the top ``h`` rows and zeros below (the pad to the
-    size-divisible input height)."""
+    size-divisible input height).  Returns (frames, boxes, ids): per
+    frame, each sprite's box [N_SPRITES, 4] f32 and its persistent id
+    [N_SPRITES] int32 (1..N_SPRITES)."""
     rng = np.random.RandomState(seed)
     bg = _texture(rng, h, w, scale=16)
     sprites = []
@@ -121,14 +130,54 @@ def render_scene(n_frames: int, hp: int, seed: int = 42,
         s = Sprite(rng, i + 1, w, 384)
         s.y = rng.uniform(0, h - s.h)
         sprites.append(s)
-    frames = []
+    frames, boxes = [], []
+    ids = np.array([s.id for s in sprites], np.int32)
     for _ in range(n_frames):
         f = bg.copy()
-        for s in sorted(sprites, key=lambda s: s.h):
-            s.draw(f)
+        drawn = {s.id: s.draw(f) for s in sorted(sprites, key=lambda s: s.h)}
+        boxes.append(np.array([drawn[i] for i in ids], np.float32))
         for s in sprites:
             s.step(rng, w, h)
         out = np.zeros((1, hp, w, 3), np.uint8)
         out[0, :h] = f
         frames.append(out)
-    return frames
+    return frames, boxes, [ids] * n_frames
+
+
+def train_batches(n_frames: int, hp: int, max_gt: int, seed: int = 42,
+                  h: int = H, w: int = W):
+    """Endless training batches from two ``n_frames``-frame scenes (seeds
+    ``seed`` and ``seed + 1``): batch t holds frames (t, t + 1) of each
+    scene, cycling over t, as two clips of two consecutive frames.
+
+    Yields (images uint8 [4, hp, w, 3], gt Boxes with [4, max_gt] CPU
+    fields (label 1, ids unique within the batch: the second scene's are
+    offset by N_SPRITES), frame_sizes int32 [4, 2] (w, h)).
+    """
+    import torch
+
+    from ..core.structures import Boxes
+
+    if N_SPRITES > max_gt:
+        raise ValueError(f"max_gt {max_gt} < {N_SPRITES} sprites")
+    scenes = [render_scene(n_frames, hp, seed + k, h, w) for k in range(2)]
+    sizes = torch.tensor([[w, h]] * 4, dtype=torch.int32)
+    t = 0
+    while True:
+        images, boxes, ids = [], np.zeros((4, max_gt, 4), np.float32), \
+            np.full((4, max_gt), -1, np.int32)
+        for k, (frames, sboxes, sids) in enumerate(scenes):
+            for d in range(2):
+                row = 2 * k + d
+                images.append(frames[t + d][0])
+                boxes[row, :N_SPRITES] = sboxes[t + d]
+                ids[row, :N_SPRITES] = sids[t + d] + k * N_SPRITES
+        valid = np.zeros((4, max_gt), bool)
+        valid[:, :N_SPRITES] = True
+        gt = Boxes(boxes=torch.from_numpy(boxes),
+                   scores=torch.from_numpy(valid.astype(np.float32)),
+                   ids=torch.from_numpy(ids),
+                   labels=torch.from_numpy(valid.astype(np.int32)),
+                   valid=torch.from_numpy(valid))
+        yield torch.from_numpy(np.stack(images)), gt, sizes
+        t = (t + 1) % (n_frames - 1)

@@ -12,6 +12,11 @@ alone; only the leaf and the layout change:
   * the EMM predictor's conv kernels stay HWIO under ``kernel``: that is
     the layout its CUDA kernel reads;
   * FrozenBN and GroupNorm ``scale``/``bias`` keep their names.
+
+A JAX gradient tree has the parameter tree's layout, so the same
+conversion carries gradients across (the training parity tests do).
+``load_npz`` reads the f16 bench weights as f32: the training step's
+master parameters (``SiamMOT.build_master``).
 """
 
 from __future__ import annotations
