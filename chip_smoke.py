@@ -24,6 +24,19 @@ Phases, each printed as it finishes:
      every kernel's launch count must rise in this phase (the window pool
      three times a frame), tracks must be live, and each kernel must agree
      with its plain version on the inputs it got at the last frame;
+  2c. kernels 3 and 4 at the other shapes the JAX kernels take: the
+     predictor's tiled form at the f32 frame's [K, 16, 16, 128] and the
+     AOT recipe's [K, 29, 29, 128] (bf16 and f32), the decode at s_hi 464
+     (AOT) and 512 (the whole-map limit);
+  2d. kernel 9, the deformable conv, at DLA-102's stage shapes (stride 2
+     and 1, offsets in and out of the window, bf16 and f32), with the
+     plain version's time, a dense cuDNN 3x3 of the same shape for scale,
+     and the bound of a frame's 26 launches;
+  3b. the default configuration against the JAX step: four f32 DLA-34
+     frames at 320x576 on the card against the rows and track-state
+     lanes in ``tests/fixtures/torch_golden_dla34.npz`` (must match, see
+     ``siammot_tpu_torch/utils/golden.py``), then the bf16 frames' gap
+     (ids that differ, max box and score error, rows matched by IoU);
   4. the training path end to end: the same weights as f32 masters, bf16
      compute, an f32 pool table, ``do_train`` over batches of two clips x
      two consecutive frames of the crowded scene (``MAX_GT`` 100) for 3
@@ -32,7 +45,18 @@ Phases, each printed as it finishes:
      launch of each xcorr kernel (forward, template and search gradient),
      and each kernel in agreement with its plain version on the inputs
      and upstream gradients it got at the last step; ms/step and peak
-     device memory.
+     device memory;
+  5. the DCN slice end to end: DLA-102-DCN-FPN (``tools/bench_variants.py``
+     widths, deformable stages 3-5) at 736x1280 in bf16 on seeded
+     weights (offset convs calibrated so most layers stay in kernel 9's
+     window and some leave it; box classifier biased to the foreground so
+     tracks start), 6 warm-up + 10 timed frames of the crowded scene:
+     26 kernel-9 launches a frame plus kernels 1-4's, live slots, and
+     every kernel against its plain version on the last frame's inputs
+     (all 26 deformable layers).
+
+Each end-to-end phase sets every kernel's launch count to 0 just before
+it drives its path and reads the counts just after.
 
 It prints a JSON line of per-kernel numbers, then, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -61,6 +85,7 @@ WARMUP, TIMED = 10, 30
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 N_TRAIN = 1024                    # 4 frames x 256 samples per pool site
 TRAIN_HW = [(184, 320), (92, 160), (46, 80), (23, 40)]
+DCN_WARMUP, DCN_TIMED = 6, 10
 
 # H100 SXM published peaks (dense): 3.35 TB/s HBM, 989 TFLOP/s bf16 tensor
 # cores, 67 TFLOP/s f32 on the CUDA cores
@@ -79,6 +104,8 @@ POOL_ATOL, POOL_RTOL = 1e-4, 1e-3
 #    from run to run; on a real step's gradients, whose scale is set by
 #    the loss, the absolute part is 1e-4 of the largest plain value
 PRED_ATOL = 3e-2
+#  predictor in f32: sums in another order -> |d| <= 1e-4
+PRED_F32_ATOL = 1e-4
 DECODE_TIE, DECODE_SCORE_ATOL = 1e-6, 1e-5
 
 
@@ -235,7 +262,7 @@ def pool_inputs(g, dev):
     return pack.table, sites
 
 
-def predictor_params(g, dev):
+def predictor_params(g, dev, dtype=torch.bfloat16):
     from siammot_tpu_torch.ops.predictor import _NAMES
     out = {}
     for name in _NAMES:
@@ -248,7 +275,7 @@ def predictor_params(g, dev):
         else:
             n = {"cls": 2, "center": 1, "reg": 4}.get(head, C)
             t = 0.1 * torch.randn(n, generator=g)
-        out[name] = t.to(dev, torch.bfloat16).contiguous()
+        out[name] = t.to(dev, dtype).contiguous()
     return out
 
 
@@ -309,6 +336,8 @@ KERNELS = {
     "window_pool_bwd": dict(
         source="siammot_tpu_torch/ops/cuda/window_pool_bwd.cu",
         replaces="siammot_tpu/ops/pallas/window_pool.py:200"),
+    "deform_conv": dict(source="siammot_tpu_torch/ops/cuda/deform.cu",
+                        replaces="siammot_tpu/ops/pallas/deform.py:102"),
 }
 
 
@@ -430,30 +459,22 @@ def kernel_phase(dev, report):
                                 bound_ms=bms, bound_by=by, max_abs_err=err)
 
 
-def end_to_end_phase(dev, report):
+def drive_frames(model, params, stream, image_size, with_dcn=False):
+    """``track_frames`` over ``stream`` with every kernel's count set to
+    0 just before and read just after; keeps the inputs each kernel got
+    at the last frame (by reference: no copies inside the timed loop)."""
+    import siammot_tpu_torch.models.dla as dla_mod
     import siammot_tpu_torch.models.emm as emm_mod
     import siammot_tpu_torch.ops.roi_align_windowed as rw_mod
-    from siammot_tpu_torch.configs.defaults import get_cfg
     from siammot_tpu_torch.engine.inferencer import track_frames
-    from siammot_tpu_torch.models.siammot import SiamMOT
     from siammot_tpu_torch.ops.decode import emm_decode
+    from siammot_tpu_torch.ops.deform_conv import deform_conv2d
     from siammot_tpu_torch.ops.predictor import emm_predictor
     from siammot_tpu_torch.ops.window_pool import window_pool
     from siammot_tpu_torch.ops.xcorr import xcorr_depthwise_masked
-    from siammot_tpu_torch.utils.synth import render_scene
-    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
 
-    t0 = time.perf_counter()
-    params = jax_to_torch(load_npz(FIXTURE))
-    frames = render_scene(16, HP)[0]
-    log(f"  weights ({len(params)} tensors) and 16 frames ready in "
-        f"{time.perf_counter() - t0:.1f} s")
-    model = SiamMOT(get_cfg(), device=str(dev))
-
-    # keep the inputs each kernel got at the last frame (by reference:
-    # no copies inside the timed loop)
     captured = {"window_pool": [], "xcorr_masked": [], "emm_predictor": [],
-                "emm_decode": []}
+                "emm_decode": [], "deform_conv": []}
 
     def capture(name, fn, keep):
         def wrapped(*args):
@@ -467,38 +488,38 @@ def end_to_end_phase(dev, report):
                 capture("xcorr_masked", xcorr_depthwise_masked, 1)),
                (emm_mod, "emm_predictor",
                 capture("emm_predictor", emm_predictor, 1)),
-               (emm_mod, "emm_decode", capture("emm_decode", emm_decode, 1))]
+               (emm_mod, "emm_decode", capture("emm_decode", emm_decode, 1)),
+               (dla_mod, "deform_conv2d",
+                capture("deform_conv", deform_conv2d, 26))]
     originals = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, f in patches:
         setattr(m, n, f)
     counters = {"window_pool": window_pool,
                 "xcorr_masked": xcorr_depthwise_masked,
-                "emm_predictor": emm_predictor, "emm_decode": emm_decode}
+                "emm_predictor": emm_predictor, "emm_decode": emm_decode,
+                "deform_conv": deform_conv2d}
     try:
         for fn in counters.values():
             fn.launches = 0
-        stream = [frames[i % len(frames)] for i in range(WARMUP + TIMED)]
-        result = track_frames(model, params, stream, (W, H))
+        result = track_frames(model, params, stream, image_size)
         launches = {n: fn.launches for n, fn in counters.items()}
     finally:
         for m, n, f in originals:
             setattr(m, n, f)
-
-    n_frames = WARMUP + TIMED
+    n = len(stream)
+    want = {"window_pool": 3 * n, "xcorr_masked": n, "emm_predictor": n,
+            "emm_decode": n, "deform_conv": 26 * n if with_dcn else 0}
     for name, count in launches.items():
-        want = 3 * n_frames if name == "window_pool" else n_frames
-        if count != want:
-            raise AssertionError(f"{name}: {count} launches on the main "
-                                 f"path, expected {want}")
-        report[name]["launches"] = count
-    sec = np.array(result.frame_seconds[WARMUP:])
+        if count != want[name]:
+            raise AssertionError(f"{name}: {count} launches over {n} frames, "
+                                 f"expected {want[name]}")
+    return result, launches, captured
+
+
+def check_last_frame(result, k_slots):
+    """Live tracks, finite rows, scores in [0, 1], unique ids."""
     state = result.state
     occupied = int(state.occupied.sum())
-    active = int(state.active.sum())
-    log(f"  {n_frames} frames: {1e3 * sec.mean():.3f} ms/frame over the "
-        f"last {TIMED} (median {1e3 * np.median(sec):.3f}, first frame "
-        f"{1e3 * result.frame_seconds[0]:.1f} ms); live slots {occupied} of "
-        f"{K} ({active} active); launches {launches}")
     if occupied == 0:
         raise AssertionError("no live track slot: the EMM kernels did no "
                              "work")
@@ -511,18 +532,47 @@ def end_to_end_phase(dev, report):
     ids = last["ids"][v & (last["ids"] >= 0)]
     if len(np.unique(ids)) != len(ids):
         raise AssertionError("last frame: a track id appears twice")
+    return occupied, int(state.active.sum())
 
-    # each kernel against its plain version on the main path's inputs
+
+def check_captured(captured, report, what):
+    """Each kernel against its plain version on the last frame's inputs."""
     for site, args in zip(("sr_pool", "box_pool", "template_pool"),
                           captured["window_pool"]):
-        err, _ = check_pool(args, f"main-path {site}")
+        err, _ = check_pool(args, f"{what} {site}")
         report["window_pool"]["max_abs_err"] = max(
             report["window_pool"]["max_abs_err"], err)
     for name, check in (("xcorr_masked", check_xcorr),
                         ("emm_predictor", check_predictor),
                         ("emm_decode", check_decode)):
-        err, _ = check(captured[name][0], f"main-path {name}")
+        err, _ = check(captured[name][0], f"{what} {name}")
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+
+
+def end_to_end_phase(dev, report):
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils.synth import render_scene
+    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
+
+    t0 = time.perf_counter()
+    params = jax_to_torch(load_npz(FIXTURE))
+    frames = render_scene(16, HP)[0]
+    log(f"  weights ({len(params)} tensors) and 16 frames ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = SiamMOT(get_cfg(), device=str(dev))
+    stream = [frames[i % len(frames)] for i in range(WARMUP + TIMED)]
+    result, launches, captured = drive_frames(model, params, stream, (W, H))
+    for name in ("window_pool", "xcorr_masked", "emm_predictor",
+                 "emm_decode"):
+        report[name]["launches"] = launches[name]
+    sec = np.array(result.frame_seconds[WARMUP:])
+    occupied, active = check_last_frame(result, K)
+    log(f"  {len(stream)} frames: {1e3 * sec.mean():.3f} ms/frame over the "
+        f"last {TIMED} (median {1e3 * np.median(sec):.3f}, first frame "
+        f"{1e3 * result.frame_seconds[0]:.1f} ms); live slots {occupied} of "
+        f"{K} ({active} active); launches {launches}")
+    check_captured(captured, report, "main-path")
     log(f"  kernels agree with their plain versions on the last frame's "
         f"inputs ({int(captured['xcorr_masked'][0][2].sum())} live slots)")
     return 1e3 * float(sec.mean()), occupied
@@ -886,6 +936,261 @@ def train_phase(dev, report, card):
     return 1e3 * float(sec.mean()), 1e3 * float(np.median(sec)), peak
 
 
+# -- fault repairs and the DCN slice ----------------------------------------
+
+def reshaped_kernel_phase(dev, report):
+    """Kernels 3 and 4 at the shapes besides the main path's that the JAX
+    kernels take: the f32 frame (predictor [K, 16, 16, 128] f32, tiled
+    form) and the AOT recipe (template 7, SEARCH_REGION 5: [K, 29, 29,
+    128] responses and s_hi 464), plus the decode's whole-map limit."""
+    from siammot_tpu_torch.models.emm import _decode_constants
+    from siammot_tpu_torch.ops.decode import emm_decode
+    from siammot_tpu_torch.ops.predictor import emm_predictor
+    g = torch.Generator().manual_seed(3)
+    pred = report["emm_predictor"].setdefault("shapes", {})
+    for s_, dtype in ((16, torch.float32), (29, torch.bfloat16),
+                      (29, torch.float32)):
+        valid = live_mask(K, LIVE, g, dev)
+        x = torch.randn(K, s_, s_, C, generator=g).to(dev, dtype)
+        params = predictor_params(g, dev, dtype)
+        args = (x, valid, params)
+        tol = PRED_ATOL if dtype == torch.bfloat16 else PRED_F32_ATOL
+        ks = emm_predictor(*args)
+        from siammot_tpu_torch.ops.predictor import emm_predictor_plain
+        ps = emm_predictor_plain(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for name, k_, p_ in zip(("cls", "ctr", "reg"), ks, ps):
+            dead_zero(k_, valid, f"predictor {s_} {name}")
+            errs.append(close(k_, p_, tol, 0.0, f"predictor {s_} {name}")[0])
+        ms = timed_ms(lambda: emm_predictor(*args))
+        live = int(valid.sum())
+        isz = x.element_size()
+        flops = live * (2 * s_ * s_ * C * C * 9 + s_ * s_ * 7 * C * 9) * 2.0
+        nbytes = (live * s_ * s_ * C * isz
+                  + sum(p_.numel() * isz for p_ in params.values())
+                  + K * s_ * s_ * 7 * 4 + K)
+        bms, by = bound(nbytes, flops, BF16_TC_FLOPS
+                        if dtype == torch.bfloat16 else F32_FLOPS)
+        key = f"{s_}x{s_}x{C} {str(dtype).split('.')[-1]}"
+        pred[key] = dict(ms=ms, bound_ms=bms, bound_by=by,
+                         max_abs_err=max(errs))
+        log(f"  emm_predictor tiled [{K}, {key}] live={live}: kernel "
+            f"{ms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+            f"{max(errs):.3g} (tol {tol})")
+        report["emm_predictor"]["max_abs_err"] = max(
+            report["emm_predictor"]["max_abs_err"], max(errs))
+    dec = report["emm_decode"].setdefault("shapes", {})
+    for s_ in (29, 32):
+        valid = live_mask(K, LIVE, g, dev)
+        u, window = _decode_constants(s_, 16, str(dev))
+        x4 = torch.stack([2 * torch.randn(K, s_, s_, generator=g),
+                          torch.randn(K, s_, s_, generator=g),
+                          60 + 20 * torch.randn(K, s_, s_, generator=g),
+                          120 + 40 * torch.randn(K, s_, s_, generator=g)],
+                         1).to(dev).contiguous()
+        wh = torch.stack([40 + 110 * torch.rand(K, generator=g),
+                          80 + 220 * torch.rand(K, generator=g)], -1).to(dev)
+        args = (x4, wh, u, window, valid, 0.4, True)
+        err, _ = check_decode(args, f"emm_decode s={s_} s_hi={16 * s_}")
+        ms = timed_ms(lambda: emm_decode(*args))
+        live = int(valid.sum())
+        sh = 16 * s_
+        flops = live * (4 * sh * s_ * s_ * 2 + 4 * sh * sh * s_ * 2
+                        + sh * sh * 30.0)
+        nbytes = (live * 4 * s_ * s_ * 4 + u.numel() * 4
+                  + window.numel() * 4 + K * 17)
+        bms, by = bound(nbytes, flops, F32_FLOPS)
+        dec[f"s={s_} s_hi={sh}"] = dict(ms=ms, bound_ms=bms, bound_by=by,
+                                        max_abs_err=err)
+        log(f"  emm_decode s={s_} s_hi={sh} live={live}: kernel {ms:.4f} "
+            f"ms, bound {bms:.4f} ms ({by}), max abs score err {err:.3g}")
+        report["emm_decode"]["max_abs_err"] = max(
+            report["emm_decode"]["max_abs_err"], err)
+
+
+# DLA-102-DCN-FPN at 736x1280: (stage, input HW, C = Co, layers a frame)
+# of the stride-2 first layer and the stride-1 rest of stages 3, 4, 5
+DCN_STAGES = [(3, (184, 320), 128, 1, 7), (4, (92, 160), 256, 1, 15),
+              (5, (46, 80), 512, 1, 1)]
+DCN_F32_ATOL = 2e-5          # of the output's largest magnitude
+DCN_BF16_RTOL, DCN_BF16_ATOL = 2.0 ** -7, 2.0 ** -9
+
+
+def check_deform(args, what):
+    """Kernel 9 against its plain version: f32 to 2e-5 of the output's
+    scale; bf16 one bf16 step plus 2^-9 of the scale (the same samples,
+    f32 sums in another order, then one rounding)."""
+    from siammot_tpu_torch.ops.deform_conv import (deform_conv2d,
+                                                   deform_conv2d_plain)
+    k_ = deform_conv2d(*args).float()
+    p_ = deform_conv2d_plain(*args).float()
+    torch.cuda.synchronize()
+    scale = float(p_.abs().max())
+    if args[0].dtype == torch.float32:
+        err, _ = close(k_, p_, DCN_F32_ATOL * scale, 0.0, what)
+    else:
+        err, _ = close(k_, p_, DCN_BF16_ATOL * scale, DCN_BF16_RTOL, what)
+    return err, scale
+
+
+def deform_bound(args):
+    x, off, w = args[:3]
+    ho, wo = off.shape[1:3]
+    c, co = w.shape[2:]
+    n = x.shape[0] * ho * wo
+    nbytes = (x.numel() + off.numel() + w.numel() + n * co) \
+        * x.element_size()
+    return bound(nbytes, 2.0 * 9 * c * co * n,
+                 BF16_TC_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS)
+
+
+def deform_kernel_phase(dev, report):
+    """Kernel 9 at DLA-102's three stage shapes, stride 2 and stride 1,
+    in-window (route A) and out-of-window (route B) offsets, bf16 and f32,
+    against its plain version; the frame's 26 launches summed by shape
+    (the main path's mix: stride 2 by route B, stride 1 by route A)."""
+    import torch.nn.functional as F
+
+    from siammot_tpu_torch.ops.deform_conv import (deform_conv2d,
+                                                   deform_conv2d_plain,
+                                                   in_window,
+                                                   window_route_possible)
+    g = torch.Generator().manual_seed(5)
+    row = report["deform_conv"]
+    row.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
+               max_abs_err=0.0, launches=0, shapes={})
+    frame_bytes = frame_ops = 0.0
+    for stage, (h, w), c, n2, n1 in DCN_STAGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(1, h, w, c, generator=g).to(dev, dtype)
+            wgt = (torch.randn(3, 3, c, c, generator=g) / (9 * c) ** 0.5).to(
+                dev, dtype)
+            xs = x[:, ::2, ::2].contiguous()          # the stride-1 input
+            for stride, scale, xin, count in ((2, 0.8, x, n2),
+                                              (1, 0.35, xs, n1),
+                                              (1, 2.0, xs, 0)):
+                ho, wo = (xin.shape[1] - 1) // stride + 1, \
+                    (xin.shape[2] - 1) // stride + 1
+                off = (scale * torch.randn(1, ho, wo, 18, generator=g)).to(
+                    dev, dtype)
+                args = (xin, off, wgt, stride)
+                route = "A" if window_route_possible(
+                    xin.shape, wgt.shape, stride, 1, xin.element_size()) \
+                    and bool(in_window(off)) else "B"
+                err, _ = check_deform(args, f"deform stage {stage} s{stride}"
+                                      f" {route} {dtype}")
+                ms = timed_ms(lambda: deform_conv2d(*args))
+                pms = timed_ms(lambda: deform_conv2d_plain(*args), iters=3,
+                               warmup=1)
+                xn = xin.permute(0, 3, 1, 2)
+                wn = wgt.permute(3, 2, 0, 1).contiguous()
+                dms = timed_ms(lambda: F.conv2d(xn, wn, stride=stride,
+                                                padding=1))
+                bms, by = deform_bound(args)
+                key = (f"stage{stage} {xin.shape[1]}x{xin.shape[2]}x{c} s"
+                       f"{stride} route {route} "
+                       f"{str(dtype).split('.')[-1]}")
+                row["shapes"][key] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                          bound_by=by, max_abs_err=err,
+                                          dense_conv_ms=dms,
+                                          per_frame=count)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                log(f"  deform_conv {key}: kernel {ms:.4f} ms, plain "
+                    f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), dense "
+                    f"cuDNN 3x3 of the same shape {dms:.4f} ms, max abs err "
+                    f"{err:.3g}")
+                if dtype == torch.bfloat16 and count:
+                    row["ms"] += count * ms
+                    row["plain_ms"] += count * pms
+                    frame_bytes += count * 2 * (xin.numel() + off.numel()
+                                                + wgt.numel() + ho * wo * c)
+                    frame_ops += count * 2.0 * 9 * c * c * ho * wo
+            del x, xs
+    row["bound_ms"], row["bound_by"] = bound(frame_bytes, frame_ops,
+                                             BF16_TC_FLOPS)
+    log(f"  deform_conv, one DLA-102 frame (26 launches, bf16): kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
+def golden_phase(dev):
+    """The default configuration against the JAX step: the f32 frame on
+    the card must match ``tests/fixtures/torch_golden_dla34.npz`` within
+    ``utils/golden.py``'s tolerances; the bf16 frame's gap is printed."""
+    from siammot_tpu_torch.utils import golden
+    want = golden.load()
+    got = golden.run(str(dev), "float32")
+    r = golden.compare(got, want)
+    log(f"  f32 DLA-34 frame on the card against the JAX fixture "
+        f"({golden.N_FRAMES} frames, {golden.W}x{golden.H}, "
+        f"{r['live_rows']} valid rows, {r['live_slots']} live slots): {r}")
+    if not r["ok"]:
+        raise AssertionError(f"f32 frame differs from the JAX step: {r}")
+    gap = golden.matched_gap(golden.run(str(dev), "bfloat16"), want)
+    log(f"  bf16 gap (bf16 frame on the card against the f32 JAX rows, "
+        f"rows matched by IoU): {gap['ids_differ']} ids differ, "
+        f"{gap['unmatched']} of {gap['rows']} rows unmatched, max box err "
+        f"{gap['box_err']:.4g} px, max score err {gap['score_err']:.4g}")
+    return r, gap
+
+
+def dcn_phase(dev, report, card):
+    """The slice's main path: DLA-102-DCN-FPN single-stream tracking at
+    736x1280 in bf16, 6 warm-up + 10 timed frames of the crowded scene."""
+    from siammot_tpu_torch.configs.defaults import dla_dcn_overrides, get_cfg
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.ops.deform_conv import (in_window,
+                                                   window_route_possible)
+    from siammot_tpu_torch.utils.synth import render_scene
+    from siammot_tpu_torch.utils.weights import seeded_params
+
+    t0 = time.perf_counter()
+    cfg = get_cfg()
+    cfg.merge_from_list(dla_dcn_overrides("DLA-102-FPN"))
+    model = SiamMOT(cfg, device=str(dev))
+    frames = render_scene(16, HP)[0]
+    params, n_dcn = seeded_params(model, frames[0])
+    if n_dcn != 26:
+        raise AssertionError(f"{n_dcn} deformable layers, expected 26")
+    log(f"  DLA-102-DCN-FPN: {sum(v.numel() for v in params.values())} "
+        f"parameters from a seed, offsets calibrated; ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stream = [frames[i % len(frames)] for i in range(DCN_WARMUP + DCN_TIMED)]
+    result, launches, captured = drive_frames(model, params, stream, (W, H),
+                                              with_dcn=True)
+    report["deform_conv"]["launches"] = launches["deform_conv"]
+    for name in ("window_pool", "xcorr_masked", "emm_predictor",
+                 "emm_decode"):
+        report[name].setdefault("launches_by_path", {})["dcn_inference"] = \
+            launches[name]
+        report[name]["launches"] += launches[name]
+    sec = np.array(result.frame_seconds[DCN_WARMUP:])
+    occupied, active = check_last_frame(result, K)
+    dcn_args = captured["deform_conv"]
+    routes = ["A" if window_route_possible(a[0].shape, a[2].shape, a[3], 1,
+                                           a[0].element_size())
+              and bool(in_window(a[1])) else "B" for a in dcn_args]
+    log(f"  {len(stream)} frames: {1e3 * sec.mean():.3f} ms/frame over the "
+        f"last {DCN_TIMED} (median {1e3 * np.median(sec):.3f}, first frame "
+        f"{1e3 * result.frame_seconds[0]:.1f} ms; {card}); live slots "
+        f"{occupied} of {K} ({active} active); launches {launches} "
+        f"({launches['deform_conv'] / len(stream):.0f} deform_conv a "
+        f"frame); last frame's routes {''.join(routes)}")
+    check_captured(captured, report, "dcn-path")
+    err = rel = 0.0
+    for i, args in enumerate(dcn_args):
+        e, scale = check_deform(args, f"dcn-path deform layer {i} "
+                                      f"(route {routes[i]})")
+        err, rel = max(err, e), max(rel, e / max(scale, 1e-30))
+    report["deform_conv"]["max_abs_err"] = max(
+        report["deform_conv"]["max_abs_err"], err)
+    log(f"  kernels agree with their plain versions on the last frame's "
+        f"inputs (26 deformable layers, max abs err {err:.3g}, at most "
+        f"{rel:.3g} of the layer's largest plain output)")
+    return 1e3 * float(sec.mean()), occupied, routes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -912,6 +1217,16 @@ def main():
     log(f"[2] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    log("[2c] kernels 3 and 4 at the f32 and AOT-recipe shapes:")
+    reshaped_kernel_phase(dev, report)
+    log(f"[2c] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[2d] kernel 9 (deformable conv) at DLA-102's stage shapes:")
+    deform_kernel_phase(dev, report)
+    log(f"[2d] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     log("[2b] training kernels against their plain versions, training "
         "shapes:")
     train_kernel_phase(dev, report)
@@ -925,20 +1240,35 @@ def main():
         "inference": report["window_pool"]["launches"]}
 
     t0 = time.perf_counter()
+    log("[3b] DLA-34 against the JAX step's rows (f32 on the card; bf16 "
+        "gap):")
+    golden_phase(dev)
+    log(f"[3b] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     log("[4] training end to end: DLA-34-FPN-EMM, f32 masters, bf16 "
         "compute, 2 clips x 2 frames of the 720p crowd:")
     ms_step, med_step, peak = train_phase(dev, report, card)
     log(f"[4] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log("[5] end to end: DLA-102-DCN-FPN, seeded weights, bf16, 720p "
+        "crowd:")
+    ms_dcn, occ_dcn, routes = dcn_phase(dev, report, card)
+    log(f"[5] done in {time.perf_counter() - t0:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("sites", "training_sites", "passes", "launches_by_path")
+    extra = ("sites", "training_sites", "passes", "launches_by_path",
+             "shapes")
     kernels = [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                for r in report.values()]
-    log(f"total {time.perf_counter() - t_start:.1f} s; {ms_frame:.3f} "
-        f"ms/frame; {occupied} live slots; training {ms_step:.3f} ms/step "
-        f"(median {med_step:.3f}), peak {peak / 2 ** 30:.3f} GiB; card "
-        f"{card}")
+    log(f"total {time.perf_counter() - t_start:.1f} s; DLA-34 "
+        f"{ms_frame:.3f} ms/frame, {occupied} live slots; training "
+        f"{ms_step:.3f} ms/step (median {med_step:.3f}), peak "
+        f"{peak / 2 ** 30:.3f} GiB; DLA-102-DCN {ms_dcn:.3f} ms/frame, "
+        f"{occ_dcn} live slots, last frame's routes {''.join(routes)}; "
+        f"card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -137,3 +137,22 @@ _C.TPU.REMAT = False
 def get_cfg() -> CN:
     """Return a fresh clone of the default config."""
     return _C.clone()
+
+
+# stage widths of the Bottleneck DLA bodies (DLA_STAGE2..5_OUT_CHANNELS)
+DLA_STAGE_WIDTHS = {"DLA-46-C-FPN": (64, 64, 128, 256),
+                    "DLA-46-XC-FPN": (64, 64, 128, 256),
+                    "DLA-60-FPN": (128, 256, 512, 1024),
+                    "DLA-102-FPN": (128, 256, 512, 1024),
+                    "DLA-169-FPN": (128, 256, 512, 1024)}
+
+
+def dla_dcn_overrides(body: str) -> list:
+    """``merge_from_list`` options of a model-zoo ``<body>-DCN`` detector
+    as ``tools/bench_variants.py:make_cfg`` builds it: the body, its stage
+    widths and deformable 3x3s on stages 3-5."""
+    opts = ["MODEL.BACKBONE.CONV_BODY", body, "MODEL.DLA.STAGE_WITH_DCN",
+            (False, False, False, True, True, True)]
+    for i, c in zip((2, 3, 4, 5), DLA_STAGE_WIDTHS[body]):
+        opts += [f"MODEL.DLA.DLA_STAGE{i}_OUT_CHANNELS", c]
+    return opts

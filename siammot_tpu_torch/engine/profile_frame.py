@@ -1,17 +1,21 @@
 """Where one 720p frame's time goes on the card.
 
-    python -m siammot_tpu_torch.engine.profile_frame
+    python -m siammot_tpu_torch.engine.profile_frame [--body DLA-102-FPN]
 
 Runs the main path (DLA-34-FPN-EMM, the repo's bench weights in bf16, the
 crowded sprite scene) for 10 warm-up frames, then traces 10 frames with
-``torch.profiler`` (CPU and CUDA activities).  Prints the
-host time per frame, the device-busy time per frame (the union of kernel
-intervals) and its share, and the device time per frame of the heaviest
-operations, each of the port's four kernels named.  Needs a CUDA device.
+``torch.profiler`` (CPU and CUDA activities).  With ``--body`` it runs
+that Bottleneck body with deformable stages 3-5 (the model zoo's -DCN
+detectors) on seeded weights (``utils.weights.seeded_params``) instead.
+Prints the host time per frame, the device-busy time per frame (the
+union of kernel intervals) and its share, and the device time per frame
+of the heaviest operations, each of the port's kernels named.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import time
 
@@ -42,18 +46,30 @@ def _busy_us(events) -> float:
 def main():
     from torch.profiler import ProfilerActivity, profile
 
-    from ..configs.defaults import get_cfg
+    from ..configs.defaults import dla_dcn_overrides, get_cfg
     from ..models.siammot import SiamMOT
     from ..utils.synth import render_scene
-    from ..utils.weights import jax_to_torch, load_npz
+    from ..utils.weights import jax_to_torch, load_npz, seeded_params
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--body", default=None,
+                    help="a Bottleneck DLA body (e.g. DLA-102-FPN), run "
+                         "with DCN stages on seeded weights")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device")
 
-    model = SiamMOT(get_cfg(), device="cuda")
-    net = model.cast_params(jax_to_torch(load_npz(
-        os.path.join(REPO, "fixtures", "bench_weights_f16.npz"))))
+    cfg = get_cfg()
     frames = [torch.as_tensor(f) for f in render_scene(16, 736)[0]]
+    if args.body:
+        cfg.merge_from_list(dla_dcn_overrides(args.body))
+        model = SiamMOT(cfg, device="cuda")
+        params, _ = seeded_params(model, frames[0])
+    else:
+        model = SiamMOT(cfg, device="cuda")
+        params = jax_to_torch(load_npz(
+            os.path.join(REPO, "fixtures", "bench_weights_f16.npz")))
+    net = model.cast_params(params)
     state = model.empty_state()
 
     def step(i):
@@ -72,7 +88,8 @@ def main():
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
     busy_ms = _busy_us(prof.events()) / 1e3 / FRAMES
-    print(f"{torch.cuda.get_device_name(0)}: {FRAMES} traced frames, "
+    print(f"{torch.cuda.get_device_name(0)} ({cfg.MODEL.BACKBONE.CONV_BODY}"
+          f"{' DCN' if args.body else ''}): {FRAMES} traced frames, "
           f"{int(state.occupied.sum())} live slots; host {host_ms:.3f} "
           f"ms/frame (traced), device busy {busy_ms:.3f} ms/frame "
           f"({100 * busy_ms / host_ms:.1f}%)")
@@ -88,7 +105,9 @@ def main():
     print(f"{'':16}  kernels: " + ", ".join(
         f"{k}={ms:.4f}" for k, ms, _ in rows
         if any(n in k for n in ("window_pool_kernel", "xcorr_kernel",
-                                "predictor_kernel", "decode_kernel"))))
+                                "predictor_kernel", "decode_kernel",
+                                "deform_kernel", "tower_conv_tiled",
+                                "heads_tiled"))))
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ Inference: DLA-FPN backbone -> RPN -> shared box-head pass over
 proposals and propagated tracks -> EMM track head over K padded slots ->
 track solver -> next-frame TrackState, one frame per
 ``forward_inference`` call.  Its four kernels (window pool, masked xcorr,
-masked predictor, decode) are CUDA kernels on the card.
+masked predictor, decode) are CUDA kernels on the card, and so is the
+deformable conv of a DCN body (kernel 9; inference only: its backward is
+not ported).
 
 Training: ``forward_train`` returns the seven reference losses of a batch
 of frame pairs (RPN, box head, EMM), with the pool's backward (kernel 7)
@@ -27,7 +29,7 @@ from ..core import boxes as box_ops
 from ..core.structures import Boxes, concat_boxes
 from .box_head import (BoxHead, BoxHeadConfig, box_head_loss, pool_levels,
                        postprocess, subsample_proposals)
-from .dla import DLA_VARIANTS, build_dla
+from .dla import DLA_VARIANTS, DeformConv, build_dla
 from .emm import (EMMConfig, EMMHead, decode_response_fused, emm_loss,
                   make_search_region, pool_search_region, pool_template,
                   response_locations)
@@ -69,9 +71,10 @@ class SiamMOTNet(nn.Module):
 
     def __init__(self, conv_body: str, channels: int, num_anchors: int,
                  box_resolution: int, box_sampling: int, mlp_dim: int,
-                 num_classes: int, window_box: int):
+                 num_classes: int, window_box: int,
+                 stage_with_dcn=(False,) * 6):
         super().__init__()
-        self.body = build_dla(conv_body)
+        self.body = build_dla(conv_body, stage_with_dcn)
         stage_channels = DLA_VARIANTS[conv_body]["channels"][2:6]
         self.fpn = FPN(stage_channels, channels)
         self.rpn = RPNHead(channels, num_anchors)
@@ -83,6 +86,19 @@ class SiamMOTNet(nn.Module):
         """``fn(self, *args)``: lets ``torch.func.functional_call`` run a
         whole step with substituted (cast) parameters."""
         return fn(self, *args)
+
+
+def _channels_last(net: SiamMOTNet) -> None:
+    """On the card, NHWC convolutions for cuDNN.  The HWIO kernels that
+    kernels 3 and 9 read (EMM predictor, deformable convs) stay
+    contiguous as they are."""
+    if next(net.parameters()).device.type != "cuda":
+        return
+    for m in (net.body, net.fpn, net.rpn):
+        m.to(memory_format=torch.channels_last)
+    for m in net.body.modules():
+        if isinstance(m, DeformConv):
+            m.kernel.data = m.kernel.data.contiguous()
 
 
 class SiamMOT:
@@ -107,8 +123,6 @@ class SiamMOT:
                              f"kernel path; TPU.{off} must stay True")
         if tpu.REMAT:
             raise ValueError("TPU.REMAT is not ported yet")
-        if any(cfg.MODEL.DLA.STAGE_WITH_DCN):
-            raise ValueError("deformable stages are not ported yet")
         body = cfg.MODEL.BACKBONE.CONV_BODY
         if body not in DLA_VARIANTS:
             raise KeyError(f"backbone {body} is not ported yet; "
@@ -155,7 +169,8 @@ class SiamMOT:
             box_sampling=cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO,
             mlp_dim=cfg.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM,
             num_classes=self.num_classes,
-            window_box=cfg.TPU.WINDOW_BOX)
+            window_box=cfg.TPU.WINDOW_BOX,
+            stage_with_dcn=tuple(cfg.MODEL.DLA.STAGE_WITH_DCN))
 
     def cast_params(self, params: dict) -> SiamMOTNet:
         """The network on the device in the compute dtype, loaded from a
@@ -166,11 +181,7 @@ class SiamMOT:
                                   dtype=self.compute_dtype)
         net.load_state_dict(params, strict=True)
         net.eval().requires_grad_(False)
-        if self.device.type == "cuda":
-            # NHWC convolutions for cuDNN; the EMM predictor keeps its
-            # HWIO kernels as they are (kernel 3 reads them contiguous)
-            for m in (net.body, net.fpn, net.rpn):
-                m.to(memory_format=torch.channels_last)
+        _channels_last(net)
         return net
 
     def build_master(self, params: dict) -> SiamMOTNet:
@@ -179,9 +190,7 @@ class SiamMOT:
         FrozenBN statistics stay buffers, so nothing moves them."""
         net = self.build_net().to(device=self.device, dtype=torch.float32)
         net.load_state_dict(params, strict=True)
-        if self.device.type == "cuda":
-            for m in (net.body, net.fpn, net.rpn):
-                m.to(memory_format=torch.channels_last)
+        _channels_last(net)
         return net.train().requires_grad_(True)
 
     def empty_state(self) -> TrackState:

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``*.cu`` beside this file).
 
-All sources compile in one ``nvcc`` call into one shared library with a
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more ``nvcc`` links the objects into one shared library with a
 plain C interface, bound with ``ctypes`` (no PyTorch headers: a source
 that includes them takes minutes to compile, this takes seconds).  The
 library goes to ``siammot_tpu_torch/_build/``, named by a hash of the
@@ -27,8 +28,8 @@ import torch
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_SRC_DIR)),
                          "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
 
 def _sources() -> list:
@@ -45,6 +46,33 @@ def _nvcc() -> str:
                        "are built on the machine with the card")
 
 
+def _build(srcs: list, path: str) -> None:
+    """Compile every ``.cu`` in parallel, then link them into ``path``."""
+    tmp = f"{path}.{os.getpid()}.d"
+    os.makedirs(tmp, exist_ok=True)
+    jobs = []
+    for src in (p for p in srcs if p.endswith(".cu")):
+        obj = os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    cmd = [_nvcc(), *ARCH, "-shared", "-o", f"{tmp}/lib.so",
+           *[obj for _, obj, _ in jobs]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    os.replace(f"{tmp}/lib.so", path)  # atomic: concurrent builds race
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
@@ -57,14 +85,7 @@ def library() -> ctypes.CDLL:
                         f"libsiammot_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.isfile(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[p for p in srcs if p.endswith(".cu")]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, path)   # atomic: concurrent builders race safely
+        _build(srcs, path)
     lib = ctypes.CDLL(path)
     lib.siammot_error_string.argtypes = [ctypes.c_int]
     lib.siammot_error_string.restype = ctypes.c_char_p

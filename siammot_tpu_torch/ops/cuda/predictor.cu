@@ -1,6 +1,8 @@
 // Masked EMM predictor: the CUDA counterpart of the Pallas kernel
 // siammot_tpu/ops/pallas/predictor.py:emm_predictor_pallas
-// (_predictor_kernel).
+// (_predictor_kernel).  Two forms: the resident bf16 kernel below for
+// the main path's [K, 16, 16, 128] bf16 responses, and a tiled form
+// (further down) for any S, any C with C % 32 == 0, in f32 or bf16.
 //
 // Per live slot, over a [16, 16, 128] bf16 correlation response x:
 //   tower(x) = bf16(relu(GN32(conv3x3(x) + b)))   (cls and reg towers)
@@ -253,4 +255,271 @@ SIAMMOT_API int siammot_emm_predictor(
   predictor_kernel<<<K, THREADS, SMEM, (cudaStream_t)stream>>>(
       (const bf16*)x, valid, P, cls, ctr, reg);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Tiled form: any response size S and channel count C (C % 32 == 0), f32
+// or bf16.  A padded 31x31x128 bf16 map (246 KB) or a 16x16x128 f32 one
+// (128 KB per buffer) does not fit one block's shared memory beside its
+// tower buffer, so the work is split in two launches:
+//   1. tower_conv_tiled: per (live slot, tower, 64 positions x 64 output
+//      channels) an FFMA implicit GEMM over K = 9 taps x C in chunks of
+//      16, the input tile gathered with its zero border, f32 sums; it
+//      writes conv + bias (f32, pre-norm) to a scratch [2, K, S*S, C].
+//   2. heads_tiled: per (slot, tower) one block takes the GroupNorm
+//      statistics of the scratch map (one warp per group, f32,
+//      var = E[x^2] - E[x]^2), then one warp per output position runs
+//      the 3x3 head(s), normalising, applying ReLU and rounding to the
+//      response dtype as it loads, as the resident kernel does.
+// The products are exact in f32 for bf16 inputs, as on the tensor
+// cores, so both forms compute the same function; only the order of the
+// f32 sums differs.  Bound: operations (2 x 9 S^2 C^2 multiply-adds per
+// live slot); this form is the simple one, on the CUDA cores.
+
+constexpr int TP = 64;        // positions per conv tile
+constexpr int TC = 64;        // output channels per conv tile
+constexpr int TK = 16;        // input channels per chunk
+constexpr int CONV_THREADS = 256;
+constexpr int HEAD_THREADS = 512;
+static_assert(TK * TP % CONV_THREADS == 0 && TK * TC % CONV_THREADS == 0,
+              "tiles fill whole thread passes");
+
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <typename T>
+struct TiledParams {
+  const T *w[2], *b[2], *scale[2], *shift[2];  // towers: cls, reg
+  const T *wcls, *bcls, *wctr, *bctr, *wreg, *breg;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(CONV_THREADS)
+    tower_conv_tiled(const T* __restrict__ x,
+                     const uint8_t* __restrict__ valid, TiledParams<T> P,
+                     float* __restrict__ pre, int K, int S, int Cc) {
+  const int k = blockIdx.z >> 1, tower = blockIdx.z & 1;
+  if (!valid[k]) return;
+  __shared__ float As[TK][TP + 1];  // +1: no bank conflicts on the fill
+  __shared__ float Bs[TK][TC];
+  const int t = threadIdx.x;
+  const int p0 = blockIdx.x * TP, c0 = blockIdx.y * TC;
+  const int ty = t / 16, tx = t % 16;  // 4 positions x 4 channels each
+  const int SS = S * S;
+  const T* xk = x + (size_t)k * SS * Cc;
+  // select by value: indexing the parameter struct with a runtime
+  // tower index would copy it to local memory
+  const T* w = tower ? P.w[1] : P.w[0];
+  const T* bias = tower ? P.b[1] : P.b[0];
+  float acc[4][4] = {};
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    for (int k0 = 0; k0 < Cc; k0 += TK) {
+#pragma unroll
+      for (int i = 0; i < TK * TP / CONV_THREADS; ++i) {
+        const int e = t + i * CONV_THREADS;
+        const int kk = e % TK, pp = e / TK;
+        const int p = p0 + pp, ci = k0 + kk;
+        float v = 0.f;
+        if (p < SS && ci < Cc) {
+          const int yy = p / S + dy, xx = p % S + dx;
+          if (yy >= 0 && yy < S && xx >= 0 && xx < S)
+            v = load_f32(xk, (size_t)(yy * S + xx) * Cc + ci);
+        }
+        As[kk][pp] = v;
+      }
+#pragma unroll
+      for (int i = 0; i < TK * TC / CONV_THREADS; ++i) {
+        const int e = t + i * CONV_THREADS;
+        const int cc = e % TC, kk = e / TC;
+        const int co = c0 + cc, ci = k0 + kk;
+        Bs[kk][cc] = (co < Cc && ci < Cc)
+                         ? load_f32(w, ((size_t)tap * Cc + ci) * Cc + co)
+                         : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < TK; ++kk) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+  float* out = pre + ((size_t)tower * K + k) * SS * Cc;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = p0 + ty * 4 + i;
+    if (p >= SS) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int co = c0 + tx + 16 * j;
+      if (co < Cc)
+        out[(size_t)p * Cc + co] = acc[i][j] + load_f32(bias, co);
+    }
+  }
+}
+
+// one 3x3 head of NOUT channels at (py, px) over the normalised tower,
+// one warp: lanes stride the input channels, a shuffle adds them
+template <typename T, int NOUT>
+__device__ void head_tiled(const float* __restrict__ map, const float* stat,
+                           const T* __restrict__ scale,
+                           const T* __restrict__ shift,
+                           const T* __restrict__ w, float (&out)[NOUT],
+                           int py, int px, int S, int Cc) {
+  const int lane = threadIdx.x % 32;
+  const int cpg = Cc / G;
+#pragma unroll
+  for (int o = 0; o < NOUT; ++o) out[o] = 0.f;
+  for (int c = lane; c < Cc; c += 32) {
+    const int g = c / cpg;
+    const float mean = stat[g], rstd = stat[G + g];
+    const float sc = load_f32(scale, c), sh = load_f32(shift, c);
+    for (int dy = 0; dy < 3; ++dy) {
+      const int yy = py + dy - 1;
+      if (yy < 0 || yy >= S) continue;
+      for (int dx = 0; dx < 3; ++dx) {
+        const int xx = px + dx - 1;
+        if (xx < 0 || xx >= S) continue;
+        const float v = map[(size_t)(yy * S + xx) * Cc + c];
+        const float tv =
+            round_to<T>(fmaxf((v - mean) * rstd * sc + sh, 0.f));
+        const size_t row = ((size_t)(dy * 3 + dx) * Cc + c) * NOUT;
+#pragma unroll
+        for (int o = 0; o < NOUT; ++o) out[o] += tv * load_f32(w, row + o);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < NOUT; ++o)
+    for (int off = 16; off > 0; off /= 2)
+      out[o] += __shfl_xor_sync(0xffffffff, out[o], off);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(HEAD_THREADS)
+    heads_tiled(const float* __restrict__ pre,
+                const uint8_t* __restrict__ valid, TiledParams<T> P,
+                float* __restrict__ cls, float* __restrict__ ctr,
+                float* __restrict__ reg, int K, int S, int Cc) {
+  const int k = blockIdx.x, tower = blockIdx.y;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int SS = S * S;
+  float* cls_k = cls + (size_t)k * SS * 2;
+  float* ctr_k = ctr + (size_t)k * SS;
+  float* reg_k = reg + (size_t)k * SS * 4;
+  if (!valid[k]) {
+    for (int e = t; e < SS * 4; e += HEAD_THREADS) {
+      if (tower == 1) {
+        reg_k[e] = 0.f;
+      } else {
+        if (e < SS * 2) cls_k[e] = 0.f;
+        if (e < SS) ctr_k[e] = 0.f;
+      }
+    }
+    return;
+  }
+  __shared__ float stat[2 * G];
+  const float* map = pre + ((size_t)tower * K + k) * SS * Cc;
+  const int cpg = Cc / G;
+  for (int g = warp; g < G; g += HEAD_THREADS / 32) {
+    float s = 0.f, q = 0.f;
+    for (int j = lane; j < SS * cpg; j += 32) {
+      const float v = map[(size_t)(j / cpg) * Cc + g * cpg + j % cpg];
+      s += v;
+      q += v * v;
+    }
+    for (int off = 16; off > 0; off /= 2) {
+      s += __shfl_xor_sync(0xffffffff, s, off);
+      q += __shfl_xor_sync(0xffffffff, q, off);
+    }
+    if (lane == 0) {
+      const float cnt = (float)(SS * cpg);
+      const float mean = s / cnt;
+      stat[g] = mean;
+      stat[G + g] = 1.f / sqrtf(q / cnt - mean * mean + 1e-5f);
+    }
+  }
+  __syncthreads();
+  for (int p = warp; p < SS; p += HEAD_THREADS / 32) {
+    const int py = p / S, px = p % S;
+    if (tower == 0) {
+      float c2[2], c1[1];
+      head_tiled<T, 2>(map, stat, P.scale[0], P.shift[0], P.wcls, c2, py, px,
+                       S, Cc);
+      head_tiled<T, 1>(map, stat, P.scale[0], P.shift[0], P.wctr, c1, py, px,
+                       S, Cc);
+      if (lane == 0) {
+        cls_k[p * 2] = c2[0] + load_f32(P.bcls, 0);
+        cls_k[p * 2 + 1] = c2[1] + load_f32(P.bcls, 1);
+        ctr_k[p] = c1[0] + load_f32(P.bctr, 0);
+      }
+    } else {
+      float r4[4];
+      head_tiled<T, 4>(map, stat, P.scale[1], P.shift[1], P.wreg, r4, py, px,
+                       S, Cc);
+      if (lane == 0)
+        for (int o = 0; o < 4; ++o)
+          reg_k[p * 4 + o] = fmaxf(r4[o] + load_f32(P.breg, o), 0.f);
+    }
+  }
+}
+
+template <typename T>
+static int predictor_tiled(const void* x, const uint8_t* valid,
+                           const void* const* p, float* pre, float* cls,
+                           float* ctr, float* reg, int K, int S, int Cc,
+                           void* stream) {
+  TiledParams<T> P;
+  for (int i = 0; i < 2; ++i) {
+    P.w[i] = (const T*)p[4 * i];
+    P.b[i] = (const T*)p[4 * i + 1];
+    P.scale[i] = (const T*)p[4 * i + 2];
+    P.shift[i] = (const T*)p[4 * i + 3];
+  }
+  P.wcls = (const T*)p[8];
+  P.bcls = (const T*)p[9];
+  P.wctr = (const T*)p[10];
+  P.bctr = (const T*)p[11];
+  P.wreg = (const T*)p[12];
+  P.breg = (const T*)p[13];
+  const dim3 grid((S * S + TP - 1) / TP, (Cc + TC - 1) / TC, 2 * K);
+  tower_conv_tiled<T><<<grid, CONV_THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)x, valid, P, pre, K, S, Cc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  heads_tiled<T><<<dim3(K, 2), HEAD_THREADS, 0, (cudaStream_t)stream>>>(
+      pre, valid, P, cls, ctr, reg, K, S, Cc);
+  return (int)cudaGetLastError();
+}
+
+// params: the 14 tensors in the order of ops/predictor.py _NAMES; dtype
+// 0 = float32, 1 = bfloat16; pre: f32 scratch [2, K, S*S, C]
+SIAMMOT_API int siammot_emm_predictor_tiled(
+    const void* x, const uint8_t* valid, const void* const* params,
+    float* pre, float* cls, float* ctr, float* reg, int K, int S, int Cc,
+    int dtype, void* stream) {
+  if (K == 0) return 0;
+  if (Cc % G || S < 1 || 2 * K > 65535) return (int)cudaErrorInvalidValue;
+  return dtype == 0
+             ? predictor_tiled<float>(x, valid, params, pre, cls, ctr, reg, K,
+                                      S, Cc, stream)
+             : predictor_tiled<__nv_bfloat16>(x, valid, params, pre, cls, ctr,
+                                              reg, K, S, Cc, stream);
 }

@@ -8,11 +8,13 @@ divisions, the Hann blend, then the first-occurrence argmax and the cls
 probability there.  Dead slots return (0, 0).
 
 On the H100 the decode is bound by operations, and few of them (4.2 M
-multiply-adds per slot on 4 KB of input): the point is that the
-[256, 256] maps never leave the chip.  The CUDA kernel
-(``cuda/decode.cu``) runs one block per slot, one thread per column,
-with a block-wide (value, index) reduction that breaks ties toward the
-lower flat index.
+multiply-adds per slot on 4 KB of input at the main path's s_hi 256):
+the point is that the [s_hi, s_hi] maps never leave the chip.  The CUDA
+kernel (``cuda/decode.cu``) runs one block per slot over any s <= 32 and
+s_hi <= 512 (the JAX whole-map range, ragged sizes such as the AOT
+recipe's 464 included), two columns per thread at most, with a
+block-wide (value, index) reduction that breaks ties toward the lower
+flat index.
 """
 
 from __future__ import annotations
@@ -45,9 +47,9 @@ def emm_decode(x4: torch.Tensor, wh: torch.Tensor, u: torch.Tensor,
     if four != 4 or u.shape != (s_hi, s) or window.shape != (s_hi, s_hi) \
             or wh.shape != (k, 2) or valid.shape != (k,):
         raise ValueError("decode: inconsistent shapes")
-    if s_hi % 32 or s_hi > 256 or s > 32:
-        raise ValueError(f"decode kernel takes s <= 32 and s_hi a multiple "
-                         f"of 32 up to 256, got {s}, {s_hi}")
+    if s > 32 or s_hi > 512:
+        raise ValueError(f"decode kernel takes s <= 32 and s_hi <= 512 (the "
+                         f"whole-map form), got {s}, {s_hi}")
     for t in (x4, wh, u, window):
         if t.dtype != torch.float32:
             raise TypeError("decode: x4, wh, u and window must be f32")

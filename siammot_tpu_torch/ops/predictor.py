@@ -7,11 +7,16 @@ shifted matmuls, f32 accumulation) + bias + GroupNorm(32) with
 then cls(2) + centerness(1) on the cls tower and ReLU(reg(4)) on the reg
 tower.  Dead slots write zeros (PARITY.md #11).
 
-On the H100 the towers are bound by operations (2 x 37.7 M
-multiply-adds per slot on 64 KB of input).  The CUDA kernel
-(``cuda/predictor.cu``) keeps one slot entirely in shared memory and runs
-the tower convs on the tensor cores with WMMA bf16 fragments; it takes
-the main path's shapes (16x16 response, 128 channels, bf16).
+On the H100 the towers are bound by operations (2 x 9 S^2 C^2
+multiply-adds per live slot; 2 x 37.7 M at the main path's 16x16x128).
+Two CUDA forms (``cuda/predictor.cu``): for the main path's shape
+(16x16 response, 128 channels, bf16) one block keeps a slot entirely in
+shared memory and runs the tower convs on the tensor cores with WMMA
+bf16 fragments; every other shape and dtype the JAX kernel takes (any
+S, C a multiple of the 32 groups, f32 or bf16: the f32 frame, the AOT
+recipe's 29x29 responses) runs a tiled form of two launches, an FFMA
+implicit-GEMM tower conv into an f32 scratch and a normalise-on-load
+head pass.  Both are one launch of this wrapper.
 """
 
 from __future__ import annotations
@@ -29,13 +34,16 @@ _NAMES = ("cls_tower_conv.kernel", "cls_tower_conv.bias",
           "reg.kernel", "reg.bias")
 _ARGS = (cuda.P, cuda.P) + (cuda.P,) * len(_NAMES) + (cuda.P,) * 3 \
     + (cuda.I, cuda.P)
+_TILED_ARGS = (cuda.P, cuda.P, cuda.P) + (cuda.P,) * 4 + (cuda.I,) * 4 \
+    + (cuda.P,)
 GROUPS = 32
 EPS = 1e-5
 
 
 def emm_predictor(x: torch.Tensor, valid: torch.Tensor,
                   params: dict) -> torch.Tensor:
-    """Masked fused predictor over [K, S, S, C] responses.
+    """Masked fused predictor over [K, S, S, C] responses (f32 or bf16,
+    C a multiple of 32).
 
     ``params`` maps the names in ``_NAMES`` to tensors: conv kernels HWIO
     [3, 3, Cin, Cout], everything in the response's dtype.  Returns
@@ -45,9 +53,11 @@ def emm_predictor(x: torch.Tensor, valid: torch.Tensor,
     if x.device.type == "cpu":
         return emm_predictor_plain(x, valid, params)
     k, s, s2, c = x.shape
-    if (s, s2, c) != (16, 16, 128) or x.dtype != torch.bfloat16:
-        raise ValueError(f"predictor kernel takes [K, 16, 16, 128] bf16, "
-                         f"got {tuple(x.shape)} {x.dtype}")
+    if s != s2 or c % GROUPS or x.dtype not in (torch.float32,
+                                                torch.bfloat16):
+        raise ValueError(f"predictor kernel takes [K, S, S, C] f32 or bf16 "
+                         f"with C % {GROUPS} == 0, got {tuple(x.shape)} "
+                         f"{x.dtype}")
     if valid.dtype != torch.bool or valid.shape != (k,):
         raise ValueError("predictor: valid must be [K] bool")
     ps = [params[n] for n in _NAMES]
@@ -56,19 +66,29 @@ def emm_predictor(x: torch.Tensor, valid: torch.Tensor,
             raise ValueError("predictor: inputs must be contiguous, on one "
                              "device")
     for t in ps:
-        if t.dtype != torch.bfloat16:
-            raise TypeError("predictor: parameters must be bf16")
-        if t.data_ptr() % 32:
-            raise ValueError("predictor: WMMA loads need 32-byte aligned "
-                             "weights")
+        if t.dtype != x.dtype:
+            raise ValueError(f"predictor: parameters must be {x.dtype} like "
+                             f"the response, got {t.dtype}")
     cls = torch.empty((k, s, s, 2), dtype=torch.float32, device=x.device)
     ctr = torch.empty((k, s, s, 1), dtype=torch.float32, device=x.device)
     reg = torch.empty((k, s, s, 4), dtype=torch.float32, device=x.device)
-    fn = cuda.function("siammot_emm_predictor", _ARGS)
-    cuda.check("emm_predictor", fn(
-        cuda.ptr(x), cuda.ptr(valid), *[cuda.ptr(t) for t in ps],
-        cuda.ptr(cls), cuda.ptr(ctr), cuda.ptr(reg), k,
-        cuda.stream(x.device)))
+    if (s, c) == (16, 128) and x.dtype == torch.bfloat16:
+        if any(t.data_ptr() % 32 for t in ps):
+            raise ValueError("predictor: WMMA loads need 32-byte aligned "
+                             "weights")
+        fn = cuda.function("siammot_emm_predictor", _ARGS)
+        err = fn(cuda.ptr(x), cuda.ptr(valid), *[cuda.ptr(t) for t in ps],
+                 cuda.ptr(cls), cuda.ptr(ctr), cuda.ptr(reg), k,
+                 cuda.stream(x.device))
+    else:
+        pre = torch.empty((2, k, s * s, c), dtype=torch.float32,
+                          device=x.device)
+        ptrs = (cuda.P * len(ps))(*[t.data_ptr() for t in ps])
+        fn = cuda.function("siammot_emm_predictor_tiled", _TILED_ARGS)
+        err = fn(cuda.ptr(x), cuda.ptr(valid), ptrs, cuda.ptr(pre),
+                 cuda.ptr(cls), cuda.ptr(ctr), cuda.ptr(reg), k, s, c,
+                 int(x.dtype == torch.bfloat16), cuda.stream(x.device))
+    cuda.check("emm_predictor", err)
     emm_predictor.launches += 1
     return cls, ctr, reg
 

@@ -1,0 +1,186 @@
+"""The default configuration's end-to-end check: the port's frame step
+against rows the JAX step wrote for the same frames.
+
+``tests/torch_port_golden.py`` (which needs JAX) runs the JAX
+``SiamMOT.forward_inference`` on the CPU with the repo's trained
+DLA-34-FPN-EMM weights (``fixtures/bench_weights_f16.npz``), float32
+compute and pooler dtype, over the first ``N_FRAMES`` frames of the
+crowded synthetic scene at a reduced frame size, and stores every frame's
+output rows and track-state lanes in ``tests/fixtures/
+torch_golden_dla34.npz``.  :func:`run` drives the port over the same
+frames (on the CPU or the card, in f32 or bf16) and :func:`compare`
+measures it against the fixture.  The track templates ([K, 15, 15, 128]
+per frame) are kept as per-slot sums, sums of squares and sums of
+magnitudes, to hold the fixture under 1 MB.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_golden_dla34.npz")
+WEIGHTS = os.path.join(REPO, "fixtures", "bench_weights_f16.npz")
+N_FRAMES = 4
+H, W = 320, 576           # content = padded size (multiples of 32)
+SEED = 42
+ROW_FIELDS = ("boxes", "scores", "ids", "labels", "valid")
+STATE_EXACT = ("ids", "labels", "active", "last_active", "next_id",
+               "frame_idx")
+# f32 on both sides, sums in other orders (XLA on the CPU against oneDNN
+# or cuDNN, 33 convs deep): boxes to 1e-2 px, scores to 1e-4, template
+# sums to 1e-4 of the slot's sum of magnitudes (sums of squares and of
+# magnitudes relative to themselves); ids, labels, masks and the integer
+# lanes exactly
+BOX_ATOL = 1e-2
+SCORE_ATOL = 1e-4
+TEMPLATE_RTOL = 1e-4
+
+
+def frames():
+    """The ``N_FRAMES`` uint8 frames [1, H, W, 3] of the crowded scene."""
+    from .synth import render_scene
+    return render_scene(N_FRAMES, H, SEED, H, W)[0]
+
+
+def overrides(dtype: str = "float32") -> list:
+    return ["TPU.COMPUTE_DTYPE", dtype, "TPU.POOLER_DTYPE", dtype]
+
+
+def template_summary(template: np.ndarray) -> np.ndarray:
+    """[K, T, T, C] -> [K, 3]: per-slot sum, sum of squares and sum of
+    magnitudes (f64)."""
+    t = np.asarray(template, np.float64).reshape(template.shape[0], -1)
+    return np.stack([t.sum(1), (t * t).sum(1), np.abs(t).sum(1)], 1)
+
+
+def pack(outputs, states) -> dict:
+    """Per-frame rows and track-state lanes as flat npz arrays."""
+    out = {}
+    for i, (o, s) in enumerate(zip(outputs, states)):
+        for f in ROW_FIELDS:
+            out[f"f{i}/rows/{f}"] = np.asarray(o[f])
+        for f in STATE_EXACT + ("boxes", "sr"):
+            out[f"f{i}/state/{f}"] = np.asarray(s[f])
+        out[f"f{i}/state/template"] = template_summary(s["template"])
+    return out
+
+
+def run(device: str = "cpu", dtype: str = "float32") -> dict:
+    """The port over the golden frames: :func:`pack` of its rows and
+    states."""
+    import torch
+
+    from ..configs.defaults import get_cfg
+    from ..models.siammot import SiamMOT
+    from .weights import jax_to_torch, load_npz
+
+    cfg = get_cfg()
+    cfg.merge_from_list(overrides(dtype))
+    model = SiamMOT(cfg, device=device)
+    net = model.cast_params(jax_to_torch(load_npz(WEIGHTS)))
+    state = model.empty_state()
+    outs, states = [], []
+    for f in frames():
+        out, state = model.forward_inference(net, torch.as_tensor(f),
+                                             state, (W, H))
+        outs.append(out.numpy())
+        states.append(state.numpy())
+    return pack(outs, states)
+
+
+def compare(got: dict, want: dict) -> dict:
+    """Gaps of ``got`` against ``want`` over every frame: row-mask and id
+    mismatches, the largest box and score errors on rows valid in both,
+    the same for the state lanes, and whether all lie within the
+    tolerances above."""
+    r = dict(valid_mismatch=0, id_mismatch=0, label_mismatch=0,
+             box_err=0.0, score_err=0.0, state_mismatch=0,
+             state_box_err=0.0, template_rel_err=0.0)
+    for i in range(N_FRAMES):
+        g = {f: got[f"f{i}/rows/{f}"] for f in ROW_FIELDS}
+        w = {f: want[f"f{i}/rows/{f}"] for f in ROW_FIELDS}
+        r["valid_mismatch"] += int((g["valid"] != w["valid"]).sum())
+        both = g["valid"] & w["valid"]
+        r["id_mismatch"] += int((g["ids"][both] != w["ids"][both]).sum())
+        r["label_mismatch"] += int(
+            (g["labels"][both] != w["labels"][both]).sum())
+        if both.any():
+            r["box_err"] = max(r["box_err"], float(np.abs(
+                g["boxes"][both] - w["boxes"][both]).max()))
+            r["score_err"] = max(r["score_err"], float(np.abs(
+                g["scores"][both] - w["scores"][both]).max()))
+        for f in STATE_EXACT:
+            r["state_mismatch"] += int(np.sum(
+                got[f"f{i}/state/{f}"] != want[f"f{i}/state/{f}"]))
+        for f in ("boxes", "sr"):
+            r["state_box_err"] = max(r["state_box_err"], float(np.abs(
+                got[f"f{i}/state/{f}"] - want[f"f{i}/state/{f}"]).max()))
+        # the sum's error against the sum of magnitudes (a sum can cancel
+        # to near zero), the other two against themselves
+        tg, tw = got[f"f{i}/state/template"], want[f"f{i}/state/template"]
+        den = np.maximum(tw[:, [2, 1, 2]], 1e-6)
+        r["template_rel_err"] = max(r["template_rel_err"], float(
+            (np.abs(tg - tw) / den).max()))
+    r["live_rows"] = int(sum(want[f"f{i}/rows/valid"].sum()
+                             for i in range(N_FRAMES)))
+    r["live_slots"] = int((want[f"f{N_FRAMES - 1}/state/ids"] >= 0).sum())
+    r["ok"] = (r["valid_mismatch"] == 0 and r["id_mismatch"] == 0
+               and r["label_mismatch"] == 0 and r["state_mismatch"] == 0
+               and r["box_err"] <= BOX_ATOL and r["score_err"] <= SCORE_ATOL
+               and r["state_box_err"] <= 2 * BOX_ATOL
+               and r["template_rel_err"] <= TEMPLATE_RTOL)
+    return r
+
+
+def _iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Pairwise IoU [len(a), len(b)] of x1y1x2y2 boxes."""
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.clip(rb - lt, 0, None), -1)
+    area = lambda x: np.prod(np.clip(x[:, 2:] - x[:, :2], 0, None), -1)
+    return inter / np.maximum(area(a)[:, None] + area(b)[None] - inter,
+                              1e-9)
+
+
+def matched_gap(got: dict, want: dict) -> dict:
+    """A gap that survives rows moving (the bf16 frame against the f32
+    fixture): each valid fixture row is matched to the valid row of
+    ``got`` with the largest IoU.  Counts the fixture rows with no match
+    of IoU >= 0.5 and, over matched pairs, the ids that differ (track
+    rows, id >= 0 on either side) and the largest box and score errors."""
+    r = dict(rows=0, unmatched=0, extra=0, ids_differ=0, box_err=0.0,
+             score_err=0.0)
+    for i in range(N_FRAMES):
+        g = {f: got[f"f{i}/rows/{f}"] for f in ROW_FIELDS}
+        w = {f: want[f"f{i}/rows/{f}"] for f in ROW_FIELDS}
+        gv, wv = g["valid"].nonzero()[0], w["valid"].nonzero()[0]
+        r["rows"] += len(wv)
+        r["extra"] += max(len(gv) - len(wv), 0)
+        if len(wv) == 0:
+            continue
+        if len(gv) == 0:
+            r["unmatched"] += len(wv)
+            continue
+        iou = _iou(w["boxes"][wv], g["boxes"][gv])
+        best = iou.argmax(1)
+        ok = iou[np.arange(len(wv)), best] >= 0.5
+        r["unmatched"] += int((~ok).sum())
+        wi, gi = wv[ok], gv[best[ok]]
+        if len(wi):
+            r["box_err"] = max(r["box_err"], float(np.abs(
+                g["boxes"][gi] - w["boxes"][wi]).max()))
+            r["score_err"] = max(r["score_err"], float(np.abs(
+                g["scores"][gi] - w["scores"][wi]).max()))
+            tracked = (g["ids"][gi] >= 0) | (w["ids"][wi] >= 0)
+            r["ids_differ"] += int((g["ids"][gi] != w["ids"][wi])[
+                tracked].sum())
+    return r
+
+
+def load() -> dict:
+    with np.load(FIXTURE) as z:
+        return {k: z[k] for k in z.files}

@@ -7,11 +7,14 @@ and without JAX, run them with
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (``--noconftest``: the suite's conftest imports JAX).  Shapes are the
-main path's where a kernel takes only those (predictor), small
-elsewhere.  Tolerances as in ``chip_smoke.py``: pool/xcorr f32 sums in
-another order (1e-4 + 1e-3|x|; the pool backward adds with atomics, in an
-order that changes from run to run), predictor logits 3e-2 (bf16 tower
-rounding), decode idx exact and scores 1e-5.
+main path's and the other shapes the JAX kernels take (predictor f32
+and 29x29, decode s_hi 464 and 512), small elsewhere.  Tolerances as in
+``chip_smoke.py``: pool/xcorr f32 sums in another order (1e-4 +
+1e-3|x|; the pool backward adds with atomics, in an order that changes
+from run to run), predictor logits 3e-2 in bf16 (tower rounding) and 1e-4
+in f32, decode idx exact and scores 1e-5, deformable conv 2e-5 of the
+output's scale in f32 and one bf16 step plus 2^-9 of the scale in bf16
+(the same samples, f32 sums in another order).
 """
 
 import numpy as np
@@ -21,6 +24,8 @@ import torch
 from siammot_tpu_torch.core.boxes import map_rois_to_levels
 from siammot_tpu_torch.models.emm import _decode_constants
 from siammot_tpu_torch.ops.decode import emm_decode, emm_decode_plain
+from siammot_tpu_torch.ops.deform_conv import (deform_conv2d,
+                                               deform_conv2d_plain)
 from siammot_tpu_torch.ops.predictor import (_NAMES, emm_predictor,
                                              emm_predictor_plain)
 from siammot_tpu_torch.ops.roi_align_windowed import (pack_levels,
@@ -104,6 +109,81 @@ def test_predictor_kernel(dev):
         torch.testing.assert_close(got, want, atol=3e-2, rtol=0)
     with pytest.raises(ValueError):
         emm_predictor(x.float(), valid, params)
+
+
+def _predictor_params(g, c, dtype, dev):
+    params = {}
+    for name in _NAMES:
+        head = name.split(".")[0]
+        cout = {"cls": 2, "center": 1, "reg": 4}.get(head, c)
+        shape = (3, 3, c, cout) if name.endswith("kernel") else (cout,)
+        t = torch.randn(*shape, generator=g) * (0.03 if len(shape) > 1
+                                                 else 0.1)
+        if name.endswith("scale"):
+            t = t + 1
+        params[name] = t.to(dev, dtype).contiguous()
+    return params
+
+
+@pytest.mark.parametrize("s,c,dtype,tol", [
+    (16, 128, torch.float32, 1e-4), (29, 128, torch.bfloat16, 3e-2),
+    (29, 128, torch.float32, 1e-4), (13, 64, torch.bfloat16, 3e-2)])
+def test_predictor_kernel_tiled_shapes(dev, s, c, dtype, tol):
+    """The tiled form: the f32 frame's shape, the AOT recipe's 29x29
+    response, and a narrower map."""
+    g = torch.Generator().manual_seed(11)
+    params = _predictor_params(g, c, dtype, dev)
+    x = torch.randn(7, s, s, c, generator=g).to(dev, dtype)
+    valid = _valid(7, 12).to(dev)
+    for got, want in zip(emm_predictor(x, valid, params),
+                         emm_predictor_plain(x, valid, params)):
+        assert (got[~valid] == 0).all()
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("s,up", [(29, 16), (32, 16), (13, 16), (16, 8)])
+def test_decode_kernel_other_sizes(dev, s, up):
+    """s_hi 464 (the AOT recipe), 512 (the whole-map limit), 208 and 128:
+    ragged sizes and the chunked row factor."""
+    g = torch.Generator().manual_seed(13)
+    k = 9
+    u, window = _decode_constants(s, up, str(dev))
+    x4 = torch.stack([2 * torch.randn(k, s, s, generator=g),
+                      torch.randn(k, s, s, generator=g),
+                      60 + 20 * torch.randn(k, s, s, generator=g),
+                      120 + 40 * torch.randn(k, s, s, generator=g)], 1)
+    wh = torch.stack([40 + 110 * torch.rand(k, generator=g),
+                      80 + 220 * torch.rand(k, generator=g)], -1)
+    valid = _valid(k, 14)
+    args = (x4.to(dev).contiguous(), wh.to(dev), u, window, valid.to(dev),
+            0.4, True)
+    gi, gs = emm_decode(*args)
+    wi, ws = emm_decode_plain(*args)
+    torch.testing.assert_close(gi, wi, atol=0, rtol=0)
+    torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,c,co,stride,scale", [
+    (23, 40, 64, 64, 1, 0.3), (23, 300, 32, 48, 1, 2.0),
+    (46, 80, 64, 64, 2, 0.8), (9, 13, 40, 8, 2, 3.0)])
+def test_deform_kernel(dev, dtype, h, w, c, co, stride, scale):
+    """Kernel 9 against its plain version: both routes, both strides,
+    partial channel tiles, coordinates past 256."""
+    g = torch.Generator().manual_seed(15)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.randn(2, h, w, c, generator=g).to(dev, dtype)
+    off = (scale * torch.randn(2, ho, wo, 18, generator=g)).to(dev, dtype)
+    k = (torch.randn(3, 3, c, co, generator=g) / (9 * c) ** 0.5).to(dev,
+                                                                    dtype)
+    got = deform_conv2d(x, off, k, stride).float()
+    want = deform_conv2d_plain(x, off, k, stride).float()
+    scale_ = float(want.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5 * scale_, rtol=0)
+    else:
+        torch.testing.assert_close(got, want, atol=2 ** -9 * scale_,
+                                   rtol=2 ** -7)
 
 
 def test_decode_kernel(dev):

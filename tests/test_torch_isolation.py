@@ -2,7 +2,8 @@
 ``tests`` and ``tools`` unimportable (as on the machine with the card,
 which has none of the first three), every module of ``siammot_tpu_torch``
 and ``chip_smoke`` imports, two frames of ``track_frames`` run on the
-CPU, and so does the training slice's code: a synthetic 720p training
+CPU (and one frame of a DLA-46-C-FPN body with deformable stages), and
+so does the training slice's code: a synthetic 720p training
 batch (``utils/synth.train_batches``), the samplers (``core/matcher``,
 ``models/emm_sampler``), the optimizer (``engine/solver``) and two
 iterations of ``engine/trainer.do_train``.  Also: no CUDA source includes
@@ -72,6 +73,26 @@ SCRIPT = textwrap.dedent("""
     assert all(o["valid"].any() for o in result.outputs)
     assert not any(blocked(m) for m in sys.modules), sorted(
         m for m in sys.modules if blocked(m))
+
+    # a deformable body: DLA-46-C-FPN with DCN stages (kernel 9's plain
+    # version on the CPU), one frame
+    dcfg = cfg.clone()
+    dcfg.merge_from_list([
+        "MODEL.BACKBONE.CONV_BODY", "DLA-46-C-FPN",
+        "MODEL.DLA.DLA_STAGE2_OUT_CHANNELS", 64,
+        "MODEL.DLA.DLA_STAGE3_OUT_CHANNELS", 64,
+        "MODEL.DLA.DLA_STAGE4_OUT_CHANNELS", 128,
+        "MODEL.DLA.DLA_STAGE5_OUT_CHANNELS", 256,
+        "MODEL.DLA.STAGE_WITH_DCN", (False, False, False, True, True, True)])
+    dmodel = SiamMOT(dcfg, device="cpu")
+    dparams = {k: torch.from_numpy(
+                   (rng.randn(*v.shape) * 0.05
+                    + (1.0 if k.endswith("scale") else 0.0)).astype(
+                        np.float32))
+               for k, v in dmodel.build_net().state_dict().items()}
+    assert sum(k.endswith("conv2.offset.weight") for k in dparams) == 10
+    dres = track_frames(dmodel, dparams, frames[:1], (128, 96))
+    assert np.isfinite(dres.outputs[0]["boxes"]).all()
 
     # the training slice: a 720p batch of two clip pairs, then two steps
     from siammot_tpu_torch.core.structures import Boxes
