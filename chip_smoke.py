@@ -55,6 +55,30 @@ Phases, each printed as it finishes:
      every kernel against its plain version on the last frame's inputs
      (all 26 deformable layers).
 
+  2e. kernels 10, 5 and 8: the unmasked decode at [128, 4, 16, 16] over
+     every slot; the striped decode at s_hi 976 (stripe 16) and 736
+     (stripe 32), gated with 37 live slots and ungated, and with stripe 64
+     forced at s_hi 256 bitwise against kernels 4 and 10; the slot-blocked
+     predictor at [128, 16, 16, 128] bf16 and f32, B = 8, 37 live slots at
+     the front (one mixed block, eleven without a live slot); and kernels
+     1-3 at SEARCH_REGION 5's shapes (the SR pool at 75x75, the masked
+     xcorr 75 -> 61, the predictor's tiled form at 61x61 bf16);
+  3c. three cuts of the configuration against the JAX step
+     (``tests/fixtures/torch_golden_toggles.npz``): given public
+     detections with the MOT17 recipe's overrides, ``TPU.
+     MASKED_TRACK_KERNELS`` False and ``SEARCH_REGION`` 5, each f32 on the
+     card within ``utils/golden.py``'s tolerances, then each bf16 gap;
+  6. the paths that select the new kernels, end to end on the bench
+     weights in bf16, 4 warm-up + 12 timed frames each, every kernel
+     checked on the last frame: (6a) the MOT17 public-detection recipe
+     read by the port's YAML reader, 1920x1080 sized to 1422x800 content
+     (padded 1440x800) with the scene's public detections and
+     ``SIAMMOT_PREDICTOR_BLOCK=8`` for the run (kernel 8); (6b)
+     ``TPU.MASKED_TRACK_KERNELS`` False at 720p (kernel 6's forward,
+     kernel 10); (6c) ``SEARCH_REGION`` 5 at 720p (a 75x75 search region,
+     kernel 2 at 75 -> 61, kernel 3's tiled form at 61x61, kernel 5 at
+     s_hi 976).
+
 Each end-to-end phase sets every kernel's launch count to 0 just before
 it drives its path and reads the counts just after.
 
@@ -183,32 +207,16 @@ def check_predictor(args, what):
 
 
 def check_decode(args, what):
-    from siammot_tpu_torch.ops.decode import (emm_decode, emm_decode_plain,
-                                              penalized_confidence)
-    x4, wh, u, window, valid, sigma, use_c = args
-    ki, ks = emm_decode(*args)
-    pi, ps = emm_decode_plain(*args)
-    torch.cuda.synchronize()
-    if (ki[~valid] != 0).any() or (ks[~valid] != 0).any():
-        raise AssertionError(f"{what}: dead slots are not (0, 0)")
-    p_conf, _ = penalized_confidence(x4, wh, u, window, sigma, use_c)
-    flat = p_conf.reshape(p_conf.shape[0], -1)
-    diff = ki != pi
-    if diff.any():
-        rows = diff.nonzero()[:, 0]
-        gap = (flat[rows, ki[rows].long()] - flat[rows, pi[rows].long()]).abs()
-        if (gap > DECODE_TIE).any():
-            raise AssertionError(f"{what}: argmax differs beyond a tie "
-                                 f"({float(gap.max()):.3g})")
-    same = ~diff
-    err = (ks[same] - ps[same]).abs()
-    if (err > DECODE_SCORE_ATOL).any() or not torch.isfinite(ks).all():
-        raise AssertionError(f"{what}: score off by {float(err.max()):.3g}")
-    log(f"    {what}: {int(diff.sum())} tie-swapped argmax of "
-        f"{int(valid.sum())} live")
-    rel = (err / ps[same].abs().clamp(min=1e-6)).max() if same.any() \
+    """Kernel 4 against its plain version (:func:`compare_decode`);
+    returns (max abs score err, max rel score err)."""
+    from siammot_tpu_torch.ops.decode import emm_decode, emm_decode_plain
+    got, want = emm_decode(*args), emm_decode_plain(*args)
+    err = compare_decode(got, want, args, what)
+    same = got[0] == want[0]
+    rel = ((got[1] - want[1]).abs()[same]
+           / want[1][same].abs().clamp(min=1e-6)).max() if same.any() \
         else torch.zeros(())
-    return float(err.max()) if same.any() else 0.0, float(rel)
+    return err, float(rel)
 
 
 # -- seeded inputs at the main path's shapes ---------------------------------
@@ -338,7 +346,18 @@ KERNELS = {
         replaces="siammot_tpu/ops/pallas/window_pool.py:200"),
     "deform_conv": dict(source="siammot_tpu_torch/ops/cuda/deform.cu",
                         replaces="siammot_tpu/ops/pallas/deform.py:102"),
+    "emm_decode_striped": dict(source="siammot_tpu_torch/ops/cuda/decode.cu",
+                               replaces="siammot_tpu/ops/pallas/decode.py:78"),
+    "emm_predictor_blocked": dict(
+        source="siammot_tpu_torch/ops/cuda/predictor.cu",
+        replaces="siammot_tpu/ops/pallas/predictor.py:239"),
+    "emm_decode_unmasked": dict(
+        source="siammot_tpu_torch/ops/cuda/decode.cu",
+        replaces="siammot_tpu/ops/pallas/decode.py:236"),
 }
+# launches a frame of each inference path (kernels not listed: none)
+MAIN_PATH = {"window_pool": 3, "xcorr_masked": 1, "emm_predictor": 1,
+             "emm_decode": 1}
 
 
 def kernel_phase(dev, report):
@@ -459,61 +478,74 @@ def kernel_phase(dev, report):
                                 bound_ms=bms, bound_by=by, max_abs_err=err)
 
 
-def drive_frames(model, params, stream, image_size, with_dcn=False):
+def _wrappers():
+    """Every inference kernel's wrapper, by report name."""
+    from siammot_tpu_torch.ops.decode import (emm_decode, emm_decode_striped,
+                                              emm_decode_unmasked)
+    from siammot_tpu_torch.ops.deform_conv import deform_conv2d
+    from siammot_tpu_torch.ops.predictor import (emm_predictor,
+                                                 emm_predictor_blocked)
+    from siammot_tpu_torch.ops.window_pool import window_pool
+    from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
+                                             xcorr_depthwise_masked)
+    return {"window_pool": window_pool,
+            "xcorr_masked": xcorr_depthwise_masked, "xcorr": xcorr_depthwise,
+            "emm_predictor": emm_predictor,
+            "emm_predictor_blocked": emm_predictor_blocked,
+            "emm_decode": emm_decode,
+            "emm_decode_unmasked": emm_decode_unmasked,
+            "emm_decode_striped": emm_decode_striped,
+            "deform_conv": deform_conv2d}
+
+
+def drive_frames(model, params, stream, image_size, per_frame, **track_kw):
     """``track_frames`` over ``stream`` with every kernel's count set to
-    0 just before and read just after; keeps the inputs each kernel got
-    at the last frame (by reference: no copies inside the timed loop)."""
+    0 just before and read just after; each must equal ``per_frame`` of
+    it times the frames (0 if not listed).  Keeps the inputs each stage
+    got at the last frame (by reference: no copies inside the timed
+    loop): the pools, the xcorr (masked or unmasked), the predictor
+    (per-slot or blocked), the decode's dispatch and the deformable
+    convs."""
     import siammot_tpu_torch.models.dla as dla_mod
     import siammot_tpu_torch.models.emm as emm_mod
     import siammot_tpu_torch.ops.roi_align_windowed as rw_mod
     from siammot_tpu_torch.engine.inferencer import track_frames
-    from siammot_tpu_torch.ops.decode import emm_decode
-    from siammot_tpu_torch.ops.deform_conv import deform_conv2d
-    from siammot_tpu_torch.ops.predictor import emm_predictor
-    from siammot_tpu_torch.ops.window_pool import window_pool
-    from siammot_tpu_torch.ops.xcorr import xcorr_depthwise_masked
 
-    captured = {"window_pool": [], "xcorr_masked": [], "emm_predictor": [],
-                "emm_decode": [], "deform_conv": []}
+    captured = {}
 
     def capture(name, fn, keep):
         def wrapped(*args):
-            captured[name] = (captured[name] + [args])[-keep:]
+            captured[name] = (captured.get(name, []) + [args])[-keep:]
             return fn(*args)
         return wrapped
 
-    patches = [(rw_mod, "window_pool", capture("window_pool", window_pool,
-                                              3)),
-               (emm_mod, "xcorr_depthwise_masked",
-                capture("xcorr_masked", xcorr_depthwise_masked, 1)),
-               (emm_mod, "emm_predictor",
-                capture("emm_predictor", emm_predictor, 1)),
-               (emm_mod, "emm_decode", capture("emm_decode", emm_decode, 1)),
-               (dla_mod, "deform_conv2d",
-                capture("deform_conv", deform_conv2d, 26))]
-    originals = [(m, n, getattr(m, n)) for m, n, _ in patches]
-    for m, n, f in patches:
-        setattr(m, n, f)
-    counters = {"window_pool": window_pool,
-                "xcorr_masked": xcorr_depthwise_masked,
-                "emm_predictor": emm_predictor, "emm_decode": emm_decode,
-                "deform_conv": deform_conv2d}
+    # each patched name is a module's import of a wrapper defined
+    # elsewhere, so the wrapper's own count is untouched
+    patches = [(rw_mod, "window_pool", "window_pool", 3),
+               (emm_mod, "xcorr_depthwise_masked", "xcorr_masked", 1),
+               (emm_mod, "xcorr_depthwise_auto", "xcorr", 1),
+               (emm_mod, "emm_predictor", "emm_predictor", 1),
+               (emm_mod, "emm_predictor_blocked", "emm_predictor_blocked", 1),
+               (emm_mod, "decode_argmax", "decode", 1),
+               (dla_mod, "deform_conv2d", "deform_conv", 26)]
+    originals = [(m, n, getattr(m, n)) for m, n, _, _ in patches]
+    for m, n, name, keep in patches:
+        setattr(m, n, capture(name, getattr(m, n), keep))
+    counters = _wrappers()
     try:
         for fn in counters.values():
             fn.launches = 0
-        result = track_frames(model, params, stream, image_size)
+        result = track_frames(model, params, stream, image_size, **track_kw)
         launches = {n: fn.launches for n, fn in counters.items()}
     finally:
         for m, n, f in originals:
             setattr(m, n, f)
     n = len(stream)
-    want = {"window_pool": 3 * n, "xcorr_masked": n, "emm_predictor": n,
-            "emm_decode": n, "deform_conv": 26 * n if with_dcn else 0}
     for name, count in launches.items():
-        if count != want[name]:
+        if count != per_frame.get(name, 0) * n:
             raise AssertionError(f"{name}: {count} launches over {n} frames, "
-                                 f"expected {want[name]}")
-    return result, launches, captured
+                                 f"expected {per_frame.get(name, 0) * n}")
+    return result, {k: v for k, v in launches.items() if v}, captured
 
 
 def check_last_frame(result, k_slots):
@@ -535,18 +567,115 @@ def check_last_frame(result, k_slots):
     return occupied, int(state.active.sum())
 
 
+def check_decode_any(args, what):
+    """The decode kernel the dispatch chose for ``args`` (those of
+    ``decode_argmax``) against its plain version: returns (report name,
+    max abs score err)."""
+    from siammot_tpu_torch.ops.decode import (STRIPED_MAX, WHOLE_MAP_MAX,
+                                              emm_decode, emm_decode_plain,
+                                              emm_decode_striped,
+                                              emm_decode_striped_plain,
+                                              emm_decode_unmasked,
+                                              pick_stripe)
+    x4, wh, u, window, valid, sigma, use_c = args[:7]
+    s_hi = u.shape[0]
+    if s_hi > WHOLE_MAP_MAX:
+        assert s_hi <= STRIPED_MAX
+        st = pick_stripe(s_hi)
+        name = "emm_decode_striped"
+        kernel = lambda: emm_decode_striped(*args[:7], st)  # noqa: E731
+        plain = lambda: emm_decode_striped_plain(*args[:7], st)  # noqa
+    elif valid is None:
+        name = "emm_decode_unmasked"
+        kernel = lambda: emm_decode_unmasked(x4, wh, u, window, sigma,  # noqa
+                                             use_c)
+        plain = lambda: emm_decode_plain(*args[:7])  # noqa: E731
+    else:
+        name = "emm_decode"
+        kernel = lambda: emm_decode(*args[:7])  # noqa: E731
+        plain = lambda: emm_decode_plain(*args[:7])  # noqa: E731
+    err = compare_decode(kernel(), plain(), args[:7], what)
+    return name, err
+
+
+def compare_decode(got, want, args, what):
+    """Decode agreement: idx exact unless the two cells' p_conf lie within
+    DECODE_TIE (the upsample's sums in another order), score to
+    DECODE_SCORE_ATOL; gated dead slots (0, 0).  Returns the max abs score
+    error."""
+    from siammot_tpu_torch.ops.decode import penalized_confidence
+    (ki, ks), (pi, ps) = got, want
+    x4, wh, u, window, valid, sigma, use_c = args
+    torch.cuda.synchronize()
+    if valid is not None and ((ki[~valid] != 0).any()
+                              or (ks[~valid] != 0).any()):
+        raise AssertionError(f"{what}: dead slots are not (0, 0)")
+    diff = ki != pi
+    if diff.any():
+        rows = diff.nonzero()[:, 0]
+        p_conf, _ = penalized_confidence(x4[rows], wh[rows], u, window,
+                                         sigma, use_c)
+        flat = p_conf.reshape(len(rows), -1)
+        r = torch.arange(len(rows), device=flat.device)
+        gap = (flat[r, ki[rows].long()] - flat[r, pi[rows].long()]).abs()
+        if (gap > DECODE_TIE).any():
+            raise AssertionError(f"{what}: argmax differs beyond a tie "
+                                 f"({float(gap.max()):.3g})")
+    same = ~diff
+    err = (ks[same] - ps[same]).abs()
+    if (err > DECODE_SCORE_ATOL).any() or not torch.isfinite(ks).all():
+        raise AssertionError(f"{what}: score off by {float(err.max()):.3g}")
+    n = int(valid.sum()) if valid is not None else len(ki)
+    log(f"    {what}: {int(diff.sum())} tie-swapped argmax of {n} decoded")
+    return float(err.max()) if same.any() else 0.0
+
+
+def check_blocked(args, what):
+    """Kernel 8 against its plain version; returns the max abs err."""
+    from siammot_tpu_torch.ops.predictor import (emm_predictor_blocked,
+                                                 emm_predictor_blocked_plain)
+    ks = emm_predictor_blocked(*args)
+    ps = emm_predictor_blocked_plain(*args)
+    torch.cuda.synchronize()
+    tol = PRED_ATOL if args[0].dtype == torch.bfloat16 else PRED_F32_ATOL
+    errs = []
+    for name, k, p in zip(("cls", "ctr", "reg"), ks, ps):
+        dead_zero(k, args[1], f"{what} {name}")
+        errs.append(close(k, p, tol, 0.0, f"{what} {name}")[0])
+    return max(errs)
+
+
 def check_captured(captured, report, what):
-    """Each kernel against its plain version on the last frame's inputs."""
+    """Each kernel against its plain version on the last frame's inputs
+    (the stages the path ran)."""
+    from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
+                                             xcorr_depthwise_plain)
+
+    def note(name, err):
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"] or 0.0,
+                                          err)
+
     for site, args in zip(("sr_pool", "box_pool", "template_pool"),
                           captured["window_pool"]):
-        err, _ = check_pool(args, f"{what} {site}")
-        report["window_pool"]["max_abs_err"] = max(
-            report["window_pool"]["max_abs_err"], err)
-    for name, check in (("xcorr_masked", check_xcorr),
-                        ("emm_predictor", check_predictor),
-                        ("emm_decode", check_decode)):
-        err, _ = check(captured[name][0], f"{what} {name}")
-        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+        note("window_pool", check_pool(args, f"{what} {site}")[0])
+    if "xcorr_masked" in captured:
+        note("xcorr_masked",
+             check_xcorr(captured["xcorr_masked"][0], f"{what} xcorr")[0])
+    if "xcorr" in captured:
+        s_, t_ = captured["xcorr"][0]
+        k_, p_ = xcorr_depthwise(s_, t_), xcorr_depthwise_plain(s_, t_)
+        torch.cuda.synchronize()
+        note("xcorr", close(k_, p_, POOL_ATOL, POOL_RTOL,
+                            f"{what} unmasked xcorr")[0])
+    if "emm_predictor" in captured:
+        note("emm_predictor", check_predictor(captured["emm_predictor"][0],
+                                              f"{what} emm_predictor")[0])
+    if "emm_predictor_blocked" in captured:
+        note("emm_predictor_blocked",
+             check_blocked(captured["emm_predictor_blocked"][0],
+                           f"{what} emm_predictor_blocked"))
+    name, err = check_decode_any(captured["decode"][0], f"{what} decode")
+    note(name, err)
 
 
 def end_to_end_phase(dev, report):
@@ -562,10 +691,11 @@ def end_to_end_phase(dev, report):
         f"{time.perf_counter() - t0:.1f} s")
     model = SiamMOT(get_cfg(), device=str(dev))
     stream = [frames[i % len(frames)] for i in range(WARMUP + TIMED)]
-    result, launches, captured = drive_frames(model, params, stream, (W, H))
-    for name in ("window_pool", "xcorr_masked", "emm_predictor",
-                 "emm_decode"):
+    result, launches, captured = drive_frames(model, params, stream, (W, H),
+                                              MAIN_PATH)
+    for name in MAIN_PATH:
         report[name]["launches"] = launches[name]
+        report[name]["launches_by_path"] = {"inference": launches[name]}
     sec = np.array(result.frame_seconds[WARMUP:])
     occupied, active = check_last_frame(result, K)
     log(f"  {len(stream)} frames: {1e3 * sec.mean():.3f} ms/frame over the "
@@ -1157,11 +1287,10 @@ def dcn_phase(dev, report, card):
         f"parameters from a seed, offsets calibrated; ready in "
         f"{time.perf_counter() - t0:.1f} s")
     stream = [frames[i % len(frames)] for i in range(DCN_WARMUP + DCN_TIMED)]
-    result, launches, captured = drive_frames(model, params, stream, (W, H),
-                                              with_dcn=True)
+    result, launches, captured = drive_frames(
+        model, params, stream, (W, H), MAIN_PATH | {"deform_conv": 26})
     report["deform_conv"]["launches"] = launches["deform_conv"]
-    for name in ("window_pool", "xcorr_masked", "emm_predictor",
-                 "emm_decode"):
+    for name in MAIN_PATH:
         report[name].setdefault("launches_by_path", {})["dcn_inference"] = \
             launches[name]
         report[name]["launches"] += launches[name]
@@ -1191,6 +1320,345 @@ def dcn_phase(dev, report, card):
     return 1e3 * float(sec.mean()), occupied, routes
 
 
+# -- the fourth slice: kernels 10, 5 and 8, the given and toggled paths ----
+
+def decode_inputs(g, dev, s_, k=K):
+    """Seeded decode inputs at response side ``s_`` (x4, wh, u, window)."""
+    from siammot_tpu_torch.models.emm import _decode_constants
+    u, window = _decode_constants(s_, 16, str(dev))
+    x4 = torch.stack([2 * torch.randn(k, s_, s_, generator=g),
+                      torch.randn(k, s_, s_, generator=g),
+                      60 + 20 * torch.randn(k, s_, s_, generator=g),
+                      120 + 40 * torch.randn(k, s_, s_, generator=g)],
+                     1).to(dev).contiguous()
+    wh = torch.stack([40 + 110 * torch.rand(k, generator=g),
+                      80 + 220 * torch.rand(k, generator=g)], -1).to(dev)
+    return x4, wh, u, window
+
+
+def decode_bound(x4, u, window, n_decoded):
+    """Operations (f32 FFMA) of the decoded slots' upsample and cell
+    math; bytes: their inputs, the constants, the outputs."""
+    k, _, s_, _ = x4.shape
+    sh = u.shape[0]
+    flops = n_decoded * (4 * sh * s_ * s_ * 2 + 4 * sh * sh * s_ * 2
+                         + sh * sh * 30.0)
+    nbytes = (n_decoded * 4 * s_ * s_ * 4 + u.numel() * 4
+              + window.numel() * 4 + k * 17)
+    return bound(nbytes, flops, F32_FLOPS)
+
+
+def variants_kernel_phase(dev, report):
+    """Kernels 10, 5 and 8 against their plain versions: kernel 10 at
+    [128, 4, 16, 16] over every slot; kernel 5 at s_hi 976 (s 61, stripe
+    16) and 736 (s 46, stripe 32), gated with 37 live slots and ungated,
+    and with stripe 64 forced at s_hi 256, bitwise against kernels 4 and
+    10; kernel 8 at [128, 16, 16, 128] bf16 and f32, B = 8, the 37 live
+    slots compacted to the front (as the step's top-k leaves them), so
+    blocks 0-3 are live, block 4 mixed and the rest without a live slot."""
+    from siammot_tpu_torch.ops.decode import (emm_decode, emm_decode_plain,
+                                              emm_decode_striped,
+                                              emm_decode_striped_plain,
+                                              emm_decode_unmasked)
+    from siammot_tpu_torch.ops.predictor import (emm_predictor_blocked,
+                                                 emm_predictor_blocked_plain)
+    g = torch.Generator().manual_seed(7)
+    for name in ("emm_decode_unmasked", "emm_decode_striped",
+                 "emm_predictor_blocked"):
+        report[name].update(library_ms=None, max_abs_err=0.0, shapes={})
+
+    # kernel 10
+    args = decode_inputs(g, dev, 16)
+    row = report["emm_decode_unmasked"]
+    got = emm_decode_unmasked(*args, 0.4, True)
+    err = compare_decode(got, emm_decode_plain(*args, None, 0.4, True),
+                         (*args, None, 0.4, True), "emm_decode_unmasked")
+    ms = timed_ms(lambda: emm_decode_unmasked(*args, 0.4, True))
+    pms = timed_ms(lambda: emm_decode_plain(*args, None, 0.4, True),
+                   iters=5)
+    bms, by = decode_bound(args[0], args[2], args[3], K)
+    row.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+               max_abs_err=err)
+    log(f"  emm_decode_unmasked [{K}, 4, 16, 16], all {K} slots: kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max "
+        f"abs score err {err:.3g}")
+
+    # kernel 5: the striped form past s_hi 512, gated and ungated
+    row = report["emm_decode_striped"]
+    for s_, stripe in ((61, 16), (46, 32)):
+        args = decode_inputs(g, dev, s_)
+        for gated in (True, False):
+            valid = live_mask(K, LIVE, g, dev) if gated else None
+            a7 = (*args, valid, 0.4, True)
+            got = emm_decode_striped(*a7, stripe)
+            err = compare_decode(got, emm_decode_striped_plain(*a7, stripe),
+                                 a7, f"emm_decode_striped s_hi={16 * s_}")
+            ms = timed_ms(lambda: emm_decode_striped(*a7, stripe), iters=5)
+            pms = timed_ms(lambda: emm_decode_striped_plain(*a7, stripe),
+                           iters=2, warmup=1)
+            n = LIVE if gated else K
+            bms, by = decode_bound(args[0], args[2], args[3], n)
+            key = (f"s={s_} s_hi={16 * s_} stripe={stripe} "
+                   f"{'gated' if gated else 'ungated'}")
+            row["shapes"][key] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                      bound_by=by, max_abs_err=err)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            log(f"  emm_decode_striped {key}, {n} decoded: kernel {ms:.4f} "
+                f"ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max "
+                f"abs score err {err:.3g}")
+    main_key = "s=61 s_hi=976 stripe=16 gated"
+    row.update({k: row["shapes"][main_key][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    # forced stripe at s_hi 256: bitwise the whole-map kernels' answers
+    args = decode_inputs(g, dev, 16)
+    valid = live_mask(K, LIVE, g, dev)
+    for v, whole in ((valid, lambda: emm_decode(*args, valid, 0.4, True)),
+                     (None, lambda: emm_decode_unmasked(*args, 0.4, True))):
+        si, ss = emm_decode_striped(*args, v, 0.4, True, 64)
+        wi, ws = whole()
+        torch.cuda.synchronize()
+        if not (torch.equal(si, wi) and torch.equal(ss, ws)):
+            raise AssertionError("striped decode (stripe 64) differs from "
+                                 "the whole-map kernel")
+    log("  emm_decode_striped, stripe 64 forced at s_hi 256: (idx, score) "
+        "bitwise equal to emm_decode (gated) and emm_decode_unmasked")
+
+    # kernel 8
+    row = report["emm_predictor_blocked"]
+    valid = torch.zeros(K, dtype=torch.bool, device=dev)
+    valid[:LIVE] = True
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(K, 16, 16, C, generator=g).to(dev, dtype)
+        params = predictor_params(g, dev, dtype)
+        args = (x, valid, params, 8)
+        err = check_blocked(args, f"emm_predictor_blocked {dtype}")
+        ms = timed_ms(lambda: emm_predictor_blocked(*args))
+        pms = timed_ms(lambda: emm_predictor_blocked_plain(*args), iters=3)
+        isz = x.element_size()
+        flops = LIVE * (2 * 256 * C * C * 9 + 256 * 7 * C * 9) * 2.0
+        nbytes = (LIVE * 256 * C * isz
+                  + sum(p_.numel() * isz for p_ in params.values())
+                  + K * 256 * 7 * 4 + K)
+        bms, by = bound(nbytes, flops, BF16_TC_FLOPS
+                        if dtype == torch.bfloat16 else F32_FLOPS)
+        key = f"16x16x{C} {str(dtype).split('.')[-1]} B=8"
+        row["shapes"][key] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                  bound_by=by, max_abs_err=err)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        log(f"  emm_predictor_blocked [{K}, {key}], {LIVE} live (blocks "
+            f"0-3 live, 4 mixed, 5-15 dead): kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+            f"{err:.3g} (tol {PRED_ATOL if isz == 2 else PRED_F32_ATOL})")
+    row.update({k: row["shapes"][f"16x16x{C} bfloat16 B=8"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+
+    # kernels 1-3 at the shapes SEARCH_REGION 5 gives them
+    wide_sr_kernel_checks(dev, report, g)
+
+
+def wide_sr_kernel_checks(dev, report, g):
+    """Kernels 1, 2 and 3 at SEARCH_REGION 5's shapes (phase 6c): the SR
+    pool at 75x75 (window 128, spans past it clamped as in the JAX
+    package), the masked xcorr 75x75 x 15x15 -> 61x61 (its banded form)
+    and the predictor's tiled form at [K, 61, 61, 128] bf16, 37 of 128
+    slots live."""
+    import torch.nn.functional as F
+
+    from siammot_tpu_torch.core.boxes import map_rois_to_levels
+    from siammot_tpu_torch.models.emm import EMMConfig, make_search_region
+    from siammot_tpu_torch.ops.predictor import (emm_predictor,
+                                                 emm_predictor_plain)
+    from siammot_tpu_torch.ops.roi_align_windowed import (pack_levels,
+                                                          window_geometry)
+    from siammot_tpu_torch.ops.window_pool import (window_pool,
+                                                   window_pool_plain)
+    from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise_masked,
+                                             xcorr_depthwise_plain)
+    feats = [torch.randn(1, h, w, C, generator=g).to(dev) for h, w in FPN_HW]
+    pack = pack_levels(feats, SCALES, dtype=torch.bfloat16)
+    ecfg = EMMConfig(15, SCALES, 2, 5.0, 0, 512, True, 0.4, False)
+    tb = track_boxes(K, g)
+    block = map_rois_to_levels(tb, 2, 5).to(dev)
+    scales = torch.tensor(SCALES, device=dev)[block.long()]
+    geo = window_geometry(pack.heights, pack.widths, pack.row_offsets,
+                          make_search_region(tb, ecfg).to(dev), block,
+                          scales, 75, 2, 128, 512, 4)
+    args = (pack.table, *geo, live_mask(K, LIVE, g, dev))
+    err, _ = check_pool(args, "sr_pool 75x75")
+    ms = timed_ms(lambda: window_pool(*args))
+    pms = timed_ms(lambda: window_pool_plain(*args), iters=3, warmup=1)
+    bms, by = pool_bound(*args)
+    report["window_pool"].setdefault("shapes", {})[
+        "sr_pool 75x75 window 128 (SEARCH_REGION 5)"] = dict(
+            ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, max_abs_err=err)
+    log(f"  window_pool sr_pool 75x75 (SEARCH_REGION 5), {LIVE} live: "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"max abs err {err:.3g}")
+
+    valid = live_mask(K, LIVE, g, dev)
+    search = torch.randn(K, 75, 75, C, generator=g).to(dev, torch.bfloat16)
+    tmpl = (0.1 * torch.randn(K, 15, 15, C, generator=g)).to(
+        dev, torch.bfloat16)
+    args = (search, tmpl, valid)
+    err, _ = check_xcorr(args, "xcorr_masked 75->61")
+    ms = timed_ms(lambda: xcorr_depthwise_masked(*args))
+    pms = timed_ms(lambda: xcorr_depthwise_plain(*args), iters=3, warmup=1)
+    s_nchw = search.permute(0, 3, 1, 2).reshape(1, K * C, 75, 75)
+    t_nchw = tmpl.permute(0, 3, 1, 2).reshape(K * C, 1, 15, 15)
+    lms = timed_ms(lambda: F.conv2d(s_nchw, t_nchw, groups=K * C))
+    nbytes = LIVE * (75 * 75 + 15 * 15) * C * 2 + K * 61 * 61 * C * 4 + K
+    bms, by = bound(nbytes, LIVE * 61 * 61 * 15 * 15 * C * 2.0, F32_FLOPS)
+    report["xcorr_masked"].setdefault("shapes", {})[
+        "75x75 x 15x15 -> 61x61 bf16 (SEARCH_REGION 5)"] = dict(
+            ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by,
+            max_abs_err=err)
+    log(f"  xcorr_masked 75x75 -> 61x61 (banded form), {LIVE} live: kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, conv2d(groups) {lms:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}), max abs err {err:.3g}")
+    del search, tmpl, s_nchw, t_nchw
+
+    valid = live_mask(K, LIVE, g, dev)
+    x = torch.randn(K, 61, 61, C, generator=g).to(dev, torch.bfloat16)
+    params = predictor_params(g, dev)
+    args = (x, valid, params)
+    err, _ = check_predictor(args, "emm_predictor 61x61")
+    ms = timed_ms(lambda: emm_predictor(*args), iters=5)
+    pms = timed_ms(lambda: emm_predictor_plain(*args), iters=2, warmup=1)
+    flops = LIVE * (2 * 61 * 61 * C * C * 9 + 61 * 61 * 7 * C * 9) * 2.0
+    nbytes = (LIVE * 61 * 61 * C * 2 + sum(p_.numel() * 2 for p_ in
+                                          params.values())
+              + K * 61 * 61 * 7 * 4 + K)
+    bms, by = bound(nbytes, flops, BF16_TC_FLOPS)
+    report["emm_predictor"].setdefault("shapes", {})[
+        f"61x61x{C} bfloat16 (SEARCH_REGION 5)"] = dict(
+            ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, max_abs_err=err)
+    log(f"  emm_predictor tiled [{K}, 61, 61, {C}] bf16, {LIVE} live: kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max "
+        f"abs err {err:.3g} (tol {PRED_ATOL})")
+
+
+def golden_toggles_phase(dev):
+    """The three cuts of ``tests/fixtures/torch_golden_toggles.npz`` (given
+    detections, unmasked EMM route, SEARCH_REGION 5) on the card in f32:
+    each must match the JAX rows; the bf16 gap of each is printed."""
+    from siammot_tpu_torch.utils import golden
+    want = golden.load(golden.TOGGLES_FIXTURE)
+    out = {}
+    for name in golden.CUTS:
+        w = golden.cut(want, name)
+        r = golden.compare(golden.run(str(dev), "float32", name), w)
+        log(f"  cut {name}: f32 on the card against the JAX rows "
+            f"({r['live_rows']} valid rows, {r['live_slots']} live slots): "
+            f"{r}")
+        if not r["ok"]:
+            raise AssertionError(f"cut {name}: f32 frame differs from the "
+                                 f"JAX step: {r}")
+        gap = golden.matched_gap(golden.run(str(dev), "bfloat16", name), w)
+        log(f"  cut {name}: bf16 gap {gap['ids_differ']} ids differ, "
+            f"{gap['unmatched']} of {gap['rows']} rows unmatched, max box "
+            f"err {gap['box_err']:.4g} px, max score err "
+            f"{gap['score_err']:.4g}")
+        out[name] = (r, gap)
+    return out
+
+
+MOT17_RECIPE = os.path.join(REPO, "configs", "dla",
+                            "DLA_34_FPN_EMM_MOT17.yaml")
+TOGGLE_WARMUP, TOGGLE_TIMED = 4, 12
+
+
+def toggle_run(dev, report, card, what, cfg, per_frame, frames, image_size,
+               **track_kw):
+    """One phase-6 run: bench weights, bf16, ``TOGGLE_WARMUP`` +
+    ``TOGGLE_TIMED`` frames through ``drive_frames``; launches recorded
+    by path, the kernels checked on the last frame.  Returns ms/frame."""
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
+    model = SiamMOT(cfg, device=str(dev))
+    params = jax_to_torch(load_npz(FIXTURE))
+    n = TOGGLE_WARMUP + TOGGLE_TIMED
+    stream = [frames[i % len(frames)] for i in range(n)]
+    kw = {k: (v * n)[:n] if isinstance(v, list) else v
+          for k, v in track_kw.items()}
+    result, launches, captured = drive_frames(model, params, stream,
+                                              image_size, per_frame, **kw)
+    for name, count in launches.items():
+        report[name].setdefault("launches_by_path", {})[what] = count
+        report[name]["launches"] = report[name].get("launches", 0) + count
+    sec = np.array(result.frame_seconds[TOGGLE_WARMUP:])
+    occupied, active = check_last_frame(result, K)
+    h, w = frames[0].shape[1:3]
+    log(f"  {what}: {n} frames at {w}x{h} (content {image_size[0]}x"
+        f"{image_size[1]}): {1e3 * sec.mean():.3f} ms/frame over the last "
+        f"{TOGGLE_TIMED} (median {1e3 * np.median(sec):.3f}; {card}); live "
+        f"slots {occupied} of {K} ({active} active); launches {launches}")
+    check_captured(captured, report, what)
+    log(f"  {what}: kernels agree with their plain versions on the last "
+        f"frame's inputs")
+    return 1e3 * float(sec.mean()), occupied
+
+
+def toggles_phase(dev, report, card):
+    """Phase 6: the paths that select kernels 8, 6 (forward), 10 and 5 on
+    the repo's trained DLA-34-FPN-EMM weights in bf16 at full width."""
+    from siammot_tpu_torch.configs.defaults import get_cfg, resize_dims
+    from siammot_tpu_torch.utils.synth import public_detections, render_scene
+    out = {}
+
+    # 6a: the MOT17 public-detection recipe, read by the port's reader,
+    # with SIAMMOT_PREDICTOR_BLOCK=8 for the run (kernel 8)
+    cfg = get_cfg()
+    cfg.merge_from_file(MOT17_RECIPE)
+    if not cfg.INFERENCE.USE_GIVEN_DETECTIONS:
+        raise AssertionError("the MOT17 recipe did not set given mode")
+    w0, h0 = 1920, 1080
+    cw, ch = resize_dims(w0, h0, cfg.INPUT.MIN_SIZE_TEST,
+                         cfg.INPUT.MAX_SIZE_TEST)
+    div = cfg.DATALOADER.SIZE_DIVISIBILITY
+    pw, ph = -(-cw // div) * div, -(-ch // div) * div
+    t0 = time.perf_counter()
+    frames, boxes, _ = render_scene(16, ph, 42, ch, cw)
+    frames = [np.pad(f, ((0, 0), (0, 0), (0, pw - cw), (0, 0)))
+              for f in frames]
+    dets = public_detections(boxes, (cw, ch), seed=42,
+                             scale_xy=(w0 / cw, h0 / ch))
+    log(f"  6a: MOT17 recipe {os.path.relpath(MOT17_RECIPE, REPO)}: "
+        f"{w0}x{h0} -> {cw}x{ch} content, {pw}x{ph} padded; 16 frames and "
+        f"{sum(map(len, dets))} public detections ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    old = os.environ.get("SIAMMOT_PREDICTOR_BLOCK")
+    os.environ["SIAMMOT_PREDICTOR_BLOCK"] = "8"
+    try:
+        out["6a"] = toggle_run(
+            dev, report, card, "mot17_given", cfg,
+            MAIN_PATH | {"emm_predictor": 0, "emm_predictor_blocked": 1},
+            frames, (cw, ch), given=dets, original_size=(w0, h0))
+    finally:
+        if old is None:
+            del os.environ["SIAMMOT_PREDICTOR_BLOCK"]
+        else:
+            os.environ["SIAMMOT_PREDICTOR_BLOCK"] = old
+    del frames
+
+    frames = render_scene(16, HP)[0]
+    # 6b: TPU.MASKED_TRACK_KERNELS False (kernel 6's forward, kernel 10)
+    cfg = get_cfg()
+    cfg.merge_from_list(["TPU.MASKED_TRACK_KERNELS", False])
+    out["6b"] = toggle_run(
+        dev, report, card, "unmasked", cfg,
+        {"window_pool": 3, "xcorr": 1, "emm_predictor": 1,
+         "emm_decode_unmasked": 1}, frames,
+        (W, H))
+    # 6c: SEARCH_REGION 5 (75x75 SR pool, 61x61 response, kernel 5)
+    cfg = get_cfg()
+    cfg.merge_from_list(["MODEL.TRACK_HEAD.SEARCH_REGION", 5.0])
+    out["6c"] = toggle_run(
+        dev, report, card, "wide_sr", cfg,
+        MAIN_PATH | {"emm_decode": 0, "emm_decode_striped": 1}, frames,
+        (W, H))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1209,7 +1677,8 @@ def main():
     log(f"[1] built and loaded the CUDA kernels in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    report = {n: dict(name=n, route="cuda", **meta)
+    report = {n: dict(name=n, route="cuda", launches=0, max_abs_err=0.0,
+                      **meta)
               for n, meta in KERNELS.items()}
     t0 = time.perf_counter()
     log("[2] kernels against their plain versions, main-path shapes:")
@@ -1227,6 +1696,12 @@ def main():
     log(f"[2d] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    log("[2e] kernels 10 (unmasked decode), 5 (striped decode) and 8 "
+        "(slot-blocked predictor):")
+    variants_kernel_phase(dev, report)
+    log(f"[2e] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     log("[2b] training kernels against their plain versions, training "
         "shapes:")
     train_kernel_phase(dev, report)
@@ -1236,14 +1711,18 @@ def main():
     log("[3] end to end: DLA-34-FPN-EMM, bench weights, 720p crowd:")
     ms_frame, occupied = end_to_end_phase(dev, report)
     log(f"[3] done in {time.perf_counter() - t0:.1f} s")
-    report["window_pool"]["launches_by_path"] = {
-        "inference": report["window_pool"]["launches"]}
 
     t0 = time.perf_counter()
     log("[3b] DLA-34 against the JAX step's rows (f32 on the card; bf16 "
         "gap):")
     golden_phase(dev)
     log(f"[3b] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[3c] the given, unmasked and SEARCH_REGION 5 cuts against the JAX "
+        "step's rows (f32 on the card; bf16 gap):")
+    golden_toggles_phase(dev)
+    log(f"[3c] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     log("[4] training end to end: DLA-34-FPN-EMM, f32 masters, bf16 "
@@ -1257,6 +1736,12 @@ def main():
     ms_dcn, occ_dcn, routes = dcn_phase(dev, report, card)
     log(f"[5] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[6] end to end, bench weights, bf16: the paths of kernels 8, 6, "
+        f"10 and 5 ({card}):")
+    toggles = toggles_phase(dev, report, card)
+    log(f"[6] done in {time.perf_counter() - t0:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("sites", "training_sites", "passes", "launches_by_path",
@@ -1268,6 +1753,9 @@ def main():
         f"{ms_step:.3f} ms/step (median {med_step:.3f}), peak "
         f"{peak / 2 ** 30:.3f} GiB; DLA-102-DCN {ms_dcn:.3f} ms/frame, "
         f"{occ_dcn} live slots, last frame's routes {''.join(routes)}; "
+        f"MOT17 given {toggles['6a'][0]:.3f} ms/frame ({toggles['6a'][1]} "
+        f"live), unmasked {toggles['6b'][0]:.3f} ({toggles['6b'][1]}), "
+        f"SEARCH_REGION 5 {toggles['6c'][0]:.3f} ({toggles['6c'][1]}); "
         f"card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

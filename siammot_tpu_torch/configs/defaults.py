@@ -81,10 +81,20 @@ _C.MODEL.TRACK_HEAD.EMM.TRACK_LOSS_WEIGHT = 1.0
 _C.MODEL.TRACK_HEAD.EMM.CLS_POS_REGION = 0.8
 
 _C.INPUT = CN()
+# test-time resize: short side to MIN_SIZE_TEST unless the long side
+# would pass MAX_SIZE_TEST (resize_dims)
+_C.INPUT.MIN_SIZE_TEST = 800
+_C.INPUT.MAX_SIZE_TEST = 1333
 _C.INPUT.PIXEL_MEAN = (0.485, 0.456, 0.406)
 _C.INPUT.PIXEL_STD = (0.229, 0.224, 0.225)
 _C.INPUT.TO_BGR255 = False
 _C.INPUT.AMODAL = False
+
+_C.INFERENCE = CN()
+# MOT17 public-detection mode: the given detections replace the RPN's
+# proposals (engine/inferencer.py:track_frames needs them then)
+_C.INFERENCE.USE_GIVEN_DETECTIONS = False
+_C.INFERENCE.CLIP_LEN = 1
 
 _C.DATALOADER = CN()
 _C.DATALOADER.SIZE_DIVISIBILITY = 32
@@ -122,8 +132,10 @@ _C.TPU.WINDOW_TEMPLATE = 64
 _C.TPU.WINDOW_SR = 128
 # space-to-depth DLA stem (the only stem the port runs)
 _C.TPU.S2D_STEM = True
-# kernel toggles of the JAX package; the port implements their default
-# (all on) and rejects a config that turns one off
+# kernel toggles of the JAX package; the port rejects USE_PALLAS,
+# POOLER_WINDOWED, DECODE_PALLAS and S2D_STEM False (the JAX package's
+# XLA forms), runs MASKED_TRACK_KERNELS False (the unmasked EMM route)
+# and TRAIN_POOLER_WINDOWED False outside training
 _C.TPU.USE_PALLAS = True
 _C.TPU.POOLER_WINDOWED = True
 _C.TPU.DECODE_PALLAS = True
@@ -137,6 +149,21 @@ _C.TPU.REMAT = False
 def get_cfg() -> CN:
     """Return a fresh clone of the default config."""
     return _C.clone()
+
+
+def resize_dims(w: int, h: int, min_size: int, max_size: int):
+    """The test-time resize of a (w, h) frame (maskrcnn Resize.get_size,
+    own copy of ``siammot_tpu/data/transforms.py:resize_dims``): returns
+    (new_w, new_h)."""
+    mn, mx = min(w, h), max(w, h)
+    size = min_size
+    if mx / mn * size > max_size:
+        size = int(round(max_size * mn / mx))
+    if mn == size:
+        return w, h
+    if w < h:
+        return size, int(size * h / w)
+    return int(size * w / h), size
 
 
 # stage widths of the Bottleneck DLA bodies (DLA_STAGE2..5_OUT_CHANNELS)

@@ -3,9 +3,15 @@
 
 Inference, over K padded track slots: 15x15 template crops and 30x30
 search-region crops from the windowed pool (kernel 1), masked depthwise
-xcorr (kernel 2), the masked predictor towers (kernel 3), and the fused
-response decode (kernel 4) whose box epilogue stays in plain torch.
-Dead slots ride along as masked lanes.
+xcorr (kernel 2), the masked predictor towers (kernel 3, or kernel 8 with
+``SIAMMOT_PREDICTOR_BLOCK``), and the fused response decode (kernel 4, or
+kernel 5 past s_hi 512) whose box epilogue stays in plain torch.  Dead
+slots ride along as masked lanes.  With ``TPU.MASKED_TRACK_KERNELS``
+False (``valid`` None) the head runs the JAX package's unmasked route:
+the unmasked xcorr (kernel 6's forward), the predictor over every slot
+and the ungated decode (kernel 10, or kernel 5 ungated); dead slots then
+carry the bias-derived maps of a zero response, and every consumer masks
+them on occupancy.
 
 Training, over sampled track pairs: the differentiable pool (kernels 1
 and 7), the unmasked xcorr with its gradient kernels (kernel 6), the
@@ -19,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
 
 import numpy as np
 import torch
@@ -26,8 +33,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core import boxes as box_ops
-from ..ops.decode import emm_decode
-from ..ops.predictor import emm_predictor
+from ..ops.decode import decode_argmax
+from ..ops.predictor import emm_predictor, emm_predictor_blocked
 from ..ops.roi_align_windowed import windowed_pool
 from ..ops.upsample import bicubic_matrix
 from ..ops.xcorr import xcorr_depthwise_auto, xcorr_depthwise_masked
@@ -104,9 +111,22 @@ class _GroupNorm(nn.Module):
                 + self.bias[:, None, None])
 
 
+def predictor_block(k: int):
+    """The slot block of kernel 8, read where the JAX package reads it
+    (``siammot_tpu/models/emm.py:180``): ``SIAMMOT_PREDICTOR_BLOCK`` = B
+    with B > 1 and K % B == 0, else None (kernel 3).  JAX also checks a
+    TPU VMEM estimate there; the port drops it: kernel 8 computes kernel
+    3's function, so the choice moves no result."""
+    blk = int(os.environ.get("SIAMMOT_PREDICTOR_BLOCK", "0"))
+    return blk if blk > 1 and k % blk == 0 else None
+
+
 class EMMPredictor(nn.Module):
     """cls/reg towers + heads (reference feature_extractor.py:43-68),
-    computed by kernel 3 with the tower conv bias (PARITY.md #12)."""
+    computed by kernel 3 (or 8) with the tower conv bias (PARITY.md #12).
+    At s = 61 (``SEARCH_REGION`` 5) JAX's predictor kernel fails its 10 MB
+    VMEM gate and JAX takes the XLA form there; the port keeps kernel 3's
+    tiled form, the same function on the live slots."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -120,6 +140,9 @@ class EMMPredictor(nn.Module):
 
     def forward(self, x, valid):
         params = {n: p.detach() for n, p in self.named_parameters()}
+        blk = predictor_block(x.shape[0])
+        if blk is not None:
+            return emm_predictor_blocked(x, valid, params, blk)
         return emm_predictor(x, valid, params)
 
     def forward_train(self, x):
@@ -139,6 +162,17 @@ class EMMHead(nn.Module):
         self.predictor = EMMPredictor(c)
 
     def forward(self, sr_features, template_features, valid):
+        """Inference head; ``valid`` None is the unmasked route."""
+        if valid is None:
+            # the unmasked route: every slot through the xcorr and the
+            # predictor.  JAX runs the predictor's XLA form here; the port
+            # runs kernel 3 (or 8) over every slot, the same function: on
+            # the card cuDNN's choice of f32 convolution algorithm moved
+            # the decode's argmax against the JAX rows (PERF.md, section 6)
+            response = xcorr_depthwise_auto(sr_features, template_features)
+            every = torch.ones(response.shape[0], dtype=torch.bool,
+                               device=response.device)
+            return self.predictor(response.to(sr_features.dtype), every)
         response = xcorr_depthwise_masked(sr_features, template_features,
                                           valid)
         # the xcorr sums in f32; the predictor runs in the head dtype
@@ -205,9 +239,10 @@ def decode_response_fused(cls_logits, center_logits, reg_logits, sr_boxes,
 
     Bicubic upsampling is linear, so the 2-class softmax becomes a
     sigmoid of the logit difference and the scale penalty needs only
-    l+r and t+b: kernel 4 upsamples those 4 channels, penalises and
-    arg-maxes.  The regression vector and the image-space location are
-    then evaluated at the argmax only.  Returns (boxes [K, 4], scores [K]).
+    l+r and t+b: the decode kernel (4, 10 with ``valid`` None, 5 past
+    s_hi 512) upsamples those 4 channels, penalises and arg-maxes.  The
+    regression vector and the image-space location are then evaluated at
+    the argmax only.  Returns (boxes [K, 4], scores [K]).
     """
     k, s_lo = cls_logits.shape[:2]
     u, window = _decode_constants(s_lo, up_scale, str(cls_logits.device))
@@ -221,9 +256,9 @@ def decode_response_fused(cls_logits, center_logits, reg_logits, sr_boxes,
     wh = torch.stack([template_boxes[:, 2] - template_boxes[:, 0],
                       template_boxes[:, 3] - template_boxes[:, 1]],
                      dim=-1).contiguous()
-    idx, score = emm_decode(x4, wh, u, window, valid,
-                            float(ecfg.cosine_window_weight),
-                            bool(ecfg.use_centerness))
+    idx, score = decode_argmax(x4, wh, u, window, valid,
+                               float(ecfg.cosine_window_weight),
+                               bool(ecfg.use_centerness))
     idx = idx.long()
     iy = torch.div(idx, s_hi, rounding_mode="floor")
     ix = idx % s_hi

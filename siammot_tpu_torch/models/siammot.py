@@ -1,13 +1,14 @@
 """SiamMOT inference and training steps (port of
 ``siammot_tpu.models.siammot``).
 
-Inference: DLA-FPN backbone -> RPN -> shared box-head pass over
-proposals and propagated tracks -> EMM track head over K padded slots ->
-track solver -> next-frame TrackState, one frame per
-``forward_inference`` call.  Its four kernels (window pool, masked xcorr,
-masked predictor, decode) are CUDA kernels on the card, and so is the
-deformable conv of a DCN body (kernel 9; inference only: its backward is
-not ported).
+Inference: DLA-FPN backbone -> RPN (or given public detections) ->
+shared box-head pass over proposals and propagated tracks -> EMM track
+head over K padded slots -> track solver -> next-frame TrackState, one
+frame per ``forward_inference`` call.  Its kernels (window pool, masked
+xcorr, masked or slot-blocked predictor, decode whole-map or striped; or,
+with ``TPU.MASKED_TRACK_KERNELS`` False, the unmasked xcorr and decode)
+are CUDA kernels on the card, and so is the deformable conv of a DCN
+body (kernel 9; inference only: its backward is not ported).
 
 Training: ``forward_train`` returns the seven reference losses of a batch
 of frame pairs (RPN, box head, EMM), with the pool's backward (kernel 7)
@@ -116,11 +117,13 @@ class SiamMOT:
                                "for the plain CPU path)")
         tpu = cfg.TPU
         off = [k for k in ("USE_PALLAS", "POOLER_WINDOWED", "DECODE_PALLAS",
-                           "MASKED_TRACK_KERNELS", "S2D_STEM",
-                           "TRAIN_POOLER_WINDOWED") if not tpu[k]]
+                           "S2D_STEM") if not tpu[k]]
         if off:
-            raise ValueError(f"the port implements only the default "
-                             f"kernel path; TPU.{off} must stay True")
+            raise ValueError(f"the port implements only the Pallas kernel "
+                             f"paths; TPU.{off} must stay True")
+        # False: the unmasked EMM route (xcorr kernel 6, the predictor over
+        # every slot, decode kernel 10), siammot_tpu/models/siammot.py:355
+        self.masked_kernels = bool(tpu.MASKED_TRACK_KERNELS)
         if tpu.REMAT:
             raise ValueError("TPU.REMAT is not ported yet")
         body = cfg.MODEL.BACKBONE.CONV_BODY
@@ -184,10 +187,18 @@ class SiamMOT:
         _channels_last(net)
         return net
 
+    def _check_train(self) -> None:
+        """Training-only keys (``TPU.TRAIN_POOLER_WINDOWED`` only matters
+        to the training step, ``siammot_tpu/configs/defaults.py:228``)."""
+        if not self.cfg.TPU.TRAIN_POOLER_WINDOWED:
+            raise ValueError("TPU.TRAIN_POOLER_WINDOWED False (the exact "
+                             "gather pooler in training) is not ported")
+
     def build_master(self, params: dict) -> SiamMOTNet:
         """The network for training: f32 master parameters on the device,
         loaded from a state dict (every key must match), with gradients.
         FrozenBN statistics stay buffers, so nothing moves them."""
+        self._check_train()
         net = self.build_net().to(device=self.device, dtype=torch.float32)
         net.load_state_dict(params, strict=True)
         _channels_last(net)
@@ -213,14 +224,16 @@ class SiamMOT:
 
     @torch.no_grad()
     def forward_inference(self, net: SiamMOTNet, images: torch.Tensor,
-                          state: TrackState, image_size=None):
+                          state: TrackState, image_size=None, given=None):
         """One frame: detect + propagate + solve + update memory.
 
         images: [1, H, W, 3] uint8 (normalised here, pad re-zeroed) or
         normalised f32, zero-padded to the size-divisible shape.
         image_size: (w, h) of the content, for clipping; defaults to the
-        padded shape.  Returns (out: Boxes over all candidate rows,
-        state': TrackState).
+        padded shape.  given: optional public detections (``Boxes`` in
+        network-input coordinates, ``utils.entities.entities_to_boxes``)
+        that replace the RPN proposals (MOT17 mode).  Returns (out: Boxes
+        over all candidate rows, state': TrackState).
         """
         ecfg, hcfg = self.ecfg, self.hcfg
         dt = self.compute_dtype
@@ -238,29 +251,34 @@ class SiamMOT:
         pack = pack_levels(feats_nhwc[:len(self.box_scales)],
                            self.box_scales, dtype=self.pooler_dtype)
 
-        # ---- proposals
-        logits, deltas = net.rpn(feats)
-        pb, ps, pv = select_proposals(
-            [l.float() for l in logits], [d.float() for d in deltas],
-            self.anchors_for((h, w)), image_size, self.rcfg)
-        n_prop = pb.shape[1]
-        prop = Boxes(boxes=pb[0], scores=ps[0],
-                     ids=torch.full((n_prop,), -1, dtype=torch.int32,
-                                    device=self.device),
-                     labels=torch.zeros((n_prop,), dtype=torch.int32,
+        # ---- proposals: the RPN's, or the given detections
+        if given is None:
+            logits, deltas = net.rpn(feats)
+            pb, ps, pv = select_proposals(
+                [l.float() for l in logits], [d.float() for d in deltas],
+                self.anchors_for((h, w)), image_size, self.rcfg)
+            n_prop = pb.shape[1]
+            prop = Boxes(boxes=pb[0], scores=ps[0],
+                         ids=torch.full((n_prop,), -1, dtype=torch.int32,
                                         device=self.device),
-                     valid=pv[0])
+                         labels=torch.zeros((n_prop,), dtype=torch.int32,
+                                            device=self.device),
+                         valid=pv[0])
+        else:
+            prop = given.map(lambda t: t.to(self.device))
+            n_prop = prop.capacity
 
-        # ---- track propagation (EMM) over K padded slots; dead slots
-        # skip their work in every kernel
+        # ---- track propagation (EMM) over K padded slots; the SR pool
+        # skips dead slots, and so does every EMM kernel when masked
         occupied = state.occupied
+        occ_k = occupied if self.masked_kernels else None
         sr_feats = pool_search_region(pack, state.boxes, state.sr, ecfg,
                                       self.window_sr, occupied)
         cls_l, ctr_l, reg_l = net.emm(sr_feats.to(dt),
-                                      state.template.to(dt), occupied)
+                                      state.template.to(dt), occ_k)
         tboxes, tconf = decode_response_fused(
             cls_l, ctr_l, reg_l, state.sr, state.boxes, ecfg, UPSCALE,
-            occupied)
+            occ_k)
         tvalid = occupied
         if not ecfg.amodal:
             tboxes = box_ops.clip_to_image(tboxes, image_size)
@@ -330,6 +348,7 @@ class SiamMOT:
         gradients reach the f32 masters, as the JAX step's ``cast_params``
         inside the grad does.
         """
+        self._check_train()
         b = images.shape[0]
         if b % 2:
             raise ValueError(f"training batch must be frame pairs, got {b}")

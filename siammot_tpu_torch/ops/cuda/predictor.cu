@@ -2,7 +2,9 @@
 // siammot_tpu/ops/pallas/predictor.py:emm_predictor_pallas
 // (_predictor_kernel).  Two forms: the resident bf16 kernel below for
 // the main path's [K, 16, 16, 128] bf16 responses, and a tiled form
-// (further down) for any S, any C with C % 32 == 0, in f32 or bf16.
+// (further down) for any S, any C with C % 32 == 0, in f32 or bf16.  At
+// the end, kernel 8, the slot-blocked form of
+// emm_predictor_pallas_blocked, which shares the tiled form's head pass.
 //
 // Per live slot, over a [16, 16, 128] bf16 correlation response x:
 //   tower(x) = bf16(relu(GN32(conv3x3(x) + b)))   (cls and reg towers)
@@ -522,4 +524,173 @@ SIAMMOT_API int siammot_emm_predictor_tiled(
                                       S, Cc, stream)
              : predictor_tiled<__nv_bfloat16>(x, valid, params, pre, cls, ctr,
                                               reg, K, S, Cc, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 8, the slot-blocked form: the CUDA counterpart of
+// siammot_tpu/ops/pallas/predictor.py:emm_predictor_pallas_blocked
+// (_predictor_kernel_blocked).  It computes kernel 3's function with B
+// slots per program: a block of slots with no live slot writes zeros, and
+// the dead lanes of a live block emit zeros.
+//
+// The point of blocking on this card is weight traffic: the per-slot
+// kernels stage (or re-read from L2) every tower weight once per slot.
+// Here one block per (B-slot group, tower, 16 output channels) stages its
+// weight slice [9, C, 16] once in shared memory (73.7 KB in f32 at C =
+// 128) and runs the tower conv of every live slot of the group against it:
+// B x less weight traffic.  Its four warp groups of 256 threads take the
+// group's slots in turn, each with its own input tile and barrier, so a
+// block keeps 32 warps in flight.  The conv is an FFMA implicit GEMM over
+// 256 positions x 16 channels per pass (4 x 4 outputs a thread), the input
+// tile gathered with its zero border in chunks of 16 input channels; dead
+// lanes are skipped (their outputs are zeros either way, as the JAX kernel
+// multiplies them by a zero mask).  It writes conv + bias (f32, pre-norm)
+// to the scratch, and heads_tiled (above) normalises per slot and runs
+// the heads, writing zeros for dead slots: f32 sums, bias, GroupNorm with
+// var = E[x^2] - E[x]^2, ReLU, the tower rounded to the response dtype,
+// as kernel 3.
+constexpr int BP = 256;   // positions per pass
+constexpr int BC = 16;    // output channels per block
+constexpr int BK = 16;    // input channels per chunk
+constexpr int WG = 256;   // threads of one warp group (one slot at a time)
+constexpr int NWG = 4;    // warp groups per block
+constexpr int BLOCKED_THREADS = NWG * WG;
+constexpr int BPS = BP + 4;  // As row stride: 2-way bank conflicts at most
+static_assert(BP * BC == 16 * WG, "4 x 4 outputs a thread");
+static_assert(BK * BP % WG == 0, "whole fill passes");
+
+// a barrier of one warp group (ids 1..NWG; 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int wg) {
+  asm volatile("bar.sync %0, %1;" ::"r"(wg + 1), "r"(WG) : "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCKED_THREADS)
+    tower_conv_blocked(const T* __restrict__ x,
+                       const uint8_t* __restrict__ valid, TiledParams<T> P,
+                       float* __restrict__ pre, int K, int S, int Cc, int B) {
+  const int g = blockIdx.x, tower = blockIdx.y, c0 = blockIdx.z * BC;
+  int live = 0;
+  for (int b = 0; b < B; ++b) live += valid[g * B + b];
+  if (live == 0) return;  // heads_tiled writes the block's zeros
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ws = (float*)smem;               // [9 * Cc][BC]
+  const T* w = tower ? P.w[1] : P.w[0];
+  const T* bias = tower ? P.b[1] : P.b[0];
+  for (int e = threadIdx.x; e < 9 * Cc * BC; e += BLOCKED_THREADS) {
+    const int cc = e % BC, row = e / BC;  // row = tap * Cc + cin
+    Ws[e] = load_f32(w, (size_t)row * Cc + c0 + cc);
+  }
+  __syncthreads();
+  // each warp group takes every NWG-th slot of the block's B, with its
+  // own input tile
+  const int wg = threadIdx.x / WG, t = threadIdx.x % WG;
+  float* As = Ws + 9 * Cc * BC + wg * BK * BPS;  // [BK][BPS]
+  const int ty = t / 4, tx = t % 4;  // positions 4ty.., channels 4tx..
+  float bj[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) bj[j] = load_f32(bias, c0 + tx * 4 + j);
+  const int SS = S * S;
+  for (int b = wg; b < B; b += NWG) {
+    const int k = g * B + b;
+    if (!valid[k]) continue;
+    const T* xk = x + (size_t)k * SS * Cc;
+    float* out = pre + ((size_t)tower * K + k) * SS * Cc;
+    for (int p0 = 0; p0 < SS; p0 += BP) {
+      float acc[4][4] = {};
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+        for (int k0 = 0; k0 < Cc; k0 += BK) {
+          group_sync(wg);  // previous chunk consumed
+#pragma unroll
+          for (int i = 0; i < BK * BP / WG; ++i) {
+            const int e = t + i * WG;
+            const int kk = e % BK, pp = e / BK;
+            const int p = p0 + pp;
+            float v = 0.f;
+            if (p < SS) {
+              const int yy = p / S + dy, xx = p % S + dx;
+              if (yy >= 0 && yy < S && xx >= 0 && xx < S)
+                v = load_f32(xk, (size_t)(yy * S + xx) * Cc + k0 + kk);
+            }
+            As[kk * BPS + pp] = v;
+          }
+          group_sync(wg);
+          const float* wrow = Ws + ((size_t)tap * Cc + k0) * BC + tx * 4;
+#pragma unroll
+          for (int kk = 0; kk < BK; ++kk) {
+            const float4 a = *(const float4*)(As + kk * BPS + ty * 4);
+            const float4 bv = *(const float4*)(wrow + kk * BC);
+            const float av[4] = {a.x, a.y, a.z, a.w};
+            const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = p0 + ty * 4 + i;
+        if (p >= SS) continue;
+        float4 o;
+        o.x = acc[i][0] + bj[0];
+        o.y = acc[i][1] + bj[1];
+        o.z = acc[i][2] + bj[2];
+        o.w = acc[i][3] + bj[3];
+        *(float4*)(out + (size_t)p * Cc + c0 + tx * 4) = o;
+      }
+    }
+  }
+}
+
+template <typename T>
+static int predictor_blocked(const void* x, const uint8_t* valid,
+                             const void* const* p, float* pre, float* cls,
+                             float* ctr, float* reg, int K, int S, int Cc,
+                             int B, void* stream) {
+  TiledParams<T> P;
+  for (int i = 0; i < 2; ++i) {
+    P.w[i] = (const T*)p[4 * i];
+    P.b[i] = (const T*)p[4 * i + 1];
+    P.scale[i] = (const T*)p[4 * i + 2];
+    P.shift[i] = (const T*)p[4 * i + 3];
+  }
+  P.wcls = (const T*)p[8];
+  P.bcls = (const T*)p[9];
+  P.wctr = (const T*)p[10];
+  P.bctr = (const T*)p[11];
+  P.wreg = (const T*)p[12];
+  P.breg = (const T*)p[13];
+  const size_t smem =
+      ((size_t)9 * Cc * BC + NWG * BK * BPS) * sizeof(float);
+  cudaError_t err = set_smem(tower_conv_blocked<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(K / B, 2, Cc / BC);
+  tower_conv_blocked<T><<<grid, BLOCKED_THREADS, smem,
+                          (cudaStream_t)stream>>>((const T*)x, valid, P, pre,
+                                                  K, S, Cc, B);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  heads_tiled<T><<<dim3(K, 2), HEAD_THREADS, 0, (cudaStream_t)stream>>>(
+      pre, valid, P, cls, ctr, reg, K, S, Cc);
+  return (int)cudaGetLastError();
+}
+
+// params as for siammot_emm_predictor_tiled; B slots a block, K % B == 0
+SIAMMOT_API int siammot_emm_predictor_blocked(
+    const void* x, const uint8_t* valid, const void* const* params,
+    float* pre, float* cls, float* ctr, float* reg, int K, int S, int Cc,
+    int B, int dtype, void* stream) {
+  if (K == 0) return 0;
+  if (Cc % G || S < 1 || B < 2 || K % B || K > 65535)
+    return (int)cudaErrorInvalidValue;
+  return dtype == 0
+             ? predictor_blocked<float>(x, valid, params, pre, cls, ctr, reg,
+                                        K, S, Cc, B, stream)
+             : predictor_blocked<__nv_bfloat16>(x, valid, params, pre, cls,
+                                                ctr, reg, K, S, Cc, B,
+                                                stream);
 }

@@ -25,10 +25,19 @@
 // shared-memory reads are conflict-free and output writes coalesced.  The
 // two inputs may differ in dtype (the backward correlates the bf16 search
 // with the f32 upstream gradient).  Masked: dead slots write zeros.
+//
+// Large outputs (a 61x61 response from a 75x75 search region, as
+// SEARCH_REGION 5 gives): the whole search map no longer fits a block
+// (75 x 75 x 32 f32 is 720 KB), so xcorr_band_kernel takes a band of
+// BAND output rows per block and, for each template row i, stages only
+// the BAND search rows that row meets; the sums run in the same (i, j)
+// order, up to 64 accumulators a thread.
 #include "common.cuh"
 
 constexpr int CT = 32;      // channels per block
 constexpr int WO_MAX = 32;  // accumulators per thread (output width)
+constexpr int BAND = 8;     // output rows per block, banded form
+constexpr int WO_BAND_MAX = 64;
 
 template <typename TS, typename TT>
 __device__ __forceinline__ void stage(const TS* s_g, const TT* t_g,
@@ -88,6 +97,58 @@ __global__ void xcorr_kernel(const TS* __restrict__ search,
   }
 }
 
+// banded form: block (slot, channel tile, band of BAND output rows)
+template <typename TS, typename TT>
+__global__ void __launch_bounds__(BAND * CT)
+    xcorr_band_kernel(const TS* __restrict__ search,
+                      const TT* __restrict__ tmpl,
+                      const uint8_t* __restrict__ valid,
+                      float* __restrict__ out, int hs, int ws, int ht, int wt,
+                      int C) {
+  const int k = blockIdx.x;
+  const int c0 = blockIdx.y * CT;
+  const int y0 = blockIdx.z * BAND;
+  const int ho = hs - ht + 1, wo = ws - wt + 1;
+  const int c = threadIdx.x % CT;
+  const int r = threadIdx.x / CT;
+  const int oy = y0 + r;
+  const bool has_c = c0 + c < C, has_row = oy < ho;
+  float* out_row = out + (((size_t)k * ho + oy) * wo) * C + c0 + c;
+  if (valid != nullptr && !valid[k]) {
+    if (has_c && has_row)
+      for (int ox = 0; ox < wo; ++ox) out_row[(size_t)ox * C] = 0.f;
+    return;
+  }
+  extern __shared__ float smem[];
+  float* s_s = smem;                  // [BAND * ws][CT]: rows y0 + i ..
+  float* t_s = smem + BAND * ws * CT; // [wt][CT]: template row i
+  const TS* sk = search + (size_t)k * hs * ws * C;
+  const TT* tk = tmpl + (size_t)k * ht * wt * C;
+  float acc[WO_BAND_MAX];
+#pragma unroll
+  for (int ox = 0; ox < WO_BAND_MAX; ++ox) acc[ox] = 0.f;
+  for (int i = 0; i < ht; ++i) {
+    __syncthreads();  // previous row consumed
+    const int rows = min(BAND, hs - (y0 + i));
+    stage(sk + (size_t)(y0 + i) * ws * C, tk + (size_t)i * wt * C, s_s, t_s,
+          rows * ws, wt, C, c0);
+    __syncthreads();
+    if (!has_row) continue;
+    for (int j = 0; j < wt; ++j) {
+      const float t = t_s[j * CT + c];
+      const float* srow = s_s + (r * ws + j) * CT + c;
+#pragma unroll
+      for (int ox = 0; ox < WO_BAND_MAX; ++ox)
+        if (ox < wo) acc[ox] += srow[ox * CT] * t;
+    }
+  }
+  if (has_c && has_row) {
+#pragma unroll
+    for (int ox = 0; ox < WO_BAND_MAX; ++ox)
+      if (ox < wo) out_row[(size_t)ox * C] = acc[ox];
+  }
+}
+
 template <typename TG, typename TT>
 __global__ void __launch_bounds__(1024)
     conv_full_kernel(const TG* __restrict__ grad, const TT* __restrict__ tmpl,
@@ -133,9 +194,19 @@ static int launch_xcorr(const void* search, const void* tmpl,
                         const uint8_t* valid, float* out, int K, int hs,
                         int ws, int ht, int wt, int C, cudaStream_t stream) {
   const int ho = hs - ht + 1, wo = ws - wt + 1;
-  if (ho < 1 || wo < 1 || ho * CT > 1024 || wo > WO_MAX)
-    return (int)cudaErrorInvalidValue;
+  if (ho < 1 || wo < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(hs * ws + ht * wt) * CT * sizeof(float);
+  if (ho * CT > 1024 || wo > WO_MAX || smem > 200 * 1024) {
+    // large outputs: the banded form
+    if (wo > WO_BAND_MAX) return (int)cudaErrorInvalidValue;
+    const size_t bsmem = (size_t)(BAND * ws + wt) * CT * sizeof(float);
+    cudaError_t err = set_smem(xcorr_band_kernel<TS, TT>, bsmem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(K, (C + CT - 1) / CT, (ho + BAND - 1) / BAND);
+    xcorr_band_kernel<TS, TT><<<grid, BAND * CT, bsmem, stream>>>(
+        (const TS*)search, (const TT*)tmpl, valid, out, hs, ws, ht, wt, C);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = set_smem(xcorr_kernel<TS, TT>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(K, (C + CT - 1) / CT);

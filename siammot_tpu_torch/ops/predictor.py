@@ -17,6 +17,17 @@ S, C a multiple of the 32 groups, f32 or bf16: the f32 frame, the AOT
 recipe's 29x29 responses) runs a tiled form of two launches, an FFMA
 implicit-GEMM tower conv into an f32 scratch and a normalise-on-load
 head pass.  Both are one launch of this wrapper.
+
+Kernel 8 (:func:`emm_predictor_blocked`) replaces
+``siammot_tpu/ops/pallas/predictor.py:emm_predictor_pallas_blocked``
+(``_predictor_kernel_blocked``), which the JAX package takes when
+``SIAMMOT_PREDICTOR_BLOCK`` names a block of B > 1 slots: kernel 3's
+function with B slots per program, a block without a live slot writing
+zeros and the dead lanes of a live block emitting zeros.  On the card
+one block per (B-slot group, tower, 16 output channels) stages its
+weight slice once and runs the tower conv of the group's live slots
+against it (B x less weight traffic than a per-slot kernel); the tiled
+form's head pass then normalises and runs the heads.
 """
 
 from __future__ import annotations
@@ -36,22 +47,15 @@ _ARGS = (cuda.P, cuda.P) + (cuda.P,) * len(_NAMES) + (cuda.P,) * 3 \
     + (cuda.I, cuda.P)
 _TILED_ARGS = (cuda.P, cuda.P, cuda.P) + (cuda.P,) * 4 + (cuda.I,) * 4 \
     + (cuda.P,)
+_BLOCKED_ARGS = (cuda.P, cuda.P, cuda.P) + (cuda.P,) * 4 + (cuda.I,) * 5 \
+    + (cuda.P,)
 GROUPS = 32
 EPS = 1e-5
 
 
-def emm_predictor(x: torch.Tensor, valid: torch.Tensor,
-                  params: dict) -> torch.Tensor:
-    """Masked fused predictor over [K, S, S, C] responses (f32 or bf16,
-    C a multiple of 32).
-
-    ``params`` maps the names in ``_NAMES`` to tensors: conv kernels HWIO
-    [3, 3, Cin, Cout], everything in the response's dtype.  Returns
-    (cls [K,S,S,2], center [K,S,S,1], reg [K,S,S,4]) f32.  CUDA tensors
-    launch the kernel; CPU tensors take :func:`emm_predictor_plain`.
-    """
-    if x.device.type == "cpu":
-        return emm_predictor_plain(x, valid, params)
+def _check(x, valid, params):
+    """Shapes, dtypes and layout the kernels take; returns the parameters
+    in ``_NAMES`` order."""
     k, s, s2, c = x.shape
     if s != s2 or c % GROUPS or x.dtype not in (torch.float32,
                                                 torch.bfloat16):
@@ -69,9 +73,30 @@ def emm_predictor(x: torch.Tensor, valid: torch.Tensor,
         if t.dtype != x.dtype:
             raise ValueError(f"predictor: parameters must be {x.dtype} like "
                              f"the response, got {t.dtype}")
-    cls = torch.empty((k, s, s, 2), dtype=torch.float32, device=x.device)
-    ctr = torch.empty((k, s, s, 1), dtype=torch.float32, device=x.device)
-    reg = torch.empty((k, s, s, 4), dtype=torch.float32, device=x.device)
+    return ps
+
+
+def _outputs(x):
+    k, s = x.shape[:2]
+    return tuple(torch.empty((k, s, s, n), dtype=torch.float32,
+                             device=x.device) for n in (2, 1, 4))
+
+
+def emm_predictor(x: torch.Tensor, valid: torch.Tensor,
+                  params: dict) -> torch.Tensor:
+    """Masked fused predictor over [K, S, S, C] responses (f32 or bf16,
+    C a multiple of 32).
+
+    ``params`` maps the names in ``_NAMES`` to tensors: conv kernels HWIO
+    [3, 3, Cin, Cout], everything in the response's dtype.  Returns
+    (cls [K,S,S,2], center [K,S,S,1], reg [K,S,S,4]) f32.  CUDA tensors
+    launch the kernel; CPU tensors take :func:`emm_predictor_plain`.
+    """
+    if x.device.type == "cpu":
+        return emm_predictor_plain(x, valid, params)
+    ps = _check(x, valid, params)
+    k, s, _, c = x.shape
+    cls, ctr, reg = _outputs(x)
     if (s, c) == (16, 128) and x.dtype == torch.bfloat16:
         if any(t.data_ptr() % 32 for t in ps):
             raise ValueError("predictor: WMMA loads need 32-byte aligned "
@@ -94,6 +119,37 @@ def emm_predictor(x: torch.Tensor, valid: torch.Tensor,
 
 
 emm_predictor.launches = 0
+
+
+def emm_predictor_blocked(x: torch.Tensor, valid: torch.Tensor,
+                          params: dict, block: int) -> torch.Tensor:
+    """Kernel 8: :func:`emm_predictor` computed ``block`` slots at a time
+    (``block`` > 1 divides K); the same outputs.  CUDA tensors launch the
+    kernel; CPU tensors take :func:`emm_predictor_blocked_plain`."""
+    k = x.shape[0]
+    if block < 2 or k % block:
+        raise ValueError(f"blocked predictor: block {block} must be > 1 and "
+                         f"divide K = {k}")
+    if x.device.type == "cpu":
+        return emm_predictor_blocked_plain(x, valid, params, block)
+    ps = _check(x, valid, params)
+    _, s, _, c = x.shape
+    if (9 * c * 16 + 4 * 16 * 260) * 4 > 227 * 1024:
+        raise ValueError(f"blocked predictor: C = {c} weights do not fit "
+                         f"shared memory")
+    cls, ctr, reg = _outputs(x)
+    pre = torch.empty((2, k, s * s, c), dtype=torch.float32, device=x.device)
+    ptrs = (cuda.P * len(ps))(*[t.data_ptr() for t in ps])
+    fn = cuda.function("siammot_emm_predictor_blocked", _BLOCKED_ARGS)
+    cuda.check("emm_predictor_blocked", fn(
+        cuda.ptr(x), cuda.ptr(valid), ptrs, cuda.ptr(pre), cuda.ptr(cls),
+        cuda.ptr(ctr), cuda.ptr(reg), k, s, c, block,
+        int(x.dtype == torch.bfloat16), cuda.stream(x.device)))
+    emm_predictor_blocked.launches += 1
+    return cls, ctr, reg
+
+
+emm_predictor_blocked.launches = 0
 
 
 def _conv9(xp: torch.Tensor, w: torch.Tensor, s: int) -> torch.Tensor:
@@ -121,9 +177,31 @@ def _group_norm(y, scale, bias):
 def emm_predictor_plain(x, valid, params):
     """Plain PyTorch version of the kernel's math (f32 products of the
     response-dtype inputs, f32 sums, tower rounded to the response dtype
-    before the heads), dead slots zeroed."""
+    before the heads) over the live slots; dead slots zeroed."""
+    live = valid.nonzero()[:, 0]
+    outs = _predict_plain(x[live], params)
+    k, s = x.shape[:2]
+    full = tuple(torch.zeros((k, s, s, n), dtype=torch.float32,
+                             device=x.device) for n in (2, 1, 4))
+    for f, o in zip(full, outs):
+        f[live] = o
+    return full
+
+
+def emm_predictor_blocked_plain(x, valid, params, block):
+    """Plain PyTorch version of kernel 8: block by block, a block with no
+    live slot gives zeros, a live block :func:`emm_predictor_plain` (its
+    dead lanes zeros)."""
+    outs = []
+    for b0 in range(0, x.shape[0], block):
+        outs.append(emm_predictor_plain(x[b0:b0 + block],
+                                        valid[b0:b0 + block], params))
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def _predict_plain(x, p):
+    """Towers and heads of every slot of ``x`` [N, S, S, C]."""
     k, s, _, c = x.shape
-    p = params
 
     def pad(t):
         return F.pad(t.float(), (0, 0, 1, 1, 1, 1))
@@ -142,7 +220,5 @@ def emm_predictor_plain(x, valid, params):
     ctr = _conv9(cls_x, p["center.kernel"], s) + p["center.bias"].float()
     reg = torch.relu(_conv9(reg_x, p["reg.kernel"], s)
                      + p["reg.bias"].float())
-    live = valid[:, None, None, None]
-    return tuple(torch.where(live, t.reshape(k, s, s, -1),
-                             torch.zeros((), device=x.device))
-                 for t in (cls, ctr, reg))
+    return tuple(t.reshape(k, s, s, n)
+                 for t, n in zip((cls, ctr, reg), (2, 1, 4)))

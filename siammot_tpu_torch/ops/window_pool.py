@@ -140,14 +140,20 @@ def window_pool_plain(table, origins, wy, wx, valid):
     """Plain PyTorch version: dense window gather and two contractions
     (x first, then y), f32, 16 ROIs at a time to bound the gathered
     windows' memory.  The table is padded by one window so every window
-    slice is in bounds, as the JAX package pads it."""
+    slice is in bounds, as the JAX package pads it.  With ``valid``, only
+    the live rows are pooled and dead rows are zeros."""
+    if valid is not None:
+        live = valid.nonzero()[:, 0]
+        part = window_pool_plain(table, origins[live], wy[live], wx[live],
+                                 None)
+        out = part.new_zeros((wy.shape[0],) + part.shape[1:])
+        out[live] = part
+        return out
     chunk = 16
     n, s, win = wy.shape
     c = table.shape[-1]
     t = F.pad(table, (0, 0, 0, max(0, win - table.shape[1]), 0, win))
     ar = torch.arange(win, device=table.device)
-    if valid is not None:
-        wy = torch.where(valid[:, None, None], wy, torch.zeros_like(wy))
     out = []
     for i in range(0, n, chunk):
         o = origins[i:i + chunk].long()

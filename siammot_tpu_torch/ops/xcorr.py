@@ -16,7 +16,9 @@ depthwise, so there is no tensor-core form).  The CUDA kernels
 (``cuda/xcorr.cu``) stage one slot's two inputs, 32 channels at a time,
 in shared memory as f32 and keep each thread's output row in registers;
 the search gradient skips the taps that fall outside ``g`` instead of
-correlating a zero-padded copy.
+correlating a zero-padded copy.  Outputs wider than 32 or taller than 32
+rows (61x61 at ``SEARCH_REGION`` 5) take a banded form that stages only
+the search rows each template row meets.
 """
 
 from __future__ import annotations
@@ -49,9 +51,10 @@ def _check(what, a, b, valid=None):
     return k, c
 
 
-def _out_fits(what, ho, wo):
-    if not (1 <= ho <= 32 and 1 <= wo <= 32):
-        raise ValueError(f"{what} kernel takes outputs up to 32x32, got "
+def _out_fits(what, ho, wo, w_max=32):
+    if not (1 <= ho and 1 <= wo <= w_max) or (w_max == 32 and ho > 32):
+        raise ValueError(f"{what} kernel takes outputs up to 32x32 (any "
+                         f"height up to width {w_max} for the xcorr), got "
                          f"{ho}x{wo}")
 
 
@@ -69,7 +72,7 @@ def xcorr_depthwise_masked(search: torch.Tensor, template: torch.Tensor,
                         "bool")
     ho = search.shape[1] - template.shape[1] + 1
     wo = search.shape[2] - template.shape[2] + 1
-    _out_fits("xcorr", ho, wo)
+    _out_fits("xcorr", ho, wo, 64)
     out = torch.empty((k, ho, wo, c), dtype=torch.float32,
                       device=search.device)
     fn = cuda.function("siammot_xcorr_masked", _ARGS_MASKED)
@@ -106,7 +109,7 @@ def xcorr_depthwise(search: torch.Tensor,
     _check("xcorr", search, template)
     ho = search.shape[1] - template.shape[1] + 1
     wo = search.shape[2] - template.shape[2] + 1
-    _out_fits("xcorr", ho, wo)
+    _out_fits("xcorr", ho, wo, 64)
     out = _launch("siammot_xcorr", search, template, (ho, wo))
     xcorr_depthwise.launches += 1
     return out
@@ -182,8 +185,14 @@ def xcorr_depthwise_auto(search: torch.Tensor,
 
 def xcorr_depthwise_plain(search, template, valid=None):
     """Plain PyTorch version: Ht*Wt shifted multiply-adds in f32, i-major
-    (the JAX ``xcorr_depthwise`` order); with ``valid``, dead slots are
-    zeroed."""
+    (the JAX ``xcorr_depthwise`` order); with ``valid``, only the live
+    slots are computed and dead slots are zeros."""
+    if valid is not None:
+        live = valid.nonzero()[:, 0]
+        part = xcorr_depthwise_plain(search[live], template[live])
+        out = part.new_zeros((search.shape[0],) + part.shape[1:])
+        out[live] = part
+        return out
     k, hs, ws, c = search.shape
     _, ht, wt, _ = template.shape
     ho, wo = hs - ht + 1, ws - wt + 1
@@ -191,12 +200,20 @@ def xcorr_depthwise_plain(search, template, valid=None):
     t = template.float()
     acc = torch.zeros((k, ho, wo, c), dtype=torch.float32,
                       device=search.device)
+    if torch.is_grad_enabled() and (s.requires_grad or t.requires_grad):
+        for i in range(ht):
+            for j in range(wt):
+                acc = acc + s[:, i:i + ho, j:j + wo, :] \
+                    * t[:, i:i + 1, j:j + 1, :]
+        return acc
+    # the same sums without a temporary per tap (several times faster)
+    prod = torch.empty_like(acc)
     for i in range(ht):
         for j in range(wt):
-            acc = acc + s[:, i:i + ho, j:j + wo, :] * t[:, i:i + 1, j:j + 1, :]
-    if valid is None:
-        return acc
-    return torch.where(valid[:, None, None, None], acc, torch.zeros_like(acc))
+            torch.mul(s[:, i:i + ho, j:j + wo, :], t[:, i:i + 1, j:j + 1, :],
+                      out=prod)
+            acc += prod
+    return acc
 
 
 def xcorr_grad_search_plain(grad, template):

@@ -12,6 +12,15 @@ frames (on the CPU or the card, in f32 or bf16) and :func:`compare`
 measures it against the fixture.  The track templates ([K, 15, 15, 128]
 per frame) are kept as per-slot sums, sums of squares and sums of
 magnitudes, to hold the fixture under 1 MB.
+
+``tests/fixtures/torch_golden_toggles.npz`` holds the same frames under
+three cuts of the configuration (:data:`CUTS`), each a path that selects
+other kernels: ``given``, the MOT17 recipe's overrides with the scene's
+public detections (:func:`given_detections`) replacing the RPN;
+``unmasked``, ``TPU.MASKED_TRACK_KERNELS`` False (kernels 6 and 10);
+``wide_sr``, ``SEARCH_REGION`` 5 (a 75x75 search region, a 61x61
+response, the striped decode at s_hi 976).  Its keys carry the cut's name
+in front (``given/f0/rows/boxes``); :func:`cut` selects one.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_golden_dla34.npz")
+TOGGLES_FIXTURE = os.path.join(REPO, "tests", "fixtures",
+                               "torch_golden_toggles.npz")
 WEIGHTS = os.path.join(REPO, "fixtures", "bench_weights_f16.npz")
 N_FRAMES = 4
 H, W = 320, 576           # content = padded size (multiples of 32)
@@ -38,6 +49,13 @@ STATE_EXACT = ("ids", "labels", "active", "last_active", "next_id",
 BOX_ATOL = 1e-2
 SCORE_ATOL = 1e-4
 TEMPLATE_RTOL = 1e-4
+# the toggles fixture's cuts: merge_from_list options over overrides()
+CUTS = {
+    "given": ["INPUT.AMODAL", True, "MODEL.TRACK_HEAD.MAX_DORMANT_FRAMES",
+              30, "INFERENCE.USE_GIVEN_DETECTIONS", True],
+    "unmasked": ["TPU.MASKED_TRACK_KERNELS", False],
+    "wide_sr": ["MODEL.TRACK_HEAD.SEARCH_REGION", 5.0],
+}
 
 
 def frames():
@@ -46,8 +64,18 @@ def frames():
     return render_scene(N_FRAMES, H, SEED, H, W)[0]
 
 
-def overrides(dtype: str = "float32") -> list:
-    return ["TPU.COMPUTE_DTYPE", dtype, "TPU.POOLER_DTYPE", dtype]
+def overrides(dtype: str = "float32", cut_name: str = None) -> list:
+    return ["TPU.COMPUTE_DTYPE", dtype, "TPU.POOLER_DTYPE", dtype] \
+        + (CUTS[cut_name] if cut_name else [])
+
+
+def given_detections() -> list:
+    """Per golden frame, the public detections of the scene's sprites
+    (``synth.public_detections``, seed ``SEED``), original resolution =
+    the frame's."""
+    from .synth import public_detections, render_scene
+    boxes = render_scene(N_FRAMES, H, SEED, H, W)[1]
+    return public_detections(boxes, (W, H), seed=SEED)
 
 
 def template_summary(template: np.ndarray) -> np.ndarray:
@@ -69,24 +97,31 @@ def pack(outputs, states) -> dict:
     return out
 
 
-def run(device: str = "cpu", dtype: str = "float32") -> dict:
-    """The port over the golden frames: :func:`pack` of its rows and
-    states."""
+def run(device: str = "cuda", dtype: str = "float32",
+        cut_name: str = None) -> dict:
+    """The port over the golden frames (under the cut ``cut_name`` of
+    :data:`CUTS`, if given): :func:`pack` of its rows and states."""
     import torch
 
     from ..configs.defaults import get_cfg
+    from ..engine.inferencer import GIVEN_DETECTION_CAPACITY
     from ..models.siammot import SiamMOT
+    from .entities import entities_to_boxes
     from .weights import jax_to_torch, load_npz
 
     cfg = get_cfg()
-    cfg.merge_from_list(overrides(dtype))
+    cfg.merge_from_list(overrides(dtype, cut_name))
     model = SiamMOT(cfg, device=device)
     net = model.cast_params(jax_to_torch(load_npz(WEIGHTS)))
     state = model.empty_state()
+    dets = given_detections() if cfg.INFERENCE.USE_GIVEN_DETECTIONS \
+        else [None] * N_FRAMES
     outs, states = [], []
-    for f in frames():
+    for f, d in zip(frames(), dets):
+        given = None if d is None else entities_to_boxes(
+            d, GIVEN_DETECTION_CAPACITY, device=device)
         out, state = model.forward_inference(net, torch.as_tensor(f),
-                                             state, (W, H))
+                                             state, (W, H), given)
         outs.append(out.numpy())
         states.append(state.numpy())
     return pack(outs, states)
@@ -181,6 +216,13 @@ def matched_gap(got: dict, want: dict) -> dict:
     return r
 
 
-def load() -> dict:
-    with np.load(FIXTURE) as z:
+def load(path: str = FIXTURE) -> dict:
+    with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+def cut(data: dict, name: str) -> dict:
+    """The frames of one cut of the toggles fixture, keys as in
+    :func:`pack`."""
+    pre = f"{name}/"
+    return {k[len(pre):]: v for k, v in data.items() if k.startswith(pre)}

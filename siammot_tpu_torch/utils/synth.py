@@ -8,7 +8,8 @@ originals; ``cv2.resize`` is replaced by the numpy resizes below
 (half-pixel bilinear, and nearest), which may differ from OpenCV's
 fixed-point rounding by one grey level.  ``train_batches`` cuts two
 scenes into training batches of clip pairs with their sprite boxes as
-ground truth.
+ground truth; ``public_detections`` makes a public detector's output
+from the sprite boxes, as MOT17's public detections arrive.
 """
 
 from __future__ import annotations
@@ -181,3 +182,58 @@ def train_batches(n_frames: int, hp: int, max_gt: int, seed: int = 42,
                    valid=torch.from_numpy(valid))
         yield torch.from_numpy(np.stack(images)), gt, sizes
         t = (t + 1) % (n_frames - 1)
+
+
+def public_detections(boxes, frame_wh, seed: int = 0,
+                      scale_xy=(1.0, 1.0), drop: float = 0.1,
+                      false_positives: int = 3) -> list:
+    """Public detections of the sprites, per frame a list of
+    ``utils.entities.AnnoEntity`` in original-resolution xywh.
+
+    boxes: per frame the sprite boxes [N, 4] (inclusive pixel corners,
+    ``render_scene``) of a frame of ``frame_wh`` (w, h); scale_xy: the
+    original resolution over the rendered one.  Each sprite box is
+    jittered (centre by 3% and size by 5% of its extent, normal draws),
+    about ``drop`` of them are dropped, ``false_positives`` person-sized
+    boxes are added per frame; confidences in [0.3, 1] (false positives
+    below 0.6).  The draws come from a ``torch.Generator`` seeded with
+    ``seed``.
+    """
+    import torch
+
+    from .entities import AnnoEntity
+
+    g = torch.Generator().manual_seed(seed)
+    fw, fh = frame_wh
+    sx, sy = scale_xy
+    out = []
+    for fb in boxes:
+        fb = torch.as_tensor(np.asarray(fb), dtype=torch.float64)
+        n = fb.shape[0]
+        wh = fb[:, 2:] - fb[:, :2] + 1
+        ctr = (fb[:, :2] + fb[:, 2:]) / 2 \
+            + 0.03 * wh * torch.randn(n, 2, generator=g, dtype=torch.float64)
+        wh = wh * torch.exp(0.05 * torch.randn(n, 2, generator=g,
+                                               dtype=torch.float64))
+        keep = torch.rand(n, generator=g, dtype=torch.float64) >= drop
+        conf = 0.5 + 0.5 * torch.rand(n, generator=g, dtype=torch.float64)
+        fp_h = fh * (0.12 + 0.3 * torch.rand(false_positives, generator=g,
+                                             dtype=torch.float64))
+        fp_wh = torch.stack([0.4 * fp_h, fp_h], -1)
+        fp_ctr = torch.rand(false_positives, 2, generator=g,
+                            dtype=torch.float64) \
+            * torch.tensor([fw, fh], dtype=torch.float64)
+        fp_conf = 0.3 + 0.3 * torch.rand(false_positives, generator=g,
+                                         dtype=torch.float64)
+        ctr = torch.cat([ctr[keep], fp_ctr])
+        wh = torch.cat([wh[keep], fp_wh])
+        conf = torch.cat([conf[keep], fp_conf])
+        x1y1 = ctr - wh / 2
+        frame = []
+        for (x, y), (w, h), c in zip(x1y1.tolist(), wh.tolist(),
+                                     conf.tolist()):
+            frame.append(AnnoEntity(
+                bbox=[x * sx, y * sy, (w - 1) * sx + 1, (h - 1) * sy + 1],
+                confidence=c, labels={"person": c}))
+        out.append(frame)
+    return out

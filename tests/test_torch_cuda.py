@@ -275,3 +275,110 @@ def test_window_pool_backward_kernel_overlapping_windows(dev):
         rtol=1e-3)
     with pytest.raises(TypeError):
         window_pool_train(pack.table.to(torch.bfloat16), origins, wy, wx)
+
+
+def _decode_args(dev, k, s, seed):
+    g = torch.Generator().manual_seed(seed)
+    u, window = _decode_constants(s, 16, str(dev))
+    x4 = torch.stack([2 * torch.randn(k, s, s, generator=g),
+                      torch.randn(k, s, s, generator=g),
+                      60 + 20 * torch.randn(k, s, s, generator=g),
+                      120 + 40 * torch.randn(k, s, s, generator=g)], 1)
+    wh = torch.stack([40 + 110 * torch.rand(k, generator=g),
+                      80 + 220 * torch.rand(k, generator=g)], -1)
+    return x4.to(dev).contiguous(), wh.to(dev), u, window
+
+
+def test_decode_unmasked_kernel(dev):
+    """Kernel 10 at [128, 4, 16, 16], every slot decoded, a zero-extent
+    slot among them: idx exact, scores 1e-5."""
+    from siammot_tpu_torch.ops.decode import emm_decode_unmasked
+    x4, wh, u, window = _decode_args(dev, 128, 16, 21)
+    wh[5] = 0.0
+    gi, gs = emm_decode_unmasked(x4, wh, u, window, 0.4, True)
+    wi, ws = emm_decode_plain(x4, wh, u, window, None, 0.4, True)
+    torch.testing.assert_close(gi, wi, atol=0, rtol=0)
+    torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("s,stripe,gated", [(61, 16, True), (61, 16, False),
+                                            (46, 32, True), (33, 16, False)])
+def test_decode_striped_kernel(dev, s, stripe, gated):
+    """Kernel 5 at s_hi 976, 736 and 528 against its plain version: idx
+    exact, scores 1e-5; gated dead slots (0, 0)."""
+    from siammot_tpu_torch.ops.decode import (emm_decode_striped,
+                                              emm_decode_striped_plain)
+    x4, wh, u, window = _decode_args(dev, 6, s, 22 + s)
+    valid = _valid(6, 23).to(dev) if gated else None
+    gi, gs = emm_decode_striped(x4, wh, u, window, valid, 0.4, True, stripe)
+    wi, ws = emm_decode_striped_plain(x4, wh, u, window, valid, 0.4, True,
+                                      stripe)
+    torch.testing.assert_close(gi, wi, atol=0, rtol=0)
+    torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+    if gated:
+        assert (gi[~valid] == 0).all() and (gs[~valid] == 0).all()
+
+
+def test_decode_striped_kernel_is_bitwise_the_whole_map_kernel(dev):
+    """A forced stripe at s_hi 256 and 464 gives bitwise the (idx, score)
+    of kernels 4 (gated) and 10 (ungated)."""
+    from siammot_tpu_torch.ops.decode import (emm_decode_striped,
+                                              emm_decode_unmasked)
+    for s, stripe in ((16, 64), (16, 8), (29, 16)):
+        x4, wh, u, window = _decode_args(dev, 12, s, 24)
+        valid = _valid(12, 25).to(dev)
+        for v in (valid, None):
+            si, ss = emm_decode_striped(x4, wh, u, window, v, 0.4, True,
+                                        stripe)
+            wi, ws = (emm_decode(x4, wh, u, window, v, 0.4, True)
+                      if v is not None else
+                      emm_decode_unmasked(x4, wh, u, window, 0.4, True))
+            assert torch.equal(si, wi) and torch.equal(ss, ws), (s, stripe)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float32, 1e-4)])
+def test_predictor_blocked_kernel(dev, dtype, tol):
+    """Kernel 8 at [32, 16, 16, 128] and [16, 29, 29, 64], B = 8: a block
+    with no live slot, mixed blocks; against its plain version."""
+    from siammot_tpu_torch.ops.predictor import (emm_predictor_blocked,
+                                                 emm_predictor_blocked_plain)
+    g = torch.Generator().manual_seed(26)
+    for k, s, c in ((32, 16, 128), (16, 29, 64)):
+        x = torch.randn(k, s, s, c, generator=g).to(dev, dtype)
+        valid = torch.zeros(k, dtype=torch.bool)
+        valid[torch.tensor([0, 3, 9, 10, 11, 12, 13, 14, 15])] = True
+        params = {}
+        for name in _NAMES:
+            head = name.split(".")[0]
+            n = {"cls": 2, "center": 1, "reg": 4}.get(head, c)
+            if name.endswith("kernel"):
+                t = torch.randn(3, 3, c, n, generator=g) * 0.03
+            elif name.endswith("scale"):
+                t = 1 + 0.1 * torch.randn(c, generator=g)
+            else:
+                t = 0.1 * torch.randn(n, generator=g)
+            params[name] = t.to(dev, dtype).contiguous()
+        args = (x, valid.to(dev), params, 8)
+        for got, want in zip(emm_predictor_blocked(*args),
+                             emm_predictor_blocked_plain(*args)):
+            assert (got[~valid.to(dev)] == 0).all()
+            torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_xcorr_kernels_at_the_wide_search_region(dev, dtype):
+    """Kernels 2 and 6 (forward) at SEARCH_REGION 5's 75x75 x 15x15 ->
+    61x61, the banded form."""
+    g = torch.Generator().manual_seed(27)
+    k = 5
+    search = torch.randn(k, 75, 75, 128, generator=g).to(dev, dtype)
+    tmpl = (0.1 * torch.randn(k, 15, 15, 128, generator=g)).to(dev, dtype)
+    valid = _valid(k, 28).to(dev)
+    got = xcorr_depthwise_masked(search, tmpl, valid)
+    want = xcorr_depthwise_plain(search, tmpl, valid)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+    assert (got[~valid] == 0).all()
+    torch.testing.assert_close(xcorr_depthwise(search, tmpl),
+                               xcorr_depthwise_plain(search, tmpl),
+                               atol=1e-4, rtol=1e-3)

@@ -14,6 +14,16 @@ move and ids can be handed out in another order, so the bf16 frame is
 held by matching boxes: every fixture row has a bf16 row with IoU >= 0.5,
 box errors within 8 px and scores within 5e-2 (measured on the CPU: 4.6
 px and 1.1e-2).
+
+``tests/fixtures/torch_golden_toggles.npz`` holds the JAX step's rows for
+the same frames under three cuts of the configuration (``golden.CUTS``:
+given public detections with the MOT17 recipe's overrides,
+``TPU.MASKED_TRACK_KERNELS`` False, ``SEARCH_REGION`` 5), written by
+``tests/torch_port_golden.py --toggles``.  The port's f32 CPU path must
+match each with the tolerances above; every state lane is compared over
+all K slots, dead ones included (the unmasked route's dead slots feed
+nothing into the state).  The bf16 gap of each cut is printed, not
+gated.
 """
 
 import os
@@ -49,3 +59,33 @@ def test_bf16_frames_stay_near_the_jax_step(fixture):
     r = golden.matched_gap(golden.run("cpu", "bfloat16"), fixture)
     assert r["unmatched"] == 0, r
     assert r["box_err"] <= BF16_BOX and r["score_err"] <= BF16_SCORE, r
+
+
+@pytest.fixture(scope="module")
+def toggles():
+    return golden.load(golden.TOGGLES_FIXTURE)
+
+
+def test_toggles_fixture_is_small_and_covers_every_cut(toggles):
+    assert os.path.getsize(golden.TOGGLES_FIXTURE) < 200 * 1024
+    for name in golden.CUTS:
+        cut = golden.cut(toggles, name)
+        assert len(cut) == len(golden.load())
+        last = golden.N_FRAMES - 1
+        assert (cut[f"f{last}/state/ids"] >= 0).sum() > 20
+
+
+@pytest.mark.parametrize("name", sorted(golden.CUTS))
+def test_f32_cut_matches_the_jax_step(toggles, name):
+    r = golden.compare(golden.run("cpu", "float32", name),
+                       golden.cut(toggles, name))
+    assert r["ok"], r
+
+
+def test_bf16_cuts_gap_is_printed(toggles, capsys):
+    for name in sorted(golden.CUTS):
+        gap = golden.matched_gap(golden.run("cpu", "bfloat16", name),
+                                 golden.cut(toggles, name))
+        with capsys.disabled():
+            print(f"\nbf16 gap, cut {name}: {gap}")
+        assert gap["rows"] > 0

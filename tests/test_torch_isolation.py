@@ -6,8 +6,10 @@ CPU (and one frame of a DLA-46-C-FPN body with deformable stages), and
 so does the training slice's code: a synthetic 720p training
 batch (``utils/synth.train_batches``), the samplers (``core/matcher``,
 ``models/emm_sampler``), the optimizer (``engine/solver``) and two
-iterations of ``engine/trainer.do_train``.  Also: no CUDA source includes
-PyTorch's headers (they make the build take minutes instead of
+iterations of ``engine/trainer.do_train``; the MOT17 public-detection
+recipe is read without ``yaml`` and tracks a given-detection frame, and
+a ``TPU.MASKED_TRACK_KERNELS`` False frame runs.  Also: no CUDA source
+includes PyTorch's headers (they make the build take minutes instead of
 seconds)."""
 
 import os
@@ -93,6 +95,45 @@ SCRIPT = textwrap.dedent("""
     assert sum(k.endswith("conv2.offset.weight") for k in dparams) == 10
     dres = track_frames(dmodel, dparams, frames[:1], (128, 96))
     assert np.isfinite(dres.outputs[0]["boxes"]).all()
+
+    # the MOT17 public-detection recipe, read without yaml, on the small
+    # body: a given-detection frame (and a raise without detections), then
+    # a frame of the unmasked EMM route (TPU.MASKED_TRACK_KERNELS False)
+    import os
+    from siammot_tpu_torch.utils.synth import public_detections
+    mcfg = get_cfg()
+    mcfg.merge_from_file(os.path.join(REPO, "configs", "dla",
+                                      "DLA_34_FPN_EMM_MOT17.yaml"))
+    assert mcfg.INFERENCE.USE_GIVEN_DETECTIONS is True
+    assert mcfg.INPUT.AMODAL is True and mcfg.INPUT.MAX_SIZE_TEST == 1500
+    for key in ("MODEL.BACKBONE.CONV_BODY", "MODEL.DLA.BACKBONE_OUT_CHANNELS",
+                "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", "TPU.MAX_TRACKS",
+                "TPU.COMPUTE_DTYPE", "TPU.POOLER_DTYPE") + tuple(
+                    f"MODEL.DLA.DLA_STAGE{i}_OUT_CHANNELS" for i in range(2, 6)):
+        node, leaf = mcfg, key.split(".")
+        src = cfg
+        for part in leaf[:-1]:
+            node, src = node[part], src[part]
+        node[leaf[-1]] = src[leaf[-1]]
+    gmodel = SiamMOT(mcfg, device="cpu")
+    try:
+        track_frames(gmodel, params, frames[:1], (128, 96))
+        raise AssertionError("given-detection recipe ran without detections")
+    except ValueError:
+        pass
+    boxes = [np.array([[10, 8, 40, 80], [60, 20, 95, 90]], np.float32)] * 2
+    dets = public_detections(boxes, (128, 96), seed=1, drop=0.0,
+                             false_positives=1, scale_xy=(2.0, 2.0))
+    gres = track_frames(gmodel, params, frames, (128, 96), given=dets,
+                        original_size=(256, 192))
+    assert gres.outputs[0]["valid"].any()
+    assert gres.outputs[0]["boxes"][gres.outputs[0]["valid"]].max() < 200
+    ucfg = cfg.clone()
+    ucfg.merge_from_list(["TPU.MASKED_TRACK_KERNELS", False])
+    ures = track_frames(SiamMOT(ucfg, device="cpu"), params, frames,
+                        (128, 96))
+    assert all(o["valid"].any() for o in ures.outputs)
+    assert np.isfinite(ures.outputs[1]["boxes"]).all()
 
     # the training slice: a 720p batch of two clip pairs, then two steps
     from siammot_tpu_torch.core.structures import Boxes
