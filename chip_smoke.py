@@ -5,13 +5,22 @@
 
 Phases, each printed as it finishes:
   0. the card (nvidia-smi name and power limit) and the torch/CUDA build;
-  1. the build of every CUDA kernel from ``siammot_tpu_torch/ops/cuda``;
+  1. the build of every CUDA kernel from ``siammot_tpu_torch/ops/cuda``,
+     and the warpgroup MMA (HGMMA) instructions in the bf16 tower conv's
+     and deformable conv's machine code (each must have some);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of the 720p main path with 37 of 128 track slots live (the
-     occupancy of a crowded scene) and 300 + 37 live box-head ROIs of 428:
-     errors within the stated tolerance, dead slots exactly zero, and the
-     kernel's, the plain version's and, where one PyTorch call computes
-     the same function, that call's time;
+     occupancy of a crowded scene) and 300 + 37 live box-head ROIs of 428,
+     kernel 3 also with all 128 slots live and kernel 6's forward over
+     128 slots (the unmasked route's shapes): errors within the stated
+     tolerance, dead slots exactly zero, and the kernel's, the plain
+     version's and, where one PyTorch call computes the same function,
+     that call's time.  Kernels 3, 4, 6 (forward), 9 and 10 are timed on
+     the device (``device_ms``: a CUDA graph of the calls, replayed
+     between events) beside the events around the wrapper calls, which
+     include the host's work, and kernels 3 and 9 by launch as well
+     (``kernel_split_ms``: torch.profiler's CUDA trace), so kernel 3's
+     tower conv and head pass stand apart;
   2b. the training kernels the same way at the training shapes (4 frames,
      1024 sampled pairs or ROIs per pool site, f32): the unmasked xcorr
      and its two gradient kernels (also through the autograd Function
@@ -25,9 +34,9 @@ Phases, each printed as it finishes:
      three times a frame), tracks must be live, and each kernel must agree
      with its plain version on the inputs it got at the last frame;
   2c. kernels 3 and 4 at the other shapes the JAX kernels take: the
-     predictor's tiled form at the f32 frame's [K, 16, 16, 128] and the
-     AOT recipe's [K, 29, 29, 128] (bf16 and f32), the decode at s_hi 464
-     (AOT) and 512 (the whole-map limit);
+     predictor at the f32 frame's [K, 16, 16, 128] (its FFMA tower conv)
+     and the AOT recipe's [K, 29, 29, 128] (bf16 and f32), the decode at
+     s_hi 464 (AOT) and 512 (the whole-map limit);
   2d. kernel 9, the deformable conv, at DLA-102's stage shapes (stride 2
      and 1, offsets in and out of the window, bf16 and f32), with the
      plain version's time, a dense cuDNN 3x3 of the same shape for scale,
@@ -62,7 +71,7 @@ Phases, each printed as it finishes:
      predictor at [128, 16, 16, 128] bf16 and f32, B = 8, 37 live slots at
      the front (one mixed block, eleven without a live slot); and kernels
      1-3 at SEARCH_REGION 5's shapes (the SR pool at 75x75, the masked
-     xcorr 75 -> 61, the predictor's tiled form at 61x61 bf16);
+     xcorr 75 -> 61, the predictor at 61x61 bf16);
   3c. three cuts of the configuration against the JAX step
      (``tests/fixtures/torch_golden_toggles.npz``): given public
      detections with the MOT17 recipe's overrides, ``TPU.
@@ -76,7 +85,7 @@ Phases, each printed as it finishes:
      ``SIAMMOT_PREDICTOR_BLOCK=8`` for the run (kernel 8); (6b)
      ``TPU.MASKED_TRACK_KERNELS`` False at 720p (kernel 6's forward,
      kernel 10); (6c) ``SEARCH_REGION`` 5 at 720p (a 75x75 search region,
-     kernel 2 at 75 -> 61, kernel 3's tiled form at 61x61, kernel 5 at
+     kernel 2 at 75 -> 61, kernel 3 at 61x61, kernel 5 at
      s_hi 976).
 
 Each end-to-end phase sets every kernel's launch count to 0 just before
@@ -150,6 +159,63 @@ def timed_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device time of one call: ``iters`` calls captured in one CUDA graph
+    and replayed between two CUDA events, so the host's work per call
+    (shape checks, ctypes, allocation) is left out.  ``timed_ms`` keeps
+    it in: once a kernel takes less device time than the wrapper's host
+    work, the events there read the enqueue rate."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def kernel_split_ms(fn, iters=10):
+    """Device time of one call by kernel name (torch.profiler's CUDA
+    trace; template arguments and signature dropped)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
+        out[name] = out.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / iters
+    return out
+
+
+def kernel_times(fn, iters=20):
+    """(device ms by graph replay, host-inclusive ms by events around
+    the wrapper calls, {kernel: device ms} by the profiler)."""
+    return device_ms(fn, iters), timed_ms(fn, iters), kernel_split_ms(fn)
+
+
+def split_text(split):
+    return ", ".join(f"{k} {v:.4f}" for k, v in split.items())
 
 
 def close(kernel, plain, atol, rtol, what):
@@ -321,6 +387,30 @@ def bound(nbytes, flops, peak):
 
 # -- phases ------------------------------------------------------------------
 
+WGMMA_KERNELS = ("tower_conv_wgmma", "deform_wgmma")
+
+
+def wgmma_instructions(cuda_lib):
+    """HGMMA instructions in each bf16 kernel's machine code (cuobjdump
+    -sass of the built library); raises if one has none."""
+    nvcc = cuda_lib._nvcc()
+    out = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                          "-sass", cuda_lib.library()._name],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = next((k for k in WGMMA_KERNELS if k in line), None)
+        elif name and "HGMMA" in line:
+            counts[name] = counts.get(name, 0) + 1
+    missing = [k for k in WGMMA_KERNELS if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"no HGMMA in the machine code of {missing}")
+    return counts
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -427,27 +517,35 @@ def kernel_phase(dev, report):
     report["xcorr_masked"].update(ms=ms, plain_ms=pms, library_ms=lms,
                                   bound_ms=bms, bound_by=by, max_abs_err=err)
 
-    # kernel 3
-    valid = live_mask(K, LIVE, g, dev)
+    # kernel 3, 37 live slots and (the unmasked route's shape) all 128
     x = torch.randn(K, 16, 16, C, generator=g).to(dev, torch.bfloat16)
     params = predictor_params(g, dev)
-    args = (x, valid, params)
-    err, rel = check_predictor(args, "emm_predictor")
-    ms = timed_ms(lambda: emm_predictor(*args))
-    pms = timed_ms(lambda: emm_predictor_plain(*args), iters=5)
-    live = int(valid.sum())
-    flops = live * (2 * 256 * C * C * 9 + 256 * 7 * C * 9) * 2.0
-    nbytes = (live * 256 * C * 2 + sum(p.numel() * 2 for p in
-                                       params.values())
-              + K * 256 * 7 * 4 + K)
-    bms, by = bound(nbytes, flops, BF16_TC_FLOPS)
-    log(f"  emm_predictor: K={K} live={live}: {emm_predictor.launches} "
-        f"launches, kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err {err:.3g}, "
-        f"max rel err {rel:.3g} (tol {PRED_ATOL})")
-    report["emm_predictor"].update(ms=ms, plain_ms=pms, library_ms=None,
-                                   bound_ms=bms, bound_by=by,
-                                   max_abs_err=err)
+    row = report["emm_predictor"]
+    row.setdefault("shapes", {})
+    for live, valid in ((LIVE, live_mask(K, LIVE, g, dev)),
+                        (K, torch.ones(K, dtype=torch.bool, device=dev))):
+        args = (x, valid, params)
+        err, rel = check_predictor(args, f"emm_predictor {live} live")
+        ms, hms, split = kernel_times(lambda: emm_predictor(*args))
+        pms = timed_ms(lambda: emm_predictor_plain(*args), iters=5)
+        flops = live * (2 * 256 * C * C * 9 + 256 * 7 * C * 9) * 2.0
+        nbytes = (live * 256 * C * 2 + sum(p.numel() * 2 for p in
+                                           params.values())
+                  + K * 256 * 7 * 4 + K)
+        bms, by = bound(nbytes, flops, BF16_TC_FLOPS)
+        log(f"  emm_predictor [{K}, 16, 16, {C}] bf16, {live} live: "
+            f"{emm_predictor.launches} launches, kernel {ms:.4f} ms device "
+            f"(graph replay; {hms:.4f} ms with the host's enqueue; by "
+            f"kernel: {split_text(split)}), plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), max abs err {err:.3g}, max rel err "
+            f"{rel:.3g} (tol {PRED_ATOL})")
+        entry = dict(ms=ms, host_ms=hms, kernels=split, plain_ms=pms,
+                     bound_ms=bms, bound_by=by, max_abs_err=err)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if live == LIVE:
+            row.update(entry, library_ms=None)
+        else:
+            row["shapes"][f"16x16x{C} bfloat16, all {K} live (6b)"] = entry
 
     # kernel 4
     valid = live_mask(K, LIVE, g, dev)
@@ -461,7 +559,7 @@ def kernel_phase(dev, report):
                       80 + 220 * torch.rand(K, generator=g)], -1).to(dev)
     args = (x4, wh, u, window, valid, 0.4, True)
     err, rel = check_decode(args, "emm_decode")
-    ms = timed_ms(lambda: emm_decode(*args))
+    ms, hms, _ = kernel_times(lambda: emm_decode(*args))
     pms = timed_ms(lambda: emm_decode_plain(*args), iters=5)
     live = int(valid.sum())
     flops = live * (4 * 256 * 16 * 16 * 2 + 4 * 256 * 256 * 16 * 2
@@ -470,12 +568,38 @@ def kernel_phase(dev, report):
               + K * (8 + 1 + 8))
     bms, by = bound(nbytes, flops, F32_FLOPS)
     log(f"  emm_decode: K={K} live={live}: {emm_decode.launches} launches, "
-        f"kernel {ms:.4f} ms, plain "
+        f"kernel {ms:.4f} ms device ({hms:.4f} ms with the host's "
+        f"enqueue), plain "
         f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs score err "
         f"{err:.3g}, max rel err {rel:.3g} (idx exact or p_conf tie within "
         f"{DECODE_TIE}; score tol {DECODE_SCORE_ATOL})")
-    report["emm_decode"].update(ms=ms, plain_ms=pms, library_ms=None,
-                                bound_ms=bms, bound_by=by, max_abs_err=err)
+    report["emm_decode"].update(ms=ms, host_ms=hms, plain_ms=pms,
+                                library_ms=None, bound_ms=bms, bound_by=by,
+                                max_abs_err=err)
+
+    # kernel 6's forward at the unmasked route's shape (phase 6b)
+    from siammot_tpu_torch.ops.xcorr import xcorr_depthwise
+    search = torch.randn(K, 30, 30, C, generator=g).to(dev, torch.bfloat16)
+    tmpl = (0.1 * torch.randn(K, 15, 15, C, generator=g)).to(
+        dev, torch.bfloat16)
+    err, _ = close(xcorr_depthwise(search, tmpl),
+                   xcorr_depthwise_plain(search, tmpl), POOL_ATOL,
+                   POOL_RTOL, "xcorr forward, 128 slots")
+    ms, hms, _ = kernel_times(lambda: xcorr_depthwise(search, tmpl))
+    pms = timed_ms(lambda: xcorr_depthwise_plain(search, tmpl), iters=5)
+    s_nchw = search.permute(0, 3, 1, 2).reshape(1, K * C, 30, 30)
+    t_nchw = tmpl.permute(0, 3, 1, 2).reshape(K * C, 1, 15, 15)
+    lms = timed_ms(lambda: F.conv2d(s_nchw, t_nchw, groups=K * C))
+    nbytes = K * (30 * 30 + 15 * 15) * C * 2 + K * 16 * 16 * C * 4
+    bms, by = bound(nbytes, K * 16 * 16 * 15 * 15 * C * 2.0, F32_FLOPS)
+    report["xcorr"].setdefault("shapes", {})[
+        f"forward [{K}, 30, 30, {C}] x [{K}, 15, 15, {C}] bf16 (6b)"] = dict(
+            ms=ms, host_ms=hms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+            bound_by=by, max_abs_err=err)
+    log(f"  xcorr (kernel 6) forward, all {K} slots, bf16: kernel {ms:.4f} "
+        f"ms device ({hms:.4f} ms with the host's enqueue), plain {pms:.4f} "
+        f"ms, conv2d(groups) {lms:.4f} ms, bound {bms:.4f} ms ({by}), max "
+        f"abs err {err:.3g}")
 
 
 def _wrappers():
@@ -1070,8 +1194,8 @@ def train_phase(dev, report, card):
 
 def reshaped_kernel_phase(dev, report):
     """Kernels 3 and 4 at the shapes besides the main path's that the JAX
-    kernels take: the f32 frame (predictor [K, 16, 16, 128] f32, tiled
-    form) and the AOT recipe (template 7, SEARCH_REGION 5: [K, 29, 29,
+    kernels take: the f32 frame (predictor [K, 16, 16, 128] f32, FFMA
+    tower conv) and the AOT recipe (template 7, SEARCH_REGION 5: [K, 29, 29,
     128] responses and s_hi 464), plus the decode's whole-map limit."""
     from siammot_tpu_torch.models.emm import _decode_constants
     from siammot_tpu_torch.ops.decode import emm_decode
@@ -1093,7 +1217,7 @@ def reshaped_kernel_phase(dev, report):
         for name, k_, p_ in zip(("cls", "ctr", "reg"), ks, ps):
             dead_zero(k_, valid, f"predictor {s_} {name}")
             errs.append(close(k_, p_, tol, 0.0, f"predictor {s_} {name}")[0])
-        ms = timed_ms(lambda: emm_predictor(*args))
+        ms, hms, split = kernel_times(lambda: emm_predictor(*args))
         live = int(valid.sum())
         isz = x.element_size()
         flops = live * (2 * s_ * s_ * C * C * 9 + s_ * s_ * 7 * C * 9) * 2.0
@@ -1103,10 +1227,11 @@ def reshaped_kernel_phase(dev, report):
         bms, by = bound(nbytes, flops, BF16_TC_FLOPS
                         if dtype == torch.bfloat16 else F32_FLOPS)
         key = f"{s_}x{s_}x{C} {str(dtype).split('.')[-1]}"
-        pred[key] = dict(ms=ms, bound_ms=bms, bound_by=by,
-                         max_abs_err=max(errs))
-        log(f"  emm_predictor tiled [{K}, {key}] live={live}: kernel "
-            f"{ms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+        pred[key] = dict(ms=ms, host_ms=hms, kernels=split, bound_ms=bms,
+                         bound_by=by, max_abs_err=max(errs))
+        log(f"  emm_predictor [{K}, {key}] live={live}: kernel {ms:.4f} ms "
+            f"device ({hms:.4f} ms with the host's enqueue; by kernel: "
+            f"{split_text(split)}), bound {bms:.4f} ms ({by}), max abs err "
             f"{max(errs):.3g} (tol {tol})")
         report["emm_predictor"]["max_abs_err"] = max(
             report["emm_predictor"]["max_abs_err"], max(errs))
@@ -1179,12 +1304,14 @@ def deform_kernel_phase(dev, report):
     """Kernel 9 at DLA-102's three stage shapes, stride 2 and stride 1,
     in-window (route A) and out-of-window (route B) offsets, bf16 and f32,
     against its plain version; the frame's 26 launches summed by shape
-    (the main path's mix: stride 2 by route B, stride 1 by route A)."""
+    (the main path's mix: stride 2 by route B, stride 1 by route A).  At
+    each bf16 stride-1 in-window shape the kernel is also timed with its
+    taps split over 1, 3 and 9 blocks, the evidence for ``tap_splits``."""
     import torch.nn.functional as F
 
-    from siammot_tpu_torch.ops.deform_conv import (deform_conv2d,
+    from siammot_tpu_torch.ops.deform_conv import (_launch, deform_conv2d,
                                                    deform_conv2d_plain,
-                                                   in_window,
+                                                   in_window, tap_splits,
                                                    window_route_possible)
     g = torch.Generator().manual_seed(5)
     row = report["deform_conv"]
@@ -1210,7 +1337,7 @@ def deform_kernel_phase(dev, report):
                     and bool(in_window(off)) else "B"
                 err, _ = check_deform(args, f"deform stage {stage} s{stride}"
                                       f" {route} {dtype}")
-                ms = timed_ms(lambda: deform_conv2d(*args))
+                ms, hms, split = kernel_times(lambda: deform_conv2d(*args))
                 pms = timed_ms(lambda: deform_conv2d_plain(*args), iters=3,
                                warmup=1)
                 xn = xin.permute(0, 3, 1, 2)
@@ -1221,17 +1348,30 @@ def deform_kernel_phase(dev, report):
                 key = (f"stage{stage} {xin.shape[1]}x{xin.shape[2]}x{c} s"
                        f"{stride} route {route} "
                        f"{str(dtype).split('.')[-1]}")
-                row["shapes"][key] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                row["shapes"][key] = dict(ms=ms, host_ms=hms, kernels=split,
+                                          plain_ms=pms, bound_ms=bms,
                                           bound_by=by, max_abs_err=err,
                                           dense_conv_ms=dms,
                                           per_frame=count)
                 row["max_abs_err"] = max(row["max_abs_err"], err)
-                log(f"  deform_conv {key}: kernel {ms:.4f} ms, plain "
+                log(f"  deform_conv {key}: kernel {ms:.4f} ms device "
+                    f"({hms:.4f} ms with the host's enqueue; by kernel: "
+                    f"{split_text(split)}), plain "
                     f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), dense "
                     f"cuDNN 3x3 of the same shape {dms:.4f} ms, max abs err "
                     f"{err:.3g}")
+                if dtype == torch.bfloat16 and count and stride == 1:
+                    sweep = {s_: device_ms(lambda: _launch(xin, off, wgt, 1,
+                                                           1, s_))
+                             for s_ in (1, 3, 9)}
+                    row["shapes"][key]["splits_ms"] = sweep
+                    log(f"    taps split over 1 / 3 / 9 blocks: "
+                        + " / ".join(f"{v:.4f}" for v in sweep.values())
+                        + f" ms device; tap_splits picks "
+                        f"{tap_splits(ho * wo, c)}")
                 if dtype == torch.bfloat16 and count:
                     row["ms"] += count * ms
+                    row["host_ms"] = row.get("host_ms", 0.0) + count * hms
                     row["plain_ms"] += count * pms
                     frame_bytes += count * 2 * (xin.numel() + off.numel()
                                                 + wgt.numel() + ho * wo * c)
@@ -1240,7 +1380,8 @@ def deform_kernel_phase(dev, report):
     row["bound_ms"], row["bound_by"] = bound(frame_bytes, frame_ops,
                                              BF16_TC_FLOPS)
     log(f"  deform_conv, one DLA-102 frame (26 launches, bf16): kernel "
-        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['ms']:.4f} ms device ({row['host_ms']:.4f} ms with the "
+        f"host's enqueue), plain {row['plain_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
 
 
@@ -1373,15 +1514,16 @@ def variants_kernel_phase(dev, report):
     got = emm_decode_unmasked(*args, 0.4, True)
     err = compare_decode(got, emm_decode_plain(*args, None, 0.4, True),
                          (*args, None, 0.4, True), "emm_decode_unmasked")
-    ms = timed_ms(lambda: emm_decode_unmasked(*args, 0.4, True))
+    ms, hms, _ = kernel_times(lambda: emm_decode_unmasked(*args, 0.4, True))
     pms = timed_ms(lambda: emm_decode_plain(*args, None, 0.4, True),
                    iters=5)
     bms, by = decode_bound(args[0], args[2], args[3], K)
-    row.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+    row.update(ms=ms, host_ms=hms, plain_ms=pms, bound_ms=bms, bound_by=by,
                max_abs_err=err)
     log(f"  emm_decode_unmasked [{K}, 4, 16, 16], all {K} slots: kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max "
-        f"abs score err {err:.3g}")
+        f"{ms:.4f} ms device ({hms:.4f} ms with the host's enqueue), plain "
+        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs score err "
+        f"{err:.3g}")
 
     # kernel 5: the striped form past s_hi 512, gated and ungated
     row = report["emm_decode_striped"]
@@ -1460,7 +1602,7 @@ def wide_sr_kernel_checks(dev, report, g):
     """Kernels 1, 2 and 3 at SEARCH_REGION 5's shapes (phase 6c): the SR
     pool at 75x75 (window 128, spans past it clamped as in the JAX
     package), the masked xcorr 75x75 x 15x15 -> 61x61 (its banded form)
-    and the predictor's tiled form at [K, 61, 61, 128] bf16, 37 of 128
+    and the predictor at [K, 61, 61, 128] bf16, 37 of 128
     slots live."""
     import torch.nn.functional as F
 
@@ -1522,7 +1664,7 @@ def wide_sr_kernel_checks(dev, report, g):
     params = predictor_params(g, dev)
     args = (x, valid, params)
     err, _ = check_predictor(args, "emm_predictor 61x61")
-    ms = timed_ms(lambda: emm_predictor(*args), iters=5)
+    ms, hms, split = kernel_times(lambda: emm_predictor(*args), iters=5)
     pms = timed_ms(lambda: emm_predictor_plain(*args), iters=2, warmup=1)
     flops = LIVE * (2 * 61 * 61 * C * C * 9 + 61 * 61 * 7 * C * 9) * 2.0
     nbytes = (LIVE * 61 * 61 * C * 2 + sum(p_.numel() * 2 for p_ in
@@ -1531,10 +1673,12 @@ def wide_sr_kernel_checks(dev, report, g):
     bms, by = bound(nbytes, flops, BF16_TC_FLOPS)
     report["emm_predictor"].setdefault("shapes", {})[
         f"61x61x{C} bfloat16 (SEARCH_REGION 5)"] = dict(
-            ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, max_abs_err=err)
-    log(f"  emm_predictor tiled [{K}, 61, 61, {C}] bf16, {LIVE} live: kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max "
-        f"abs err {err:.3g} (tol {PRED_ATOL})")
+            ms=ms, host_ms=hms, kernels=split, plain_ms=pms, bound_ms=bms,
+            bound_by=by, max_abs_err=err)
+    log(f"  emm_predictor [{K}, 61, 61, {C}] bf16, {LIVE} live: kernel "
+        f"{ms:.4f} ms device ({hms:.4f} ms with the host's enqueue; by "
+        f"kernel: {split_text(split)}), plain {pms:.4f} ms, bound {bms:.4f} "
+        f"ms ({by}), max abs err {err:.3g} (tol {PRED_ATOL})")
 
 
 def golden_toggles_phase(dev):
@@ -1676,6 +1820,9 @@ def main():
     cuda_lib.library()
     log(f"[1] built and loaded the CUDA kernels in "
         f"{time.perf_counter() - t0:.1f} s")
+    hgmma = wgmma_instructions(cuda_lib)
+    log(f"  warpgroup MMA (HGMMA) instructions in the machine code: "
+        f"{hgmma}")
 
     report = {n: dict(name=n, route="cuda", launches=0, max_abs_err=0.0,
                       **meta)
@@ -1744,8 +1891,8 @@ def main():
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("sites", "training_sites", "passes", "launches_by_path",
-             "shapes")
+    extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
+             "launches_by_path", "shapes")
     kernels = [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                for r in report.values()]
     log(f"total {time.perf_counter() - t_start:.1f} s; DLA-34 "

@@ -105,9 +105,10 @@ def main():
     print(f"{'':16}  kernels: " + ", ".join(
         f"{k}={ms:.4f}" for k, ms, _ in rows
         if any(n in k for n in ("window_pool_kernel", "xcorr_kernel",
-                                "predictor_kernel", "decode_kernel",
-                                "deform_kernel", "tower_conv_tiled",
-                                "heads_tiled"))))
+                                "xcorr_band_kernel", "tower_conv_",
+                                "heads_tiled", "decode_kernel",
+                                "deform_window", "deform_wgmma",
+                                "deform_reduce", "deform_ffma"))))
 
 
 if __name__ == "__main__":

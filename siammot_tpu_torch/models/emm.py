@@ -125,8 +125,8 @@ class EMMPredictor(nn.Module):
     """cls/reg towers + heads (reference feature_extractor.py:43-68),
     computed by kernel 3 (or 8) with the tower conv bias (PARITY.md #12).
     At s = 61 (``SEARCH_REGION`` 5) JAX's predictor kernel fails its 10 MB
-    VMEM gate and JAX takes the XLA form there; the port keeps kernel 3's
-    tiled form, the same function on the live slots."""
+    VMEM gate and JAX takes the XLA form there; the port keeps kernel 3,
+    the same function on the live slots."""
 
     def __init__(self, c: int):
         super().__init__()

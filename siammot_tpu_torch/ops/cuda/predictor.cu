@@ -1,282 +1,57 @@
 // Masked EMM predictor: the CUDA counterpart of the Pallas kernel
 // siammot_tpu/ops/pallas/predictor.py:emm_predictor_pallas
-// (_predictor_kernel).  Two forms: the resident bf16 kernel below for
-// the main path's [K, 16, 16, 128] bf16 responses, and a tiled form
-// (further down) for any S, any C with C % 32 == 0, in f32 or bf16.  At
-// the end, kernel 8, the slot-blocked form of
-// emm_predictor_pallas_blocked, which shares the tiled form's head pass.
+// (_predictor_kernel), for any response size S and channel count C with
+// C % 32 == 0, in bf16 or f32.  At the end, kernel 8, the slot-blocked
+// form of emm_predictor_pallas_blocked, which shares the head pass.
 //
-// Per live slot, over a [16, 16, 128] bf16 correlation response x:
-//   tower(x) = bf16(relu(GN32(conv3x3(x) + b)))   (cls and reg towers)
-//   cls, ctr = conv3x3(tower_cls) + b             (2 + 1 channels)
-//   reg      = relu(conv3x3(tower_reg) + b)       (4 channels)
-// Each 3x3 conv is nine shifted [256 x 128] . [128 x 128] products with
-// f32 accumulation; GroupNorm takes f32 statistics over the whole map
-// with var = E[x^2] - E[x]^2; the tower output is rounded to bf16 before
-// the heads, as on the TPU.
+// Per live slot, over an [S, S, C] correlation response x:
+//   tower(x) = T(relu(GN32(conv3x3(x) + b)))   (cls and reg towers)
+//   cls, ctr = conv3x3(tower_cls) + b          (2 + 1 channels)
+//   reg      = relu(conv3x3(tower_reg) + b)    (4 channels)
+// with T the rounding to the response dtype.  Each 3x3 conv is nine
+// shifted [S^2 x C] . [C x C] products with f32 sums; GroupNorm takes f32
+// statistics over the whole map with var = E[x^2] - E[x]^2.
 //
-// Bound on the H100: operations.  The towers are 2 x 37.7 M multiply-adds
-// per slot on inputs of 64 KB, so the tensor cores set the pace.  Simple
-// design: one block of 16 warps per live slot, everything resident in
-// shared memory (opted in to 214 KB): the zero-padded input as bf16
-// [18][18][128] and one f32 [256][128] tower buffer.  The tower convs
-// run on the tensor cores through WMMA 16x16x16 bf16 fragments: warp w
-// owns output channels 16*(w%8).. and output rows 8*(w/8)..+7, so each
-// weight fragment is read from global memory (L2) once per warp and used
-// for eight rows.  GroupNorm reduces in shared memory; the 7 head
-// channels are small and run on the CUDA cores, one warp per position,
-// normalising and rounding the tower to bf16 as they read it.  Dead
-// slots write zeros.
-#include <mma.h>
-
+// Bound on the H100: operations.  The towers are 2 x 9 S^2 C^2
+// multiply-adds per live slot (2 x 37.7 M at the main path's 16x16x128,
+// 2 x 549 M at SEARCH_REGION 5's 61x61) on inputs of 2 S^2 C bytes, so
+// in bf16 the tensor cores set the pace.  Two launches:
+//   1. the tower conv into an f32 scratch [2, K, S*S, C] (conv + bias,
+//      pre-norm): in bf16 tower_conv_wgmma, on Hopper's warpgroup MMA
+//      (wgmma.cuh); in f32 tower_conv_tiled, an FFMA implicit GEMM (the
+//      f32 golden frames hold the JAX rows to 1e-2 px, which TF32 would
+//      put at risk);
+//   2. heads_tiled: per (slot, tower) the GroupNorm statistics of the
+//      scratch map, then one warp per output position runs the 3x3
+//      head(s), normalising, applying ReLU and rounding to the response
+//      dtype as it loads.  Dead slots write zeros here.
+// bf16 products are exact in f32, on the tensor cores as on the CUDA
+// cores, so only the order of the f32 sums differs between the forms.
+//
+// tower_conv_wgmma: a block owns (live slot, tower, 128 output channels,
+// a band of 128 consecutive output positions).  It stages its band of
+// the response once, with a one-row halo and the zero border, in shared
+// memory (pixel-major, each pixel's 16-byte channel chunks XOR-swizzled
+// by the pixel index, so ldmatrix reads eight neighbouring pixels
+// without bank conflicts); each of the nine taps reads A straight from
+// there at shifted row addresses, so no im2col buffer exists.  One
+// producer warp streams the [tap, 32 input channels, 128 output
+// channels] weight slices through a 4-stage ring with cp.async (each
+// copy marks its stage full as it lands), so the block reads each weight
+// once; two consumer warpgroups of 64 positions
+// each run m64n128k16 wgmma with f32 sums.  At 16x16 and 37 live slots
+// that is 148 blocks (two a SM fit), at 61x61 2220.
 #include "common.cuh"
+#include "wgmma.cuh"
 
-using namespace nvcuda;
-
-constexpr int S = 16;        // response size
-constexpr int SP = S + 2;    // padded
-constexpr int C = 128;       // channels
 constexpr int G = 32;        // GroupNorm groups
-constexpr int THREADS = 512; // 16 warps
-
-constexpr size_t XP_BYTES = (size_t)SP * SP * C * 2;    // 82,944
-constexpr size_t ACC_BYTES = (size_t)S * S * C * 4;     // 131,072
-constexpr size_t PART_BYTES = (size_t)2 * 4 * C * 4;    // 4,096
-constexpr size_t STAT_BYTES = (size_t)2 * G * 4;        // 256
-constexpr size_t SMEM = XP_BYTES + ACC_BYTES + PART_BYTES + STAT_BYTES;
 
 typedef __nv_bfloat16 bf16;
 
-// conv3x3(xp) for one tower into acc (f32, [256][128], row-major)
-__device__ void tower_conv(const bf16* xp, const bf16* __restrict__ w,
-                           float* acc) {
-  const int warp = threadIdx.x / 32;
-  const int nt = warp % 8;        // output-channel tile
-  const int y0 = (warp / 8) * 8;  // first of the warp's 8 output rows
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> out[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) wmma::fill_fragment(out[r], 0.f);
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b, bn;
-  // step = (tap, 16-channel input chunk); HWIO weights: rows cin
-  // kc*16.., columns cout nt*16..  The next step's weight fragment is
-  // loaded before this step's products, to hide the L2 latency.
-  constexpr int STEPS = 9 * (C / 16);
-  auto w_at = [&](int step) {
-    return w + ((size_t)(step / (C / 16)) * C + (step % (C / 16)) * 16) * C +
-           nt * 16;
-  };
-  wmma::load_matrix_sync(bn, w_at(0), C);
-  for (int step = 0; step < STEPS; ++step) {
-    b = bn;
-    if (step + 1 < STEPS) wmma::load_matrix_sync(bn, w_at(step + 1), C);
-    const int tap = step / (C / 16), kc = step % (C / 16);
-    const int dy = tap / 3, dx = tap % 3;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      // A rows are the 16 x positions of output row y0 + r, shifted
-      wmma::load_matrix_sync(a, xp + ((y0 + r + dy) * SP + dx) * C + kc * 16,
-                             C);
-      wmma::mma_sync(out[r], a, b, out[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-    wmma::store_matrix_sync(acc + (y0 + r) * S * C + nt * 16, out[r], C,
-                            wmma::mem_row_major);
-}
-
-// acc += bias; GroupNorm statistics of the tower into stat[0..G) (mean)
-// and stat[G..2G) (1 / sqrt(var + eps)), var = E[x^2] - E[x]^2
-__device__ void tower_stats(float* acc, const bf16* __restrict__ bias,
-                            float* part, float* stat) {
-  const int t = threadIdx.x;
-  const int c = t % C;
-  const int pb = t / C;  // 4 blocks of 64 positions
-  const float bc = __bfloat162float(bias[c]);
-  float s = 0.f, q = 0.f;
-  for (int p = pb * 64; p < pb * 64 + 64; ++p) {
-    const float v = acc[p * C + c] + bc;
-    acc[p * C + c] = v;
-    s += v;
-    q += v * v;
-  }
-  part[pb * C + c] = s;
-  part[4 * C + pb * C + c] = q;
-  __syncthreads();
-  if (t < G) {
-    float gs = 0.f, gq = 0.f;
-    for (int b = 0; b < 4; ++b)
-      for (int cc = t * (C / G); cc < (t + 1) * (C / G); ++cc) {
-        gs += part[b * C + cc];
-        gq += part[4 * C + b * C + cc];
-      }
-    const float cnt = (float)(S * S * (C / G));
-    const float mean = gs / cnt;
-    const float var = gq / cnt - mean * mean;
-    stat[t] = mean;
-    stat[G + t] = 1.f / sqrtf(var + 1e-5f);
-  }
-  __syncthreads();
-}
-
-// 3x3 head of NOUT channels at one output position over the tower
-// relu(GN(acc)) rounded to bf16 (zero outside the map), one warp per
-// position: lane l owns input channels 4l..4l+3, which are exactly
-// GroupNorm group l; a warp shuffle adds the lanes
-template <int NOUT>
-__device__ void head_conv(const float* acc, const float* stat,
-                          const bf16* __restrict__ scale,
-                          const bf16* __restrict__ shift,
-                          const bf16* __restrict__ w, float (&out)[NOUT],
-                          int py, int px) {
-  const int lane = threadIdx.x % 32;
-  const float mean = stat[lane], rstd = stat[G + lane];
-  float sc[4], sh[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    sc[i] = __bfloat162float(scale[lane * 4 + i]);
-    sh[i] = __bfloat162float(shift[lane * 4 + i]);
-  }
-  float sum[NOUT];
-#pragma unroll
-  for (int o = 0; o < NOUT; ++o) sum[o] = 0.f;
-  for (int dy = 0; dy < 3; ++dy) {
-    const int yy = py + dy - 1;
-    if (yy < 0 || yy >= S) continue;
-    for (int dx = 0; dx < 3; ++dx) {
-      const int xx = px + dx - 1;
-      if (xx < 0 || xx >= S) continue;
-      const float4 v = *(const float4*)(acc + (yy * S + xx) * C + lane * 4);
-      const float vin[4] = {v.x, v.y, v.z, v.w};
-      const bf16* wt = w + ((size_t)(dy * 3 + dx) * C + lane * 4) * NOUT;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float tv = __bfloat162float(__float2bfloat16(
-            fmaxf((vin[i] - mean) * rstd * sc[i] + sh[i], 0.f)));
-#pragma unroll
-        for (int o = 0; o < NOUT; ++o)
-          sum[o] += tv * __bfloat162float(wt[i * NOUT + o]);
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < NOUT; ++o) {
-    for (int off = 16; off > 0; off /= 2)
-      sum[o] += __shfl_xor_sync(0xffffffff, sum[o], off);
-    out[o] = sum[o];
-  }
-}
-
-struct PredictorParams {
-  const bf16 *wct, *bct, *sct, *oct;  // cls tower conv w/b, GN scale/bias
-  const bf16 *wrt, *brt, *srt, *ort;  // reg tower
-  const bf16 *wcls, *bcls;            // [3,3,C,2], [2]
-  const bf16 *wctr, *bctr;            // [3,3,C,1], [1]
-  const bf16 *wreg, *breg;            // [3,3,C,4], [4]
-};
-
-__global__ void __launch_bounds__(THREADS)
-    predictor_kernel(const bf16* __restrict__ x,
-                     const uint8_t* __restrict__ valid, PredictorParams P,
-                     float* __restrict__ cls, float* __restrict__ ctr,
-                     float* __restrict__ reg) {
-  const int k = blockIdx.x;
-  const int t = threadIdx.x;
-  float* cls_k = cls + (size_t)k * S * S * 2;
-  float* ctr_k = ctr + (size_t)k * S * S;
-  float* reg_k = reg + (size_t)k * S * S * 4;
-  if (!valid[k]) {
-    for (int e = t; e < S * S * 4; e += THREADS) {
-      reg_k[e] = 0.f;
-      if (e < S * S * 2) cls_k[e] = 0.f;
-      if (e < S * S) ctr_k[e] = 0.f;
-    }
-    return;
-  }
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xp = (bf16*)smem;
-  float* acc = (float*)(smem + XP_BYTES);
-  float* part = (float*)(smem + XP_BYTES + ACC_BYTES);
-  float* stat = (float*)(smem + XP_BYTES + ACC_BYTES + PART_BYTES);
-
-  const bf16* xk = x + (size_t)k * S * S * C;
-  for (int e = t; e < SP * SP * C; e += THREADS) {
-    const int c = e % C, p = e / C;
-    const int py = p / SP - 1, px = p % SP - 1;
-    xp[e] = (py >= 0 && py < S && px >= 0 && px < S)
-                ? xk[(py * S + px) * C + c]
-                : __float2bfloat16(0.f);
-  }
-  __syncthreads();
-
-  // cls tower -> cls (2) + ctr (1) heads
-  tower_conv(xp, P.wct, acc);
-  __syncthreads();
-  tower_stats(acc, P.bct, part, stat);
-  const int warp = t / 32, lane = t % 32;
-  for (int p = warp; p < S * S; p += THREADS / 32) {
-    float c2[2], c1[1];
-    head_conv<2>(acc, stat, P.sct, P.oct, P.wcls, c2, p / S, p % S);
-    head_conv<1>(acc, stat, P.sct, P.oct, P.wctr, c1, p / S, p % S);
-    if (lane == 0) {
-      cls_k[p * 2] = c2[0] + __bfloat162float(P.bcls[0]);
-      cls_k[p * 2 + 1] = c2[1] + __bfloat162float(P.bcls[1]);
-      ctr_k[p] = c1[0] + __bfloat162float(P.bctr[0]);
-    }
-  }
-  __syncthreads();
-
-  // reg tower -> reg (4) head
-  tower_conv(xp, P.wrt, acc);
-  __syncthreads();
-  tower_stats(acc, P.brt, part, stat);
-  for (int p = warp; p < S * S; p += THREADS / 32) {
-    float r4[4];
-    head_conv<4>(acc, stat, P.srt, P.ort, P.wreg, r4, p / S, p % S);
-    if (lane == 0)
-      for (int o = 0; o < 4; ++o)
-        reg_k[p * 4 + o] = fmaxf(r4[o] + __bfloat162float(P.breg[o]), 0.f);
-  }
-}
-
-SIAMMOT_API int siammot_emm_predictor(
-    const void* x, const uint8_t* valid, const void* wct, const void* bct,
-    const void* sct, const void* oct, const void* wrt, const void* brt,
-    const void* srt, const void* ort, const void* wcls, const void* bcls,
-    const void* wctr, const void* bctr, const void* wreg, const void* breg,
-    float* cls, float* ctr, float* reg, int K, void* stream) {
-  if (K == 0) return 0;
-  cudaError_t err = set_smem(predictor_kernel, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  PredictorParams P{(const bf16*)wct,  (const bf16*)bct,  (const bf16*)sct,
-                    (const bf16*)oct,  (const bf16*)wrt,  (const bf16*)brt,
-                    (const bf16*)srt,  (const bf16*)ort,  (const bf16*)wcls,
-                    (const bf16*)bcls, (const bf16*)wctr, (const bf16*)bctr,
-                    (const bf16*)wreg, (const bf16*)breg};
-  predictor_kernel<<<K, THREADS, SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)x, valid, P, cls, ctr, reg);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// Tiled form: any response size S and channel count C (C % 32 == 0), f32
-// or bf16.  A padded 31x31x128 bf16 map (246 KB) or a 16x16x128 f32 one
-// (128 KB per buffer) does not fit one block's shared memory beside its
-// tower buffer, so the work is split in two launches:
-//   1. tower_conv_tiled: per (live slot, tower, 64 positions x 64 output
-//      channels) an FFMA implicit GEMM over K = 9 taps x C in chunks of
-//      16, the input tile gathered with its zero border, f32 sums; it
-//      writes conv + bias (f32, pre-norm) to a scratch [2, K, S*S, C].
-//   2. heads_tiled: per (slot, tower) one block takes the GroupNorm
-//      statistics of the scratch map (one warp per group, f32,
-//      var = E[x^2] - E[x]^2), then one warp per output position runs
-//      the 3x3 head(s), normalising, applying ReLU and rounding to the
-//      response dtype as it loads, as the resident kernel does.
-// The products are exact in f32 for bf16 inputs, as on the tensor
-// cores, so both forms compute the same function; only the order of the
-// f32 sums differs.  Bound: operations (2 x 9 S^2 C^2 multiply-adds per
-// live slot); this form is the simple one, on the CUDA cores.
+// f32: tower_conv_tiled, per (live slot, tower, 64 positions x 64 output
+// channels) an FFMA implicit GEMM over K = 9 taps x C in chunks of 16,
+// the input tile gathered with its zero border.
 
 constexpr int TP = 64;        // positions per conv tile
 constexpr int TC = 64;        // output channels per conv tile
@@ -483,11 +258,159 @@ __global__ void __launch_bounds__(HEAD_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tower_conv_wgmma (see the note at the top)
+namespace tconv {
+constexpr int BM = 128;                 // output positions a block
+constexpr int KC = 32;                  // input channels a stage
+constexpr int STAGES = 4;
+constexpr int B_BYTES = KC * wg::N * 2;   // one weight slice, 8 KB
+constexpr int CONSUMER_WARPS = 8;         // two warpgroups
+constexpr int THREADS = 32 * CONSUMER_WARPS + 32;  // + the producer warp
+
+// rows of the response a band stages: those its positions span, plus
+// the halo row above and below
+__host__ __device__ inline int rows_staged(int S) {
+  const int spanned = (BM - 1) / S + 2;  // rows BM positions can touch
+  return (spanned < S ? spanned : S) + 2;
+}
+__host__ inline size_t smem_bytes(int S, int Cc) {
+  return (size_t)STAGES * B_BYTES + (size_t)rows_staged(S) * (S + 2) * Cc * 2 +
+         1024;  // + slack to align the ring to 1024 bytes
+}
+}  // namespace tconv
+
+__global__ void __launch_bounds__(tconv::THREADS, 2)
+    tower_conv_wgmma(const bf16* __restrict__ x,
+                     const uint8_t* __restrict__ valid, TiledParams<bf16> P,
+                     float* __restrict__ pre, int K, int S, int Cc) {
+  const int k = blockIdx.z >> 1, tower = blockIdx.z & 1;
+  if (!valid[k]) return;  // heads_tiled writes the dead slot's zeros
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      (unsigned char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  unsigned char* staged = ring + tconv::STAGES * tconv::B_BYTES;
+  __shared__ uint64_t full[tconv::STAGES], empty[tconv::STAGES];
+
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int SS = S * S, SP = S + 2, C8 = Cc / 8;
+  const int mask = Cc % 64 ? 3 : 7;  // chunk swizzle within whole groups
+  const int p0 = blockIdx.x * tconv::BM, co0 = blockIdx.y * wg::N;
+  const int ylo = p0 / S;
+  const int nrows = (min(p0 + tconv::BM, SS) - 1) / S - ylo + 3;
+  const bf16* w = tower ? P.w[1] : P.w[0];
+  if (t == 0) {
+    for (int s = 0; s < tconv::STAGES; ++s) {
+      wg::mbar_init(&full[s], 32);
+      wg::mbar_init(&empty[s], tconv::CONSUMER_WARPS);
+    }
+    wg::mbar_init_fence();
+  }
+  // the band's response rows ylo - 1 .. with the zero border: staged
+  // pixel sp = (row - ylo + 1) * (S + 2) + column + 1
+  const bf16* xk = x + (size_t)k * SS * Cc;
+  const uint32_t staged_at = wg::smem_addr(staged);
+  for (int e = t; e < nrows * SP * C8; e += tconv::THREADS) {
+    const int sp = e / C8, q = e % C8;
+    const int yy = ylo - 1 + sp / SP, xx = sp % SP - 1;
+    const bool in = yy >= 0 && yy < S && xx >= 0 && xx < S;
+    wg::cp_async16(
+        staged_at + (uint32_t)(sp * Cc * 2) + ((q ^ (sp & mask)) << 4),
+        in ? xk + ((size_t)yy * S + xx) * Cc + q * 8 : xk, in ? 16 : 0);
+  }
+  wg::cp_async_commit();
+  wg::cp_async_wait<0>();
+  __syncthreads();
+
+  const int kcn = Cc / tconv::KC;  // 32-channel chunks a tap
+  const int steps = 9 * kcn;
+  if (warp == tconv::CONSUMER_WARPS) {
+    // producer: the weight slices [tap, ci0.., co0..] through the ring;
+    // each lane's copies arrive on the stage's full barrier as they land
+    const uint32_t ring_at = wg::smem_addr(ring);
+    int stage = 0;
+    uint32_t phase = 1;
+    for (int it = 0; it < steps; ++it) {
+      wg::mbar_wait(&empty[stage], phase);
+      const int tap = it / kcn, ci0 = (it % kcn) * tconv::KC;
+      const uint32_t b_at = ring_at + stage * tconv::B_BYTES;
+      for (int e = lane; e < tconv::KC * 16; e += 32) {
+        const int r = e / 16, q = e % 16;
+        const int co = co0 + q * 8;
+        wg::cp_async16(b_at + wg::b_offset(r, q, tconv::KC),
+                       co < Cc ? w + ((size_t)tap * Cc + ci0 + r) * Cc + co
+                               : w,
+                       co < Cc ? 16 : 0);
+      }
+      wg::cp_async_arrive(&full[stage]);
+      if (++stage == tconv::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wg::cp_async_wait<0>();  // leave no copy in flight
+    return;
+  }
+
+  // consumers: warpgroup g owns positions p0 + 64 g .., its warp w the
+  // 16 from p0 + 64 g + 16 w; lane l gives position l % 16's row address
+  const int g = warp / 4, wq = warp % 4;
+  const int p = min(p0 + 64 * g + 16 * wq + (lane & 15), SS - 1);
+  const int sp0 = (p / S - ylo) * SP + p % S;  // tap (0, 0)
+  float d[wg::ACC];
+#pragma unroll
+  for (int i = 0; i < wg::ACC; ++i) d[i] = 0.f;
+  const uint32_t ring_at = wg::smem_addr(ring);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < steps; ++it) {
+    const int tap = it / kcn, q0 = (it % kcn) * (tconv::KC / 8);
+    const int sp = sp0 + (tap / 3) * SP + tap % 3;
+    const uint32_t row_at = staged_at + (uint32_t)(sp * Cc * 2);
+    uint32_t a[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int q = q0 + 2 * ks + (lane >> 4);
+      wg::ldmatrix_x4(a[ks], row_at + ((q ^ (sp & mask)) << 4));
+    }
+    wg::mbar_wait(&full[stage], phase);
+    wg::fence_proxy_async();
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      wg::mma(d, a[ks],
+              wg::b_desc(ring_at + stage * tconv::B_BYTES + ks * 2048,
+                         tconv::KC));
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_acc(d);
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(&empty[stage]);
+    if (++stage == tconv::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // conv + bias, f32, to the scratch
+  const bf16* bias = tower ? P.b[1] : P.b[0];
+  float* out = pre + ((size_t)tower * K + k) * SS * Cc;
+  const int r0 = p0 + 64 * g + 16 * wq + lane / 4;
+#pragma unroll
+  for (int i = 0; i < wg::ACC; i += 2) {
+    const int pos = r0 + 8 * ((i / 2) % 2);
+    const int co = co0 + 8 * (i / 4) + 2 * (lane % 4);
+    if (pos < SS && co < Cc) {
+      float2 v;
+      v.x = d[i] + __bfloat162float(bias[co]);
+      v.y = d[i + 1] + __bfloat162float(bias[co + 1]);
+      *(float2*)(out + (size_t)pos * Cc + co) = v;
+    }
+  }
+}
+
 template <typename T>
-static int predictor_tiled(const void* x, const uint8_t* valid,
-                           const void* const* p, float* pre, float* cls,
-                           float* ctr, float* reg, int K, int S, int Cc,
-                           void* stream) {
+static TiledParams<T> tiled_params(const void* const* p) {
   TiledParams<T> P;
   for (int i = 0; i < 2; ++i) {
     P.w[i] = (const T*)p[4 * i];
@@ -501,29 +424,69 @@ static int predictor_tiled(const void* x, const uint8_t* valid,
   P.bctr = (const T*)p[11];
   P.wreg = (const T*)p[12];
   P.breg = (const T*)p[13];
-  const dim3 grid((S * S + TP - 1) / TP, (Cc + TC - 1) / TC, 2 * K);
-  tower_conv_tiled<T><<<grid, CONV_THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)x, valid, P, pre, K, S, Cc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  heads_tiled<T><<<dim3(K, 2), HEAD_THREADS, 0, (cudaStream_t)stream>>>(
-      pre, valid, P, cls, ctr, reg, K, S, Cc);
-  return (int)cudaGetLastError();
+  return P;
+}
+
+// the dynamic shared memory a block of tower_conv_wgmma may opt in to:
+// the card's per-block limit less the kernel's static barriers
+static size_t tower_smem_limit() {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&fa, tower_conv_wgmma) != cudaSuccess)
+    return 0;
+  return (size_t)optin - fa.sharedSizeBytes;
+}
+
+// shared memory the bf16 tower conv needs at (S, C), or -1 past the
+// card's limit (the wrapper raises)
+SIAMMOT_API int siammot_emm_tower_smem(int S, int Cc) {
+  const size_t need = tconv::smem_bytes(S, Cc);
+  return need <= tower_smem_limit() ? (int)need : -1;
 }
 
 // params: the 14 tensors in the order of ops/predictor.py _NAMES; dtype
-// 0 = float32, 1 = bfloat16; pre: f32 scratch [2, K, S*S, C]
-SIAMMOT_API int siammot_emm_predictor_tiled(
+// 0 = float32, 1 = bfloat16 (16-byte aligned); pre: f32 scratch
+// [2, K, S*S, C]
+SIAMMOT_API int siammot_emm_predictor(
     const void* x, const uint8_t* valid, const void* const* params,
     float* pre, float* cls, float* ctr, float* reg, int K, int S, int Cc,
     int dtype, void* stream) {
   if (K == 0) return 0;
   if (Cc % G || S < 1 || 2 * K > 65535) return (int)cudaErrorInvalidValue;
-  return dtype == 0
-             ? predictor_tiled<float>(x, valid, params, pre, cls, ctr, reg, K,
-                                      S, Cc, stream)
-             : predictor_tiled<__nv_bfloat16>(x, valid, params, pre, cls, ctr,
-                                              reg, K, S, Cc, stream);
+  cudaError_t err;
+  if (dtype == 1) {
+    static size_t limit = 0;  // opted in once, outside any graph capture
+    if (limit == 0) {
+      limit = tower_smem_limit();
+      err = set_smem(tower_conv_wgmma, limit);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const size_t smem = tconv::smem_bytes(S, Cc);
+    if (smem > limit) return (int)cudaErrorInvalidValue;
+    const TiledParams<bf16> P = tiled_params<bf16>(params);
+    const dim3 grid((S * S + tconv::BM - 1) / tconv::BM,
+                    (Cc + wg::N - 1) / wg::N, 2 * K);
+    tower_conv_wgmma<<<grid, tconv::THREADS, smem, (cudaStream_t)stream>>>(
+        (const bf16*)x, valid, P, pre, K, S, Cc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    heads_tiled<bf16><<<dim3(K, 2), HEAD_THREADS, 0, (cudaStream_t)stream>>>(
+        pre, valid, P, cls, ctr, reg, K, S, Cc);
+  } else {
+    const TiledParams<float> P = tiled_params<float>(params);
+    const dim3 grid((S * S + TP - 1) / TP, (Cc + TC - 1) / TC, 2 * K);
+    tower_conv_tiled<float><<<grid, CONV_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)x, valid, P, pre, K, S, Cc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    heads_tiled<float><<<dim3(K, 2), HEAD_THREADS, 0,
+                         (cudaStream_t)stream>>>(pre, valid, P, cls, ctr, reg,
+                                                 K, S, Cc);
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -651,19 +614,7 @@ static int predictor_blocked(const void* x, const uint8_t* valid,
                              const void* const* p, float* pre, float* cls,
                              float* ctr, float* reg, int K, int S, int Cc,
                              int B, void* stream) {
-  TiledParams<T> P;
-  for (int i = 0; i < 2; ++i) {
-    P.w[i] = (const T*)p[4 * i];
-    P.b[i] = (const T*)p[4 * i + 1];
-    P.scale[i] = (const T*)p[4 * i + 2];
-    P.shift[i] = (const T*)p[4 * i + 3];
-  }
-  P.wcls = (const T*)p[8];
-  P.bcls = (const T*)p[9];
-  P.wctr = (const T*)p[10];
-  P.bctr = (const T*)p[11];
-  P.wreg = (const T*)p[12];
-  P.breg = (const T*)p[13];
+  const TiledParams<T> P = tiled_params<T>(p);
   const size_t smem =
       ((size_t)9 * Cc * BC + NWG * BK * BPS) * sizeof(float);
   cudaError_t err = set_smem(tower_conv_blocked<T>, smem);
@@ -679,7 +630,7 @@ static int predictor_blocked(const void* x, const uint8_t* valid,
   return (int)cudaGetLastError();
 }
 
-// params as for siammot_emm_predictor_tiled; B slots a block, K % B == 0
+// params as for siammot_emm_predictor; B slots a block, K % B == 0
 SIAMMOT_API int siammot_emm_predictor_blocked(
     const void* x, const uint8_t* valid, const void* const* params,
     float* pre, float* cls, float* ctr, float* reg, int K, int S, int Cc,

@@ -23,18 +23,26 @@ the port reproduces both:
 Either way out-of-range corners count zero, the sample is rounded to the
 input dtype and one [N, 9C] @ [9C, Co] product with f32 sums gives the
 output, rounded once.  The route is decided on the device: the geometry
-and the VMEM gate are static, and the in-window test is a reduction the
-kernel reads as an int flag, so a frame does not wait for the host.  The
-reference's 128-lane rule (``c % 128`` sends narrow layers to the patch
-form on a TPU only) is a TPU layout limit and not part of the function.
+and the VMEM gate are static, and the in-window test is a reduction that
+the kernel's launch runs first and its blocks read as an int flag, so a
+frame does not wait for the host.  The reference's 128-lane rule
+(``c % 128`` sends narrow layers to the patch form on a TPU only) is a
+TPU layout limit and not part of the function.
 
 On the H100 the layer is bound by operations (2 x 9 C Co multiply-adds
 per output pixel; DLA-102's 26 layers are about 113 GFLOP a 720p frame)
 with a gathered A operand.  The CUDA kernel (``cuda/deform.cu``) is an
-implicit GEMM: a block owns 64 output pixels x 64 output channels and
-walks K = 9 taps x C in chunks of 32, sampling the A tile into shared
-memory (f32 math, rounded to the input dtype) and multiplying on the
-tensor cores (WMMA bf16, f32 accumulation) or with FFMA in f32.
+implicit GEMM.  In bf16 it runs on Hopper's warpgroup MMA
+(``cuda/wgmma.cuh``): a block owns 128 output pixels x 128 output
+channels (64 x 256 where Co > 128), so each sample is taken once per
+block; two producer warpgroups compute each (pixel, tap)'s corners once,
+gather 8 channels a 16-byte load and write the bf16 samples, bit for bit
+the reference route's, into a ring beside the weight slice, while two
+consumer warpgroups multiply the chunk before.  Where the pixel and
+channel tiles alone leave more than half the card's SMs idle, the nine
+taps are split over 3 or 9 blocks whose f32 partial sums a second launch
+adds and rounds once (:func:`tap_splits`).  In f32 it is an FFMA
+implicit GEMM.
 """
 
 from __future__ import annotations
@@ -45,8 +53,9 @@ from . import cuda
 
 R = 2           # in-window radius of route A (floor of every offset)
 HALO = R + 2    # the Pallas kernel's row/column halo (for its VMEM gate)
-_ARGS = (cuda.P, cuda.P, cuda.P, cuda.P, cuda.P) + (cuda.I,) * 10 \
+_ARGS = (cuda.P,) * 4 + (cuda.I,) + (cuda.P,) * 2 + (cuda.I,) * 11 \
     + (cuda.P,)
+SMS = 132       # the H100's streaming multiprocessors
 
 
 def window_route_possible(x_shape, kernel_shape, stride: int,
@@ -63,6 +72,21 @@ def window_route_possible(x_shape, kernel_shape, stride: int,
     est = (itemsize * (9 * c * co + (th + 2 * HALO) * wp * c + th * wo * co)
            + 4 * (3 * th * wo * c + th * wo * wp + th * wo * co))
     return est * 1.25 <= 15 * 2 ** 20
+
+
+def tap_splits(n: int, co: int) -> int:
+    """Blocks the nine taps of a bf16 layer are split over (1, 3 or 9):
+    the fewest that give half the SMs a block.  On the H100
+    (``chip_smoke.py`` phase 2d) an unsplit stage-3 layer of DLA-102 (115
+    tiles) beat its 3- and 9-way splits, whose f32 partial sums cost more
+    than the idle SMs, while stages 4 and 5 (58 and 30 tiles) ran about
+    as fast or fastest split 3 ways."""
+    px, ch = (64, 256) if co > 128 else (128, 128)  # the kernel's tile
+    tiles = -(-n // px) * -(-co // ch)
+    for splits in (1, 3):
+        if tiles * splits >= SMS // 2:
+            return splits
+    return 9
 
 
 def in_window(offsets: torch.Tensor) -> torch.Tensor:
@@ -106,17 +130,35 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,
     if x.numel() >= 2 ** 31 or b * ho * wo * max(co, 18) >= 2 ** 31:
         raise ValueError("deform_conv2d: tensors too large for int32 "
                          "indexing")
-    allow_a = window_route_possible(x.shape, kernel.shape, stride, dilation,
-                                    x.element_size())
-    flag = in_window(offsets) if allow_a else \
-        torch.zeros((), dtype=torch.int32, device=x.device)
+    out = _launch(x, offsets, kernel, stride, dilation,
+                  tap_splits(b * ho * wo, co))
+    deform_conv2d.launches += 1
+    return out
+
+
+def _launch(x, offsets, kernel, stride, dilation, splits):
+    """One launch of the kernel (bf16 taps split over ``splits`` blocks)
+    on checked CUDA inputs."""
+    b, h, w, c = x.shape
+    co = kernel.shape[3]
+    ho, wo = offsets.shape[1:3]
+    # route A's in-window test runs on the device, in the kernel's launch
+    outside = torch.empty((), dtype=torch.int32, device=x.device) \
+        if window_route_possible(x.shape, kernel.shape, stride, dilation,
+                                 x.element_size()) else None
     out = torch.empty((b, ho, wo, co), dtype=x.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    if not bf16:
+        splits = 1
+    partial = torch.empty((splits, b * ho * wo, co), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None
     fn = cuda.function("siammot_deform_conv", _ARGS)
     cuda.check("deform_conv", fn(
-        cuda.ptr(x), cuda.ptr(offsets), cuda.ptr(kernel), cuda.ptr(flag),
-        cuda.ptr(out), b, h, w, c, ho, wo, co, stride, dilation,
-        int(x.dtype == torch.bfloat16), cuda.stream(x.device)))
-    deform_conv2d.launches += 1
+        cuda.ptr(x), cuda.ptr(offsets), cuda.ptr(kernel),
+        None if outside is None else cuda.ptr(outside), R, cuda.ptr(out),
+        None if partial is None else cuda.ptr(partial), b, h,
+        w, c, ho, wo, co, stride, dilation, int(bf16), splits,
+        cuda.stream(x.device)))
     return out
 
 

@@ -9,14 +9,18 @@ tower.  Dead slots write zeros (PARITY.md #11).
 
 On the H100 the towers are bound by operations (2 x 9 S^2 C^2
 multiply-adds per live slot; 2 x 37.7 M at the main path's 16x16x128).
-Two CUDA forms (``cuda/predictor.cu``): for the main path's shape
-(16x16 response, 128 channels, bf16) one block keeps a slot entirely in
-shared memory and runs the tower convs on the tensor cores with WMMA
-bf16 fragments; every other shape and dtype the JAX kernel takes (any
-S, C a multiple of the 32 groups, f32 or bf16: the f32 frame, the AOT
-recipe's 29x29 responses) runs a tiled form of two launches, an FFMA
-implicit-GEMM tower conv into an f32 scratch and a normalise-on-load
-head pass.  Both are one launch of this wrapper.
+``cuda/predictor.cu`` runs two launches for any S and C (C a multiple of
+the 32 groups): the tower conv into an f32 scratch, then a head pass
+that takes the GroupNorm statistics, normalises on load and runs the
+heads.  In bf16 the tower conv runs on Hopper's warpgroup MMA
+(``cuda/wgmma.cuh``): a block stages its band of 128 positions of the
+response once in shared memory, each 3x3 tap reads A there at shifted
+row addresses (no im2col buffer), and one producer warp streams the
+weight slices through a ring so the block reads each weight once; the
+grid of (live slot, tower, 128 channels, band) fills the card at 37
+live slots as at 128.  In f32 the tower conv is an FFMA implicit GEMM
+(tensor cores would round to TF32).  The bf16 form needs the response
+and weights 16-byte aligned (cp.async); the wrapper raises otherwise.
 
 Kernel 8 (:func:`emm_predictor_blocked`) replaces
 ``siammot_tpu/ops/pallas/predictor.py:emm_predictor_pallas_blocked``
@@ -26,8 +30,8 @@ function with B slots per program, a block without a live slot writing
 zeros and the dead lanes of a live block emitting zeros.  On the card
 one block per (B-slot group, tower, 16 output channels) stages its
 weight slice once and runs the tower conv of the group's live slots
-against it (B x less weight traffic than a per-slot kernel); the tiled
-form's head pass then normalises and runs the heads.
+against it (B x less weight traffic than a per-slot kernel); kernel 3's
+head pass then normalises and runs the heads.
 """
 
 from __future__ import annotations
@@ -43,9 +47,7 @@ _NAMES = ("cls_tower_conv.kernel", "cls_tower_conv.bias",
           "reg_tower_gn.scale", "reg_tower_gn.bias",
           "cls.kernel", "cls.bias", "center.kernel", "center.bias",
           "reg.kernel", "reg.bias")
-_ARGS = (cuda.P, cuda.P) + (cuda.P,) * len(_NAMES) + (cuda.P,) * 3 \
-    + (cuda.I, cuda.P)
-_TILED_ARGS = (cuda.P, cuda.P, cuda.P) + (cuda.P,) * 4 + (cuda.I,) * 4 \
+_ARGS = (cuda.P, cuda.P, cuda.P) + (cuda.P,) * 4 + (cuda.I,) * 4 \
     + (cuda.P,)
 _BLOCKED_ARGS = (cuda.P, cuda.P, cuda.P) + (cuda.P,) * 4 + (cuda.I,) * 5 \
     + (cuda.P,)
@@ -96,23 +98,22 @@ def emm_predictor(x: torch.Tensor, valid: torch.Tensor,
         return emm_predictor_plain(x, valid, params)
     ps = _check(x, valid, params)
     k, s, _, c = x.shape
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        if any(t.data_ptr() % 16 for t in (x, *ps)):
+            raise ValueError("predictor: the bf16 kernel's cp.async needs "
+                             "16-byte aligned response and weights")
+        smem = cuda.function("siammot_emm_tower_smem", (cuda.I, cuda.I))
+        if smem(s, c) < 0:
+            raise ValueError(f"predictor: a band of the [{s}, {s}, {c}] "
+                             f"response does not fit shared memory")
     cls, ctr, reg = _outputs(x)
-    if (s, c) == (16, 128) and x.dtype == torch.bfloat16:
-        if any(t.data_ptr() % 32 for t in ps):
-            raise ValueError("predictor: WMMA loads need 32-byte aligned "
-                             "weights")
-        fn = cuda.function("siammot_emm_predictor", _ARGS)
-        err = fn(cuda.ptr(x), cuda.ptr(valid), *[cuda.ptr(t) for t in ps],
-                 cuda.ptr(cls), cuda.ptr(ctr), cuda.ptr(reg), k,
-                 cuda.stream(x.device))
-    else:
-        pre = torch.empty((2, k, s * s, c), dtype=torch.float32,
-                          device=x.device)
-        ptrs = (cuda.P * len(ps))(*[t.data_ptr() for t in ps])
-        fn = cuda.function("siammot_emm_predictor_tiled", _TILED_ARGS)
-        err = fn(cuda.ptr(x), cuda.ptr(valid), ptrs, cuda.ptr(pre),
-                 cuda.ptr(cls), cuda.ptr(ctr), cuda.ptr(reg), k, s, c,
-                 int(x.dtype == torch.bfloat16), cuda.stream(x.device))
+    pre = torch.empty((2, k, s * s, c), dtype=torch.float32, device=x.device)
+    ptrs = (cuda.P * len(ps))(*[t.data_ptr() for t in ps])
+    fn = cuda.function("siammot_emm_predictor", _ARGS)
+    err = fn(cuda.ptr(x), cuda.ptr(valid), ptrs, cuda.ptr(pre),
+             cuda.ptr(cls), cuda.ptr(ctr), cuda.ptr(reg), k, s, c, int(bf16),
+             cuda.stream(x.device))
     cuda.check("emm_predictor", err)
     emm_predictor.launches += 1
     return cls, ctr, reg

@@ -7,8 +7,10 @@ and without JAX, run them with
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (``--noconftest``: the suite's conftest imports JAX).  Shapes are the
-main path's and the other shapes the JAX kernels take (predictor f32
-and 29x29, decode s_hi 464 and 512), small elsewhere.  Tolerances as in
+main path's and the other shapes the JAX kernels take (predictor f32,
+29x29 and 61x61 with 1, 37 and 128 live slots, decode s_hi 464 and 512,
+the deformable conv at DLA-102's stages and with its taps split), small
+elsewhere.  Tolerances as in
 ``chip_smoke.py``: pool/xcorr f32 sums in another order (1e-4 +
 1e-3|x|; the pool backward adds with atomics, in an order that changes
 from run to run), predictor logits 3e-2 in bf16 (tower rounding) and 1e-4
@@ -127,10 +129,12 @@ def _predictor_params(g, c, dtype, dev):
 
 @pytest.mark.parametrize("s,c,dtype,tol", [
     (16, 128, torch.float32, 1e-4), (29, 128, torch.bfloat16, 3e-2),
-    (29, 128, torch.float32, 1e-4), (13, 64, torch.bfloat16, 3e-2)])
+    (29, 128, torch.float32, 1e-4), (13, 64, torch.bfloat16, 3e-2),
+    (11, 96, torch.bfloat16, 3e-2), (11, 32, torch.bfloat16, 3e-2)])
 def test_predictor_kernel_tiled_shapes(dev, s, c, dtype, tol):
-    """The tiled form: the f32 frame's shape, the AOT recipe's 29x29
-    response, and a narrower map."""
+    """Other shapes: the f32 frame's (the FFMA tower conv), the AOT
+    recipe's 29x29 response, and narrower maps (C not a multiple of 64:
+    the bf16 kernel's smaller swizzle, a part-filled channel tile)."""
     g = torch.Generator().manual_seed(11)
     params = _predictor_params(g, c, dtype, dev)
     x = torch.randn(7, s, s, c, generator=g).to(dev, dtype)
@@ -139,6 +143,25 @@ def test_predictor_kernel_tiled_shapes(dev, s, c, dtype, tol):
                          emm_predictor_plain(x, valid, params)):
         assert (got[~valid] == 0).all()
         torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("live", [1, 37, 128])
+@pytest.mark.parametrize("s,c", [(16, 128), (29, 128), (61, 128), (13, 64)])
+def test_predictor_kernel_wgmma(dev, s, c, live):
+    """The bf16 tower conv on wgmma at the main path's 16x16, the AOT
+    recipe's 29x29, SEARCH_REGION 5's 61x61 and a narrow 13x13x64, with
+    1, 37 and all 128 of 128 slots live: against the plain version,
+    dead slots exactly zero."""
+    g = torch.Generator().manual_seed(29)
+    params = _predictor_params(g, c, torch.bfloat16, dev)
+    x = torch.randn(128, s, s, c, generator=g).to(dev, torch.bfloat16)
+    valid = torch.zeros(128, dtype=torch.bool)
+    valid[torch.randperm(128, generator=g)[:live]] = True
+    valid = valid.to(dev)
+    for got, want in zip(emm_predictor(x, valid, params),
+                         emm_predictor_plain(x, valid, params)):
+        assert (got[~valid] == 0).all()
+        torch.testing.assert_close(got, want, atol=3e-2, rtol=0)
 
 
 @pytest.mark.parametrize("s,up", [(29, 16), (32, 16), (13, 16), (16, 8)])
@@ -166,10 +189,12 @@ def test_decode_kernel_other_sizes(dev, s, up):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("h,w,c,co,stride,scale", [
     (23, 40, 64, 64, 1, 0.3), (23, 300, 32, 48, 1, 2.0),
-    (46, 80, 64, 64, 2, 0.8), (9, 13, 40, 8, 2, 3.0)])
+    (46, 80, 64, 64, 2, 0.8), (9, 13, 40, 8, 2, 3.0),
+    (11, 17, 13, 10, 1, 0.3), (12, 9, 20, 7, 2, 2.0)])
 def test_deform_kernel(dev, dtype, h, w, c, co, stride, scale):
     """Kernel 9 against its plain version: both routes, both strides,
-    partial channel tiles, coordinates past 256."""
+    partial channel tiles, coordinates past 256, and C and Co that are
+    not multiples of 8 (element loads; an odd Co)."""
     g = torch.Generator().manual_seed(15)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     x = torch.randn(2, h, w, c, generator=g).to(dev, dtype)
@@ -184,6 +209,56 @@ def test_deform_kernel(dev, dtype, h, w, c, co, stride, scale):
     else:
         torch.testing.assert_close(got, want, atol=2 ** -9 * scale_,
                                    rtol=2 ** -7)
+
+
+def _deform_close(got, want):
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=2 ** -9 * scale, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("route", ["A", "B"])
+@pytest.mark.parametrize("stage,h,w,c,stride", [
+    (3, 184, 320, 128, 2), (3, 92, 160, 128, 1), (4, 92, 160, 256, 2),
+    (4, 46, 80, 256, 1), (5, 46, 80, 512, 2), (5, 23, 40, 512, 1)])
+def test_deform_kernel_dla102_stages(dev, stage, h, w, c, stride, route):
+    """The bf16 wgmma kernel at DLA-102-DCN's stage shapes (C = Co), both
+    strides; offsets inside kernel 9's window (route A where the stride
+    allows it) and outside (route B)."""
+    from siammot_tpu_torch.ops.deform_conv import (in_window,
+                                                   window_route_possible)
+    g = torch.Generator().manual_seed(30 + stage)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.randn(1, h, w, c, generator=g).to(dev, torch.bfloat16)
+    scale = 0.35 if route == "A" else 3.0
+    off = (scale * torch.randn(1, ho, wo, 18, generator=g)).to(
+        dev, torch.bfloat16)
+    k = (torch.randn(3, 3, c, c, generator=g) / (9 * c) ** 0.5).to(
+        dev, torch.bfloat16)
+    a = window_route_possible(x.shape, k.shape, stride, 1, 2) \
+        and bool(in_window(off))
+    assert a == (route == "A" and stride == 1)
+    _deform_close(deform_conv2d(x, off, k, stride),
+                  deform_conv2d_plain(x, off, k, stride))
+
+
+@pytest.mark.parametrize("splits", [3, 9])
+def test_deform_kernel_tap_split(dev, splits):
+    """DLA-102's stage 5 (23x40x512), the taps split over 3 and 9 blocks
+    with f32 partial sums, against the unsplit kernel and the plain
+    version: the same samples, f32 sums in another order."""
+    from siammot_tpu_torch.ops.deform_conv import _launch, tap_splits
+    assert tap_splits(23 * 40, 512) == 3
+    g = torch.Generator().manual_seed(40)
+    x = torch.randn(1, 23, 40, 512, generator=g).to(dev, torch.bfloat16)
+    off = (0.35 * torch.randn(1, 23, 40, 18, generator=g)).to(
+        dev, torch.bfloat16)
+    k = (torch.randn(3, 3, 512, 512, generator=g) / 68.0).to(
+        dev, torch.bfloat16)
+    whole = _launch(x, off, k, 1, 1, 1)
+    split = _launch(x, off, k, 1, 1, splits)
+    _deform_close(split, whole)
+    _deform_close(split, deform_conv2d_plain(x, off, k, 1))
 
 
 def test_decode_kernel(dev):

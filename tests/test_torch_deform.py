@@ -33,7 +33,7 @@ from siammot_tpu_torch.configs.defaults import (DLA_STAGE_WIDTHS,
 from siammot_tpu_torch.models.dla import DLA
 from siammot_tpu_torch.models.dla import Bottleneck
 from siammot_tpu_torch.ops.deform_conv import (deform_conv2d, in_window,
-                                               sample_plain,
+                                               sample_plain, tap_splits,
                                                window_route_possible)
 from siammot_tpu_torch.utils.weights import jax_to_torch
 
@@ -110,6 +110,20 @@ def test_route_b_rounds_coordinates_like_jax():
     assert far.max() > 0.2 * scale
     err = np.abs(got - want)
     assert (err <= BF16_STEP * np.abs(want) + BF16_ATOL * scale).all()
+
+
+@pytest.mark.parametrize("n,co,splits", [
+    (92 * 160, 128, 1), (46 * 80, 256, 3), (23 * 40, 512, 3),
+    (2 * 23 * 40, 64, 9), (300 * 128, 128, 1), (66 * 128, 128, 1)])
+def test_tap_splits_give_half_the_sms_a_block(n, co, splits):
+    """The bf16 kernel's split of the nine taps (DLA-102's stages 3-5 at
+    720p, a small layer, two that need no split): the fewest of 1, 3 and
+    9 with a block for at least half of the H100's 132 SMs, the blocks
+    being 128 pixels x 128 channels, or 64 x 256 past 128 channels."""
+    px, ch = (64, 256) if co > 128 else (128, 128)
+    tiles = -(-n // px) * -(-co // ch)
+    assert tap_splits(n, co) == splits
+    assert tiles * splits >= 66 or splits == 9
 
 
 def _draw(shapes, rng, offset_scale):
