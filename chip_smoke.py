@@ -15,10 +15,10 @@ Phases, each printed as it finishes:
      128 slots (the unmasked route's shapes): errors within the stated
      tolerance, dead slots exactly zero, and the kernel's, the plain
      version's and, where one PyTorch call computes the same function,
-     that call's time.  Kernels 3, 4, 6 (forward), 9 and 10 are timed on
-     the device (``device_ms``: a CUDA graph of the calls, replayed
-     between events) beside the events around the wrapper calls, which
-     include the host's work, and kernels 3 and 9 by launch as well
+     that call's time.  Kernels 1, 3, 4, 6, 9 and 10 are timed on the
+     device (``device_ms``: a CUDA graph of the calls, replayed between
+     events) beside the events around the wrapper calls, which include
+     the host's work, and kernels 3 and 9 by launch as well
      (``kernel_split_ms``: torch.profiler's CUDA trace), so kernel 3's
      tower conv and head pass stand apart;
   2b. the training kernels the same way at the training shapes (4 frames,
@@ -469,23 +469,27 @@ def kernel_phase(dev, report):
     # kernel 1 at its three sites
     table, sites = pool_inputs(g, dev)
     pool = report["window_pool"]
-    pool.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-                max_abs_err=0.0, sites={})
+    pool.update(ms=0.0, host_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                library_ms=None, max_abs_err=0.0, sites={})
     for site, (origins, wy, wx, valid) in sites.items():
         args = (table, origins, wy, wx, valid)
         err, rel = check_pool(args, site)
-        ms = timed_ms(lambda: window_pool(*args))
+        ms, hms = device_ms(lambda: window_pool(*args)), \
+            timed_ms(lambda: window_pool(*args))
         pms = timed_ms(lambda: window_pool_plain(*args), iters=3, warmup=1)
         bms, by = pool_bound(*args)
         log(f"  window_pool {site}: N={wy.shape[0]} live={int(valid.sum())} "
             f"S={wy.shape[1]} window={wy.shape[2]}: "
-            f"{window_pool.launches} launches so far, kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+            f"{window_pool.launches} launches so far, kernel {ms:.4f} ms "
+            f"device ({hms:.4f} ms with the host's enqueue), plain "
+            f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
             f"{err:.3g}, max rel err {rel:.3g} (tol {POOL_ATOL} + "
             f"{POOL_RTOL}|x|)")
-        pool["sites"][site] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
-                                   bound_by=by, max_abs_err=err)
+        pool["sites"][site] = dict(ms=ms, host_ms=hms, plain_ms=pms,
+                                   bound_ms=bms, bound_by=by,
+                                   max_abs_err=err)
         pool["ms"] += ms
+        pool["host_ms"] += hms
         pool["plain_ms"] += pms
         pool["bound_ms"] += bms
         pool["max_abs_err"] = max(pool["max_abs_err"], err)
@@ -962,8 +966,8 @@ def train_kernel_phase(dev, report):
                 (900 + 256) * C * 4, "grad_search": (256 + 225) * C * 4}
     out_elems = {"forward": 256, "grad_template": 225, "grad_search": 900}
     xc = report["xcorr"]
-    xc.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-              max_abs_err=0.0, passes={})
+    xc.update(ms=0.0, host_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+              library_ms=0.0, max_abs_err=0.0, passes={})
     for name, fn, plain in xcorr_passes():
         args = inputs[name]
         k_out = fn(*args)
@@ -972,20 +976,22 @@ def train_kernel_phase(dev, report):
         err, rel = close(k_out, p_out, POOL_ATOL, POOL_RTOL,
                          f"xcorr {name}")
         del k_out, p_out
-        ms = timed_ms(lambda: fn(*args))
+        ms = device_ms(lambda: fn(*args), iters=10)
+        hms = timed_ms(lambda: fn(*args))
         pms = timed_ms(lambda: plain(*args), iters=3, warmup=1)
         lms = timed_ms(library[name])
         bms, by = bound(n * (in_bytes[name] + out_elems[name] * C * 4),
                         2.0 * macs, F32_FLOPS)
-        log(f"  xcorr {name}: N={n}: kernel {ms:.4f} ms, plain {pms:.4f} "
-            f"ms, library {lms:.4f} ms, bound {bms:.4f} ms ({by}), max abs "
-            f"err {err:.3g}, max rel err {rel:.3g} (tol {POOL_ATOL} + "
+        log(f"  xcorr {name}: N={n}: kernel {ms:.4f} ms device ({hms:.4f} "
+            f"ms with the host's enqueue), plain {pms:.4f} ms, library "
+            f"{lms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+            f"{err:.3g}, max rel err {rel:.3g} (tol {POOL_ATOL} + "
             f"{POOL_RTOL}|x|)")
-        xc["passes"][name] = dict(ms=ms, plain_ms=pms, library_ms=lms,
-                                  bound_ms=bms, bound_by=by,
+        xc["passes"][name] = dict(ms=ms, host_ms=hms, plain_ms=pms,
+                                  library_ms=lms, bound_ms=bms, bound_by=by,
                                   max_abs_err=err)
-        for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
-                       ("bound_ms", bms)):
+        for key, v in (("ms", ms), ("host_ms", hms), ("plain_ms", pms),
+                       ("library_ms", lms), ("bound_ms", bms)):
             xc[key] += v
         xc["max_abs_err"] = max(xc["max_abs_err"], err)
     xc["bound_by"] = "operations"
@@ -1011,11 +1017,12 @@ def train_kernel_phase(dev, report):
         torch.cuda.synchronize()
         err, _ = close(k_out, p_out, POOL_ATOL, POOL_RTOL, f"train {site}")
         del k_out, p_out
-        ms = timed_ms(lambda: window_pool(*args))
+        ms = device_ms(lambda: window_pool(*args), iters=10)
+        hms = timed_ms(lambda: window_pool(*args))
         bms, by = pool_bound(table, origins, wy, wx,
                              torch.ones(len(wy), dtype=torch.bool,
                                         device=dev))
-        pool["training_sites"][site] = dict(ms=ms, bound_ms=bms,
+        pool["training_sites"][site] = dict(ms=ms, host_ms=hms, bound_ms=bms,
                                             bound_by=by, max_abs_err=err)
         pool["max_abs_err"] = max(pool["max_abs_err"], err)
 
@@ -1035,7 +1042,8 @@ def train_kernel_phase(dev, report):
         b_bms, b_by = pool_bwd_bound(shape, grad, wy, wx)
         log(f"  window_pool {site} (training, N={len(wy)}, S="
             f"{wy.shape[1]}, window={wy.shape[2]}): forward {ms:.4f} ms "
-            f"(bound {bms:.4f}, {by}, err {err:.3g}); backward kernel "
+            f"device ({hms:.4f} with the host's enqueue; bound {bms:.4f}, "
+            f"{by}, err {err:.3g}); backward kernel "
             f"{bms_k:.4f} ms, plain {pms:.4f} ms, bound {b_bms:.4f} ms "
             f"({b_by}), {touched} table cells touched, max abs err "
             f"{berr:.3g}, max rel err {brel:.3g} (tol {POOL_ATOL} + "
@@ -1627,15 +1635,18 @@ def wide_sr_kernel_checks(dev, report, g):
                           scales, 75, 2, 128, 512, 4)
     args = (pack.table, *geo, live_mask(K, LIVE, g, dev))
     err, _ = check_pool(args, "sr_pool 75x75")
-    ms = timed_ms(lambda: window_pool(*args))
+    ms = device_ms(lambda: window_pool(*args))
+    hms = timed_ms(lambda: window_pool(*args))
     pms = timed_ms(lambda: window_pool_plain(*args), iters=3, warmup=1)
     bms, by = pool_bound(*args)
     report["window_pool"].setdefault("shapes", {})[
         "sr_pool 75x75 window 128 (SEARCH_REGION 5)"] = dict(
-            ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, max_abs_err=err)
+            ms=ms, host_ms=hms, plain_ms=pms, bound_ms=bms, bound_by=by,
+            max_abs_err=err)
     log(f"  window_pool sr_pool 75x75 (SEARCH_REGION 5), {LIVE} live: "
-        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
-        f"max abs err {err:.3g}")
+        f"kernel {ms:.4f} ms device ({hms:.4f} ms with the host's enqueue), "
+        f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+        f"{err:.3g}")
 
     valid = live_mask(K, LIVE, g, dev)
     search = torch.randn(K, 75, 75, C, generator=g).to(dev, torch.bfloat16)

@@ -23,8 +23,7 @@ import torch
 from .profile_frame import REPO, TOP, _busy_us
 
 WARMUP, STEPS = 3, 5
-KERNELS = ("window_pool_kernel", "window_pool_bwd_kernel", "xcorr_kernel",
-           "conv_full_kernel")
+KERNELS = ("window_pool_band", "window_pool_bwd_kernel", "xcorr6_kernel")
 
 
 def main():

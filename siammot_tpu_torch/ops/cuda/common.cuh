@@ -17,6 +17,18 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
+// A zero of the element type (for staging past the last channel).
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() {
+  return 0.f;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
 // Opt a kernel in to more than 48 KB of dynamic shared memory.
 template <typename K>
 static cudaError_t set_smem(K kernel, size_t bytes) {
@@ -24,4 +36,36 @@ static cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// 16 bytes global -> shared, asynchronously (cp.async, L2 only); the copies
+// a thread issued so far form a group with cp_async_commit, and
+// cp_async_wait<N> waits until at most N of its groups are in flight
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Blocks of `threads` threads with `smem` bytes of dynamic shared memory
+// that fit on all of the card's SMs at once (a persistent grid); 0 if none
+// fits.
+template <typename K>
+static int resident_blocks(K kernel, int threads, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return 0;
+  return per_sm * sms;
 }

@@ -1,37 +1,57 @@
 // Depthwise cross-correlation and its gradient: the CUDA counterparts of
 // the Pallas kernel siammot_tpu/ops/pallas/xcorr.py:xcorr_depthwise_pallas
-// with ``valid`` (_xcorr_kernel_masked, inference), without it
-// (_xcorr_kernel, training), and of the two calls its custom VJP makes
-// (siammot_tpu/ops/xcorr.py:_xcorr_bwd).
+// with ``valid`` (_xcorr_kernel_masked, inference: kernel 2), without it
+// (_xcorr_kernel, training and the unmasked inference route: kernel 6),
+// and of the two calls its custom VJP makes (siammot_tpu/ops/xcorr.py:
+// _xcorr_bwd), also kernel 6.
 //
 // xcorr:     out[k, oy, ox, c] = sum_i sum_j s[k, oy + i, ox + j, c]
 //                                            * t[k, i, j, c]   (f32, i-major)
-// conv_full: out[k, y, x, c]   = sum_i sum_j g[k, y - i, x - j, c]
+// full:      out[k, y, x, c]   = sum_i sum_j g[k, y - i, x - j, c]
 //                                            * t[k, i, j, c]
 //            over the taps that lie inside g: the gradient of xcorr with
 //            respect to its search input.  JAX writes it as the xcorr of g
 //            zero-padded by (ht - 1, wt - 1) with the flipped template; the
-//            pad is never built here, and each output row visits only the
-//            template rows whose g row exists (16 of 30 rows per tap at the
-//            training shapes, where the padded form would stage a 44x44 map,
-//            276 KB per 32 channels, over the 227 KB a block may use).
+//            pad is never built here.
+// Every output sums its taps i ascending, then j ascending, one f32 fma
+// each, in every kernel of this file.
 //
-// Bound on the H100: operations on the CUDA cores (depthwise, so no
-// tensor-core form): Ho*Wo*Ht*Wt multiply-adds per channel against a few
-// hundred kilobytes per slot.  Simple design: one block per (slot, tile of
-// 32 channels); both inputs are staged once in shared memory as f32, each
-// thread owns one channel of one output row and keeps that row's
-// accumulators in registers.  A warp spans the 32 channels of a tile, so
-// shared-memory reads are conflict-free and output writes coalesced.  The
-// two inputs may differ in dtype (the backward correlates the bf16 search
-// with the f32 upstream gradient).  Masked: dead slots write zeros.
+// Bound on the H100: operations on the CUDA cores.  The op is depthwise
+// (no channel mixing), so it has no tensor-core form without extra work:
+// Ho*Wo*Ht*Wt fmas per channel against a few hundred kilobytes per slot
+// (7.55 G fmas a pass at the training shapes, 0.225 ms at 67 TFLOP/s).
 //
-// Large outputs (a 61x61 response from a 75x75 search region, as
-// SEARCH_REGION 5 gives): the whole search map no longer fits a block
-// (75 x 75 x 32 f32 is 720 KB), so xcorr_band_kernel takes a band of
-// BAND output rows per block and, for each template row i, stages only
-// the BAND search rows that row meets; the sums run in the same (i, j)
-// order, up to 64 accumulators a thread.
+// Kernel 6 (xcorr6_kernel) is built to run near the fma rate:
+// - A sliding window in registers.  A thread owns one channel (lanes on
+//   neighbouring channels) and one output row (two, balanced, for the
+//   search gradient).  For each template row it holds that row's taps in
+//   registers and streams the search row through them once: each value
+//   it loads feeds every output it touches, so a shared-memory load
+//   serves about Wo*Wt / (Ws + Wt) ~ 5 fmas instead of one.  The widths
+//   are compile-time for the training shapes (16/15 forward, 15/16
+//   template gradient, 30/15 search gradient), so the window is fully
+//   unrolled with no predicate; the search gradient streams g from right
+//   to left, so each output still meets its taps j ascending.  Other
+//   widths take a generic instantiation (one load per fma, predicated).
+// - Inputs staged in their own dtype, 8 channels a tile (16 when both are
+//   bf16), with a row stride padded so the four (two) rows a warp reads
+//   fall in distinct banks.
+// - A persistent grid (as many blocks as fit on the SMs at once) walks
+//   the (slot, channel tile, band of output rows) items; 16-byte cp.async
+//   copies stage the next item into a second buffer while the current one
+//   computes.
+// Templates too large for two stages in shared memory (a gradient over a
+// wide search region) take kernel 2's banded kernel with a null ``valid``.
+//
+// Kernel 2 (siammot_xcorr_masked) still runs the first kernels below,
+// xcorr_kernel and, for outputs wider or taller than 32 (61x61 at
+// SEARCH_REGION 5), xcorr_band_kernel: one block per (slot, tile of 32
+// channels[, band of 8 rows]), both inputs staged as f32, one shared-memory
+// load per fma.  Moving it onto kernel 6's kernel (with a live-slot test)
+// is queued separately, so that each change is measured on its own; dead
+// slots write zeros.
+#include <algorithm>
+
 #include "common.cuh"
 
 constexpr int CT = 32;      // channels per block
@@ -149,46 +169,6 @@ __global__ void __launch_bounds__(BAND * CT)
   }
 }
 
-template <typename TG, typename TT>
-__global__ void __launch_bounds__(1024)
-    conv_full_kernel(const TG* __restrict__ grad, const TT* __restrict__ tmpl,
-                     float* __restrict__ out, int hg, int wg, int ht, int wt,
-                     int C) {
-  const int k = blockIdx.x;
-  const int c0 = blockIdx.y * CT;
-  const int ho = hg + ht - 1, wo = wg + wt - 1;
-  const int c = threadIdx.x % CT;
-  const int y = threadIdx.x / CT;
-  extern __shared__ float smem[];
-  float* g_s = smem;                  // [hg * wg][CT]
-  float* t_s = smem + hg * wg * CT;   // [ht * wt][CT]
-  stage(grad + (size_t)k * hg * wg * C, tmpl + (size_t)k * ht * wt * C, g_s,
-        t_s, hg * wg, ht * wt, C, c0);
-  __syncthreads();
-  float acc[WO_MAX];
-#pragma unroll
-  for (int x = 0; x < WO_MAX; ++x) acc[x] = 0.f;
-  // template rows i whose g row y - i exists
-  const int i_lo = max(0, y - hg + 1), i_hi = min(ht - 1, y);
-  for (int i = i_lo; i <= i_hi; ++i) {
-    const float* grow = g_s + (y - i) * wg * CT + c;
-    for (int j = 0; j < wt; ++j) {
-      const float t = t_s[(i * wt + j) * CT + c];
-#pragma unroll
-      for (int x = 0; x < WO_MAX; ++x) {
-        const int gx = x - j;
-        if (x < wo && gx >= 0 && gx < wg) acc[x] += grow[gx * CT] * t;
-      }
-    }
-  }
-  if (c0 + c < C) {
-    float* out_row = out + (((size_t)k * ho + y) * wo) * C + c0 + c;
-#pragma unroll
-    for (int x = 0; x < WO_MAX; ++x)
-      if (x < wo) out_row[(size_t)x * C] = acc[x];
-  }
-}
-
 template <typename TS, typename TT>
 static int launch_xcorr(const void* search, const void* tmpl,
                         const uint8_t* valid, float* out, int K, int hs,
@@ -215,21 +195,312 @@ static int launch_xcorr(const void* search, const void* tmpl,
   return (int)cudaGetLastError();
 }
 
-template <typename TG, typename TT>
-static int launch_full(const void* grad, const void* tmpl, float* out, int K,
-                       int hg, int wg, int ht, int wt, int C,
-                       cudaStream_t stream) {
-  const int ho = hg + ht - 1, wo = wg + wt - 1;
-  if (hg < 1 || wg < 1 || ho * CT > 1024 || wo > WO_MAX)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(hg * wg + ht * wt) * CT * sizeof(float);
-  cudaError_t err = set_smem(conv_full_kernel<TG, TT>, smem);
+// -- kernel 6 --------------------------------------------------------------
+namespace k6 {
+
+constexpr int XCORR = 0, FULL = 1;
+constexpr int W_GEN = 64;        // accumulators a thread, generic widths
+constexpr int MAX_THREADS = 256;
+
+// One launch's geometry.  a [K, ha, wa, C] is the input that slides (the
+// search region, or g for the search gradient), b [K, hb, wb, C] the taps
+// (the template, or g for the template gradient); out [K, ho, wo, C] f32.
+struct Shape {
+  int ha, wa, hb, wb, C, ho, wo;
+  int tiles, bands;  // channel tiles, bands of output rows
+  int rpi, nrt;      // output rows an item, row threads a block
+  int rsa;           // row stride of a in shared memory, elements
+  int b_off, stage;  // bytes: b's offset in a stage, a stage
+  int items, vec;    // work items; 16-byte copies (every tile full, aligned)
+};
+
+struct Item {
+  int k, c0, y0, y1, a0;
+};
+
+template <int MODE, int TILE>
+__device__ __forceinline__ Item decode(const Shape& sh, int item) {
+  Item it;
+  const int band = item % sh.bands, t = item / sh.bands;
+  it.k = t / sh.tiles;
+  it.c0 = (t % sh.tiles) * TILE;
+  it.y0 = band * sh.rpi;
+  it.y1 = min(sh.ho, it.y0 + sh.rpi);
+  it.a0 = MODE == XCORR ? it.y0 : max(0, it.y0 - sh.hb + 1);
+  return it;
+}
+
+// Stage one item's rows of a and all of b into `st`, TILE channels a
+// pixel: 16-byte cp.async copies, or element loads with zeros past C.
+template <int MODE, int TILE, typename TA, typename TB>
+__device__ __forceinline__ void stage_item(const TA* __restrict__ a,
+                                           const TB* __restrict__ b,
+                                           const Shape& sh, int item,
+                                           unsigned char* st) {
+  const Item it = decode<MODE, TILE>(sh, item);
+  const int a1 = MODE == XCORR ? min(sh.ha, it.y1 + sh.hb - 1)
+                               : min(sh.ha, it.y1);
+  TA* a_s = (TA*)st;
+  TB* b_s = (TB*)(st + sh.b_off);
+  const TA* ag = a + ((size_t)it.k * sh.ha + it.a0) * sh.wa * sh.C + it.c0;
+  const TB* bg = b + (size_t)it.k * sh.hb * sh.wb * sh.C + it.c0;
+  const int na = (a1 - it.a0) * sh.wa, nb = sh.hb * sh.wb;
+  if (sh.vec) {
+    constexpr int EA = 16 / sizeof(TA), EB = 16 / sizeof(TB);
+    constexpr int QA = TILE / EA, QB = TILE / EB;
+    for (int e = threadIdx.x; e < na * QA; e += blockDim.x) {
+      const int q = e % QA, p = e / QA;
+      cp_async16(a_s + (p / sh.wa) * sh.rsa + (p % sh.wa) * TILE + q * EA,
+                 ag + (size_t)p * sh.C + q * EA);
+    }
+    for (int e = threadIdx.x; e < nb * QB; e += blockDim.x) {
+      const int q = e % QB, p = e / QB;
+      cp_async16(b_s + p * TILE + q * EB, bg + (size_t)p * sh.C + q * EB);
+    }
+  } else {
+    for (int e = threadIdx.x; e < na * TILE; e += blockDim.x) {
+      const int cc = e % TILE, p = e / TILE;
+      a_s[(p / sh.wa) * sh.rsa + (p % sh.wa) * TILE + cc] =
+          it.c0 + cc < sh.C ? ag[(size_t)p * sh.C + cc] : zero_of<TA>();
+    }
+    for (int e = threadIdx.x; e < nb * TILE; e += blockDim.x) {
+      const int cc = e % TILE, p = e / TILE;
+      b_s[p * TILE + cc] =
+          it.c0 + cc < sh.C ? bg[(size_t)p * sh.C + cc] : zero_of<TB>();
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(const Shape& sh, const Item& it,
+                                          int y, int c, int wo,
+                                          const float (&acc)[N],
+                                          float* __restrict__ out) {
+  if (it.c0 + c >= sh.C) return;
+  float* o = out + (((size_t)it.k * sh.ho + y) * sh.wo) * sh.C + it.c0 + c;
+#pragma unroll
+  for (int x = 0; x < N; ++x)
+    if (x < wo) o[(size_t)x * sh.C] = acc[x];
+}
+
+// xcorr rows of one item: thread (c, r) takes output rows y0 + r,
+// y0 + r + nrt, ...  WO > 0: widths WO, WT at compile time, the search row
+// streamed through the template row held in registers.
+template <int TILE, int WO, int WT, typename TA, typename TB>
+__device__ __forceinline__ void xcorr_rows(const Shape& sh, const Item& it,
+                                           const TA* a_s, const TB* b_s,
+                                           float* __restrict__ out) {
+  const int c = threadIdx.x % TILE, r = threadIdx.x / TILE;
+  for (int y = it.y0 + r; y < it.y1; y += sh.nrt) {
+    if constexpr (WO > 0) {
+      float acc[WO];
+#pragma unroll
+      for (int x = 0; x < WO; ++x) acc[x] = 0.f;
+      for (int i = 0; i < sh.hb; ++i) {
+        float t[WT];
+        const TB* trow = b_s + i * WT * TILE + c;
+#pragma unroll
+        for (int j = 0; j < WT; ++j) t[j] = load_f32(trow, j * TILE);
+        const TA* srow = a_s + (y + i - it.a0) * sh.rsa + c;
+#pragma unroll
+        for (int x = 0; x < WO + WT - 1; ++x) {
+          const float v = load_f32(srow, x * TILE);
+#pragma unroll
+          for (int ox = 0; ox < WO; ++ox) {
+            const int j = x - ox;  // ascending in x for each output
+            if (j >= 0 && j < WT) acc[ox] = fmaf(v, t[j], acc[ox]);
+          }
+        }
+      }
+      store_row(sh, it, y, c, WO, acc, out);
+    } else {
+      float acc[W_GEN];
+#pragma unroll
+      for (int x = 0; x < W_GEN; ++x) acc[x] = 0.f;
+      for (int i = 0; i < sh.hb; ++i) {
+        for (int j = 0; j < sh.wb; ++j) {
+          const float t = load_f32(b_s, (i * sh.wb + j) * TILE + c);
+          const TA* srow = a_s + (y + i - it.a0) * sh.rsa + j * TILE + c;
+#pragma unroll
+          for (int ox = 0; ox < W_GEN; ++ox)
+            if (ox < sh.wo)
+              acc[ox] = fmaf(load_f32(srow, ox * TILE), t, acc[ox]);
+        }
+      }
+      store_row(sh, it, y, c, sh.wo, acc, out);
+    }
+  }
+}
+
+// full-convolution rows (the search gradient), a = g: output row y meets
+// the template rows i whose g row y - i lies inside g.  WO > 0: output
+// width WO, template width WT, g width WO - WT + 1, each g value streamed
+// right to left through the template row in registers, so that each
+// output still meets its taps j ascending.
+template <int TILE, int WO, int WT, typename TA, typename TB>
+__device__ __forceinline__ void full_rows(const Shape& sh, const Item& it,
+                                          const TA* a_s, const TB* b_s,
+                                          float* __restrict__ out) {
+  const int c = threadIdx.x % TILE, r = threadIdx.x / TILE;
+  for (int y = it.y0 + r; y < it.y1; y += sh.nrt) {
+    const int i_lo = max(0, y - sh.ha + 1), i_hi = min(sh.hb - 1, y);
+    if constexpr (WO > 0) {
+      constexpr int WG = WO - WT + 1;
+      float acc[WO];
+#pragma unroll
+      for (int x = 0; x < WO; ++x) acc[x] = 0.f;
+      for (int i = i_lo; i <= i_hi; ++i) {
+        float t[WT];
+        const TB* trow = b_s + i * WT * TILE + c;
+#pragma unroll
+        for (int j = 0; j < WT; ++j) t[j] = load_f32(trow, j * TILE);
+        const TA* grow = a_s + (y - i - it.a0) * sh.rsa + c;
+#pragma unroll
+        for (int gx = WG - 1; gx >= 0; --gx) {
+          const float v = load_f32(grow, gx * TILE);
+#pragma unroll
+          for (int j = 0; j < WT; ++j)
+            acc[gx + j] = fmaf(v, t[j], acc[gx + j]);
+        }
+      }
+      store_row(sh, it, y, c, WO, acc, out);
+    } else {
+      float acc[W_GEN];
+#pragma unroll
+      for (int x = 0; x < W_GEN; ++x) acc[x] = 0.f;
+      for (int i = i_lo; i <= i_hi; ++i) {
+        const TA* grow = a_s + (y - i - it.a0) * sh.rsa + c;
+        for (int j = 0; j < sh.wb; ++j) {
+          const float t = load_f32(b_s, (i * sh.wb + j) * TILE + c);
+#pragma unroll
+          for (int x = 0; x < W_GEN; ++x) {
+            const int gx = x - j;
+            if (x < sh.wo && gx >= 0 && gx < sh.wa)
+              acc[x] = fmaf(load_f32(grow, gx * TILE), t, acc[x]);
+          }
+        }
+      }
+      store_row(sh, it, y, c, sh.wo, acc, out);
+    }
+  }
+}
+
+// The persistent kernel: block b takes items b, b + grid, ...; the next
+// item's copies are in flight while the current one computes.
+template <int MODE, int TILE, int WO, int WT, typename TA, typename TB>
+__global__ void __launch_bounds__(MAX_THREADS)
+    xcorr6_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
+                  float* __restrict__ out, const Shape sh) {
+  extern __shared__ __align__(16) unsigned char k6_smem[];
+  int item = blockIdx.x;
+  stage_item<MODE, TILE>(a, b, sh, item, k6_smem);
+  cp_async_commit();
+  for (int n = 0; item < sh.items; ++n, item += gridDim.x) {
+    const int next = item + gridDim.x;
+    if (next < sh.items)
+      stage_item<MODE, TILE>(a, b, sh, next,
+                             k6_smem + ((n + 1) & 1) * sh.stage);
+    cp_async_commit();
+    cp_async_wait<1>();  // this item's copies are in
+    __syncthreads();
+    const unsigned char* st = k6_smem + (n & 1) * sh.stage;
+    const Item it = decode<MODE, TILE>(sh, item);
+    if constexpr (MODE == XCORR)
+      xcorr_rows<TILE, WO, WT>(sh, it, (const TA*)st,
+                               (const TB*)(st + sh.b_off), out);
+    else
+      full_rows<TILE, WO, WT>(sh, it, (const TA*)st,
+                              (const TB*)(st + sh.b_off), out);
+    __syncthreads();  // before the next prefetch overwrites this stage
+  }
+  cp_async_wait<0>();
+}
+
+// The smallest row stride (bytes, a multiple of 16) from `bytes` up at
+// which the `groups` rows a warp reads, `width` bytes each, fall in
+// distinct banks.
+static int row_stride(int bytes, int groups, int width) {
+  for (int rs = (bytes + 15) / 16 * 16;; rs += 16) {
+    bool ok = true;
+    for (int m = 1; m < groups && ok; ++m) {
+      const int d = (m * rs) % 128;
+      ok = d >= width && d <= 128 - width;
+    }
+    if (ok) return rs;
+  }
+}
+
+template <int MODE, int TILE, int WO, int WT, typename TA, typename TB>
+static int launch(const void* a, const void* b, float* out, const Shape& sh,
+                  cudaStream_t stream) {
+  auto kernel = xcorr6_kernel<MODE, TILE, WO, WT, TA, TB>;
+  const int threads = TILE * sh.nrt;
+  const size_t smem = 2 * (size_t)sh.stage;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(K, (C + CT - 1) / CT);
-  conv_full_kernel<TG, TT><<<grid, ho * CT, smem, stream>>>(
-      (const TG*)grad, (const TT*)tmpl, out, hg, wg, ht, wt, C);
+  const int resident = resident_blocks(kernel, threads, smem);
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<std::min(sh.items, resident), threads, smem, stream>>>(
+      (const TA*)a, (const TB*)b, out, sh);
   return (int)cudaGetLastError();
 }
+
+template <typename TA, typename TB>
+static int launch_unmasked(int mode, const void* a, const void* b,
+                           float* out, int K, int ha, int wa, int hb, int wb,
+                           int C, cudaStream_t stream) {
+  constexpr int TILE = sizeof(TA) == 2 && sizeof(TB) == 2 ? 16 : 8;
+  Shape sh;
+  sh.ha = ha, sh.wa = wa, sh.hb = hb, sh.wb = wb, sh.C = C;
+  sh.ho = mode == XCORR ? ha - hb + 1 : ha + hb - 1;
+  sh.wo = mode == XCORR ? wa - wb + 1 : wa + wb - 1;
+  if (sh.ho < 1 || sh.wo < 1 || sh.wo > W_GEN || hb < 1 || wb < 1 ||
+      (mode == FULL && sh.ho > 2 * (MAX_THREADS / TILE)))
+    return (int)cudaErrorInvalidValue;
+  if (mode == XCORR) {
+    sh.rpi = sh.nrt = std::min(sh.ho, MAX_THREADS / TILE);
+  } else {
+    // one band; thread r takes rows r and r + nrt, so that every thread
+    // meets as many template rows (at the training shapes r + 1 and
+    // 15 - r: 16 for every thread)
+    sh.rpi = sh.ho;
+    sh.nrt = (sh.ho + 1) / 2;
+  }
+  sh.bands = (sh.ho + sh.rpi - 1) / sh.rpi;
+  sh.tiles = (C + TILE - 1) / TILE;
+  sh.items = K * sh.tiles * sh.bands;
+  const int a_rows = mode == XCORR ? std::min(ha, sh.rpi + hb - 1) : ha;
+  const int rs = row_stride(wa * TILE * (int)sizeof(TA), 32 / TILE,
+                            TILE * (int)sizeof(TA));
+  sh.rsa = rs / (int)sizeof(TA);
+  sh.b_off = a_rows * rs;
+  sh.stage = (sh.b_off + hb * wb * TILE * (int)sizeof(TB) + 15) / 16 * 16;
+  sh.vec = C % TILE == 0 && (C * sizeof(TA)) % 16 == 0 &&
+           (C * sizeof(TB)) % 16 == 0 && (uintptr_t)a % 16 == 0 &&
+           (uintptr_t)b % 16 == 0;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (2 * (size_t)sh.stage > (size_t)optin) {
+    // taps too large for two stages: kernel 2's banded kernel, all live
+    if (mode == FULL) return (int)cudaErrorInvalidValue;
+    return launch_xcorr<TA, TB>(a, b, nullptr, out, K, ha, wa, hb, wb, C,
+                                stream);
+  }
+  if (mode == XCORR) {
+    if (sh.wo == 16 && wb == 15)  // the forward: 30x30 x 15x15
+      return launch<XCORR, TILE, 16, 15, TA, TB>(a, b, out, sh, stream);
+    if (sh.wo == 15 && wb == 16)  // the template gradient: 30x30 x 16x16
+      return launch<XCORR, TILE, 15, 16, TA, TB>(a, b, out, sh, stream);
+    return launch<XCORR, TILE, 0, 0, TA, TB>(a, b, out, sh, stream);
+  }
+  if (wa == 16 && wb == 15)  // the search gradient: 16x16 g, 15x15 taps
+    return launch<FULL, TILE, 30, 15, TA, TB>(a, b, out, sh, stream);
+  return launch<FULL, TILE, 0, 0, TA, TB>(a, b, out, sh, stream);
+}
+
+}  // namespace k6
 
 // dtype codes: 0 = float32, 1 = bfloat16, one per input
 #define SIAMMOT_DISPATCH2(d0, d1, FN, ...)                              \
@@ -254,9 +525,9 @@ SIAMMOT_API int siammot_xcorr(const void* search, int search_dtype,
                               int K, int hs, int ws, int ht, int wt, int C,
                               void* stream) {
   if (K == 0) return 0;
-  return SIAMMOT_DISPATCH2(search_dtype, tmpl_dtype, launch_xcorr, search,
-                           tmpl, nullptr, out, K, hs, ws, ht, wt, C,
-                           (cudaStream_t)stream);
+  return SIAMMOT_DISPATCH2(search_dtype, tmpl_dtype, k6::launch_unmasked,
+                           k6::XCORR, search, tmpl, out, K, hs, ws, ht, wt,
+                           C, (cudaStream_t)stream);
 }
 
 // Search gradient: the full convolution of the upstream gradient with the
@@ -267,6 +538,7 @@ SIAMMOT_API int siammot_xcorr_grad_search(const void* grad, int grad_dtype,
                                           int ht, int wt, int C,
                                           void* stream) {
   if (K == 0) return 0;
-  return SIAMMOT_DISPATCH2(grad_dtype, tmpl_dtype, launch_full, grad, tmpl,
-                           out, K, hg, wg, ht, wt, C, (cudaStream_t)stream);
+  return SIAMMOT_DISPATCH2(grad_dtype, tmpl_dtype, k6::launch_unmasked,
+                           k6::FULL, grad, tmpl, out, K, hg, wg, ht, wt, C,
+                           (cudaStream_t)stream);
 }

@@ -10,10 +10,15 @@ for the origins and weights).  Each ROI reads the
 contracts it with its dense interpolation weights, x then y, in f32.
 
 On the H100 the pool is bound by bytes: a weight row has at most
-2 * sampling_ratio non-zero taps, so the CUDA kernel
-(``cuda/window_pool.cu``) reads only the taps inside each row's non-zero
-span and does a few multiply-adds per output.  A dead ROI writes zeros
-and reads nothing; outputs stay in slot order.  The backward kernel
+2 * sampling_ratio non-zero taps.  The CUDA kernel
+(``cuda/window_pool.cu:window_pool_band``) takes one block per (ROI, band
+of 4 output rows, channel tile), finds each weight row's non-zero span in
+parallel, and streams the table rows its band covers, each row segment
+read once with ``cp.async``, several rows a chunk, double-buffered; each
+thread forms ``sum_x wx * t`` once per row and adds it into its band's
+accumulators (separable sums, the same products in the same order as a
+direct loop).  A dead ROI writes zeros and reads nothing; outputs stay in
+slot order.  The backward kernel
 (``cuda/window_pool_bwd.cu``) forms each ROI's ``Wy^T G Wx`` over the
 same non-zero spans and adds every touched table element once, with an
 f32 atomic (the windows of training ROIs overlap).

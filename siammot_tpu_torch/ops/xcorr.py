@@ -12,13 +12,17 @@ of ``g`` with the template.  Per slot, ``[Hs, Ws, C] * [Ht, Wt, C] ->
 [Ho, Wo, C]`` f32, accumulated i-major; masked dead slots write zeros.
 
 On the H100 the op is bound by operations on the CUDA cores (it is
-depthwise, so there is no tensor-core form).  The CUDA kernels
-(``cuda/xcorr.cu``) stage one slot's two inputs, 32 channels at a time,
-in shared memory as f32 and keep each thread's output row in registers;
-the search gradient skips the taps that fall outside ``g`` instead of
-correlating a zero-padded copy.  Outputs wider than 32 or taller than 32
-rows (61x61 at ``SEARCH_REGION`` 5) take a banded form that stages only
-the search rows each template row meets.
+depthwise, so there is no tensor-core form).  Kernel 6's CUDA kernel
+(``cuda/xcorr.cu:xcorr6_kernel``) is a persistent grid over (slot, channel
+tile, band of output rows) items that stages the next item's inputs in
+their own dtype with ``cp.async`` while the current one computes; each
+thread streams its search (or ``g``) rows through the template row held in
+registers, with the training shapes' widths fixed at compile time.  The
+search gradient skips the taps that fall outside ``g`` instead of
+correlating a zero-padded copy.  Kernel 2 keeps the first kernels: both
+inputs staged as f32, one shared-memory load per multiply-add, and a
+banded form for outputs wider or taller than 32 (61x61 at
+``SEARCH_REGION`` 5).
 """
 
 from __future__ import annotations

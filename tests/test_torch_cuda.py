@@ -9,8 +9,10 @@ and without JAX, run them with
 (``--noconftest``: the suite's conftest imports JAX).  Shapes are the
 main path's and the other shapes the JAX kernels take (predictor f32,
 29x29 and 61x61 with 1, 37 and 128 live slots, decode s_hi 464 and 512,
-the deformable conv at DLA-102's stages and with its taps split), small
-elsewhere.  Tolerances as in
+the deformable conv at DLA-102's stages and with its taps split, the
+unmasked xcorr's three passes at the training shapes in every dtype mix
+and at other widths, the window pool at each site's size and window with
+every kind of ``valid``), small elsewhere.  Tolerances as in
 ``chip_smoke.py``: pool/xcorr f32 sums in another order (1e-4 +
 1e-3|x|; the pool backward adds with atomics, in an order that changes
 from run to run), predictor logits 3e-2 in bf16 (tower rounding) and 1e-4
@@ -457,3 +459,117 @@ def test_xcorr_kernels_at_the_wide_search_region(dev, dtype):
     torch.testing.assert_close(xcorr_depthwise(search, tmpl),
                                xcorr_depthwise_plain(search, tmpl),
                                atol=1e-4, rtol=1e-3)
+
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+def _xcorr_passes(search, tmpl, up, with_search_grad=True):
+    """(name, kernel output, plain output) of kernel 6's three passes."""
+    from siammot_tpu_torch.ops.xcorr import (xcorr_grad_search,
+                                             xcorr_grad_search_plain,
+                                             xcorr_grad_template)
+    out = [("forward", xcorr_depthwise(search, tmpl),
+            xcorr_depthwise_plain(search, tmpl)),
+           ("grad_template", xcorr_grad_template(search, up),
+            xcorr_depthwise_plain(search, up))]
+    if with_search_grad:
+        out.append(("grad_search", xcorr_grad_search(up, tmpl),
+                    xcorr_grad_search_plain(up, tmpl)))
+    return out
+
+
+@pytest.mark.parametrize("k", [0, 1, 6])
+@pytest.mark.parametrize("c", [128, 160])
+@pytest.mark.parametrize("sdt,tdt", [(_F32, _F32), (_BF16, _BF16),
+                                     (_BF16, _F32), (_F32, _BF16)])
+def test_xcorr_unmasked_passes(dev, k, c, sdt, tdt):
+    """Kernel 6's three passes at the training shapes (30x30 search,
+    15x15 template, 16x16 upstream gradient), each against its plain
+    version: the forward with search in ``sdt`` and template in ``tdt``,
+    the template gradient (search with the f32 gradient) and the search
+    gradient (the f32 gradient with the template) -- bf16/bf16 is the
+    bf16 step's mix.  No slot (K = 0), one, and six; 160 channels for a
+    fifth tile of 32."""
+    g = torch.Generator().manual_seed(30 + k)
+    search = torch.randn(k, 30, 30, c, generator=g).to(dev, sdt)
+    tmpl = (0.1 * torch.randn(k, 15, 15, c, generator=g)).to(dev, tdt)
+    up = torch.randn(k, 16, 16, c, generator=g).to(dev)
+    for name, got, want in _xcorr_passes(search, tmpl, up):
+        assert got.shape == want.shape and got.dtype == torch.float32, name
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("hs,ws,ht,wt", [(20, 24, 7, 5), (29, 29, 7, 7),
+                                         (9, 40, 9, 3), (75, 75, 15, 15)])
+@pytest.mark.parametrize("c", [128, 20])
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_xcorr_unmasked_other_shapes(dev, hs, ws, ht, wt, c, dtype):
+    """Kernel 6 at widths without a compile-time form (its generic
+    instantiation), 20 channels (element copies, a partial tile), and at
+    SEARCH_REGION 5's 75x75 x 15x15 -> 61x61, where the template gradient
+    (61x61 taps) takes kernel 2's banded kernel; search gradients wider or
+    taller than 32 (9x40, 75x75) are refused, as before."""
+    from siammot_tpu_torch.ops.xcorr import xcorr_grad_search
+    g = torch.Generator().manual_seed(hs * ws + c)
+    search = torch.randn(3, hs, ws, c, generator=g).to(dev, dtype)
+    tmpl = (0.1 * torch.randn(3, ht, wt, c, generator=g)).to(dev, dtype)
+    up = torch.randn(3, hs - ht + 1, ws - wt + 1, c, generator=g).to(dev)
+    fits = hs <= 32 and ws <= 32
+    if not fits:
+        with pytest.raises(ValueError):
+            xcorr_grad_search(up, tmpl)
+    for name, got, want in _xcorr_passes(search, tmpl, up,
+                                         with_search_grad=fits):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def _pool_case(dev, s, window, pad, dtype, c, seed):
+    """A 4-level table of a 256x384 image and 24 ROIs (some crossing the
+    image's edges and corners) pooled at S, window and virtual pad."""
+    g = torch.Generator().manual_seed(seed)
+    feats = [torch.randn(1, 64 // 2 ** i, 96 // 2 ** i, c, generator=g)
+             for i in range(4)]
+    pack = pack_levels([f.to(dev) for f in feats], SCALES, dtype=dtype)
+    n = 24
+    xy = torch.rand(n, 2, generator=g) * torch.tensor([384.0, 256.0])
+    rois = torch.cat([xy, xy + 8 + 150 * torch.rand(n, 2, generator=g)], 1)
+    rois[0] = torch.tensor([-20.0, -30.0, 40.0, 50.0])       # top-left
+    rois[1] = torch.tensor([350.0, 220.0, 420.0, 290.0])     # bottom-right
+    rois[2] = torch.tensor([0.0, 100.0, 383.0, 140.0])       # full width
+    rois[3] = torch.tensor([300.0, 0.0, 383.0, 255.0])       # right edge
+    rois[4] = torch.tensor([0.0, 0.0, 383.0, 255.0])         # whole image
+    levels = map_rois_to_levels(rois, 2, 5).to(dev)
+    scales = torch.tensor(SCALES, device=dev)[levels.long()]
+    return pack.table, window_geometry(       # rois in padded coordinates
+        pack.heights, pack.widths, pack.row_offsets, (rois + pad).to(dev),
+        levels,
+        scales, s, 2, window, pad, 4)
+
+
+@pytest.mark.parametrize("s,window,pad", [(7, 64, 0), (15, 64, 0),
+                                          (30, 128, 512)])
+@pytest.mark.parametrize("dtype", [_BF16, _F32])
+@pytest.mark.parametrize("live", ["some", "none", "all", "null"])
+@pytest.mark.parametrize("c", [128, 64])
+def test_window_pool_kernel_sites(dev, s, window, pad, dtype, live, c):
+    """Kernel 1 at the three pool sites' S and windows (box 7/64, template
+    15/64, search region 30/128 with its virtual pad), bf16 and f32
+    tables, 128 and 64 channels, ROIs at the table's edges and corners;
+    ``valid`` with some, no and every ROI live, and None (every ROI live,
+    the training forward)."""
+    table, (origins, wy, wx) = _pool_case(dev, s, window, pad, dtype, c,
+                                          seed=s + c)
+    n = wy.shape[0]
+    valid = {"some": _valid(n, 40).to(dev),
+             "none": torch.zeros(n, dtype=torch.bool, device=dev),
+             "all": torch.ones(n, dtype=torch.bool, device=dev),
+             "null": None}[live]
+    got = window_pool(table, origins, wy, wx, valid)
+    want = window_pool_plain(table, origins, wy, wx, valid)
+    if valid is not None:
+        assert (got[~valid] == 0).all()
+    assert want.abs().max() > 0 or live == "none"
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
