@@ -15,10 +15,10 @@ Phases, each printed as it finishes:
      128 slots (the unmasked route's shapes): errors within the stated
      tolerance, dead slots exactly zero, and the kernel's, the plain
      version's and, where one PyTorch call computes the same function,
-     that call's time.  Kernels 1, 3, 4, 6, 9 and 10 are timed on the
-     device (``device_ms``: a CUDA graph of the calls, replayed between
-     events) beside the events around the wrapper calls, which include
-     the host's work, and kernels 3 and 9 by launch as well
+     that call's time.  Every kernel but 5 and 8 is timed on the device
+     (``device_ms``: a CUDA graph of the calls, replayed between events)
+     beside the events around the wrapper calls, which include the
+     host's work, and kernels 3 and 9 by launch as well
      (``kernel_split_ms``: torch.profiler's CUDA trace), so kernel 3's
      tower conv and head pass stand apart;
   2b. the training kernels the same way at the training shapes (4 frames,
@@ -26,7 +26,8 @@ Phases, each printed as it finishes:
      and its two gradient kernels (also through the autograd Function
      against autograd through the plain version), and the window pool's
      forward over live ROIs and its table gradient at the three sites on
-     an f32 table of four 736x1280 frames' FPN levels;
+     an f32 table of four 736x1280 frames' FPN levels (the gradient also
+     bitwise the same in a second launch);
   3. the main path end to end: the repo's trained DLA-34-FPN-EMM weights
      (``fixtures/bench_weights_f16.npz``) in bf16, 40 frames of a crowded
      720p sprite scene through ``track_frames`` (10 warm-up, 30 timed);
@@ -53,8 +54,9 @@ Phases, each printed as it finishes:
      step exactly 3 window-pool forward and 3 backward launches and one
      launch of each xcorr kernel (forward, template and search gradient),
      and each kernel in agreement with its plain version on the inputs
-     and upstream gradients it got at the last step; ms/step and peak
-     device memory;
+     and upstream gradients it got at the last step (the last step's
+     three table gradients also bitwise the same launched again, and
+     kernel 7 timed on those inputs); ms/step and peak device memory;
   5. the DCN slice end to end: DLA-102-DCN-FPN (``tools/bench_variants.py``
      widths, deformable stages 3-5) at 736x1280 in bf16 on seeded
      weights (offset convs calibrated so most layers stay in kernel 9's
@@ -133,9 +135,10 @@ F32_FLOPS = 67e12
 #  decode: idx exact unless the two cells' p_conf lie within 1e-6 (the
 #    upsample's sums run in another order); score to 1e-5
 POOL_ATOL, POOL_RTOL = 1e-4, 1e-3
-#  pool backward: the same, its atomics add in an order that changes
-#    from run to run; on a real step's gradients, whose scale is set by
-#    the loss, the absolute part is 1e-4 of the largest plain value
+#  pool backward: the same (its sums run in ROI order, the plain
+#    version's autograd in its own); on a real step's gradients, whose
+#    scale is set by the loss, the absolute part is 1e-4 of the largest
+#    plain value
 PRED_ATOL = 3e-2
 #  predictor in f32: sums in another order -> |d| <= 1e-4
 PRED_F32_ATOL = 1e-4
@@ -250,12 +253,18 @@ def check_pool(args, what):
 
 
 def check_xcorr(args, what):
-    from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise_masked,
+    """Kernel 2 against its plain version; dead slots zero, live ones
+    bitwise kernel 6's output on the same inputs."""
+    from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
+                                             xcorr_depthwise_masked,
                                              xcorr_depthwise_plain)
     k = xcorr_depthwise_masked(*args)
     p = xcorr_depthwise_plain(*args)
     torch.cuda.synchronize()
     dead_zero(k, args[2], what)
+    live = args[2]
+    if not torch.equal(k[live], xcorr_depthwise(*args[:2])[live]):
+        raise AssertionError(f"{what}: live slots differ from kernel 6's")
     return close(k, p, POOL_ATOL, POOL_RTOL, what)
 
 
@@ -503,7 +512,8 @@ def kernel_phase(dev, report):
         dev, torch.bfloat16)
     args = (search, tmpl, valid)
     err, rel = check_xcorr(args, "xcorr_masked")
-    ms = timed_ms(lambda: xcorr_depthwise_masked(*args))
+    ms = device_ms(lambda: xcorr_depthwise_masked(*args))
+    hms = timed_ms(lambda: xcorr_depthwise_masked(*args))
     pms = timed_ms(lambda: xcorr_depthwise_plain(*args), iters=5)
     # the reference's own form: one groups=K*C convolution over all slots
     s_nchw = search.permute(0, 3, 1, 2).reshape(1, K * C, 30, 30)
@@ -513,13 +523,14 @@ def kernel_phase(dev, report):
     nbytes = live * (30 * 30 + 15 * 15) * C * 2 + K * 16 * 16 * C * 4 + K
     bms, by = bound(nbytes, live * 16 * 16 * 15 * 15 * C * 2.0, F32_FLOPS)
     log(f"  xcorr_masked: K={K} live={live}: "
-        f"{xcorr_depthwise_masked.launches} launches, kernel {ms:.4f} ms, "
-        f"plain "
+        f"{xcorr_depthwise_masked.launches} launches, kernel {ms:.4f} ms "
+        f"device ({hms:.4f} ms with the host's enqueue), plain "
         f"{pms:.4f} ms, conv2d(groups) {lms:.4f} ms, bound {bms:.4f} ms "
         f"({by}), max abs err {err:.3g}, max rel err {rel:.3g} (tol "
-        f"{POOL_ATOL} + {POOL_RTOL}|x|)")
-    report["xcorr_masked"].update(ms=ms, plain_ms=pms, library_ms=lms,
-                                  bound_ms=bms, bound_by=by, max_abs_err=err)
+        f"{POOL_ATOL} + {POOL_RTOL}|x|; live slots bitwise kernel 6's)")
+    report["xcorr_masked"].update(ms=ms, host_ms=hms, plain_ms=pms,
+                                  library_ms=lms, bound_ms=bms, bound_by=by,
+                                  max_abs_err=err)
 
     # kernel 3, 37 live slots and (the unmasked route's shape) all 128
     x = torch.randn(K, 16, 16, C, generator=g).to(dev, torch.bfloat16)
@@ -939,7 +950,9 @@ def train_kernel_phase(dev, report):
     shapes against their plain versions, f32, seeded inputs."""
     import torch.nn.functional as F
 
-    from siammot_tpu_torch.ops.window_pool import (window_pool,
+    from siammot_tpu_torch.ops.window_pool import (tile_counts,
+                                                   touched_rects,
+                                                   window_pool,
                                                    window_pool_bwd,
                                                    window_pool_bwd_plain,
                                                    window_pool_plain)
@@ -1008,8 +1021,8 @@ def train_kernel_phase(dev, report):
         f"{table.numel() * 4 / 2 ** 20:.1f} MiB")
     pool, bwd = report["window_pool"], report["window_pool_bwd"]
     pool["training_sites"] = {}
-    bwd.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-               max_abs_err=0.0, sites={})
+    bwd.update(ms=0.0, host_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=None, max_abs_err=0.0, sites={})
     for site, (origins, wy, wx) in sites.items():
         args = (table, origins, wy, wx, None)
         k_out = window_pool(*args)
@@ -1034,9 +1047,14 @@ def train_kernel_phase(dev, report):
         torch.cuda.synchronize()
         berr, brel = close(k_out, p_out, POOL_ATOL, POOL_RTOL,
                            f"window_pool_bwd {site}")
+        if not torch.equal(k_out, window_pool_bwd(*bargs)):
+            raise AssertionError(f"window_pool_bwd {site}: a second launch "
+                                 "gave other bits")
         touched = int((p_out != 0).any(-1).sum())
+        per_tile = tile_counts(touched_rects(origins, wy, wx, shape), shape)
         del k_out, p_out
-        bms_k = timed_ms(lambda: window_pool_bwd(*bargs))
+        bms_k = device_ms(lambda: window_pool_bwd(*bargs), iters=10)
+        bhms = timed_ms(lambda: window_pool_bwd(*bargs))
         pms = timed_ms(lambda: window_pool_bwd_plain(*bargs), iters=2,
                        warmup=1)
         b_bms, b_by = pool_bwd_bound(shape, grad, wy, wx)
@@ -1044,13 +1062,18 @@ def train_kernel_phase(dev, report):
             f"{wy.shape[1]}, window={wy.shape[2]}): forward {ms:.4f} ms "
             f"device ({hms:.4f} with the host's enqueue; bound {bms:.4f}, "
             f"{by}, err {err:.3g}); backward kernel "
-            f"{bms_k:.4f} ms, plain {pms:.4f} ms, bound {b_bms:.4f} ms "
-            f"({b_by}), {touched} table cells touched, max abs err "
-            f"{berr:.3g}, max rel err {brel:.3g} (tol {POOL_ATOL} + "
-            f"{POOL_RTOL}|x|)")
-        bwd["sites"][site] = dict(ms=bms_k, plain_ms=pms, bound_ms=b_bms,
-                                  bound_by=b_by, max_abs_err=berr)
-        for key, v in (("ms", bms_k), ("plain_ms", pms),
+            f"{bms_k:.4f} ms device ({bhms:.4f} ms with the host's "
+            f"enqueue), plain {pms:.4f} ms, bound {b_bms:.4f} ms "
+            f"({b_by}), {touched} table cells touched, ROIs a table tile "
+            f"mean {float(per_tile[per_tile > 0].float().mean()):.2f} max "
+            f"{int(per_tile.max())}, max abs err {berr:.3g}, max rel err "
+            f"{brel:.3g} (tol {POOL_ATOL} + {POOL_RTOL}|x|), a second "
+            f"launch bitwise the same")
+        bwd["sites"][site] = dict(ms=bms_k, host_ms=bhms, plain_ms=pms,
+                                  bound_ms=b_bms, bound_by=b_by,
+                                  max_abs_err=berr,
+                                  rois_per_tile_max=int(per_tile.max()))
+        for key, v in (("ms", bms_k), ("host_ms", bhms), ("plain_ms", pms),
                        ("bound_ms", b_bms)):
             bwd[key] += v
         bwd["max_abs_err"] = max(bwd["max_abs_err"], berr)
@@ -1070,7 +1093,9 @@ def train_phase(dev, report, card):
                                                  make_optimizer)
     from siammot_tpu_torch.engine.trainer import do_train
     from siammot_tpu_torch.models.siammot import SiamMOT
-    from siammot_tpu_torch.ops.window_pool import (window_pool,
+    from siammot_tpu_torch.ops.window_pool import (tile_counts,
+                                                   touched_rects,
+                                                   window_pool,
                                                    window_pool_bwd,
                                                    window_pool_bwd_plain,
                                                    window_pool_plain)
@@ -1096,10 +1121,21 @@ def train_phase(dev, report, card):
 
     def capture(name, fn, keep):
         def wrapped(*args):
+            out = fn(*args)
             captured[name] = (captured[name] + [args])[-keep:]
-            return fn(*args)
+            if name == "bwd":  # the last step's table gradients' bits
+                last = len(captured["bwd_bits"]) >= 3 * (steps - 1)
+                captured["bwd_bits"].append(bits(out) if last else None)
+            return out
         return wrapped
 
+    def bits(t):
+        """A fingerprint of a tensor's bits (their int32 sum, and the f64
+        sum of the values)."""
+        return (int(t.view(torch.int32).sum(dtype=torch.int64)),
+                float(t.sum(dtype=torch.float64)))
+
+    captured["bwd_bits"] = []
     passes = xcorr_passes()
     patches = [(wp_mod, "window_pool", capture("pool", window_pool, 3)),
                (wp_mod, "window_pool_bwd",
@@ -1169,14 +1205,23 @@ def train_phase(dev, report, card):
         err, _ = close(k, p, POOL_ATOL, POOL_RTOL, f"step {site}")
         report["window_pool"]["max_abs_err"] = max(
             report["window_pool"]["max_abs_err"], err)
-    for args in captured["bwd"]:
+    for args, step_bits in zip(captured["bwd"], captured["bwd_bits"][-3:]):
         site = {7: "box", 15: "template", 30: "sr"}[args[2].shape[1]]
         k = window_pool_bwd(*args)
         p = window_pool_bwd_plain(*args)
         torch.cuda.synchronize()
+        if bits(k) != step_bits:
+            raise AssertionError(f"step {site} backward: launched again on "
+                                 "the step's inputs, other bits")
         err, rel = close_scaled(k, p, f"step {site} backward")
+        ms = device_ms(lambda: window_pool_bwd(*args), iters=5)
+        per_tile = tile_counts(touched_rects(*args[1:4], args[4]), args[4])
+        report["window_pool_bwd"].setdefault("step_sites", {})[site] = dict(
+            ms=ms, max_abs_err=err, rois_per_tile_max=int(per_tile.max()))
         log(f"    step {site} backward: max |plain| "
-            f"{float(p.detach().abs().max()):.3g}, max abs err {err:.3g}")
+            f"{float(p.detach().abs().max()):.3g}, max abs err {err:.3g}, "
+            f"bitwise the step's own launch; kernel {ms:.4f} ms device on "
+            f"these inputs, ROIs a table tile max {int(per_tile.max())}")
         report["window_pool_bwd"]["max_abs_err"] = max(
             report["window_pool_bwd"]["max_abs_err"], err)
     for name, fn, plain in passes:
@@ -1609,7 +1654,7 @@ def variants_kernel_phase(dev, report):
 def wide_sr_kernel_checks(dev, report, g):
     """Kernels 1, 2 and 3 at SEARCH_REGION 5's shapes (phase 6c): the SR
     pool at 75x75 (window 128, spans past it clamped as in the JAX
-    package), the masked xcorr 75x75 x 15x15 -> 61x61 (its banded form)
+    package), the masked xcorr 75x75 x 15x15 -> 61x61
     and the predictor at [K, 61, 61, 128] bf16, 37 of 128
     slots live."""
     import torch.nn.functional as F
@@ -1654,7 +1699,8 @@ def wide_sr_kernel_checks(dev, report, g):
         dev, torch.bfloat16)
     args = (search, tmpl, valid)
     err, _ = check_xcorr(args, "xcorr_masked 75->61")
-    ms = timed_ms(lambda: xcorr_depthwise_masked(*args))
+    ms = device_ms(lambda: xcorr_depthwise_masked(*args))
+    hms = timed_ms(lambda: xcorr_depthwise_masked(*args))
     pms = timed_ms(lambda: xcorr_depthwise_plain(*args), iters=3, warmup=1)
     s_nchw = search.permute(0, 3, 1, 2).reshape(1, K * C, 75, 75)
     t_nchw = tmpl.permute(0, 3, 1, 2).reshape(K * C, 1, 15, 15)
@@ -1663,11 +1709,12 @@ def wide_sr_kernel_checks(dev, report, g):
     bms, by = bound(nbytes, LIVE * 61 * 61 * 15 * 15 * C * 2.0, F32_FLOPS)
     report["xcorr_masked"].setdefault("shapes", {})[
         "75x75 x 15x15 -> 61x61 bf16 (SEARCH_REGION 5)"] = dict(
-            ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by,
-            max_abs_err=err)
-    log(f"  xcorr_masked 75x75 -> 61x61 (banded form), {LIVE} live: kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms, conv2d(groups) {lms:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}), max abs err {err:.3g}")
+            ms=ms, host_ms=hms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+            bound_by=by, max_abs_err=err)
+    log(f"  xcorr_masked 75x75 -> 61x61 (four 16-wide segments a row), "
+        f"{LIVE} live: kernel {ms:.4f} ms device ({hms:.4f} ms with the "
+        f"host's enqueue), plain {pms:.4f} ms, conv2d(groups) {lms:.4f} "
+        f"ms, bound {bms:.4f} ms ({by}), max abs err {err:.3g}")
     del search, tmpl, s_nchw, t_nchw
 
     valid = live_mask(K, LIVE, g, dev)
@@ -1903,7 +1950,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
-             "launches_by_path", "shapes")
+             "launches_by_path", "shapes", "step_sites")
     kernels = [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                for r in report.values()]
     log(f"total {time.perf_counter() - t_start:.1f} s; DLA-34 "

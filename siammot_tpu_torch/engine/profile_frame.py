@@ -104,9 +104,8 @@ def main():
           f"(nested ops count twice)")
     print(f"{'':16}  kernels: " + ", ".join(
         f"{k}={ms:.4f}" for k, ms, _ in rows
-        if any(n in k for n in ("window_pool_band", "xcorr_kernel",
-                                "xcorr_band_kernel", "xcorr6_kernel", "tower_conv_",
-                                "heads_tiled", "decode_kernel",
+        if any(n in k for n in ("window_pool_band", "xcorr6_kernel",
+                                "tower_conv_", "heads_tiled", "decode_kernel",
                                 "deform_window", "deform_wgmma",
                                 "deform_reduce", "deform_ffma"))))
 

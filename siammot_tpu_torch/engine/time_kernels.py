@@ -1,20 +1,23 @@
-"""Device time of kernels 6 and 1 at ``chip_smoke.py``'s shapes, for the
-port found under a given root (this checkout, or another commit's
+"""Device time of kernels 6, 1, 2 and 7 at ``chip_smoke.py``'s shapes, for
+the port found under a given root (this checkout, or another commit's
 ``siammot_tpu_torch`` unpacked elsewhere, to compare two versions on one
 card).
 
     python3 siammot_tpu_torch/engine/time_kernels.py [--root DIR]
 
 Kernel 6's three passes at the training shapes (N = 1024 pairs, f32 and
-bf16 inputs, the f32 upstream gradient), its forward over 128 bf16 slots,
-and kernel 1 at the three inference sites (37 of 128 slots live), the
-three training sites (f32 table, 1024 ROIs each) and the search-region
-pool at 75x75.  Each is checked against its plain version and timed with
-``chip_smoke.py``'s two timers: ``device_ms`` (a CUDA graph of the calls,
-replayed between events) and ``timed_ms`` (events around the wrapper
-calls, the host's enqueue included).  Prints one line a kernel and, last,
-``RESULT`` and a JSON object {name: [device ms, host-inclusive ms, max abs
-err]}.  Needs a CUDA device; the card's name and power limit go first.
+bf16 inputs, the f32 upstream gradient), its forward over 128 bf16
+slots, and kernel 1 at the three inference sites (37 of 128 slots live),
+the three training sites (f32 table, 1024 ROIs each) and the
+search-region pool at 75x75, kernel 2 at 30x30 x 15x15 -> 16x16 and
+75x75 -> 61x61 (bf16, 37 of 128 slots live) and kernel 7 at the three
+training sites (f32 upstream gradient, 1024 ROIs each). Each is checked
+against its plain version and timed with ``chip_smoke.py``'s two timers:
+``device_ms`` (a CUDA graph of the calls, replayed between events) and
+``timed_ms`` (events around the wrapper calls, the host's enqueue
+included). Prints one line a kernel and, last, ``RESULT`` and a JSON
+object {name: [device ms, host-inclusive ms, max abs err]}. Needs a CUDA
+device; the card's name and power limit go first.
 """
 
 import argparse
@@ -45,8 +48,11 @@ def main():
         raise SystemExit(f"time_kernels: imported {siammot_tpu_torch.__file__}"
                          f", not the package under {root}")
     from siammot_tpu_torch.ops.window_pool import (window_pool,
+                                                   window_pool_bwd,
+                                                   window_pool_bwd_plain,
                                                    window_pool_plain)
     from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
+                                             xcorr_depthwise_masked,
                                              xcorr_depthwise_plain,
                                              xcorr_grad_search,
                                              xcorr_grad_search_plain,
@@ -96,13 +102,40 @@ def main():
                cs.check_pool(args, site)[0])
     table, sites = cs.train_pool_inputs(torch.Generator().manual_seed(1),
                                         dev)
+    shape = tuple(table.shape)
+    g = torch.Generator().manual_seed(2)
     for site, (origins, wy, wx) in sites.items():
         args = (table, origins, wy, wx, None)
         err = cs.close(window_pool(*args), window_pool_plain(*args),
                        cs.POOL_ATOL, cs.POOL_RTOL, site)[0]
         record(f"window_pool training {site}", lambda: window_pool(*args),
                err, iters=10)
+        s = wy.shape[1]
+        bargs = (torch.randn(len(wy), s, s, c, generator=g).to(dev), origins,
+                 wy, wx, shape)
+        err = cs.close(window_pool_bwd(*bargs), window_pool_bwd_plain(*bargs),
+                       cs.POOL_ATOL, cs.POOL_RTOL, f"{site} backward")[0]
+        record(f"window_pool_bwd training {site}",
+               lambda: window_pool_bwd(*bargs), err, iters=10)
+        del bargs
     del table, sites
+
+    # kernel 2 at the default search region and at SEARCH_REGION 5
+    g = torch.Generator().manual_seed(3)
+    for hs in (30, 75):
+        valid = cs.live_mask(cs.K, cs.LIVE, g, dev)
+        search = torch.randn(cs.K, hs, hs, c, generator=g).to(
+            dev, torch.bfloat16)
+        tmpl = (0.1 * torch.randn(cs.K, 15, 15, c, generator=g)).to(
+            dev, torch.bfloat16)
+        args = (search, tmpl, valid)
+        got = xcorr_depthwise_masked(*args)
+        cs.dead_zero(got, valid, f"xcorr_masked {hs}")
+        err = cs.close(got, xcorr_depthwise_plain(*args), cs.POOL_ATOL,
+                       cs.POOL_RTOL, f"xcorr_masked {hs}")[0]
+        record(f"xcorr_masked {hs}x{hs} -> {hs - 14}x{hs - 14} {cs.LIVE} "
+               f"live bfloat16", lambda: xcorr_depthwise_masked(*args), err)
+    del search, tmpl, args, got
     torch.cuda.empty_cache()
     # the search-region pool at 75x75 (SEARCH_REGION 5), as phase 2e
     from siammot_tpu_torch.core.boxes import map_rois_to_levels

@@ -14,25 +14,30 @@
 //            zero-padded by (ht - 1, wt - 1) with the flipped template; the
 //            pad is never built here.
 // Every output sums its taps i ascending, then j ascending, one f32 fma
-// each, in every kernel of this file.
+// each, in every kernel of this file, so kernels 2 and 6 give the same
+// bits for a live slot.
 //
 // Bound on the H100: operations on the CUDA cores.  The op is depthwise
 // (no channel mixing), so it has no tensor-core form without extra work:
 // Ho*Wo*Ht*Wt fmas per channel against a few hundred kilobytes per slot
 // (7.55 G fmas a pass at the training shapes, 0.225 ms at 67 TFLOP/s).
 //
-// Kernel 6 (xcorr6_kernel) is built to run near the fma rate:
+// Kernels 2 and 6 run one kernel, xcorr6_kernel, built to run near the
+// fma rate:
 // - A sliding window in registers.  A thread owns one channel (lanes on
-//   neighbouring channels) and one output row (two, balanced, for the
-//   search gradient).  For each template row it holds that row's taps in
-//   registers and streams the search row through them once: each value
-//   it loads feeds every output it touches, so a shared-memory load
-//   serves about Wo*Wt / (Ws + Wt) ~ 5 fmas instead of one.  The widths
-//   are compile-time for the training shapes (16/15 forward, 15/16
-//   template gradient, 30/15 search gradient), so the window is fully
-//   unrolled with no predicate; the search gradient streams g from right
-//   to left, so each output still meets its taps j ascending.  Other
-//   widths take a generic instantiation (one load per fma, predicated).
+//   neighbouring channels) and one output row segment (two rows,
+//   balanced, for the search gradient).  For each template row it holds
+//   that row's taps in registers and streams the search row through them
+//   once: each value it loads feeds every output it touches, so a
+//   shared-memory load serves about SEG*Wt / (SEG + Wt) ~ 5-8 fmas
+//   instead of one.  The xcorr cuts each output row into segments of a
+//   compile-time width (16 outputs for a 15-wide template, 15 for a
+//   16-wide one: the template gradient), so any output width, 16 at the
+//   default search region and 61 at SEARCH_REGION 5, is fully unrolled
+//   with no predicate; the search gradient's widths are compile-time at
+//   the training shapes (30/15) and streams g from right to left, so each
+//   output still meets its taps j ascending.  Other template widths take
+//   a generic instantiation (one load per fma, predicated).
 // - Inputs staged in their own dtype, 8 channels a tile (16 when both are
 //   bf16), with a row stride padded so the four (two) rows a warp reads
 //   fall in distinct banks.
@@ -40,23 +45,24 @@
 //   the (slot, channel tile, band of output rows) items; 16-byte cp.async
 //   copies stage the next item into a second buffer while the current one
 //   computes.
-// Templates too large for two stages in shared memory (a gradient over a
-// wide search region) take kernel 2's banded kernel with a null ``valid``.
-//
-// Kernel 2 (siammot_xcorr_masked) still runs the first kernels below,
-// xcorr_kernel and, for outputs wider or taller than 32 (61x61 at
-// SEARCH_REGION 5), xcorr_band_kernel: one block per (slot, tile of 32
-// channels[, band of 8 rows]), both inputs staged as f32, one shared-memory
-// load per fma.  Moving it onto kernel 6's kernel (with a live-slot test)
-// is queued separately, so that each change is measured on its own; dead
-// slots write zeros.
+// - Kernel 2's ``valid`` ([K] uint8; null for kernel 6: every slot live):
+//   each block first orders the slots live first (a warp ballot over
+//   ``valid``, no host sync), so the live items spread evenly over the
+//   blocks and the dead ones come last; a dead item reads nothing (its
+//   prefetch issues no copy) and writes its rows of zeros.
+// Templates too large for two stages in shared memory (a template
+// gradient over a wide search region, 61x61 taps) take the one other
+// kernel of this file, xcorr_band_kernel: one block per (slot, tile of 32
+// channels, band of 8 output rows), both inputs staged as f32 a template
+// row at a time, one shared-memory load per fma.  It is kept for that
+// fallback alone.
 #include <algorithm>
 
 #include "common.cuh"
 
+// -- the fallback for oversized taps ---------------------------------------
 constexpr int CT = 32;      // channels per block
-constexpr int WO_MAX = 32;  // accumulators per thread (output width)
-constexpr int BAND = 8;     // output rows per block, banded form
+constexpr int BAND = 8;     // output rows per block
 constexpr int WO_BAND_MAX = 64;
 
 template <typename TS, typename TT>
@@ -73,51 +79,7 @@ __device__ __forceinline__ void stage(const TS* s_g, const TT* t_g,
   }
 }
 
-// valid may be null: every slot is live
-template <typename TS, typename TT>
-__global__ void xcorr_kernel(const TS* __restrict__ search,
-                             const TT* __restrict__ tmpl,
-                             const uint8_t* __restrict__ valid,
-                             float* __restrict__ out, int hs, int ws, int ht,
-                             int wt, int C) {
-  const int k = blockIdx.x;
-  const int c0 = blockIdx.y * CT;
-  const int ho = hs - ht + 1, wo = ws - wt + 1;
-  const int c = threadIdx.x % CT;
-  const int oy = threadIdx.x / CT;
-  const bool has_c = c0 + c < C;
-  float* out_row = out + (((size_t)k * ho + oy) * wo) * C + c0 + c;
-  if (valid != nullptr && !valid[k]) {
-    if (has_c)
-      for (int ox = 0; ox < wo; ++ox) out_row[(size_t)ox * C] = 0.f;
-    return;
-  }
-  extern __shared__ float smem[];
-  float* s_s = smem;                  // [hs * ws][CT]
-  float* t_s = smem + hs * ws * CT;   // [ht * wt][CT]
-  stage(search + (size_t)k * hs * ws * C, tmpl + (size_t)k * ht * wt * C,
-        s_s, t_s, hs * ws, ht * wt, C, c0);
-  __syncthreads();
-  float acc[WO_MAX];
-#pragma unroll
-  for (int ox = 0; ox < WO_MAX; ++ox) acc[ox] = 0.f;
-  for (int i = 0; i < ht; ++i) {
-    for (int j = 0; j < wt; ++j) {
-      const float t = t_s[(i * wt + j) * CT + c];
-      const float* srow = s_s + ((oy + i) * ws + j) * CT + c;
-#pragma unroll
-      for (int ox = 0; ox < WO_MAX; ++ox)
-        if (ox < wo) acc[ox] += srow[ox * CT] * t;
-    }
-  }
-  if (has_c) {
-#pragma unroll
-    for (int ox = 0; ox < WO_MAX; ++ox)
-      if (ox < wo) out_row[(size_t)ox * C] = acc[ox];
-  }
-}
-
-// banded form: block (slot, channel tile, band of BAND output rows)
+// block (slot, channel tile, band of BAND output rows); valid may be null
 template <typename TS, typename TT>
 __global__ void __launch_bounds__(BAND * CT)
     xcorr_band_kernel(const TS* __restrict__ search,
@@ -159,7 +121,7 @@ __global__ void __launch_bounds__(BAND * CT)
       const float* srow = s_s + (r * ws + j) * CT + c;
 #pragma unroll
       for (int ox = 0; ox < WO_BAND_MAX; ++ox)
-        if (ox < wo) acc[ox] += srow[ox * CT] * t;
+        if (ox < wo) acc[ox] = fmaf(srow[ox * CT], t, acc[ox]);
     }
   }
   if (has_c && has_row) {
@@ -170,32 +132,21 @@ __global__ void __launch_bounds__(BAND * CT)
 }
 
 template <typename TS, typename TT>
-static int launch_xcorr(const void* search, const void* tmpl,
-                        const uint8_t* valid, float* out, int K, int hs,
-                        int ws, int ht, int wt, int C, cudaStream_t stream) {
+static int launch_band(const void* search, const void* tmpl,
+                       const uint8_t* valid, float* out, int K, int hs,
+                       int ws, int ht, int wt, int C, cudaStream_t stream) {
   const int ho = hs - ht + 1, wo = ws - wt + 1;
-  if (ho < 1 || wo < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(hs * ws + ht * wt) * CT * sizeof(float);
-  if (ho * CT > 1024 || wo > WO_MAX || smem > 200 * 1024) {
-    // large outputs: the banded form
-    if (wo > WO_BAND_MAX) return (int)cudaErrorInvalidValue;
-    const size_t bsmem = (size_t)(BAND * ws + wt) * CT * sizeof(float);
-    cudaError_t err = set_smem(xcorr_band_kernel<TS, TT>, bsmem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(K, (C + CT - 1) / CT, (ho + BAND - 1) / BAND);
-    xcorr_band_kernel<TS, TT><<<grid, BAND * CT, bsmem, stream>>>(
-        (const TS*)search, (const TT*)tmpl, valid, out, hs, ws, ht, wt, C);
-    return (int)cudaGetLastError();
-  }
-  cudaError_t err = set_smem(xcorr_kernel<TS, TT>, smem);
+  if (ho < 1 || wo < 1 || wo > WO_BAND_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(BAND * ws + wt) * CT * sizeof(float);
+  cudaError_t err = set_smem(xcorr_band_kernel<TS, TT>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(K, (C + CT - 1) / CT);
-  xcorr_kernel<TS, TT><<<grid, ho * CT, smem, stream>>>(
+  dim3 grid(K, (C + CT - 1) / CT, (ho + BAND - 1) / BAND);
+  xcorr_band_kernel<TS, TT><<<grid, BAND * CT, smem, stream>>>(
       (const TS*)search, (const TT*)tmpl, valid, out, hs, ws, ht, wt, C);
   return (int)cudaGetLastError();
 }
 
-// -- kernel 6 --------------------------------------------------------------
+// -- kernels 2 and 6 -------------------------------------------------------
 namespace k6 {
 
 constexpr int XCORR = 0, FULL = 1;
@@ -206,9 +157,10 @@ constexpr int MAX_THREADS = 256;
 // search region, or g for the search gradient), b [K, hb, wb, C] the taps
 // (the template, or g for the template gradient); out [K, ho, wo, C] f32.
 struct Shape {
-  int ha, wa, hb, wb, C, ho, wo;
+  int K, ha, wa, hb, wb, C, ho, wo;
   int tiles, bands;  // channel tiles, bands of output rows
   int rpi, nrt;      // output rows an item, row threads a block
+  int nseg;          // column segments an output row (xcorr)
   int rsa;           // row stride of a in shared memory, elements
   int b_off, stage;  // bytes: b's offset in a stage, a stage
   int items, vec;    // work items; 16-byte copies (every tile full, aligned)
@@ -216,13 +168,19 @@ struct Shape {
 
 struct Item {
   int k, c0, y0, y1, a0;
+  bool live;
 };
 
+// Item -> (position p in the slot order, channel tile, band); the slot is
+// order[p] (live slots first) or p when every slot is live.
 template <int MODE, int TILE>
-__device__ __forceinline__ Item decode(const Shape& sh, int item) {
+__device__ __forceinline__ Item decode(const Shape& sh, int item,
+                                       const int* order, int n_live) {
   Item it;
   const int band = item % sh.bands, t = item / sh.bands;
-  it.k = t / sh.tiles;
+  const int p = t / sh.tiles;
+  it.k = order != nullptr ? order[p] : p;
+  it.live = p < n_live;
   it.c0 = (t % sh.tiles) * TILE;
   it.y0 = band * sh.rpi;
   it.y1 = min(sh.ho, it.y0 + sh.rpi);
@@ -230,14 +188,46 @@ __device__ __forceinline__ Item decode(const Shape& sh, int item) {
   return it;
 }
 
-// Stage one item's rows of a and all of b into `st`, TILE channels a
-// pixel: 16-byte cp.async copies, or element loads with zeros past C.
+// order[0 .. K) = the live slots ascending, then the dead ones; returns
+// the number live.  The first warp (all of it, or the whole block when it
+// is smaller) ballots that many slots at a time.
+__device__ __forceinline__ int live_order(const uint8_t* __restrict__ valid,
+                                          int K, int* order) {
+  const int lanes = min(32, (int)blockDim.x);
+  if (threadIdx.x < lanes) {
+    const int lane = threadIdx.x;
+    const unsigned mask = lanes == 32 ? ~0u : (1u << lanes) - 1;
+    const unsigned below = (1u << lane) - 1;
+    int n_live = 0;
+    for (int base = 0; base < K; base += lanes)
+      n_live += __popc(__ballot_sync(mask, base + lane < K &&
+                                               valid[base + lane]));
+    int lp = 0, dp = n_live;
+    for (int base = 0; base < K; base += lanes) {
+      const bool in = base + lane < K;
+      const bool v = in && valid[base + lane];
+      const unsigned bl = __ballot_sync(mask, v);
+      const unsigned bd = __ballot_sync(mask, in && !v);
+      if (v) order[lp + __popc(bl & below)] = base + lane;
+      else if (in) order[dp + __popc(bd & below)] = base + lane;
+      lp += __popc(bl);
+      dp += __popc(bd);
+    }
+    if (lane == 0) order[K] = n_live;
+  }
+  __syncthreads();
+  return order[K];
+}
+
+// Stage one live item's rows of a and all of b into `st`, TILE channels a
+// pixel: 16-byte cp.async copies, or element loads with zeros past C.  A
+// dead item stages nothing.
 template <int MODE, int TILE, typename TA, typename TB>
 __device__ __forceinline__ void stage_item(const TA* __restrict__ a,
                                            const TB* __restrict__ b,
-                                           const Shape& sh, int item,
+                                           const Shape& sh, const Item& it,
                                            unsigned char* st) {
-  const Item it = decode<MODE, TILE>(sh, item);
+  if (!it.live) return;
   const int a1 = MODE == XCORR ? min(sh.ha, it.y1 + sh.hb - 1)
                                : min(sh.ha, it.y1);
   TA* a_s = (TA*)st;
@@ -271,53 +261,62 @@ __device__ __forceinline__ void stage_item(const TA* __restrict__ a,
   }
 }
 
+// out[k, y, x0 .. x0 + n) of channel c from acc[0 .. n)
 template <int N>
 __device__ __forceinline__ void store_row(const Shape& sh, const Item& it,
-                                          int y, int c, int wo,
+                                          int y, int c, int x0, int n,
                                           const float (&acc)[N],
                                           float* __restrict__ out) {
   if (it.c0 + c >= sh.C) return;
-  float* o = out + (((size_t)it.k * sh.ho + y) * sh.wo) * sh.C + it.c0 + c;
+  float* o = out + (((size_t)it.k * sh.ho + y) * sh.wo + x0) * sh.C +
+             it.c0 + c;
 #pragma unroll
   for (int x = 0; x < N; ++x)
-    if (x < wo) o[(size_t)x * sh.C] = acc[x];
+    if (x < n) o[(size_t)x * sh.C] = acc[x];
 }
 
-// xcorr rows of one item: thread (c, r) takes output rows y0 + r,
-// y0 + r + nrt, ...  WO > 0: widths WO, WT at compile time, the search row
-// streamed through the template row held in registers.
-template <int TILE, int WO, int WT, typename TA, typename TB>
+// xcorr rows of one item: thread (c, r) takes the units r, r + nrt, ...
+// of (output row, column segment), rows fastest, so the rows a warp reads
+// are neighbours.  SEG > 0: segments of SEG outputs and a WT-wide
+// template at compile time, the search row streamed through the template
+// row held in registers (the last segment may run past wo: those outputs
+// read the padded stride and are not stored).  SEG == 0: one segment, the
+// generic form.  A dead item stores zeros.
+template <int TILE, int SEG, int WT, typename TA, typename TB>
 __device__ __forceinline__ void xcorr_rows(const Shape& sh, const Item& it,
                                            const TA* a_s, const TB* b_s,
                                            float* __restrict__ out) {
   const int c = threadIdx.x % TILE, r = threadIdx.x / TILE;
-  for (int y = it.y0 + r; y < it.y1; y += sh.nrt) {
-    if constexpr (WO > 0) {
-      float acc[WO];
+  const int rows = it.y1 - it.y0;
+  for (int u = r; u < rows * sh.nseg; u += sh.nrt) {
+    const int y = it.y0 + u % rows;
+    if constexpr (SEG > 0) {
+      const int x0 = (u / rows) * SEG;
+      float acc[SEG];
 #pragma unroll
-      for (int x = 0; x < WO; ++x) acc[x] = 0.f;
-      for (int i = 0; i < sh.hb; ++i) {
+      for (int x = 0; x < SEG; ++x) acc[x] = 0.f;
+      for (int i = 0; it.live && i < sh.hb; ++i) {
         float t[WT];
         const TB* trow = b_s + i * WT * TILE + c;
 #pragma unroll
         for (int j = 0; j < WT; ++j) t[j] = load_f32(trow, j * TILE);
-        const TA* srow = a_s + (y + i - it.a0) * sh.rsa + c;
+        const TA* srow = a_s + (y + i - it.a0) * sh.rsa + x0 * TILE + c;
 #pragma unroll
-        for (int x = 0; x < WO + WT - 1; ++x) {
+        for (int x = 0; x < SEG + WT - 1; ++x) {
           const float v = load_f32(srow, x * TILE);
 #pragma unroll
-          for (int ox = 0; ox < WO; ++ox) {
+          for (int ox = 0; ox < SEG; ++ox) {
             const int j = x - ox;  // ascending in x for each output
             if (j >= 0 && j < WT) acc[ox] = fmaf(v, t[j], acc[ox]);
           }
         }
       }
-      store_row(sh, it, y, c, WO, acc, out);
+      store_row(sh, it, y, c, x0, min(SEG, sh.wo - x0), acc, out);
     } else {
       float acc[W_GEN];
 #pragma unroll
       for (int x = 0; x < W_GEN; ++x) acc[x] = 0.f;
-      for (int i = 0; i < sh.hb; ++i) {
+      for (int i = 0; it.live && i < sh.hb; ++i) {
         for (int j = 0; j < sh.wb; ++j) {
           const float t = load_f32(b_s, (i * sh.wb + j) * TILE + c);
           const TA* srow = a_s + (y + i - it.a0) * sh.rsa + j * TILE + c;
@@ -327,7 +326,7 @@ __device__ __forceinline__ void xcorr_rows(const Shape& sh, const Item& it,
               acc[ox] = fmaf(load_f32(srow, ox * TILE), t, acc[ox]);
         }
       }
-      store_row(sh, it, y, c, sh.wo, acc, out);
+      store_row(sh, it, y, c, 0, sh.wo, acc, out);
     }
   }
 }
@@ -363,7 +362,7 @@ __device__ __forceinline__ void full_rows(const Shape& sh, const Item& it,
             acc[gx + j] = fmaf(v, t[j], acc[gx + j]);
         }
       }
-      store_row(sh, it, y, c, WO, acc, out);
+      store_row(sh, it, y, c, 0, WO, acc, out);
     } else {
       float acc[W_GEN];
 #pragma unroll
@@ -380,37 +379,49 @@ __device__ __forceinline__ void full_rows(const Shape& sh, const Item& it,
           }
         }
       }
-      store_row(sh, it, y, c, sh.wo, acc, out);
+      store_row(sh, it, y, c, 0, sh.wo, acc, out);
     }
   }
 }
 
 // The persistent kernel: block b takes items b, b + grid, ...; the next
-// item's copies are in flight while the current one computes.
-template <int MODE, int TILE, int WO, int WT, typename TA, typename TB>
+// item's copies are in flight while the current one computes.  With
+// ``valid`` (xcorr only) the items run in the block's live-first slot
+// order, kept in shared memory after the two stages.
+template <int MODE, int TILE, int SEG, int WT, typename TA, typename TB>
 __global__ void __launch_bounds__(MAX_THREADS)
     xcorr6_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
+                  const uint8_t* __restrict__ valid,
                   float* __restrict__ out, const Shape sh) {
   extern __shared__ __align__(16) unsigned char k6_smem[];
+  const int* order = nullptr;
+  int n_live = sh.K;
+  if (valid != nullptr) {
+    int* o = (int*)(k6_smem + 2 * (size_t)sh.stage);
+    n_live = live_order(valid, sh.K, o);
+    order = o;
+  }
   int item = blockIdx.x;
-  stage_item<MODE, TILE>(a, b, sh, item, k6_smem);
+  stage_item<MODE, TILE>(a, b, sh, decode<MODE, TILE>(sh, item, order,
+                                                      n_live), k6_smem);
   cp_async_commit();
   for (int n = 0; item < sh.items; ++n, item += gridDim.x) {
     const int next = item + gridDim.x;
     if (next < sh.items)
-      stage_item<MODE, TILE>(a, b, sh, next,
+      stage_item<MODE, TILE>(a, b, sh,
+                             decode<MODE, TILE>(sh, next, order, n_live),
                              k6_smem + ((n + 1) & 1) * sh.stage);
     cp_async_commit();
     cp_async_wait<1>();  // this item's copies are in
     __syncthreads();
     const unsigned char* st = k6_smem + (n & 1) * sh.stage;
-    const Item it = decode<MODE, TILE>(sh, item);
+    const Item it = decode<MODE, TILE>(sh, item, order, n_live);
     if constexpr (MODE == XCORR)
-      xcorr_rows<TILE, WO, WT>(sh, it, (const TA*)st,
-                               (const TB*)(st + sh.b_off), out);
+      xcorr_rows<TILE, SEG, WT>(sh, it, (const TA*)st,
+                                (const TB*)(st + sh.b_off), out);
     else
-      full_rows<TILE, WO, WT>(sh, it, (const TA*)st,
-                              (const TB*)(st + sh.b_off), out);
+      full_rows<TILE, SEG, WT>(sh, it, (const TA*)st,
+                               (const TB*)(st + sh.b_off), out);
     __syncthreads();  // before the next prefetch overwrites this stage
   }
   cp_async_wait<0>();
@@ -430,39 +441,51 @@ static int row_stride(int bytes, int groups, int width) {
   }
 }
 
-template <int MODE, int TILE, int WO, int WT, typename TA, typename TB>
-static int launch(const void* a, const void* b, float* out, const Shape& sh,
+template <int MODE, int TILE, int SEG, int WT, typename TA, typename TB>
+static int launch(const void* a, const void* b, const uint8_t* valid,
+                  float* out, const Shape& sh, size_t smem,
                   cudaStream_t stream) {
-  auto kernel = xcorr6_kernel<MODE, TILE, WO, WT, TA, TB>;
+  auto kernel = xcorr6_kernel<MODE, TILE, SEG, WT, TA, TB>;
   const int threads = TILE * sh.nrt;
-  const size_t smem = 2 * (size_t)sh.stage;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int resident = resident_blocks(kernel, threads, smem);
   if (resident == 0) return (int)cudaErrorInvalidConfiguration;
   kernel<<<std::min(sh.items, resident), threads, smem, stream>>>(
-      (const TA*)a, (const TB*)b, out, sh);
+      (const TA*)a, (const TB*)b, valid, out, sh);
   return (int)cudaGetLastError();
 }
 
+// mode XCORR: a the search, b the taps (the template, or g for the
+// template gradient), valid null or [K] (kernel 2); mode FULL: the search
+// gradient, a = g, b the template, valid null.
 template <typename TA, typename TB>
-static int launch_unmasked(int mode, const void* a, const void* b,
-                           float* out, int K, int ha, int wa, int hb, int wb,
-                           int C, cudaStream_t stream) {
+static int launch6(int mode, const void* a, const void* b,
+                   const uint8_t* valid, float* out, int K, int ha, int wa,
+                   int hb, int wb, int C, cudaStream_t stream) {
   constexpr int TILE = sizeof(TA) == 2 && sizeof(TB) == 2 ? 16 : 8;
+  constexpr int CAP = MAX_THREADS / TILE;  // row threads a block at most
   Shape sh;
-  sh.ha = ha, sh.wa = wa, sh.hb = hb, sh.wb = wb, sh.C = C;
+  sh.K = K, sh.ha = ha, sh.wa = wa, sh.hb = hb, sh.wb = wb, sh.C = C;
   sh.ho = mode == XCORR ? ha - hb + 1 : ha + hb - 1;
   sh.wo = mode == XCORR ? wa - wb + 1 : wa + wb - 1;
   if (sh.ho < 1 || sh.wo < 1 || sh.wo > W_GEN || hb < 1 || wb < 1 ||
-      (mode == FULL && sh.ho > 2 * (MAX_THREADS / TILE)))
+      (mode == FULL && (valid != nullptr || sh.ho > 2 * CAP)))
     return (int)cudaErrorInvalidValue;
+  // the xcorr's segment width: 16 for a 15-wide template, 15 for a
+  // 16-wide one, 0 (one generic segment) otherwise
+  const int seg = mode == XCORR ? (wb == 15 ? 16 : wb == 16 ? 15 : 0) : 0;
+  int a_cols = wa;
   if (mode == XCORR) {
-    sh.rpi = sh.nrt = std::min(sh.ho, MAX_THREADS / TILE);
+    sh.nseg = seg > 0 ? (sh.wo + seg - 1) / seg : 1;
+    sh.rpi = std::max(1, std::min(sh.ho, CAP / sh.nseg));
+    sh.nrt = std::min(sh.rpi * sh.nseg, CAP);
+    if (seg > 0) a_cols = std::max(wa, sh.nseg * seg + wb - 1);
   } else {
     // one band; thread r takes rows r and r + nrt, so that every thread
     // meets as many template rows (at the training shapes r + 1 and
     // 15 - r: 16 for every thread)
+    sh.nseg = 1;
     sh.rpi = sh.ho;
     sh.nrt = (sh.ho + 1) / 2;
   }
@@ -470,7 +493,7 @@ static int launch_unmasked(int mode, const void* a, const void* b,
   sh.tiles = (C + TILE - 1) / TILE;
   sh.items = K * sh.tiles * sh.bands;
   const int a_rows = mode == XCORR ? std::min(ha, sh.rpi + hb - 1) : ha;
-  const int rs = row_stride(wa * TILE * (int)sizeof(TA), 32 / TILE,
+  const int rs = row_stride(a_cols * TILE * (int)sizeof(TA), 32 / TILE,
                             TILE * (int)sizeof(TA));
   sh.rsa = rs / (int)sizeof(TA);
   sh.b_off = a_rows * rs;
@@ -478,26 +501,33 @@ static int launch_unmasked(int mode, const void* a, const void* b,
   sh.vec = C % TILE == 0 && (C * sizeof(TA)) % 16 == 0 &&
            (C * sizeof(TB)) % 16 == 0 && (uintptr_t)a % 16 == 0 &&
            (uintptr_t)b % 16 == 0;
+  const size_t smem = 2 * (size_t)sh.stage +
+                      (valid != nullptr ? (size_t)(K + 1) * sizeof(int) : 0);
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  if (2 * (size_t)sh.stage > (size_t)optin) {
-    // taps too large for two stages: kernel 2's banded kernel, all live
+  if (smem > (size_t)optin) {
+    // taps too large for two stages: the banded fallback
     if (mode == FULL) return (int)cudaErrorInvalidValue;
-    return launch_xcorr<TA, TB>(a, b, nullptr, out, K, ha, wa, hb, wb, C,
-                                stream);
+    return launch_band<TA, TB>(a, b, valid, out, K, ha, wa, hb, wb, C,
+                               stream);
   }
   if (mode == XCORR) {
-    if (sh.wo == 16 && wb == 15)  // the forward: 30x30 x 15x15
-      return launch<XCORR, TILE, 16, 15, TA, TB>(a, b, out, sh, stream);
-    if (sh.wo == 15 && wb == 16)  // the template gradient: 30x30 x 16x16
-      return launch<XCORR, TILE, 15, 16, TA, TB>(a, b, out, sh, stream);
-    return launch<XCORR, TILE, 0, 0, TA, TB>(a, b, out, sh, stream);
+    if (seg == 16)  // a 15-wide template: the forward, kernel 2
+      return launch<XCORR, TILE, 16, 15, TA, TB>(a, b, valid, out, sh, smem,
+                                                 stream);
+    if (seg == 15)  // the template gradient: 16-wide g as taps
+      return launch<XCORR, TILE, 15, 16, TA, TB>(a, b, valid, out, sh, smem,
+                                                 stream);
+    return launch<XCORR, TILE, 0, 0, TA, TB>(a, b, valid, out, sh, smem,
+                                             stream);
   }
   if (wa == 16 && wb == 15)  // the search gradient: 16x16 g, 15x15 taps
-    return launch<FULL, TILE, 30, 15, TA, TB>(a, b, out, sh, stream);
-  return launch<FULL, TILE, 0, 0, TA, TB>(a, b, out, sh, stream);
+    return launch<FULL, TILE, 30, 15, TA, TB>(a, b, nullptr, out, sh, smem,
+                                              stream);
+  return launch<FULL, TILE, 0, 0, TA, TB>(a, b, nullptr, out, sh, smem,
+                                          stream);
 }
 
 }  // namespace k6
@@ -509,13 +539,15 @@ static int launch_unmasked(int mode, const void* a, const void* b,
              : ((d1) == 1 ? FN<float, __nv_bfloat16>(__VA_ARGS__)         \
                           : FN<float, float>(__VA_ARGS__)))
 
+// Kernel 2: the masked xcorr (inference), one dtype for both inputs.
 SIAMMOT_API int siammot_xcorr_masked(const void* search, const void* tmpl,
                                      int dtype, const uint8_t* valid,
                                      float* out, int K, int hs, int ws,
                                      int ht, int wt, int C, void* stream) {
   if (K == 0) return 0;
-  return SIAMMOT_DISPATCH2(dtype, dtype, launch_xcorr, search, tmpl, valid,
-                           out, K, hs, ws, ht, wt, C, (cudaStream_t)stream);
+  return SIAMMOT_DISPATCH2(dtype, dtype, k6::launch6, k6::XCORR, search,
+                           tmpl, valid, out, K, hs, ws, ht, wt, C,
+                           (cudaStream_t)stream);
 }
 
 // Unmasked xcorr: the training forward and the template gradient
@@ -525,9 +557,9 @@ SIAMMOT_API int siammot_xcorr(const void* search, int search_dtype,
                               int K, int hs, int ws, int ht, int wt, int C,
                               void* stream) {
   if (K == 0) return 0;
-  return SIAMMOT_DISPATCH2(search_dtype, tmpl_dtype, k6::launch_unmasked,
-                           k6::XCORR, search, tmpl, out, K, hs, ws, ht, wt,
-                           C, (cudaStream_t)stream);
+  return SIAMMOT_DISPATCH2(search_dtype, tmpl_dtype, k6::launch6, k6::XCORR,
+                           search, tmpl, nullptr, out, K, hs, ws, ht, wt, C,
+                           (cudaStream_t)stream);
 }
 
 // Search gradient: the full convolution of the upstream gradient with the
@@ -538,7 +570,7 @@ SIAMMOT_API int siammot_xcorr_grad_search(const void* grad, int grad_dtype,
                                           int ht, int wt, int C,
                                           void* stream) {
   if (K == 0) return 0;
-  return SIAMMOT_DISPATCH2(grad_dtype, tmpl_dtype, k6::launch_unmasked,
-                           k6::FULL, grad, tmpl, out, K, hg, wg, ht, wt, C,
+  return SIAMMOT_DISPATCH2(grad_dtype, tmpl_dtype, k6::launch6, k6::FULL,
+                           grad, tmpl, nullptr, out, K, hg, wg, ht, wt, C,
                            (cudaStream_t)stream);
 }

@@ -19,9 +19,16 @@ thread forms ``sum_x wx * t`` once per row and adds it into its band's
 accumulators (separable sums, the same products in the same order as a
 direct loop).  A dead ROI writes zeros and reads nothing; outputs stay in
 slot order.  The backward kernel
-(``cuda/window_pool_bwd.cu``) forms each ROI's ``Wy^T G Wx`` over the
-same non-zero spans and adds every touched table element once, with an
-f32 atomic (the windows of training ROIs overlap).
+(``cuda/window_pool_bwd.cu``) is a deterministic gather: a first pass
+finds each ROI's non-zero weight spans and the table rectangle it touches,
+a second the bit masks of the ROIs that meet each band of 8 table rows and
+each span of 8 columns, and the gather takes a block per 8 x 8 table tile,
+walks the AND of its two masks in ROI order, stages each ROI's block of
+``g`` and weights in shared memory (double-buffered ``cp.async``) and adds
+its ``sum_j wx * (sum_i wy * g)`` (rows first, then columns, as the Pallas
+kernel's two stages) to registers; every table element is written once,
+zeros included, with no atomics, so the gradient is bitwise the same from
+run to run.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from . import cuda
 
 _ARGS = (cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.P, cuda.P, cuda.P,
          cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.P)
-_BWD_ARGS = (cuda.P,) * 6 + (cuda.I,) * 6 + (cuda.P,)
+_BWD_ARGS = (cuda.P,) * 7 + (cuda.I,) * 6 + (cuda.P,)
 
 
 def window_pool(table: torch.Tensor, origins: torch.Tensor, wy: torch.Tensor,
@@ -86,8 +93,9 @@ def window_pool_bwd(grad: torch.Tensor, origins: torch.Tensor,
                     valid: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel 7: the table gradient ``dtable [R, Wmax, C]`` f32 of
     :func:`window_pool` for the upstream gradient ``grad [N, S, S, C]``
-    (dead rows of ``valid`` add nothing).  CUDA tensors launch the kernel
-    on a zeroed table; CPU tensors take :func:`window_pool_bwd_plain`."""
+    (dead rows of ``valid`` add nothing), each table element summing its
+    ROIs in ROI order, bitwise the same from run to run.  CUDA tensors
+    launch the kernel; CPU tensors take :func:`window_pool_bwd_plain`."""
     if grad.device.type == "cpu":
         return window_pool_bwd_plain(grad, origins, wy, wx, table_shape,
                                      valid)
@@ -96,19 +104,69 @@ def window_pool_bwd(grad: torch.Tensor, origins: torch.Tensor,
     if grad.dtype != torch.float32 or grad.shape != (n, s, s, c):
         raise TypeError(f"window_pool_bwd: grad must be [N, S, S, C] f32, "
                         f"got {tuple(grad.shape)} {grad.dtype}")
-    dtable = torch.zeros(table_shape, dtype=torch.float32,
-                         device=grad.device)
     _check_geometry("window_pool_bwd", grad, origins, wy, wx, valid)
+    # written once by the kernel, zeros included
+    dtable = torch.empty(table_shape, dtype=torch.float32,
+                         device=grad.device)
+    words = cuda.function("siammot_window_pool_bwd_scratch",
+                          (cuda.I,) * 4)(n, win, r, wmax)
+    scratch = torch.empty(words, dtype=torch.int32, device=grad.device)
     fn = cuda.function("siammot_window_pool_bwd", _BWD_ARGS)
     cuda.check("window_pool_bwd", fn(
         cuda.ptr(grad), cuda.ptr(origins), cuda.ptr(wy), cuda.ptr(wx),
         None if valid is None else cuda.ptr(valid), cuda.ptr(dtable),
-        r, wmax, c, n, s, win, cuda.stream(grad.device)))
+        cuda.ptr(scratch), r, wmax, c, n, s, win,
+        cuda.stream(grad.device)))
     window_pool_bwd.launches += 1
     return dtable
 
 
 window_pool_bwd.launches = 0
+
+
+# kernel 7's table tiles (rows, columns): ``cuda/window_pool_bwd.cu`` TR, TC
+BWD_TILE = (8, 8)
+
+
+def touched_rects(origins, wy, wx, table_shape, valid=None):
+    """Plain version of kernel 7's first pass: the table rectangle each
+    ROI's non-zero taps touch, [N, 4] int64 (first row, last row, first
+    column, last column); first > last for a ROI that touches nothing (dead
+    in ``valid``, or every tap outside the table)."""
+    r, wmax, _ = table_shape
+    n, _, win = wy.shape
+    ar = torch.arange(win, device=wy.device)
+    o = origins.long()
+    rows = (wy != 0).any(1) & (o[:, :1] + ar >= 0) & (o[:, :1] + ar < r)
+    cols = (wx != 0).any(1) & (o[:, 1:] + ar >= 0) & (o[:, 1:] + ar < wmax)
+    if valid is not None:
+        rows &= valid[:, None]
+    live = rows.any(1) & cols.any(1)
+
+    def extent(m, base):
+        first = torch.where(m, ar, win).amin(1)
+        last = torch.where(m, ar, -1).amax(1)
+        return base + first, base + last
+
+    y0, y1 = extent(rows, o[:, 0])
+    x0, x1 = extent(cols, o[:, 1])
+    empty = torch.tensor([1, 0, 1, 0], device=wy.device)
+    return torch.where(live[:, None], torch.stack([y0, y1, x0, x1], 1),
+                       empty)
+
+
+def tile_counts(rects, table_shape, tile=BWD_TILE):
+    """The number of ROIs kernel 7's gather visits at each table tile (its
+    rectangle meets the tile), [ceil(R / rows), ceil(Wmax / columns)]."""
+    r, wmax, _ = table_shape
+    tr, tc = tile
+    bands = torch.arange(0, r, tr, device=rects.device)
+    spans = torch.arange(0, wmax, tc, device=rects.device)
+    live = rects[:, 0] <= rects[:, 1]
+    in_band = live[:, None] & (rects[:, :1] <= bands + tr - 1) \
+        & (rects[:, 1:2] >= bands)
+    in_cols = (rects[:, 2:3] <= spans + tc - 1) & (rects[:, 3:4] >= spans)
+    return (in_band.float().T @ in_cols.float()).round().long()
 
 
 class _WindowPool(torch.autograd.Function):

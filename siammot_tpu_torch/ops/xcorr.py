@@ -12,17 +12,20 @@ of ``g`` with the template.  Per slot, ``[Hs, Ws, C] * [Ht, Wt, C] ->
 [Ho, Wo, C]`` f32, accumulated i-major; masked dead slots write zeros.
 
 On the H100 the op is bound by operations on the CUDA cores (it is
-depthwise, so there is no tensor-core form).  Kernel 6's CUDA kernel
-(``cuda/xcorr.cu:xcorr6_kernel``) is a persistent grid over (slot, channel
-tile, band of output rows) items that stages the next item's inputs in
-their own dtype with ``cp.async`` while the current one computes; each
-thread streams its search (or ``g``) rows through the template row held in
-registers, with the training shapes' widths fixed at compile time.  The
-search gradient skips the taps that fall outside ``g`` instead of
-correlating a zero-padded copy.  Kernel 2 keeps the first kernels: both
-inputs staged as f32, one shared-memory load per multiply-add, and a
-banded form for outputs wider or taller than 32 (61x61 at
-``SEARCH_REGION`` 5).
+depthwise, so there is no tensor-core form).  Kernels 2 and 6 run one CUDA
+kernel (``cuda/xcorr.cu:xcorr6_kernel``): a persistent grid over (slot,
+channel tile, band of output rows) items that stages the next item's
+inputs in their own dtype with ``cp.async`` while the current one
+computes; each thread streams its search (or ``g``) rows through the
+template row held in registers, over output segments of a compile-time
+width (16 for a 15-wide template, so 16x16 and SEARCH_REGION 5's 61x61
+outputs both run unrolled).  Kernel 2's ``valid`` orders the slots live
+first on the device, so the live items spread over the blocks; a dead
+slot's items read nothing and write zeros, and a live slot's outputs are
+bitwise kernel 6's.  The search gradient skips the taps that fall outside
+``g`` instead of correlating a zero-padded copy.  Taps too large for two
+shared-memory stages (a template gradient over a 75x75 search region) take
+a banded fallback kernel, one shared-memory load per multiply-add.
 """
 
 from __future__ import annotations
@@ -56,9 +59,12 @@ def _check(what, a, b, valid=None):
 
 
 def _out_fits(what, ho, wo, w_max=32):
+    """Kernels 2 and 6's xcorr take outputs up to 64 wide of any height
+    (``w_max`` 64); the two gradients are held to 32x32."""
     if not (1 <= ho and 1 <= wo <= w_max) or (w_max == 32 and ho > 32):
-        raise ValueError(f"{what} kernel takes outputs up to 32x32 (any "
-                         f"height up to width {w_max} for the xcorr), got "
+        limit = f"up to {w_max} wide" + (" and 32 high" if w_max == 32
+                                          else "")
+        raise ValueError(f"{what} kernel takes outputs {limit}, got "
                          f"{ho}x{wo}")
 
 

@@ -6,19 +6,22 @@ and without JAX, run them with
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-(``--noconftest``: the suite's conftest imports JAX).  Shapes are the
+(``--noconftest``: the suite's conftest imports JAX). Shapes are the
 main path's and the other shapes the JAX kernels take (predictor f32,
 29x29 and 61x61 with 1, 37 and 128 live slots, decode s_hi 464 and 512,
 the deformable conv at DLA-102's stages and with its taps split, the
 unmasked xcorr's three passes at the training shapes in every dtype mix
 and at other widths, the window pool at each site's size and window with
-every kind of ``valid``), small elsewhere.  Tolerances as in
-``chip_smoke.py``: pool/xcorr f32 sums in another order (1e-4 +
-1e-3|x|; the pool backward adds with atomics, in an order that changes
-from run to run), predictor logits 3e-2 in bf16 (tower rounding) and 1e-4
-in f32, decode idx exact and scores 1e-5, deformable conv 2e-5 of the
-output's scale in f32 and one bf16 step plus 2^-9 of the scale in bf16
-(the same samples, f32 sums in another order).
+every kind of ``valid``, the masked xcorr with 0, 1, 37 and 128 of 128
+slots live at 16x16, 61x61 and two generic widths, the pool's table
+gradient at the three training sites and under a crowded tile), small
+elsewhere. Kernel 2's live slots must equal kernel 6's output bit for
+bit, and kernel 7 must give the same bits from launch to launch.
+Tolerances as in ``chip_smoke.py``: pool/xcorr f32 sums in another order
+(1e-4 + 1e-3|x|), predictor logits 3e-2 in bf16 (tower rounding) and
+1e-4 in f32, decode idx exact and scores 1e-5, deformable conv 2e-5 of
+the output's scale in f32 and one bf16 step plus 2^-9 of the scale in
+bf16 (the same samples, f32 sums in another order).
 """
 
 import numpy as np
@@ -446,7 +449,7 @@ def test_predictor_blocked_kernel(dev, dtype, tol):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_xcorr_kernels_at_the_wide_search_region(dev, dtype):
     """Kernels 2 and 6 (forward) at SEARCH_REGION 5's 75x75 x 15x15 ->
-    61x61, the banded form."""
+    61x61, four 16-wide segments an output row."""
     g = torch.Generator().manual_seed(27)
     k = 5
     search = torch.randn(k, 75, 75, 128, generator=g).to(dev, dtype)
@@ -509,7 +512,7 @@ def test_xcorr_unmasked_other_shapes(dev, hs, ws, ht, wt, c, dtype):
     """Kernel 6 at widths without a compile-time form (its generic
     instantiation), 20 channels (element copies, a partial tile), and at
     SEARCH_REGION 5's 75x75 x 15x15 -> 61x61, where the template gradient
-    (61x61 taps) takes kernel 2's banded kernel; search gradients wider or
+    (61x61 taps) takes the banded fallback kernel; search gradients wider or
     taller than 32 (9x40, 75x75) are refused, as before."""
     from siammot_tpu_torch.ops.xcorr import xcorr_grad_search
     g = torch.Generator().manual_seed(hs * ws + c)
@@ -573,3 +576,119 @@ def test_window_pool_kernel_sites(dev, s, window, pad, dtype, live, c):
         assert (got[~valid] == 0).all()
     assert want.abs().max() > 0 or live == "none"
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("hs,ws,ht,wt,c", [(30, 30, 15, 15, 128),
+                                           (75, 75, 15, 15, 128),
+                                           (35, 35, 7, 7, 128),
+                                           (20, 44, 9, 16, 20)])
+@pytest.mark.parametrize("live", [0, 1, 37, 128])
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_xcorr_masked_runs_kernel_6(dev, hs, ws, ht, wt, c, live, dtype):
+    """Kernel 2 on kernel 6's kernel, 128 slots with 0, 1, 37 and all
+    live: the default 30x30 x 15x15 -> 16x16, SEARCH_REGION 5's 75 -> 61
+    (four 16-wide segments a row), a 7x7 template (the generic form) and a
+    16-wide one over 20 channels (15-wide segments, element copies).
+    Against the plain version; dead slots exact zeros; live slots bitwise
+    the unmasked kernel's output on the same inputs."""
+    g = torch.Generator().manual_seed(hs * ws + ht + live)
+    k = 128
+    search = torch.randn(k, hs, ws, c, generator=g).to(dev, dtype)
+    tmpl = (0.1 * torch.randn(k, ht, wt, c, generator=g)).to(dev, dtype)
+    valid = torch.zeros(k, dtype=torch.bool)
+    valid[torch.randperm(k, generator=g)[:live]] = True
+    valid = valid.to(dev)
+    got = xcorr_depthwise_masked(search, tmpl, valid)
+    want = xcorr_depthwise_plain(search, tmpl, valid)
+    assert (got[~valid] == 0).all()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+    assert torch.equal(got[valid], xcorr_depthwise(search, tmpl)[valid])
+
+
+@pytest.mark.parametrize("s,window,pad", [(7, 64, 0), (15, 64, 0),
+                                          (30, 128, 512)])
+@pytest.mark.parametrize("c", [128, 20])
+def test_window_pool_bwd_kernel_sites(dev, s, window, pad, c):
+    """Kernel 7 at the three training sites' S, window and virtual pad,
+    ROIs at the table's edges and corners, 128 channels (16-byte loads)
+    and 20 (element loads): against the plain version; a second launch
+    bitwise the same; with ``valid``, bitwise the gradient of the live
+    ROIs alone (dead ROIs add nothing, the live ones keep their order)."""
+    table, (origins, wy, wx) = _pool_case(dev, s, window, pad, _F32, c,
+                                          seed=60 + s + c)
+    shape = tuple(table.shape)
+    n = wy.shape[0]
+    g = torch.Generator().manual_seed(61 + s)
+    up = torch.randn(n, s, s, c, generator=g).to(dev)
+    got = window_pool_bwd(up, origins, wy, wx, shape)
+    want = window_pool_bwd_plain(up, origins, wy, wx, shape)
+    assert want.abs().max() > 0
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+    assert torch.equal(got, window_pool_bwd(up, origins, wy, wx, shape))
+    valid = _valid(n, 62).to(dev)
+    masked = window_pool_bwd(up, origins, wy, wx, shape, valid)
+    torch.testing.assert_close(
+        masked, window_pool_bwd_plain(up, origins, wy, wx, shape, valid),
+        atol=1e-4, rtol=1e-3)
+    live = valid.nonzero()[:, 0]
+    assert torch.equal(masked, window_pool_bwd(
+        up[live].contiguous(), origins[live].contiguous(),
+        wy[live].contiguous(), wx[live].contiguous(), shape))
+
+
+def test_window_pool_bwd_kernel_crowded_tile(dev):
+    """Kernel 7 with 300 ROIs stacked over one spot of level 0, so that
+    one table tile lies under more ROIs than one 32-ROI word of its mask
+    holds: against the plain version, and bitwise repeatable."""
+    from siammot_tpu_torch.ops.window_pool import tile_counts, touched_rects
+    g = torch.Generator().manual_seed(63)
+    feats = [torch.randn(1, 64 // 2 ** i, 96 // 2 ** i, 128, generator=g)
+             for i in range(4)]
+    pack = pack_levels([f.to(dev) for f in feats], SCALES)
+    n = 300
+    xy = torch.tensor([100.0, 80.0]) + 20 * torch.rand(n, 2, generator=g)
+    rois = torch.cat([xy, xy + 30 + 60 * torch.rand(n, 2, generator=g)], 1)
+    levels = map_rois_to_levels(rois, 2, 5).to(dev)
+    scales = torch.tensor(SCALES, device=dev)[levels.long()]
+    origins, wy, wx = window_geometry(pack.heights, pack.widths,
+                                      pack.row_offsets, rois.to(dev), levels,
+                                      scales, 15, 2, 64, 0, 4)
+    shape = tuple(pack.table.shape)
+    counts = tile_counts(touched_rects(origins, wy, wx, shape), shape)
+    assert counts.max() > 96
+    up = torch.randn(n, 15, 15, 128, generator=g).to(dev)
+    got = window_pool_bwd(up, origins, wy, wx, shape)
+    torch.testing.assert_close(
+        got, window_pool_bwd_plain(up, origins, wy, wx, shape), atol=1e-4,
+        rtol=1e-3)
+    assert torch.equal(got, window_pool_bwd(up, origins, wy, wx, shape))
+
+
+def test_window_pool_bwd_kernel_unstaged_rois(dev):
+    """Kernel 7 at the search-region site's S (30) with ROIs a few table
+    cells wide, whose bins are much smaller than a cell: each tile meets
+    all 30 x 30 bins of such a ROI, more than a shared-memory stage holds,
+    so the gather reads them from global memory.  Against the plain
+    version, bitwise repeatable."""
+    g = torch.Generator().manual_seed(64)
+    feats = [torch.randn(1, 64 // 2 ** i, 96 // 2 ** i, 128, generator=g)
+             for i in range(4)]
+    pack = pack_levels([f.to(dev) for f in feats], SCALES)
+    n = 40
+    xy = torch.rand(n, 2, generator=g) * torch.tensor([300.0, 200.0])
+    rois = torch.cat([xy, xy + 4 + 8 * torch.rand(n, 2, generator=g)], 1)
+    rois[n // 2:, 2:] = rois[n // 2:, :2] + 80       # and some larger ones
+    levels = map_rois_to_levels(rois, 2, 5).to(dev)
+    scales = torch.tensor(SCALES, device=dev)[levels.long()]
+    origins, wy, wx = window_geometry(pack.heights, pack.widths,
+                                      pack.row_offsets, rois.to(dev), levels,
+                                      scales, 30, 2, 32, 0, 4)
+    shape = tuple(pack.table.shape)
+    assert ((wy[:n // 2] != 0).any(2).all()
+            and (wx[:n // 2] != 0).any(2).all())  # every bin in the window
+    up = torch.randn(n, 30, 30, 128, generator=g).to(dev)
+    got = window_pool_bwd(up, origins, wy, wx, shape)
+    torch.testing.assert_close(
+        got, window_pool_bwd_plain(up, origins, wy, wx, shape), atol=1e-4,
+        rtol=1e-3)
+    assert torch.equal(got, window_pool_bwd(up, origins, wy, wx, shape))

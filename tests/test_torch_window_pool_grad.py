@@ -130,3 +130,67 @@ def test_windowed_pool_gradient_matches_jax_xla(site):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
                                    rtol=RTOL, atol=ATOL,
                                    err_msg=f"level {lvl}")
+
+
+def _site_geometry(rng, site, n=20):
+    """A 2-image table of 8 channels and ``n`` ROIs (some at its edges)
+    with one training site's (S, window, pad)."""
+    size, win, pad = {"box": (7, 16, 0), "template": (15, 32, 0),
+                      "search_region": (30, 32, 16)}[site]
+    pack = pack_levels([torch.from_numpy(f) for f in _feats(rng, 2, 8)],
+                       SCALES)
+    rois = torch.from_numpy(_crowded_rois(rng, n, 6, 60, (192, 128)))
+    levels = map_rois_to_levels(rois, 2, 5)
+    img = torch.from_numpy(rng.randint(0, 2, n).astype(np.int32))
+    scales = torch.tensor(SCALES)[levels.long()]
+    geo = window_geometry(pack.heights, pack.widths, pack.row_offsets,
+                          rois + pad, img * 4 + levels, scales, size, 2,
+                          win, pad, 4)
+    return geo, tuple(pack.table.shape)
+
+
+@pytest.mark.parametrize("site", ["box", "template", "search_region"])
+@pytest.mark.parametrize("dead", [False, True])
+def test_touched_rects_bound_each_rois_gradient(site, dead):
+    """Kernel 7's first pass in plain PyTorch (``touched_rects``): each
+    ROI's rectangle is the bounding box of the table cells its plain
+    gradient reaches (all-ones upstream gradient, weights >= 0, so no
+    cancellation), and a dead ROI's is empty."""
+    from siammot_tpu_torch.ops.window_pool import (touched_rects,
+                                                   window_pool_bwd_plain)
+    rng = np.random.RandomState(40 + dead)
+    (origins, wy, wx), shape = _site_geometry(rng, site)
+    n, s, _ = wy.shape
+    valid = torch.from_numpy(rng.rand(n) < 0.5) if dead else None
+    rects = touched_rects(origins, wy, wx, shape, valid)
+    for i in range(n):
+        grad = window_pool_bwd_plain(torch.ones(1, s, s, shape[2]),
+                                     origins[i:i + 1], wy[i:i + 1],
+                                     wx[i:i + 1], shape)
+        cells = (grad != 0).any(-1).nonzero()
+        if (valid is not None and not valid[i]) or len(cells) == 0:
+            assert rects[i, 0] > rects[i, 1] and rects[i, 2] > rects[i, 3]
+        else:
+            assert rects[i].tolist() == [
+                int(cells[:, 0].min()), int(cells[:, 0].max()),
+                int(cells[:, 1].min()), int(cells[:, 1].max())], i
+
+
+@pytest.mark.parametrize("site", ["box", "search_region"])
+def test_tile_counts_count_the_rectangles_meeting_each_tile(site):
+    """``tile_counts``: per table tile of kernel 7's gather, the ROIs whose
+    rectangle meets it, against a loop over tiles and ROIs."""
+    from siammot_tpu_torch.ops.window_pool import (BWD_TILE, tile_counts,
+                                                   touched_rects)
+    rng = np.random.RandomState(45)
+    (origins, wy, wx), shape = _site_geometry(rng, site, n=40)
+    rects = touched_rects(origins, wy, wx, shape).tolist()
+    counts = tile_counts(torch.tensor(rects), shape)
+    tr, tc = BWD_TILE
+    for b in range(counts.shape[0]):
+        for t in range(counts.shape[1]):
+            want = sum(r[0] <= r[1] and r[0] <= b * tr + tr - 1
+                       and r[1] >= b * tr and r[2] <= t * tc + tc - 1
+                       and r[3] >= t * tc for r in rects)
+            assert counts[b, t] == want, (b, t)
+    assert counts.max() > 1
