@@ -6,8 +6,12 @@
 Phases, each printed as it finishes:
   0. the card (nvidia-smi name and power limit) and the torch/CUDA build;
   1. the build of every CUDA kernel from ``siammot_tpu_torch/ops/cuda``,
-     and the warpgroup MMA (HGMMA) instructions in the bf16 tower conv's
-     and deformable conv's machine code (each must have some);
+     the warpgroup MMA (HGMMA) instructions in the bf16 tower conv's
+     and deformable conv's machine code (each must have some), and the
+     decode's per-cell math as it runs: the FP32-pipe and MUFU (ex2, rcp)
+     instructions of one cell_value() in ``decode_cell_probe``'s machine
+     code, which the decode's bound counts (beside the earlier 30 flops a
+     cell);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of the 720p main path with 37 of 128 track slots live (the
      occupancy of a crowded scene) and 300 + 37 live box-head ROIs of 428,
@@ -15,7 +19,7 @@ Phases, each printed as it finishes:
      128 slots (the unmasked route's shapes): errors within the stated
      tolerance, dead slots exactly zero, and the kernel's, the plain
      version's and, where one PyTorch call computes the same function,
-     that call's time.  Every kernel but 5 and 8 is timed on the device
+     that call's time.  Every kernel but 8 is timed on the device
      (``device_ms``: a CUDA graph of the calls, replayed between events)
      beside the events around the wrapper calls, which include the
      host's work, and kernels 3 and 9 by launch as well
@@ -24,7 +28,9 @@ Phases, each printed as it finishes:
   2b. the training kernels the same way at the training shapes (4 frames,
      1024 sampled pairs or ROIs per pool site, f32): the unmasked xcorr
      and its two gradient kernels (also through the autograd Function
-     against autograd through the plain version), and the window pool's
+     against autograd through the plain version; the three passes also at
+     SEARCH_REGION 5's 75x75 x 15x15 -> 61x61, N = 256), and the window
+     pool's
      forward over live ROIs and its table gradient at the three sites on
      an f32 table of four 736x1280 frames' FPN levels (the gradient also
      bitwise the same in a second launch);
@@ -37,7 +43,7 @@ Phases, each printed as it finishes:
   2c. kernels 3 and 4 at the other shapes the JAX kernels take: the
      predictor at the f32 frame's [K, 16, 16, 128] (its FFMA tower conv)
      and the AOT recipe's [K, 29, 29, 128] (bf16 and f32), the decode at
-     s_hi 464 (AOT) and 512 (the whole-map limit);
+     s_hi 464 (AOT) and 512 (JAX's whole-map limit), on the device;
   2d. kernel 9, the deformable conv, at DLA-102's stage shapes (stride 2
      and 1, offsets in and out of the window, bf16 and f32), with the
      plain version's time, a dense cuDNN 3x3 of the same shape for scale,
@@ -57,6 +63,10 @@ Phases, each printed as it finishes:
      and upstream gradients it got at the last step (the last step's
      three table gradients also bitwise the same launched again, and
      kernel 7 timed on those inputs); ms/step and peak device memory;
+  4b. the same at ``MODEL.TRACK_HEAD.SEARCH_REGION`` 5 for 1 + 2 steps, at
+     full width and depth (a 75x75 search region: kernel 6's three passes
+     at 75 -> 61, the pools at S 75), every loss finite, the same launch
+     counts and the same checks on the last step's inputs;
   5. the DCN slice end to end: DLA-102-DCN-FPN (``tools/bench_variants.py``
      widths, deformable stages 3-5) at 736x1280 in bf16 on seeded
      weights (offset convs calibrated so most layers stay in kernel 9's
@@ -68,7 +78,8 @@ Phases, each printed as it finishes:
 
   2e. kernels 10, 5 and 8: the unmasked decode at [128, 4, 16, 16] over
      every slot; the striped decode at s_hi 976 (stripe 16) and 736
-     (stripe 32), gated with 37 live slots and ungated, and with stripe 64
+     (stripe 32), gated with 37 live slots and ungated (on the device),
+     and with stripe 64
      forced at s_hi 256 bitwise against kernels 4 and 10; the slot-blocked
      predictor at [128, 16, 16, 128] bf16 and f32, B = 8, 37 live slots at
      the front (one mixed block, eleven without a live slot); and kernels
@@ -118,6 +129,7 @@ C = 128
 SCALES = (0.25, 0.125, 0.0625, 0.03125)
 WARMUP, TIMED = 10, 30
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+WIDE_WARMUP, WIDE_TIMED = 1, 2    # training steps at SEARCH_REGION 5
 N_TRAIN = 1024                    # 4 frames x 256 samples per pool site
 TRAIN_HW = [(184, 320), (92, 160), (46, 80), (23, 40)]
 DCN_WARMUP, DCN_TIMED = 6, 10
@@ -394,6 +406,75 @@ def bound(nbytes, flops, peak):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# the decode's cell math as it runs: cell_value()'s instructions on the
+# FP32 pipe and the special-function unit (MUFU: ex2, rcp), counted from
+# the built library's machine code by phase 1 (cell_instructions)
+CELL = {}
+FP32_PIPE = ("FFMA", "FADD", "FMUL", "FMNMX", "FSEL", "FSETP", "FSET",
+             "FCHK")
+# MUFU results a clock per SM on Hopper: 16, an eighth of the 128 FP32
+# lanes (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0); an FP32 instruction is one lane's FFMA, 2 flops
+FP32_INSTR_S = F32_FLOPS / 2
+MUFU_S = FP32_INSTR_S / 8
+
+
+def cell_instructions(cuda_lib):
+    """{"fp32": n, "mufu": n, "all": n, "ops": {...}}: the instructions of
+    one cell_value() in ``decode_cell_probe`` (the main path's
+    centerness), from ``cuobjdump -sass`` of the built library, along the
+    path the kernel takes for finite inputs (up to the first EXIT: the
+    IEEE division's slow paths it branches around are not counted; the
+    probe's own loads, stores and index math are not FP32 or MUFU)."""
+    nvcc = cuda_lib._nvcc()
+    out = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                          "-sass", cuda_lib.library()._name],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr}")
+    ops, inside = [], False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            inside = "decode_cell_probe" in line
+            continue
+        code = line.split("*/", 1)[-1].split(";")[0].split()
+        if not inside or "/*" not in line or not code:
+            continue
+        op = code[1] if code[0].startswith("@") else code[0]
+        ops.append(op)
+        if op == "EXIT":
+            break
+    if "EXIT" not in ops:
+        raise AssertionError("decode_cell_probe: no machine code found")
+    fp32 = sum(op.split(".")[0] in FP32_PIPE for op in ops)
+    mufu = sum(op.startswith("MUFU") for op in ops)
+    if fp32 == 0 or mufu == 0:
+        raise AssertionError(f"decode_cell_probe: {fp32} FP32 and {mufu} "
+                             f"MUFU instructions")
+    hist = {}
+    for op in ops:
+        hist[op] = hist.get(op, 0) + 1
+    return {"fp32": fp32, "mufu": mufu, "all": len(ops), "ops": hist}
+
+
+def decode_bound(x4, u, window, n_decoded):
+    """Operations: the decoded slots' upsample multiply-adds (FP32 pipe)
+    and, per cell, cell_value()'s FP32 and MUFU instructions as counted
+    from the machine code (``CELL``), each pipe at its own rate; bytes:
+    their inputs, the constants, the outputs.  Returns (ms, by, the
+    earlier figure in ms: 2 flops a multiply-add and 30 a cell)."""
+    k, _, s_, _ = x4.shape
+    sh = u.shape[0]
+    fma = n_decoded * (4 * sh * s_ * s_ + 4 * sh * sh * s_)
+    cells = n_decoded * sh * sh
+    nbytes = (n_decoded * 4 * s_ * s_ * 4 + u.numel() * 4
+              + window.numel() * 4 + k * 17)
+    t_fp32 = (fma + cells * CELL["fp32"]) / FP32_INSTR_S
+    t_mufu = cells * CELL["mufu"] / MUFU_S
+    ms, by = bound(nbytes, max(t_fp32, t_mufu) * F32_FLOPS, F32_FLOPS)
+    return ms, by, bound(nbytes, 2.0 * fma + 30.0 * cells, F32_FLOPS)[0]
+
+
 # -- phases ------------------------------------------------------------------
 
 WGMMA_KERNELS = ("tower_conv_wgmma", "deform_wgmma")
@@ -574,22 +655,20 @@ def kernel_phase(dev, report):
                       80 + 220 * torch.rand(K, generator=g)], -1).to(dev)
     args = (x4, wh, u, window, valid, 0.4, True)
     err, rel = check_decode(args, "emm_decode")
-    ms, hms, _ = kernel_times(lambda: emm_decode(*args))
+    ms, hms, split = kernel_times(lambda: emm_decode(*args))
     pms = timed_ms(lambda: emm_decode_plain(*args), iters=5)
     live = int(valid.sum())
-    flops = live * (4 * 256 * 16 * 16 * 2 + 4 * 256 * 256 * 16 * 2
-                    + 256 * 256 * 30.0)
-    nbytes = (live * 4 * 256 * 4 + u.numel() * 4 + window.numel() * 4
-              + K * (8 + 1 + 8))
-    bms, by = bound(nbytes, flops, F32_FLOPS)
+    bms, by, old = decode_bound(x4, u, window, live)
     log(f"  emm_decode: K={K} live={live}: {emm_decode.launches} launches, "
         f"kernel {ms:.4f} ms device ({hms:.4f} ms with the host's "
-        f"enqueue), plain "
-        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs score err "
+        f"enqueue; by kernel: {split_text(split)}), plain "
+        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}; {old:.4f} at 30 flops a "
+        f"cell), max abs score err "
         f"{err:.3g}, max rel err {rel:.3g} (idx exact or p_conf tie within "
         f"{DECODE_TIE}; score tol {DECODE_SCORE_ATOL})")
-    report["emm_decode"].update(ms=ms, host_ms=hms, plain_ms=pms,
-                                library_ms=None, bound_ms=bms, bound_by=by,
+    report["emm_decode"].update(ms=ms, host_ms=hms, kernels=split,
+                                plain_ms=pms, library_ms=None, bound_ms=bms,
+                                bound_by=by, bound_30_flops_ms=old,
                                 max_abs_err=err)
 
     # kernel 6's forward at the unmasked route's shape (phase 6b)
@@ -1013,6 +1092,7 @@ def train_kernel_phase(dev, report):
     log(f"  xcorr autograd Function against autograd through the plain "
         f"version: max abs err {err:.3g}")
     del search, tmpl, up, s_nchw, t_w, up_nchw, up_w, inputs
+    wide_sr_xcorr_passes(dev, report, g)
 
     # kernel 1 over live ROIs and kernel 7, the three training sites
     table, sites = train_pool_inputs(g, dev)
@@ -1082,8 +1162,75 @@ def train_kernel_phase(dev, report):
                           key=lambda v: v["bound_ms"])["bound_by"]
 
 
-def train_phase(dev, report, card):
-    """The training path end to end at full width (phase 4)."""
+N_WIDE = 256    # pairs of the SEARCH_REGION 5 shape check (a step has 1024)
+
+
+def wide_sr_xcorr_passes(dev, report, g):
+    """Kernel 6's three passes at SEARCH_REGION 5's 75x75 x 15x15 ->
+    61x61 (f32, N_WIDE pairs): the forward (four 16-wide segments a row),
+    the template gradient (61x61 taps: the banded fallback kernel) and the
+    search gradient (75x75 output in bands of 32 rows and 16-wide column
+    segments), each against its plain version, timed on the device."""
+    import torch.nn.functional as F
+    n = N_WIDE
+    search = torch.randn(n, 75, 75, C, generator=g).to(dev)
+    tmpl = (0.1 * torch.randn(n, 15, 15, C, generator=g)).to(dev)
+    up = torch.randn(n, 61, 61, C, generator=g).to(dev)
+    s_nchw = search.permute(0, 3, 1, 2).reshape(1, n * C, 75, 75)
+    t_w = tmpl.permute(0, 3, 1, 2).reshape(n * C, 1, 15, 15)
+    up_nchw = up.permute(0, 3, 1, 2).reshape(1, n * C, 61, 61)
+    up_w = up.permute(0, 3, 1, 2).reshape(n * C, 1, 61, 61)
+    library = {"forward": lambda: F.conv2d(s_nchw, t_w, groups=n * C),
+               "grad_template": lambda: F.conv2d(s_nchw, up_w,
+                                                 groups=n * C),
+               "grad_search": lambda: F.conv_transpose2d(up_nchw, t_w,
+                                                         groups=n * C)}
+    inputs = {"forward": (search, tmpl), "grad_template": (search, up),
+              "grad_search": (up, tmpl)}
+    macs = n * 61 * 61 * 15 * 15 * C    # each pass, taps inside g only
+    in_elems = {"forward": 75 * 75 + 225, "grad_template": 75 * 75 + 3721,
+                "grad_search": 3721 + 225}
+    out_elems = {"forward": 3721, "grad_template": 225, "grad_search": 5625}
+    passes = {}
+    for name, fn, plain in xcorr_passes():
+        args = inputs[name]
+        k_out = fn(*args)
+        p_out = plain(*args)
+        torch.cuda.synchronize()
+        if k_out.shape != p_out.shape:
+            raise AssertionError(f"xcorr {name} 75x75: shape "
+                                 f"{tuple(k_out.shape)}")
+        err, rel = close(k_out, p_out, POOL_ATOL, POOL_RTOL,
+                         f"xcorr {name} 75x75")
+        del k_out, p_out
+        ms = device_ms(lambda: fn(*args), iters=3, warmup=1)
+        pms = timed_ms(lambda: plain(*args), iters=1, warmup=0)
+        lms = timed_ms(library[name], iters=3, warmup=1)
+        bms, by = bound(n * (in_elems[name] + out_elems[name]) * C * 4,
+                        2.0 * macs, F32_FLOPS)
+        passes[name] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                            bound_ms=bms, bound_by=by, max_abs_err=err)
+        report["xcorr"]["max_abs_err"] = max(report["xcorr"]["max_abs_err"],
+                                             err)
+        log(f"  xcorr {name} 75x75 x 15x15 -> 61x61 (SEARCH_REGION 5), "
+            f"N={n} f32: kernel {ms:.4f} ms device, plain {pms:.4f} ms, "
+            f"library {lms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+            f"{err:.3g}, max rel err {rel:.3g} (tol {POOL_ATOL} + "
+            f"{POOL_RTOL}|x|)")
+    report["xcorr"].setdefault("shapes", {})[
+        f"75x75 x 15x15 -> 61x61 f32 N={n} (SEARCH_REGION 5)"] = passes
+
+
+def train_phase(dev, report, card, path="training", overrides=(),
+                warmup=TRAIN_WARMUP, timed=TRAIN_TIMED):
+    """A training path end to end at full width: phase 4 (the default
+    configuration, ``warmup`` + ``timed`` steps) and phase 4b (``overrides``
+    ``SEARCH_REGION`` 5: a 75x75 search region, kernel 6's passes at 75
+    -> 61).  Every loss finite at every step; per step exactly 3 window-pool
+    forward and 3 backward launches and one of each xcorr pass, the counts
+    set to 0 just before ``do_train`` and read just after; each kernel
+    against its plain version on the last step's inputs.  Returns
+    (mean ms/step, median, peak device bytes)."""
     import itertools
 
     import siammot_tpu_torch.ops.window_pool as wp_mod
@@ -1104,11 +1251,12 @@ def train_phase(dev, report, card):
 
     t0 = time.perf_counter()
     cfg = get_cfg()
+    cfg.merge_from_list(list(overrides))
     model = SiamMOT(cfg, device=str(dev))
     net = model.build_master(jax_to_torch(load_npz(FIXTURE)))
     optimizer = make_optimizer(cfg, net)
     step = build_train_step(model, optimizer)
-    steps = TRAIN_WARMUP + TRAIN_TIMED
+    steps = warmup + timed
     batches = list(itertools.islice(
         train_batches(7, HP, cfg.TPU.MAX_GT), steps))
     log(f"  f32 masters ({sum(p.numel() for p in net.parameters())} "
@@ -1179,18 +1327,19 @@ def train_phase(dev, report, card):
             raise AssertionError(f"{name}: {count} launches in {steps} "
                                  f"training steps, expected "
                                  f"{per_step[name] * steps}")
-    report["window_pool"]["launches_by_path"]["training"] = \
-        launches["window_pool"]
-    report["window_pool"]["launches"] += launches["window_pool"]
-    report["window_pool_bwd"]["launches"] = launches["window_pool_bwd"]
-    report["xcorr"]["launches"] = sum(launches[n] for n, _, _ in passes)
+    for name, count in (("window_pool", launches["window_pool"]),
+                        ("window_pool_bwd", launches["window_pool_bwd"]),
+                        ("xcorr", sum(launches[n] for n, _, _ in passes))):
+        report[name].setdefault("launches_by_path", {})[path] = count
+        report[name]["launches"] += count
     for name, _, _ in passes:
-        report["xcorr"]["passes"][name]["launches"] = launches[name]
+        row = report["xcorr"]["passes"][name]
+        row["launches"] = row.get("launches", 0) + launches[name]
 
-    sec = np.array(log_.step_seconds[TRAIN_WARMUP:])
+    sec = np.array(log_.step_seconds[warmup:])
     first, last = metrics[0], metrics[-1]
     log(f"  {steps} SGD steps: {1e3 * sec.mean():.3f} ms/step over the last "
-        f"{TRAIN_TIMED} (median {1e3 * np.median(sec):.3f}, first step "
+        f"{timed} (median {1e3 * np.median(sec):.3f}, first step "
         f"{1e3 * log_.step_seconds[0]:.1f} ms); peak device memory "
         f"{peak / 2 ** 30:.3f} GiB ({card}); launches {launches}")
     log("  losses, step 1 -> " + str(steps) + ": " + ", ".join(
@@ -1206,7 +1355,8 @@ def train_phase(dev, report, card):
         report["window_pool"]["max_abs_err"] = max(
             report["window_pool"]["max_abs_err"], err)
     for args, step_bits in zip(captured["bwd"], captured["bwd_bits"][-3:]):
-        site = {7: "box", 15: "template", 30: "sr"}[args[2].shape[1]]
+        site = {7: "box", 15: "template"}.get(args[2].shape[1], "sr")
+        site = site if path == "training" else f"{path} {site}"
         k = window_pool_bwd(*args)
         p = window_pool_bwd_plain(*args)
         torch.cuda.synchronize()
@@ -1301,18 +1451,18 @@ def reshaped_kernel_phase(dev, report):
                           80 + 220 * torch.rand(K, generator=g)], -1).to(dev)
         args = (x4, wh, u, window, valid, 0.4, True)
         err, _ = check_decode(args, f"emm_decode s={s_} s_hi={16 * s_}")
-        ms = timed_ms(lambda: emm_decode(*args))
+        ms = device_ms(lambda: emm_decode(*args))
+        hms = timed_ms(lambda: emm_decode(*args))
         live = int(valid.sum())
         sh = 16 * s_
-        flops = live * (4 * sh * s_ * s_ * 2 + 4 * sh * sh * s_ * 2
-                        + sh * sh * 30.0)
-        nbytes = (live * 4 * s_ * s_ * 4 + u.numel() * 4
-                  + window.numel() * 4 + K * 17)
-        bms, by = bound(nbytes, flops, F32_FLOPS)
-        dec[f"s={s_} s_hi={sh}"] = dict(ms=ms, bound_ms=bms, bound_by=by,
+        bms, by, old = decode_bound(x4, u, window, live)
+        dec[f"s={s_} s_hi={sh}"] = dict(ms=ms, host_ms=hms, bound_ms=bms,
+                                        bound_by=by, bound_30_flops_ms=old,
                                         max_abs_err=err)
         log(f"  emm_decode s={s_} s_hi={sh} live={live}: kernel {ms:.4f} "
-            f"ms, bound {bms:.4f} ms ({by}), max abs score err {err:.3g}")
+            f"ms device ({hms:.4f} ms with the host's enqueue), bound "
+            f"{bms:.4f} ms ({by}; {old:.4f} at 30 flops a cell), max abs "
+            f"score err {err:.3g}")
         report["emm_decode"]["max_abs_err"] = max(
             report["emm_decode"]["max_abs_err"], err)
 
@@ -1530,17 +1680,6 @@ def decode_inputs(g, dev, s_, k=K):
     return x4, wh, u, window
 
 
-def decode_bound(x4, u, window, n_decoded):
-    """Operations (f32 FFMA) of the decoded slots' upsample and cell
-    math; bytes: their inputs, the constants, the outputs."""
-    k, _, s_, _ = x4.shape
-    sh = u.shape[0]
-    flops = n_decoded * (4 * sh * s_ * s_ * 2 + 4 * sh * sh * s_ * 2
-                         + sh * sh * 30.0)
-    nbytes = (n_decoded * 4 * s_ * s_ * 4 + u.numel() * 4
-              + window.numel() * 4 + k * 17)
-    return bound(nbytes, flops, F32_FLOPS)
-
 
 def variants_kernel_phase(dev, report):
     """Kernels 10, 5 and 8 against their plain versions: kernel 10 at
@@ -1570,13 +1709,13 @@ def variants_kernel_phase(dev, report):
     ms, hms, _ = kernel_times(lambda: emm_decode_unmasked(*args, 0.4, True))
     pms = timed_ms(lambda: emm_decode_plain(*args, None, 0.4, True),
                    iters=5)
-    bms, by = decode_bound(args[0], args[2], args[3], K)
+    bms, by, old = decode_bound(args[0], args[2], args[3], K)
     row.update(ms=ms, host_ms=hms, plain_ms=pms, bound_ms=bms, bound_by=by,
-               max_abs_err=err)
+               bound_30_flops_ms=old, max_abs_err=err)
     log(f"  emm_decode_unmasked [{K}, 4, 16, 16], all {K} slots: kernel "
         f"{ms:.4f} ms device ({hms:.4f} ms with the host's enqueue), plain "
-        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs score err "
-        f"{err:.3g}")
+        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}; {old:.4f} at 30 flops a "
+        f"cell), max abs score err {err:.3g}")
 
     # kernel 5: the striped form past s_hi 512, gated and ungated
     row = report["emm_decode_striped"]
@@ -1588,22 +1727,27 @@ def variants_kernel_phase(dev, report):
             got = emm_decode_striped(*a7, stripe)
             err = compare_decode(got, emm_decode_striped_plain(*a7, stripe),
                                  a7, f"emm_decode_striped s_hi={16 * s_}")
-            ms = timed_ms(lambda: emm_decode_striped(*a7, stripe), iters=5)
+            ms = device_ms(lambda: emm_decode_striped(*a7, stripe),
+                           iters=5)
+            hms = timed_ms(lambda: emm_decode_striped(*a7, stripe), iters=5)
             pms = timed_ms(lambda: emm_decode_striped_plain(*a7, stripe),
                            iters=2, warmup=1)
             n = LIVE if gated else K
-            bms, by = decode_bound(args[0], args[2], args[3], n)
+            bms, by, old = decode_bound(args[0], args[2], args[3], n)
             key = (f"s={s_} s_hi={16 * s_} stripe={stripe} "
                    f"{'gated' if gated else 'ungated'}")
-            row["shapes"][key] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
-                                      bound_by=by, max_abs_err=err)
+            row["shapes"][key] = dict(ms=ms, host_ms=hms, plain_ms=pms,
+                                      bound_ms=bms, bound_by=by,
+                                      bound_30_flops_ms=old, max_abs_err=err)
             row["max_abs_err"] = max(row["max_abs_err"], err)
             log(f"  emm_decode_striped {key}, {n} decoded: kernel {ms:.4f} "
-                f"ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max "
-                f"abs score err {err:.3g}")
+                f"ms device ({hms:.4f} ms with the host's enqueue), plain "
+                f"{pms:.4f} ms, bound {bms:.4f} ms ({by}; {old:.4f} at 30 "
+                f"flops a cell), max abs score err {err:.3g}")
     main_key = "s=61 s_hi=976 stripe=16 gated"
     row.update({k: row["shapes"][main_key][k]
-                for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+                for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                          "bound_by")})
     # forced stripe at s_hi 256: bitwise the whole-map kernels' answers
     args = decode_inputs(g, dev, 16)
     valid = live_mask(K, LIVE, g, dev)
@@ -1881,6 +2025,10 @@ def main():
     hgmma = wgmma_instructions(cuda_lib)
     log(f"  warpgroup MMA (HGMMA) instructions in the machine code: "
         f"{hgmma}")
+    CELL.update(cell_instructions(cuda_lib))
+    log(f"  the decode's cell_value() in the machine code: {CELL['fp32']} "
+        f"FP32-pipe and {CELL['mufu']} MUFU instructions of {CELL['all']} "
+        f"(decode_cell_probe up to its EXIT: {CELL['ops']})")
 
     report = {n: dict(name=n, route="cuda", launches=0, max_abs_err=0.0,
                       **meta)
@@ -1936,6 +2084,15 @@ def main():
     log(f"[4] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    log(f"[4b] training end to end at SEARCH_REGION 5 (a 75x75 search "
+        f"region; full width and depth, {WIDE_WARMUP} + {WIDE_TIMED} steps):")
+    ms_wide, _, peak_wide = train_phase(
+        dev, report, card, path="wide_sr_training",
+        overrides=("MODEL.TRACK_HEAD.SEARCH_REGION", 5.0),
+        warmup=WIDE_WARMUP, timed=WIDE_TIMED)
+    log(f"[4b] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     log("[5] end to end: DLA-102-DCN-FPN, seeded weights, bf16, 720p "
         "crowd:")
     ms_dcn, occ_dcn, routes = dcn_phase(dev, report, card)
@@ -1950,13 +2107,15 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
-             "launches_by_path", "shapes", "step_sites")
+             "launches_by_path", "shapes", "step_sites", "bound_30_flops_ms")
     kernels = [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                for r in report.values()]
     log(f"total {time.perf_counter() - t_start:.1f} s; DLA-34 "
         f"{ms_frame:.3f} ms/frame, {occupied} live slots; training "
         f"{ms_step:.3f} ms/step (median {med_step:.3f}), peak "
-        f"{peak / 2 ** 30:.3f} GiB; DLA-102-DCN {ms_dcn:.3f} ms/frame, "
+        f"{peak / 2 ** 30:.3f} GiB; SEARCH_REGION 5 training "
+        f"{ms_wide:.3f} ms/step, peak {peak_wide / 2 ** 30:.3f} GiB; "
+        f"DLA-102-DCN {ms_dcn:.3f} ms/frame, "
         f"{occ_dcn} live slots, last frame's routes {''.join(routes)}; "
         f"MOT17 given {toggles['6a'][0]:.3f} ms/frame ({toggles['6a'][1]} "
         f"live), unmasked {toggles['6b'][0]:.3f} ({toggles['6b'][1]}), "

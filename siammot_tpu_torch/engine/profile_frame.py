@@ -1,12 +1,14 @@
 """Where one 720p frame's time goes on the card.
 
     python -m siammot_tpu_torch.engine.profile_frame [--body DLA-102-FPN]
+        [--opts MODEL.TRACK_HEAD.SEARCH_REGION 5.0]
 
 Runs the main path (DLA-34-FPN-EMM, the repo's bench weights in bf16, the
 crowded sprite scene) for 10 warm-up frames, then traces 10 frames with
 ``torch.profiler`` (CPU and CUDA activities).  With ``--body`` it runs
 that Bottleneck body with deformable stages 3-5 (the model zoo's -DCN
-detectors) on seeded weights (``utils.weights.seeded_params``) instead.
+detectors) on seeded weights (``utils.weights.seeded_params``) instead;
+``--opts`` merges config overrides (key/value pairs) first.
 Prints the host time per frame, the device-busy time per frame (the
 union of kernel intervals) and its share, and the device time per frame
 of the heaviest operations, each of the port's kernels named.  Needs a
@@ -55,11 +57,15 @@ def main():
     ap.add_argument("--body", default=None,
                     help="a Bottleneck DLA body (e.g. DLA-102-FPN), run "
                          "with DCN stages on seeded weights")
+    ap.add_argument("--opts", nargs="*", default=[],
+                    help="config overrides as key/value pairs, e.g. "
+                         "MODEL.TRACK_HEAD.SEARCH_REGION 5.0")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device")
 
     cfg = get_cfg()
+    cfg.merge_from_list(args.opts)
     frames = [torch.as_tensor(f) for f in render_scene(16, 736)[0]]
     if args.body:
         cfg.merge_from_list(dla_dcn_overrides(args.body))
@@ -89,7 +95,8 @@ def main():
         host_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
     busy_ms = _busy_us(prof.events()) / 1e3 / FRAMES
     print(f"{torch.cuda.get_device_name(0)} ({cfg.MODEL.BACKBONE.CONV_BODY}"
-          f"{' DCN' if args.body else ''}): {FRAMES} traced frames, "
+          f"{' DCN' if args.body else ''}{''.join(' ' + o for o in args.opts)}"
+          f"): {FRAMES} traced frames, "
           f"{int(state.occupied.sum())} live slots; host {host_ms:.3f} "
           f"ms/frame (traced), device busy {busy_ms:.3f} ms/frame "
           f"({100 * busy_ms / host_ms:.1f}%)")
@@ -105,7 +112,7 @@ def main():
     print(f"{'':16}  kernels: " + ", ".join(
         f"{k}={ms:.4f}" for k, ms, _ in rows
         if any(n in k for n in ("window_pool_band", "xcorr6_kernel",
-                                "tower_conv_", "heads_tiled", "decode_kernel",
+                                "tower_conv_", "heads_tiled", "decode_",
                                 "deform_window", "deform_wgmma",
                                 "deform_reduce", "deform_ffma"))))
 

@@ -1,26 +1,32 @@
-"""Device time of kernels 6, 1, 2 and 7 at ``chip_smoke.py``'s shapes, for
-the port found under a given root (this checkout, or another commit's
-``siammot_tpu_torch`` unpacked elsewhere, to compare two versions on one
-card).
+"""Device time of kernels 6, 1, 2, 7, 4, 10 and 5 at ``chip_smoke.py``'s
+shapes, for the port found under a given root (this checkout, or another
+commit's ``siammot_tpu_torch`` unpacked elsewhere, to compare two versions
+on one card).
 
     python3 siammot_tpu_torch/engine/time_kernels.py [--root DIR]
 
 Kernel 6's three passes at the training shapes (N = 1024 pairs, f32 and
-bf16 inputs, the f32 upstream gradient), its forward over 128 bf16
-slots, and kernel 1 at the three inference sites (37 of 128 slots live),
-the three training sites (f32 table, 1024 ROIs each) and the
-search-region pool at 75x75, kernel 2 at 30x30 x 15x15 -> 16x16 and
-75x75 -> 61x61 (bf16, 37 of 128 slots live) and kernel 7 at the three
-training sites (f32 upstream gradient, 1024 ROIs each). Each is checked
-against its plain version and timed with ``chip_smoke.py``'s two timers:
+bf16 inputs, the f32 upstream gradient) and at SEARCH_REGION 5's
+(75x75 x 15x15 -> 61x61, N = 256, f32; a tree whose search gradient
+refuses that size says so), its forward over 128 bf16 slots, and kernel
+1 at the three inference sites (37 of 128 slots live), the three
+training sites (f32 table, 1024 ROIs each) and the search-region pool at
+75x75, kernel 2 at 30x30 x 15x15 -> 16x16 and 75x75 -> 61x61 (bf16, 37
+of 128 slots live), kernel 7 at the three training sites (f32 upstream
+gradient, 1024 ROIs each), and the decode: kernel 4 at s_hi 256 and 464
+(37 of 128 slots live), kernel 10 at [128, 4, 16, 16] and kernel 5 at
+s_hi 976 (stripe 16), gated and ungated. Each is checked against its
+plain version and timed with ``chip_smoke.py``'s two timers:
 ``device_ms`` (a CUDA graph of the calls, replayed between events) and
 ``timed_ms`` (events around the wrapper calls, the host's enqueue
-included). Prints one line a kernel and, last, ``RESULT`` and a JSON
-object {name: [device ms, host-inclusive ms, max abs err]}. Needs a CUDA
-device; the card's name and power limit go first.
+included). Prints one line a kernel with a digest of its outputs' bits
+(equal digests in two trees: the same bits) and, last, ``RESULT`` and a
+JSON object {name: [device ms, host-inclusive ms, max abs err, digest]}.
+Needs a CUDA device; the card's name and power limit go first.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -62,10 +68,19 @@ def main():
     cs.log(f"{cs.card_line()}; timing {root}")
     out = {}
 
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
     def record(name, fn, err, iters=20):
-        out[name] = (cs.device_ms(fn, iters=iters), cs.timed_ms(fn), err)
+        bits = digest(*(lambda o: o if isinstance(o, tuple) else (o,))(fn()))
+        out[name] = (cs.device_ms(fn, iters=iters), cs.timed_ms(fn), err,
+                     bits)
         cs.log(f"  {name}: {out[name][0]:.4f} ms device, {out[name][1]:.4f} "
-               f"ms with the host's enqueue, max abs err {err:.3g}")
+               f"ms with the host's enqueue, max abs err {err:.3g}, digest "
+               f"{bits}")
 
     g = torch.Generator().manual_seed(1)
     n, c = cs.N_TRAIN, cs.C
@@ -94,6 +109,31 @@ def main():
                    cs.POOL_RTOL, "xcorr forward, 128 slots")[0]
     record(f"xcorr forward {cs.K} slots bfloat16",
            lambda: xcorr_depthwise(search, tmpl), err)
+    del search, tmpl
+    # the three passes at SEARCH_REGION 5's shapes
+    n_sr = 256
+    search = torch.randn(n_sr, 75, 75, c, generator=g).to(dev)
+    tmpl = (0.1 * torch.randn(n_sr, 15, 15, c, generator=g)).to(dev)
+    up = torch.randn(n_sr, 61, 61, c, generator=g).to(dev)
+    for name, fn, plain, args in (
+            ("forward", xcorr_depthwise, xcorr_depthwise_plain,
+             (search, tmpl)),
+            ("grad_template", xcorr_grad_template, xcorr_depthwise_plain,
+             (search, up)),
+            ("grad_search", xcorr_grad_search, xcorr_grad_search_plain,
+             (up, tmpl))):
+        try:
+            got = fn(*args)
+        except ValueError as e:  # an earlier tree's size limit
+            cs.log(f"  xcorr {name} 75x75 N={n_sr} float32: refused ({e})")
+            continue
+        err = cs.close(got, plain(*args), cs.POOL_ATOL, cs.POOL_RTOL,
+                       f"{name} 75x75")[0]
+        del got
+        record(f"xcorr {name} 75x75 N={n_sr} float32", lambda: fn(*args),
+               err, iters=5)
+    del search, tmpl, up
+    torch.cuda.empty_cache()
 
     table, sites = cs.pool_inputs(torch.Generator().manual_seed(0), dev)
     for site, (origins, wy, wx, valid) in sites.items():
@@ -156,6 +196,36 @@ def main():
     args = (pack.table, *geo, cs.live_mask(cs.K, cs.LIVE, g, dev))
     record("window_pool sr_pool 75x75", lambda: window_pool(*args),
            cs.check_pool(args, "sr_pool 75x75")[0])
+    del pack, feats, args
+
+    # kernels 4 (s_hi 256 and the AOT recipe's 464), 10 and 5 (s_hi 976)
+    from siammot_tpu_torch.ops.decode import (emm_decode, emm_decode_plain,
+                                              emm_decode_striped,
+                                              emm_decode_striped_plain,
+                                              emm_decode_unmasked)
+    g = torch.Generator().manual_seed(5)
+    for s_ in (16, 29):
+        args = (*cs.decode_inputs(g, dev, s_),
+                cs.live_mask(cs.K, cs.LIVE, g, dev), 0.4, True)
+        err = cs.compare_decode(emm_decode(*args), emm_decode_plain(*args),
+                                args, f"emm_decode s_hi={16 * s_}")
+        record(f"emm_decode s_hi={16 * s_} {cs.LIVE} live",
+               lambda: emm_decode(*args), err)
+    args = cs.decode_inputs(g, dev, 16)
+    err = cs.compare_decode(emm_decode_unmasked(*args, 0.4, True),
+                            emm_decode_plain(*args, None, 0.4, True),
+                            (*args, None, 0.4, True), "emm_decode_unmasked")
+    record(f"emm_decode_unmasked s_hi=256 {cs.K} slots",
+           lambda: emm_decode_unmasked(*args, 0.4, True), err)
+    args = cs.decode_inputs(g, dev, 61)
+    for valid in (cs.live_mask(cs.K, cs.LIVE, g, dev), None):
+        a7 = (*args, valid, 0.4, True)
+        err = cs.compare_decode(emm_decode_striped(*a7, 16),
+                                emm_decode_striped_plain(*a7, 16), a7,
+                                "emm_decode_striped s_hi=976")
+        record(f"emm_decode_striped s_hi=976 stripe=16 "
+               f"{'gated' if valid is not None else 'ungated'}",
+               lambda: emm_decode_striped(*a7, 16), err, iters=5)
     print("RESULT " + json.dumps(out), flush=True)
 
 

@@ -50,6 +50,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// 4 bytes global -> shared, asynchronously (cp.async through L1), for
+// rows that are not 16-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -68,4 +76,35 @@ static int resident_blocks(K kernel, int threads, size_t smem) {
                                                     smem) != cudaSuccess)
     return 0;
   return per_sm * sms;
+}
+
+// order[0 .. K) = the live slots ascending, then the dead ones; returns
+// the number live.  The first warp (all of it, or the whole block when it
+// is smaller) ballots that many slots at a time.
+__device__ __forceinline__ int live_order(const uint8_t* __restrict__ valid,
+                                          int K, int* order) {
+  const int lanes = min(32, (int)blockDim.x);
+  if (threadIdx.x < lanes) {
+    const int lane = threadIdx.x;
+    const unsigned mask = lanes == 32 ? ~0u : (1u << lanes) - 1;
+    const unsigned below = (1u << lane) - 1;
+    int n_live = 0;
+    for (int base = 0; base < K; base += lanes)
+      n_live += __popc(__ballot_sync(mask, base + lane < K &&
+                                               valid[base + lane]));
+    int lp = 0, dp = n_live;
+    for (int base = 0; base < K; base += lanes) {
+      const bool in = base + lane < K;
+      const bool v = in && valid[base + lane];
+      const unsigned bl = __ballot_sync(mask, v);
+      const unsigned bd = __ballot_sync(mask, in && !v);
+      if (v) order[lp + __popc(bl & below)] = base + lane;
+      else if (in) order[dp + __popc(bd & below)] = base + lane;
+      lp += __popc(bl);
+      dp += __popc(bd);
+    }
+    if (lane == 0) order[K] = n_live;
+  }
+  __syncthreads();
+  return order[K];
 }

@@ -38,6 +38,14 @@
 //   the training shapes (30/15) and streams g from right to left, so each
 //   output still meets its taps j ascending.  Other template widths take
 //   a generic instantiation (one load per fma, predicated).
+// - The search gradient's bands: where two stages of all of g fit and the
+//   output is at most W_GEN wide (the training shapes), one band of every
+//   output row; past that (a 61x61 g at SEARCH_REGION 5, 75x75 out), the
+//   caller's plan (ops/xcorr.py:grad_search_plan) gives bands of output
+//   rows, each staging only the rows of g it meets, and column segments:
+//   of 16 outputs for a 15-wide template, g streamed through the template
+//   row in registers as above, else of at most W_GEN (generic).  The taps'
+//   order does not depend on either.
 // - Inputs staged in their own dtype, 8 channels a tile (16 when both are
 //   bf16), with a row stride padded so the four (two) rows a warp reads
 //   fall in distinct banks.
@@ -150,6 +158,7 @@ static int launch_band(const void* search, const void* tmpl,
 namespace k6 {
 
 constexpr int XCORR = 0, FULL = 1;
+constexpr int FULL_SEG = 2;      // FULL in compile-time column segments
 constexpr int W_GEN = 64;        // accumulators a thread, generic widths
 constexpr int MAX_THREADS = 256;
 
@@ -160,7 +169,7 @@ struct Shape {
   int K, ha, wa, hb, wb, C, ho, wo;
   int tiles, bands;  // channel tiles, bands of output rows
   int rpi, nrt;      // output rows an item, row threads a block
-  int nseg;          // column segments an output row (xcorr)
+  int nseg, segw;    // column segments an output row; their width (FULL)
   int rsa;           // row stride of a in shared memory, elements
   int b_off, stage;  // bytes: b's offset in a stage, a stage
   int items, vec;    // work items; 16-byte copies (every tile full, aligned)
@@ -186,37 +195,6 @@ __device__ __forceinline__ Item decode(const Shape& sh, int item,
   it.y1 = min(sh.ho, it.y0 + sh.rpi);
   it.a0 = MODE == XCORR ? it.y0 : max(0, it.y0 - sh.hb + 1);
   return it;
-}
-
-// order[0 .. K) = the live slots ascending, then the dead ones; returns
-// the number live.  The first warp (all of it, or the whole block when it
-// is smaller) ballots that many slots at a time.
-__device__ __forceinline__ int live_order(const uint8_t* __restrict__ valid,
-                                          int K, int* order) {
-  const int lanes = min(32, (int)blockDim.x);
-  if (threadIdx.x < lanes) {
-    const int lane = threadIdx.x;
-    const unsigned mask = lanes == 32 ? ~0u : (1u << lanes) - 1;
-    const unsigned below = (1u << lane) - 1;
-    int n_live = 0;
-    for (int base = 0; base < K; base += lanes)
-      n_live += __popc(__ballot_sync(mask, base + lane < K &&
-                                               valid[base + lane]));
-    int lp = 0, dp = n_live;
-    for (int base = 0; base < K; base += lanes) {
-      const bool in = base + lane < K;
-      const bool v = in && valid[base + lane];
-      const unsigned bl = __ballot_sync(mask, v);
-      const unsigned bd = __ballot_sync(mask, in && !v);
-      if (v) order[lp + __popc(bl & below)] = base + lane;
-      else if (in) order[dp + __popc(bd & below)] = base + lane;
-      lp += __popc(bl);
-      dp += __popc(bd);
-    }
-    if (lane == 0) order[K] = n_live;
-  }
-  __syncthreads();
-  return order[K];
 }
 
 // Stage one live item's rows of a and all of b into `st`, TILE channels a
@@ -335,15 +313,17 @@ __device__ __forceinline__ void xcorr_rows(const Shape& sh, const Item& it,
 // the template rows i whose g row y - i lies inside g.  WO > 0: output
 // width WO, template width WT, g width WO - WT + 1, each g value streamed
 // right to left through the template row in registers, so that each
-// output still meets its taps j ascending.
+// output still meets its taps j ascending.  WO == 0: thread r takes the
+// units r, r + nrt, ... of (output row, column segment of segw), rows
+// fastest, one load per fma.
 template <int TILE, int WO, int WT, typename TA, typename TB>
 __device__ __forceinline__ void full_rows(const Shape& sh, const Item& it,
                                           const TA* a_s, const TB* b_s,
                                           float* __restrict__ out) {
   const int c = threadIdx.x % TILE, r = threadIdx.x / TILE;
-  for (int y = it.y0 + r; y < it.y1; y += sh.nrt) {
-    const int i_lo = max(0, y - sh.ha + 1), i_hi = min(sh.hb - 1, y);
-    if constexpr (WO > 0) {
+  if constexpr (WO > 0) {
+    for (int y = it.y0 + r; y < it.y1; y += sh.nrt) {
+      const int i_lo = max(0, y - sh.ha + 1), i_hi = min(sh.hb - 1, y);
       constexpr int WG = WO - WT + 1;
       float acc[WO];
 #pragma unroll
@@ -363,7 +343,13 @@ __device__ __forceinline__ void full_rows(const Shape& sh, const Item& it,
         }
       }
       store_row(sh, it, y, c, 0, WO, acc, out);
-    } else {
+    }
+  } else {
+    const int rows = it.y1 - it.y0;
+    for (int u = r; u < rows * sh.nseg; u += sh.nrt) {
+      const int y = it.y0 + u % rows, x0 = (u / rows) * sh.segw;
+      const int n = min(sh.segw, sh.wo - x0);
+      const int i_lo = max(0, y - sh.ha + 1), i_hi = min(sh.hb - 1, y);
       float acc[W_GEN];
 #pragma unroll
       for (int x = 0; x < W_GEN; ++x) acc[x] = 0.f;
@@ -373,14 +359,55 @@ __device__ __forceinline__ void full_rows(const Shape& sh, const Item& it,
           const float t = load_f32(b_s, (i * sh.wb + j) * TILE + c);
 #pragma unroll
           for (int x = 0; x < W_GEN; ++x) {
-            const int gx = x - j;
-            if (x < sh.wo && gx >= 0 && gx < sh.wa)
+            const int gx = x0 + x - j;
+            if (x < n && gx >= 0 && gx < sh.wa)
               acc[x] = fmaf(load_f32(grow, gx * TILE), t, acc[x]);
           }
         }
       }
-      store_row(sh, it, y, c, 0, sh.wo, acc, out);
+      store_row(sh, it, y, c, x0, n, acc, out);
     }
+  }
+}
+
+// full-convolution rows in column segments of SEG outputs with a WT-wide
+// template at compile time (the bands past the training shapes): the
+// units of the generic form, each g value a segment reaches that lies
+// inside g streamed right to left through the template row in registers,
+// so each output meets its taps j ascending, as in the generic form
+// (the same bits); outputs past wo are not stored.
+template <int TILE, int SEG, int WT, typename TA, typename TB>
+__device__ __forceinline__ void full_rows_seg(const Shape& sh,
+                                              const Item& it, const TA* a_s,
+                                              const TB* b_s,
+                                              float* __restrict__ out) {
+  const int c = threadIdx.x % TILE, r = threadIdx.x / TILE;
+  const int rows = it.y1 - it.y0;
+  for (int u = r; u < rows * sh.nseg; u += sh.nrt) {
+    const int y = it.y0 + u % rows, x0 = (u / rows) * SEG;
+    const int i_lo = max(0, y - sh.ha + 1), i_hi = min(sh.hb - 1, y);
+    float acc[SEG];
+#pragma unroll
+    for (int x = 0; x < SEG; ++x) acc[x] = 0.f;
+    for (int i = i_lo; i <= i_hi; ++i) {
+      float t[WT];
+      const TB* trow = b_s + i * WT * TILE + c;
+#pragma unroll
+      for (int j = 0; j < WT; ++j) t[j] = load_f32(trow, j * TILE);
+      const TA* grow = a_s + (y - i - it.a0) * sh.rsa + c;
+#pragma unroll
+      for (int d = SEG - 1; d > -WT; --d) {
+        const int gx = x0 + d;
+        if (gx >= 0 && gx < sh.wa) {
+          const float v = load_f32(grow, gx * TILE);
+#pragma unroll
+          for (int j = 0; j < WT; ++j)
+            if (d + j >= 0 && d + j < SEG)
+              acc[d + j] = fmaf(v, t[j], acc[d + j]);
+        }
+      }
+    }
+    store_row(sh, it, y, c, x0, min(SEG, sh.wo - x0), acc, out);
   }
 }
 
@@ -419,6 +446,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
     if constexpr (MODE == XCORR)
       xcorr_rows<TILE, SEG, WT>(sh, it, (const TA*)st,
                                 (const TB*)(st + sh.b_off), out);
+    else if constexpr (MODE == FULL_SEG)
+      full_rows_seg<TILE, SEG, WT>(sh, it, (const TA*)st,
+                                   (const TB*)(st + sh.b_off), out);
     else
       full_rows<TILE, SEG, WT>(sh, it, (const TA*)st,
                                (const TB*)(st + sh.b_off), out);
@@ -458,19 +488,26 @@ static int launch(const void* a, const void* b, const uint8_t* valid,
 
 // mode XCORR: a the search, b the taps (the template, or g for the
 // template gradient), valid null or [K] (kernel 2); mode FULL: the search
-// gradient, a = g, b the template, valid null.
+// gradient, a = g, b the template, valid null, in bands of `band_rows`
+// output rows (all of them: one band) and `segments` column segments.
 template <typename TA, typename TB>
 static int launch6(int mode, const void* a, const void* b,
                    const uint8_t* valid, float* out, int K, int ha, int wa,
-                   int hb, int wb, int C, cudaStream_t stream) {
+                   int hb, int wb, int C, cudaStream_t stream,
+                   int band_rows = 0, int segments = 1) {
   constexpr int TILE = sizeof(TA) == 2 && sizeof(TB) == 2 ? 16 : 8;
   constexpr int CAP = MAX_THREADS / TILE;  // row threads a block at most
-  Shape sh;
+  Shape sh{};
   sh.K = K, sh.ha = ha, sh.wa = wa, sh.hb = hb, sh.wb = wb, sh.C = C;
   sh.ho = mode == XCORR ? ha - hb + 1 : ha + hb - 1;
   sh.wo = mode == XCORR ? wa - wb + 1 : wa + wb - 1;
-  if (sh.ho < 1 || sh.wo < 1 || sh.wo > W_GEN || hb < 1 || wb < 1 ||
-      (mode == FULL && (valid != nullptr || sh.ho > 2 * CAP)))
+  const bool one_band = band_rows == sh.ho && segments == 1;
+  if (sh.ho < 1 || sh.wo < 1 || hb < 1 || wb < 1 ||
+      (mode == XCORR && sh.wo > W_GEN) ||
+      (mode == FULL &&
+       (valid != nullptr || band_rows < 1 || band_rows > sh.ho ||
+        segments < 1 || (sh.wo + segments - 1) / segments > W_GEN ||
+        (one_band && sh.ho > 2 * CAP))))
     return (int)cudaErrorInvalidValue;
   // the xcorr's segment width: 16 for a 15-wide template, 15 for a
   // 16-wide one, 0 (one generic segment) otherwise
@@ -481,18 +518,26 @@ static int launch6(int mode, const void* a, const void* b,
     sh.rpi = std::max(1, std::min(sh.ho, CAP / sh.nseg));
     sh.nrt = std::min(sh.rpi * sh.nseg, CAP);
     if (seg > 0) a_cols = std::max(wa, sh.nseg * seg + wb - 1);
-  } else {
-    // one band; thread r takes rows r and r + nrt, so that every thread
-    // meets as many template rows (at the training shapes r + 1 and
-    // 15 - r: 16 for every thread)
+  } else if (one_band) {
+    // thread r takes rows r and r + nrt, so that every thread meets as
+    // many template rows (at the training shapes r + 1 and 15 - r: 16 for
+    // every thread)
     sh.nseg = 1;
+    sh.segw = sh.wo;
     sh.rpi = sh.ho;
     sh.nrt = (sh.ho + 1) / 2;
+  } else {
+    sh.nseg = segments;
+    sh.segw = (sh.wo + segments - 1) / segments;
+    sh.rpi = band_rows;
+    sh.nrt = std::min(CAP, band_rows * segments);
   }
   sh.bands = (sh.ho + sh.rpi - 1) / sh.rpi;
   sh.tiles = (C + TILE - 1) / TILE;
   sh.items = K * sh.tiles * sh.bands;
-  const int a_rows = mode == XCORR ? std::min(ha, sh.rpi + hb - 1) : ha;
+  // the rows of a an item meets: its rows and the template's height less
+  // one (below them for the xcorr, above for the full convolution)
+  const int a_rows = std::min(ha, sh.rpi + hb - 1);
   const int rs = row_stride(a_cols * TILE * (int)sizeof(TA), 32 / TILE,
                             TILE * (int)sizeof(TA));
   sh.rsa = rs / (int)sizeof(TA);
@@ -508,7 +553,8 @@ static int launch6(int mode, const void* a, const void* b,
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   if (smem > (size_t)optin) {
-    // taps too large for two stages: the banded fallback
+    // taps too large for two stages: the banded fallback (the full
+    // convolution's plan keeps its bands inside the limit)
     if (mode == FULL) return (int)cudaErrorInvalidValue;
     return launch_band<TA, TB>(a, b, valid, out, K, ha, wa, hb, wb, C,
                                stream);
@@ -523,9 +569,14 @@ static int launch6(int mode, const void* a, const void* b,
     return launch<XCORR, TILE, 0, 0, TA, TB>(a, b, valid, out, sh, smem,
                                              stream);
   }
-  if (wa == 16 && wb == 15)  // the search gradient: 16x16 g, 15x15 taps
+  if (one_band && wa == 16 && wb == 15)  // 16x16 g, 15x15 taps
     return launch<FULL, TILE, 30, 15, TA, TB>(a, b, nullptr, out, sh, smem,
                                               stream);
+  if (!one_band && wb == 15) {  // bands of a 15-wide template: 16 columns
+    if (segments != (sh.wo + 15) / 16) return (int)cudaErrorInvalidValue;
+    return launch<FULL_SEG, TILE, 16, 15, TA, TB>(a, b, nullptr, out, sh,
+                                                  smem, stream);
+  }
   return launch<FULL, TILE, 0, 0, TA, TB>(a, b, nullptr, out, sh, smem,
                                           stream);
 }
@@ -563,14 +614,27 @@ SIAMMOT_API int siammot_xcorr(const void* search, int search_dtype,
 }
 
 // Search gradient: the full convolution of the upstream gradient with the
-// template, [K, hg + ht - 1, wg + wt - 1, C] f32.
+// template, [K, hg + ht - 1, wg + wt - 1, C] f32, in bands of `band_rows`
+// output rows and `segments` column segments (ops/xcorr.py:
+// grad_search_plan).
 SIAMMOT_API int siammot_xcorr_grad_search(const void* grad, int grad_dtype,
                                           const void* tmpl, int tmpl_dtype,
                                           float* out, int K, int hg, int wg,
                                           int ht, int wt, int C,
+                                          int band_rows, int segments,
                                           void* stream) {
   if (K == 0) return 0;
   return SIAMMOT_DISPATCH2(grad_dtype, tmpl_dtype, k6::launch6, k6::FULL,
                            grad, tmpl, nullptr, out, K, hg, wg, ht, wt, C,
-                           (cudaStream_t)stream);
+                           (cudaStream_t)stream, band_rows, segments);
+}
+
+// Shared memory a block of the current device may opt in to, bytes.
+SIAMMOT_API int siammot_smem_optin() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return optin;
 }

@@ -12,16 +12,20 @@ x16 bicubic upsample ``U . X . U^T`` of 4 channels,
 divisions, the Hann blend, then the first-occurrence argmax and the cls
 probability there.  Gated dead slots return (0, 0).
 
-On the H100 the decode is bound by operations, FFMA in f32 (4.2 M
-multiply-adds per slot at the main path's s_hi 256, 247 M at s_hi 976):
-the point is that the [s_hi, s_hi] maps never leave the chip.  The CUDA
-kernels (``cuda/decode.cu``) compute every cell with one contraction
-order and reduce (value, index) bests with ties toward the lower flat
-index, so the striped kernel returns bitwise the whole-map kernel's
-(idx, score).  The whole-map kernel runs one block per slot over any
-s <= 32 and s_hi <= 512; the striped one cuts each slot's map into bands
-of whole stripes (s <= 64), one block a band, and reduces the bands'
-bests in a second launch.
+On the H100 the decode is bound by operations on the CUDA cores, in f32:
+4.2 M multiply-adds per slot at the main path's s_hi 256 (247 M at s_hi
+976) and, per cell, the penalty's divisions and exponentials, about as
+much again at s_hi 256; the point is that the [s_hi, s_hi] maps never
+leave the chip.  One CUDA kernel (``cuda/decode.cu:decode_band_kernel``)
+runs all three: a persistent grid over (live slot, band of 16 rows)
+items, the slots ordered live first on the device, each item building its
+band's row factor in shared memory and passing over the map's columns
+with 2 x 4 cells x 4 channels of accumulators a thread; a second launch
+reduces each slot's band bests.  Every cell is computed with one
+contraction order and the (value, index) bests reduce with ties toward
+the lower flat index, so the kernel's (idx, score) are bitwise those of
+the earlier whole-map and striped kernels, and the same for any stripe.
+Responses up to s = 64 (the striped form's limit, s_hi 1024).
 """
 
 from __future__ import annotations
@@ -30,13 +34,17 @@ import torch
 
 from . import cuda
 
-_ARGS = (cuda.P, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P, cuda.I,
-         cuda.I, cuda.I, cuda.F, cuda.F, cuda.I, cuda.P)
-_STRIPED_ARGS = (cuda.P,) * 8 + (cuda.I,) * 4 + (cuda.F, cuda.F, cuda.I,
-                                                 cuda.P)
+_ARGS = (cuda.P,) * 8 + (cuda.I,) * 3 + (cuda.F, cuda.F, cuda.I, cuda.P)
 WHOLE_MAP_MAX = 512       # JAX's whole-map kernel up to this s_hi
 STRIPED_MAX = 1024        # JAX's striped kernel up to this s_hi (emm.py)
-MIN_BAND = 32             # rows of the striped kernel's smallest band
+BAND_ROWS = 16            # rows of the kernel's band (cuda/decode.cu BAND)
+S_MAX = 64                # largest response side the kernel takes
+
+
+def decode_bands(s_hi: int) -> int:
+    """Bands of ``BAND_ROWS`` rows the kernel cuts an [s_hi, s_hi] map
+    into (the last one ragged): the scratch rows per slot."""
+    return -(-s_hi // BAND_ROWS)
 
 
 def pick_stripe(s_hi: int) -> int:
@@ -66,11 +74,14 @@ def _check(x4, wh, u, window, valid):
     return k, s, s_hi
 
 
-def _whole_map(x4, wh, u, window, valid, sigma, use_centerness):
+def _launch(x4, wh, u, window, valid, sigma, use_centerness):
+    """One decode launch (kernels 4, 10 and 5 alike); ``valid`` None
+    decodes every slot."""
     k, s, s_hi = _check(x4, wh, u, window, valid)
-    if s > 32 or s_hi > WHOLE_MAP_MAX:
-        raise ValueError(f"decode kernel takes s <= 32 and s_hi <= 512 (the "
-                         f"whole-map form), got {s}, {s_hi}")
+    if s > S_MAX:
+        raise ValueError(f"decode kernel takes s <= {S_MAX}, got {s}")
+    partial = torch.empty((k, decode_bands(s_hi), 3), dtype=torch.int32,
+                          device=x4.device)
     idx = torch.empty((k,), dtype=torch.int32, device=x4.device)
     score = torch.empty((k,), dtype=torch.float32, device=x4.device)
     fn = cuda.function("siammot_emm_decode", _ARGS)
@@ -78,9 +89,10 @@ def _whole_map(x4, wh, u, window, valid, sigma, use_centerness):
     # scalar is, not computed from the f32 sigma
     cuda.check("emm_decode", fn(
         cuda.ptr(x4), cuda.ptr(wh), cuda.ptr(u), cuda.ptr(window),
-        None if valid is None else cuda.ptr(valid), cuda.ptr(idx),
-        cuda.ptr(score), k, s, s_hi, float(sigma), float(1.0 - sigma),
-        int(bool(use_centerness)), cuda.stream(x4.device)))
+        None if valid is None else cuda.ptr(valid), cuda.ptr(partial),
+        cuda.ptr(idx), cuda.ptr(score), k, s, s_hi, float(sigma),
+        float(1.0 - sigma), int(bool(use_centerness)),
+        cuda.stream(x4.device)))
     return idx, score
 
 
@@ -103,7 +115,7 @@ def emm_decode(x4: torch.Tensor, wh: torch.Tensor, u: torch.Tensor,
     if valid is None:
         raise ValueError("emm_decode: kernel 4 is the gated form; "
                          "emm_decode_unmasked decodes every slot")
-    out = _whole_map(x4, wh, u, window, valid, sigma, use_centerness)
+    out = _launch(x4, wh, u, window, valid, sigma, use_centerness)
     emm_decode.launches += 1
     return out
 
@@ -121,7 +133,7 @@ def emm_decode_unmasked(x4: torch.Tensor, wh: torch.Tensor, u: torch.Tensor,
     if x4.device.type == "cpu":
         return emm_decode_plain(x4, wh, u, window, None, sigma,
                                 use_centerness)
-    out = _whole_map(x4, wh, u, window, None, sigma, use_centerness)
+    out = _launch(x4, wh, u, window, None, sigma, use_centerness)
     emm_decode_unmasked.launches += 1
     return out
 
@@ -135,32 +147,18 @@ def emm_decode_striped(x4: torch.Tensor, wh: torch.Tensor, u: torch.Tensor,
     """Kernel 5: the row-striped decode, the same (idx, score) as
     :func:`emm_decode` (gated, ``valid`` [K] bool) or
     :func:`emm_decode_unmasked` (``valid`` None) for any ``stripe``, a
-    multiple of 8 up to 128 that divides s_hi; s <= 64.  CUDA tensors
-    launch the kernel; CPU tensors take :func:`emm_decode_striped_plain`.
+    multiple of 8 up to 128 that divides s_hi; s <= 64.  The kernel's
+    bands are its own (the stripe only picks this entry point: the answer
+    does not depend on the cut).  CUDA tensors launch the kernel; CPU
+    tensors take :func:`emm_decode_striped_plain`.
     """
     _check_stripe(u.shape[0], stripe)
     if x4.device.type == "cpu":
         return emm_decode_striped_plain(x4, wh, u, window, valid, sigma,
                                         use_centerness, stripe)
-    k, s, s_hi = _check(x4, wh, u, window, valid)
-    if s > 64:
-        raise ValueError(f"striped decode kernel takes s <= 64, got {s}")
-    # a band of whole stripes, at least MIN_BAND rows
-    band = stripe * max(1, MIN_BAND // stripe)
-    bands = -(-s_hi // band)
-    partial = torch.empty((k, bands, 3), dtype=torch.int32,
-                          device=x4.device)
-    idx = torch.empty((k,), dtype=torch.int32, device=x4.device)
-    score = torch.empty((k,), dtype=torch.float32, device=x4.device)
-    fn = cuda.function("siammot_emm_decode_striped", _STRIPED_ARGS)
-    cuda.check("emm_decode_striped", fn(
-        cuda.ptr(x4), cuda.ptr(wh), cuda.ptr(u), cuda.ptr(window),
-        None if valid is None else cuda.ptr(valid), cuda.ptr(partial),
-        cuda.ptr(idx), cuda.ptr(score), k, s, s_hi, band, float(sigma),
-        float(1.0 - sigma), int(bool(use_centerness)),
-        cuda.stream(x4.device)))
+    out = _launch(x4, wh, u, window, valid, sigma, use_centerness)
     emm_decode_striped.launches += 1
-    return idx, score
+    return out
 
 
 emm_decode_striped.launches = 0

@@ -23,12 +23,20 @@ outputs both run unrolled).  Kernel 2's ``valid`` orders the slots live
 first on the device, so the live items spread over the blocks; a dead
 slot's items read nothing and write zeros, and a live slot's outputs are
 bitwise kernel 6's.  The search gradient skips the taps that fall outside
-``g`` instead of correlating a zero-padded copy.  Taps too large for two
-shared-memory stages (a template gradient over a 75x75 search region) take
-a banded fallback kernel, one shared-memory load per multiply-add.
+``g`` instead of correlating a zero-padded copy; past the training shapes
+(a 61x61 ``g`` and a 75x75 output at SEARCH_REGION 5) it runs in bands of
+output rows, each staging only the rows of ``g`` it meets, and column
+segments, of 16 outputs for a 15-wide template (``g`` streamed through the
+template row in registers) and of at most 64 otherwise
+(:func:`grad_search_plan`).  Taps too large
+for two shared-memory stages (a template gradient over a 75x75 search
+region) take a banded fallback kernel, one shared-memory load per
+multiply-add.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -38,7 +46,10 @@ _ARGS_MASKED = (cuda.P, cuda.P, cuda.I, cuda.P, cuda.P, cuda.I, cuda.I,
                 cuda.I, cuda.I, cuda.I, cuda.I, cuda.P)
 _ARGS = (cuda.P, cuda.I, cuda.P, cuda.I, cuda.P, cuda.I, cuda.I, cuda.I,
          cuda.I, cuda.I, cuda.I, cuda.P)
+_ARGS_GRAD_SEARCH = _ARGS[:-1] + (cuda.I, cuda.I, cuda.P)
 _DTYPES = (torch.float32, torch.bfloat16)
+W_GEN = 64          # outputs a thread accumulates, generic widths
+MAX_THREADS = 256   # threads a block of the xcorr kernel at most
 
 
 def _check(what, a, b, valid=None):
@@ -60,12 +71,64 @@ def _check(what, a, b, valid=None):
 
 def _out_fits(what, ho, wo, w_max=32):
     """Kernels 2 and 6's xcorr take outputs up to 64 wide of any height
-    (``w_max`` 64); the two gradients are held to 32x32."""
+    (``w_max`` 64); the template gradient is held to 32x32."""
     if not (1 <= ho and 1 <= wo <= w_max) or (w_max == 32 and ho > 32):
         limit = f"up to {w_max} wide" + (" and 32 high" if w_max == 32
                                           else "")
         raise ValueError(f"{what} kernel takes outputs {limit}, got "
                          f"{ho}x{wo}")
+
+
+def _row_stride(nbytes: int, groups: int, width: int) -> int:
+    """``cuda/xcorr.cu:row_stride``: the smallest row stride (bytes, a
+    multiple of 16) from ``nbytes`` up at which the ``groups`` rows a warp
+    reads, ``width`` bytes each, fall in distinct banks."""
+    rs = -(-nbytes // 16) * 16
+    while not all(width <= (m * rs) % 128 <= 128 - width
+                  for m in range(1, groups)):
+        rs += 16
+    return rs
+
+
+def grad_search_plan(hg: int, wg: int, ht: int, wt: int, g_size: int,
+                     t_size: int, smem_limit: int) -> tuple:
+    """(output rows a band, column segments) of the search gradient's
+    kernel for a ``[hg, wg]`` upstream gradient of ``g_size``-byte elements
+    and a ``[ht, wt]`` template of ``t_size``-byte ones, two shared-memory
+    stages within ``smem_limit`` bytes.  One band of every output row where
+    that fits, at most 64 outputs wide and two rows a row thread (the
+    training shapes, as before); else the tallest band of at most one row
+    a row thread whose stages fit, and segments of 16 outputs for a
+    15-wide template (the kernel's compile-time segment) or the fewest of
+    at most 64.  Raises with the limit where one row's band does not
+    fit."""
+    ho, wo = hg + ht - 1, wg + wt - 1
+    tile = 16 if g_size == 2 and t_size == 2 else 8
+    cap = MAX_THREADS // tile
+    rs = _row_stride(wg * tile * g_size, 32 // tile, tile * g_size)
+
+    def smem(rows):
+        stage = min(hg, rows + ht - 1) * rs + ht * wt * tile * t_size
+        return 2 * (-(-stage // 16) * 16)
+
+    if wo <= W_GEN and ho <= 2 * cap and smem(ho) <= smem_limit:
+        return ho, 1
+    segments = -(-wo // (16 if wt == 15 else W_GEN))
+    for rows in range(min(ho, cap), 0, -1):
+        if smem(rows) <= smem_limit:
+            return rows, segments
+    raise ValueError(
+        f"xcorr_grad_search: a band of one output row stages "
+        f"{min(hg, ht)} rows of the {wg}-wide gradient and the {ht}x{wt} "
+        f"template in two stages, {smem(1)} bytes, past the {smem_limit} "
+        f"bytes of shared memory a block may use")
+
+
+@functools.cache
+def _smem_limit(device_index: int) -> int:
+    """Shared memory a block may opt in to on the device, bytes."""
+    with torch.cuda.device(device_index):
+        return cuda.function("siammot_smem_optin", ())()
 
 
 def xcorr_depthwise_masked(search: torch.Tensor, template: torch.Tensor,
@@ -98,15 +161,16 @@ def xcorr_depthwise_masked(search: torch.Tensor, template: torch.Tensor,
 xcorr_depthwise_masked.launches = 0
 
 
-def _launch(name, a, b, out_hw):
-    """One unmasked launch: ``siammot_xcorr`` or ``..._grad_search``."""
+def _launch(name, a, b, out_hw, plan=()):
+    """One unmasked launch: ``siammot_xcorr``, or ``..._grad_search``
+    with its ``plan`` (:func:`grad_search_plan`)."""
     k, c = a.shape[0], a.shape[-1]
     out = torch.empty((k, *out_hw, c), dtype=torch.float32, device=a.device)
-    fn = cuda.function(name, _ARGS)
+    fn = cuda.function(name, _ARGS_GRAD_SEARCH if plan else _ARGS)
     cuda.check(name, fn(
         cuda.ptr(a), int(a.dtype == torch.bfloat16), cuda.ptr(b),
         int(b.dtype == torch.bfloat16), cuda.ptr(out), k, *a.shape[1:3],
-        *b.shape[1:3], c, cuda.stream(a.device)))
+        *b.shape[1:3], c, *plan, cuda.stream(a.device)))
     return out
 
 
@@ -152,15 +216,20 @@ def xcorr_grad_search(grad: torch.Tensor,
                       template: torch.Tensor) -> torch.Tensor:
     """Kernel 6, search gradient: ``out[y, x] = sum_ij grad[y-i, x-j] *
     template[i, j]`` over the taps inside ``grad`` -> [K, Ho+Ht-1, Wo+Wt-1,
-    C] f32.  CUDA tensors launch the kernel; CPU tensors take
-    :func:`xcorr_grad_search_plain`."""
+    C] f32, any size whose one-row band fits in shared memory
+    (:func:`grad_search_plan`).  CUDA tensors launch the kernel; CPU
+    tensors take :func:`xcorr_grad_search_plain`."""
     if grad.device.type == "cpu":
         return xcorr_grad_search_plain(grad, template)
     _check("xcorr_grad_search", grad, template)
-    hs = grad.shape[1] + template.shape[1] - 1
-    ws = grad.shape[2] + template.shape[2] - 1
-    _out_fits("xcorr_grad_search", hs, ws)
-    out = _launch("siammot_xcorr_grad_search", grad, template, (hs, ws))
+    (_, hg, wg, _), (_, ht, wt, _) = grad.shape, template.shape
+    plan = grad_search_plan(hg, wg, ht, wt, grad.element_size(),
+                            template.element_size(),
+                            _smem_limit(grad.device.index
+                                        if grad.device.index is not None
+                                        else torch.cuda.current_device()))
+    out = _launch("siammot_xcorr_grad_search", grad, template,
+                  (hg + ht - 1, wg + wt - 1), plan)
     xcorr_grad_search.launches += 1
     return out
 

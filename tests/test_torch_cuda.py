@@ -400,11 +400,11 @@ def test_decode_striped_kernel(dev, s, stripe, gated):
 
 
 def test_decode_striped_kernel_is_bitwise_the_whole_map_kernel(dev):
-    """A forced stripe at s_hi 256 and 464 gives bitwise the (idx, score)
-    of kernels 4 (gated) and 10 (ungated)."""
+    """A forced stripe (8, 16 and 64) at s_hi 256 and 464 gives bitwise
+    the (idx, score) of kernels 4 (gated) and 10 (ungated)."""
     from siammot_tpu_torch.ops.decode import (emm_decode_striped,
                                               emm_decode_unmasked)
-    for s, stripe in ((16, 64), (16, 8), (29, 16)):
+    for s, stripe in ((16, 64), (16, 16), (16, 8), (29, 16)):
         x4, wh, u, window = _decode_args(dev, 12, s, 24)
         valid = _valid(12, 25).to(dev)
         for v in (valid, None):
@@ -414,6 +414,105 @@ def test_decode_striped_kernel_is_bitwise_the_whole_map_kernel(dev):
                       if v is not None else
                       emm_decode_unmasked(x4, wh, u, window, 0.4, True))
             assert torch.equal(si, wi) and torch.equal(ss, ws), (s, stripe)
+
+
+def _decode_case(dev, k, s, up, seed):
+    """Seeded decode inputs at response side ``s`` and upsampling ``up``."""
+    g = torch.Generator().manual_seed(seed)
+    u, window = _decode_constants(s, up, str(dev))
+    x4 = torch.stack([2 * torch.randn(k, s, s, generator=g),
+                      torch.randn(k, s, s, generator=g),
+                      60 + 20 * torch.randn(k, s, s, generator=g),
+                      120 + 40 * torch.randn(k, s, s, generator=g)], 1)
+    wh = torch.stack([40 + 110 * torch.rand(k, generator=g),
+                      80 + 220 * torch.rand(k, generator=g)], -1)
+    return x4.to(dev).contiguous(), wh.to(dev), u, window
+
+
+def _decode_kernel_and_plain(x4, wh, u, window, valid, stripe=None):
+    """(kernel, plain) (idx, score) of the entry point the arguments pick:
+    kernel 5 with a stripe, else 4 (gated) or 10."""
+    from siammot_tpu_torch.ops.decode import (emm_decode_striped,
+                                              emm_decode_striped_plain,
+                                              emm_decode_unmasked)
+    if stripe is not None:
+        return (emm_decode_striped(x4, wh, u, window, valid, 0.4, True,
+                                   stripe),
+                emm_decode_striped_plain(x4, wh, u, window, valid, 0.4,
+                                         True, stripe))
+    got = emm_decode(x4, wh, u, window, valid, 0.4, True) \
+        if valid is not None else emm_decode_unmasked(x4, wh, u, window,
+                                                      0.4, True)
+    return got, emm_decode_plain(x4, wh, u, window, valid, 0.4, True)
+
+
+@pytest.mark.parametrize("live", [0, 1, 37, 128])
+@pytest.mark.parametrize("s,stripe", [(16, None), (61, 16)])
+def test_decode_kernel_live_slots(dev, live, s, stripe):
+    """Kernels 4 (s_hi 256) and 5 (s_hi 976) with 0, 1, 37 and all 128
+    slots live, at random places (the kernel orders them live first):
+    idx exact and scores 1e-5 against the plain version, dead slots
+    (0, 0)."""
+    k = 128
+    x4, wh, u, window = _decode_case(dev, k, s, 16, 50 + live)
+    valid = torch.zeros(k, dtype=torch.bool)
+    valid[torch.randperm(k, generator=torch.Generator().manual_seed(live))
+          [:live]] = True
+    valid = valid.to(dev)
+    (gi, gs), (wi, ws) = _decode_kernel_and_plain(x4, wh, u, window, valid,
+                                                  stripe)
+    assert (gi[~valid] == 0).all() and (gs[~valid] == 0).all()
+    torch.testing.assert_close(gi, wi.to(gi.dtype), atol=0, rtol=0)
+    torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("s,up,stripe", [(16, 16, None), (29, 16, None),
+                                         (46, 16, 32), (61, 16, 16),
+                                         (13, 8, None), (33, 16, 16)])
+@pytest.mark.parametrize("gated", [True, False])
+def test_decode_kernel_sizes(dev, s, up, stripe, gated):
+    """s_hi 256, 464, 736 and 976 (the compile-time forms and the generic
+    one), 104 (a ragged last band of 16 rows) and 528 (a ragged last chunk
+    of 256 columns and a ragged band of the old kernel), gated and
+    ungated: idx exact and scores 1e-5 against the plain version."""
+    k = 12
+    x4, wh, u, window = _decode_case(dev, k, s, up, 60 + s)
+    valid = _valid(k, 61).to(dev) if gated else None
+    (gi, gs), (wi, ws) = _decode_kernel_and_plain(x4, wh, u, window, valid,
+                                                  stripe)
+    torch.testing.assert_close(gi, wi.to(gi.dtype), atol=0, rtol=0)
+    torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("s,stripe", [(16, None), (61, 16)])
+def test_decode_kernel_nan_and_ties_keep_the_first(dev, s, stripe):
+    """Zero responses make every cell's confidence 0, so the map's value
+    is sigma times the window: a window of ones ties every cell (index 0
+    wins); a window of zeros with two ones (the lower flat index wins: it
+    lies in the first band and the last chunk of columns, the other in a
+    later band and the first chunk); the Hann window with two NaN cells
+    (the first NaN wins).  Gated (kernel 4 or 5) and not (10 or 5),
+    kernel and plain version both at the index named; the score is
+    sigmoid(0)."""
+    k = 3
+    x4 = torch.zeros(k, 4, s, s, device=dev)
+    wh = torch.full((k, 2), 50.0, device=dev)
+    u, hann = _decode_constants(s, 16, str(dev))
+    s_hi = 16 * s
+    a, b = (5, s_hi - 6), (s_hi - 40, 17)      # a: earlier row, later column
+    cells = (torch.tensor([b[0], a[0]], device=dev),
+             torch.tensor([b[1], a[1]], device=dev))
+    for window, want in (
+            (torch.ones_like(hann), 0),
+            (torch.zeros_like(hann).index_put_(cells, torch.ones(
+                2, device=dev)), a[0] * s_hi + a[1]),
+            (hann.clone().index_put_(cells, torch.full(
+                (2,), float("nan"), device=dev)), a[0] * s_hi + a[1])):
+        for valid in (torch.ones(k, dtype=torch.bool, device=dev), None):
+            (gi, gs), (wi, ws) = _decode_kernel_and_plain(
+                x4, wh, u, window.contiguous(), valid, stripe)
+            assert (gi == want).all() and (wi == want).all(), (want, gi, wi)
+            assert (gs == 0.5).all() and (ws == 0.5).all()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
@@ -513,20 +612,58 @@ def test_xcorr_unmasked_other_shapes(dev, hs, ws, ht, wt, c, dtype):
     instantiation), 20 channels (element copies, a partial tile), and at
     SEARCH_REGION 5's 75x75 x 15x15 -> 61x61, where the template gradient
     (61x61 taps) takes the banded fallback kernel; search gradients wider or
-    taller than 32 (9x40, 75x75) are refused, as before."""
-    from siammot_tpu_torch.ops.xcorr import xcorr_grad_search
+    taller than 32 (9x40, 75x75) run in bands of output rows and column
+    segments."""
     g = torch.Generator().manual_seed(hs * ws + c)
     search = torch.randn(3, hs, ws, c, generator=g).to(dev, dtype)
     tmpl = (0.1 * torch.randn(3, ht, wt, c, generator=g)).to(dev, dtype)
     up = torch.randn(3, hs - ht + 1, ws - wt + 1, c, generator=g).to(dev)
-    fits = hs <= 32 and ws <= 32
-    if not fits:
-        with pytest.raises(ValueError):
-            xcorr_grad_search(up, tmpl)
-    for name, got, want in _xcorr_passes(search, tmpl, up,
-                                         with_search_grad=fits):
+    for name, got, want in _xcorr_passes(search, tmpl, up):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3,
                                    msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_xcorr_passes_at_the_wide_search_region(dev, dtype):
+    """Kernel 6's three passes at SEARCH_REGION 5's 75x75 x 15x15 ->
+    61x61, search and template in ``dtype`` and the f32 upstream gradient
+    (a training step's mix): the search gradient's 75x75 output in bands
+    of 32 output rows and five 16-wide column segments."""
+    g = torch.Generator().manual_seed(41)
+    search = torch.randn(4, 75, 75, 128, generator=g).to(dev, dtype)
+    tmpl = (0.1 * torch.randn(4, 15, 15, 128, generator=g)).to(dev, dtype)
+    up = torch.randn(4, 61, 61, 128, generator=g).to(dev)
+    for name, got, want in _xcorr_passes(search, tmpl, up):
+        assert got.shape == want.shape, name
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("hg,ht,gdt,tdt", [(31, 15, _F32, _F32),
+                                           (31, 15, _F32, _BF16),
+                                           (29, 7, _F32, _F32),
+                                           (29, 7, _F32, _BF16),
+                                           (29, 7, _BF16, _BF16),
+                                           (61, 15, _BF16, _BF16)])
+def test_xcorr_grad_search_past_32(dev, hg, ht, gdt, tdt):
+    """The search gradient at SEARCH_REGION 3's 45x45 (15x15 taps), the
+    AOT recipe's 35x35 (7x7 taps) and 75x75, the gradient in ``gdt`` and
+    the template in ``tdt`` (bf16 both: 16-channel tiles, bands of 16
+    rows), against the plain version; the training shape's plan is still
+    one band."""
+    from siammot_tpu_torch.ops.xcorr import (_smem_limit, grad_search_plan,
+                                             xcorr_grad_search,
+                                             xcorr_grad_search_plain)
+    assert grad_search_plan(16, 16, 15, 15, 4, 2,
+                            _smem_limit(torch.cuda.current_device())) \
+        == (30, 1)
+    g = torch.Generator().manual_seed(hg + ht)
+    up = torch.randn(5, hg, hg, 128, generator=g).to(dev, gdt)
+    tmpl = (0.1 * torch.randn(5, ht, ht, 128, generator=g)).to(dev, tdt)
+    got = xcorr_grad_search(up, tmpl)
+    assert got.shape == (5, hg + ht - 1, hg + ht - 1, 128)
+    torch.testing.assert_close(got, xcorr_grad_search_plain(up, tmpl),
+                               atol=1e-4, rtol=1e-3)
 
 
 def _pool_case(dev, s, window, pad, dtype, c, seed):

@@ -124,3 +124,15 @@ def test_stripe_must_divide_the_map():
         emm_decode_striped(*_t(x4, wh, u, window, valid), 0.4, True, 48)
     with pytest.raises(ValueError):
         decode_argmax(*_t(*_inputs(1, 65, 5)[:4], None), 0.4, True)
+
+
+def test_decode_bands_cover_the_map():
+    """The kernel's bands of ``BAND_ROWS`` rows (the scratch rows a slot):
+    they cover the map, the last one ragged where s_hi is not a multiple
+    (up 8 at s 13: 104 rows), none empty."""
+    from siammot_tpu_torch.ops.decode import BAND_ROWS, decode_bands
+    for s_hi, want in ((256, 16), (464, 29), (976, 61), (104, 7),
+                       (528, 33), (1, 1)):
+        n = decode_bands(s_hi)
+        assert n == want
+        assert (n - 1) * BAND_ROWS < s_hi <= n * BAND_ROWS
