@@ -112,7 +112,7 @@ def main():
     print(f"{'':16}  kernels: " + ", ".join(
         f"{k}={ms:.4f}" for k, ms, _ in rows
         if any(n in k for n in ("window_pool_band", "xcorr6_kernel",
-                                "tower_conv_", "heads_tiled", "decode_",
+                                "tower_conv_", "heads_band", "decode_",
                                 "deform_window", "deform_wgmma",
                                 "deform_reduce", "deform_ffma"))))
 

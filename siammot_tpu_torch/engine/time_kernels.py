@@ -1,9 +1,10 @@
-"""Device time of kernels 6, 1, 2, 7, 4, 10 and 5 at ``chip_smoke.py``'s
-shapes, for the port found under a given root (this checkout, or another
-commit's ``siammot_tpu_torch`` unpacked elsewhere, to compare two versions
-on one card).
+"""Device time of kernels 6, 1, 2, 7, 4, 10, 5, 3 and 8 at
+``chip_smoke.py``'s shapes, for the port found under a given root (this
+checkout, or another commit's ``siammot_tpu_torch`` unpacked elsewhere, to
+compare two versions on one card).
 
     python3 siammot_tpu_torch/engine/time_kernels.py [--root DIR]
+        [--only predictor]
 
 Kernel 6's three passes at the training shapes (N = 1024 pairs, f32 and
 bf16 inputs, the f32 upstream gradient) and at SEARCH_REGION 5's
@@ -15,13 +16,21 @@ training sites (f32 table, 1024 ROIs each) and the search-region pool at
 of 128 slots live), kernel 7 at the three training sites (f32 upstream
 gradient, 1024 ROIs each), and the decode: kernel 4 at s_hi 256 and 464
 (37 of 128 slots live), kernel 10 at [128, 4, 16, 16] and kernel 5 at
-s_hi 976 (stripe 16), gated and ungated. Each is checked against its
-plain version and timed with ``chip_smoke.py``'s two timers:
+s_hi 976 (stripe 16), gated and ungated; kernel 3 at 16x16 bf16 with 37
+and with 128 of 128 slots live, at 29x29 and 61x61 bf16 and at 16x16 f32,
+and kernel 8 (B 8, 37 live slots at the front) at 16x16 bf16 and f32 and
+61x61 bf16, each also split by kernel (tower conv, head pass; profiler);
+then the bf16 DLA-34 frames' gap to the JAX step's bf16 rows
+(``tests/fixtures/torch_golden_dla34_bf16.npz`` of this checkout).
+``--only predictor`` times kernels 3 and 8 and the gap alone. Each is
+checked against its plain version and timed with ``chip_smoke.py``'s two
+timers:
 ``device_ms`` (a CUDA graph of the calls, replayed between events) and
 ``timed_ms`` (events around the wrapper calls, the host's enqueue
 included). Prints one line a kernel with a digest of its outputs' bits
 (equal digests in two trees: the same bits) and, last, ``RESULT`` and a
-JSON object {name: [device ms, host-inclusive ms, max abs err, digest]}.
+JSON object {name: [device ms, host-inclusive ms, max abs err, digest]}
+(kernels 3 and 8 add {kernel: device ms}).
 Needs a CUDA device; the card's name and power limit go first.
 """
 
@@ -40,7 +49,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=REPO,
                     help="directory holding the siammot_tpu_torch to time")
-    root = os.path.abspath(ap.parse_args().root)
+    ap.add_argument("--only", choices=("predictor",),
+                    help="time kernels 3 and 8 (and the bf16 gap) alone")
+    args_ = ap.parse_args()
+    root = os.path.abspath(args_.root)
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
@@ -53,16 +65,6 @@ def main():
     if not siammot_tpu_torch.__file__.startswith(root):
         raise SystemExit(f"time_kernels: imported {siammot_tpu_torch.__file__}"
                          f", not the package under {root}")
-    from siammot_tpu_torch.ops.window_pool import (window_pool,
-                                                   window_pool_bwd,
-                                                   window_pool_bwd_plain,
-                                                   window_pool_plain)
-    from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
-                                             xcorr_depthwise_masked,
-                                             xcorr_depthwise_plain,
-                                             xcorr_grad_search,
-                                             xcorr_grad_search_plain,
-                                             xcorr_grad_template)
 
     dev = torch.device("cuda", 0)
     cs.log(f"{cs.card_line()}; timing {root}")
@@ -74,14 +76,89 @@ def main():
             h.update(t.detach().contiguous().cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
-    def record(name, fn, err, iters=20):
+    def record(name, fn, err, iters=20, split=False):
         bits = digest(*(lambda o: o if isinstance(o, tuple) else (o,))(fn()))
         out[name] = (cs.device_ms(fn, iters=iters), cs.timed_ms(fn), err,
                      bits)
+        by = cs.kernel_split_ms(fn, iters=min(iters, 10)) if split else {}
+        if by:
+            out[name] += (by,)
         cs.log(f"  {name}: {out[name][0]:.4f} ms device, {out[name][1]:.4f} "
                f"ms with the host's enqueue, max abs err {err:.3g}, digest "
-               f"{bits}")
+               f"{bits}" + (f"; by kernel: {cs.split_text(by)}" if by else ""))
 
+    if args_.only != "predictor":
+        other_kernels(cs, dev, record)
+    predictor_kernels(cs, dev, record)
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def predictor_kernels(cs, dev, record):
+    """Kernels 3 and 8 at chip_smoke's shapes, then the bf16 frames' gap
+    to the JAX bf16 rows."""
+    import torch
+    from siammot_tpu_torch.ops.predictor import (emm_predictor,
+                                                 emm_predictor_blocked,
+                                                 emm_predictor_blocked_plain,
+                                                 emm_predictor_plain)
+    from siammot_tpu_torch.utils import golden
+
+    def close(got, want, dtype, what):
+        tol = cs.PRED_ATOL if dtype == torch.bfloat16 else cs.PRED_F32_ATOL
+        return max(cs.close(a, b, tol, 0.0, what)[0]
+                   for a, b in zip(got, want))
+
+    g = torch.Generator().manual_seed(6)
+    for s_, dtype, live in ((16, torch.bfloat16, cs.LIVE),
+                            (16, torch.bfloat16, cs.K),
+                            (29, torch.bfloat16, cs.LIVE),
+                            (61, torch.bfloat16, cs.LIVE),
+                            (16, torch.float32, cs.LIVE)):
+        x = torch.randn(cs.K, s_, s_, cs.C, generator=g).to(dev, dtype)
+        params = cs.predictor_params(g, dev, dtype)
+        valid = cs.live_mask(cs.K, live, g, dev)
+        args = (x, valid, params)
+        err = close(emm_predictor(*args), emm_predictor_plain(*args), dtype,
+                    f"emm_predictor {s_}")
+        record(f"emm_predictor {s_}x{s_} {str(dtype)[6:]} {live} live",
+               lambda: emm_predictor(*args), err,
+               iters=20 if s_ < 61 else 5, split=True)
+    valid = torch.zeros(cs.K, dtype=torch.bool, device=dev)
+    valid[:cs.LIVE] = True
+    for s_, dtype in ((16, torch.bfloat16), (16, torch.float32),
+                      (61, torch.bfloat16)):
+        x = torch.randn(cs.K, s_, s_, cs.C, generator=g).to(dev, dtype)
+        params = cs.predictor_params(g, dev, dtype)
+        args = (x, valid, params, 8)
+        err = close(emm_predictor_blocked(*args),
+                    emm_predictor_blocked_plain(*args), dtype,
+                    f"emm_predictor_blocked {s_}")
+        record(f"emm_predictor_blocked {s_}x{s_} {str(dtype)[6:]} B=8 "
+               f"{cs.LIVE} live", lambda: emm_predictor_blocked(*args), err,
+               iters=20 if s_ < 61 else 5, split=True)
+    del x, args
+    torch.cuda.empty_cache()
+    gap = golden.matched_gap(golden.run(str(dev), "bfloat16"),
+                             golden.load(os.path.join(
+                                 REPO, "tests", "fixtures",
+                                 "torch_golden_dla34_bf16.npz")))
+    cs.log(f"  bf16 DLA-34 frames against the JAX bf16 rows: "
+           f"{cs.gap_text(gap)}")
+
+
+def other_kernels(cs, dev, record):
+    """Kernels 6, 1, 7, 2, 4, 10 and 5 at chip_smoke's shapes."""
+    import torch
+    from siammot_tpu_torch.ops.window_pool import (window_pool,
+                                                   window_pool_bwd,
+                                                   window_pool_bwd_plain,
+                                                   window_pool_plain)
+    from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
+                                             xcorr_depthwise_masked,
+                                             xcorr_depthwise_plain,
+                                             xcorr_grad_search,
+                                             xcorr_grad_search_plain,
+                                             xcorr_grad_template)
     g = torch.Generator().manual_seed(1)
     n, c = cs.N_TRAIN, cs.C
     for dtype in (torch.float32, torch.bfloat16):
@@ -226,7 +303,6 @@ def main():
         record(f"emm_decode_striped s_hi=976 stripe=16 "
                f"{'gated' if valid is not None else 'ungated'}",
                lambda: emm_decode_striped(*a7, 16), err, iters=5)
-    print("RESULT " + json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

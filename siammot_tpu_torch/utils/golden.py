@@ -21,6 +21,11 @@ public detections (:func:`given_detections`) replacing the RPN;
 ``wide_sr``, ``SEARCH_REGION`` 5 (a 75x75 search region, a 61x61
 response, the striped decode at s_hi 976).  Its keys carry the cut's name
 in front (``given/f0/rows/boxes``); :func:`cut` selects one.
+
+``tests/fixtures/torch_golden_dla34_bf16.npz`` holds the default
+configuration's frames from the JAX step in bf16 (``TPU.COMPUTE_DTYPE``
+and ``TPU.POOLER_DTYPE`` bfloat16): the yardstick of the port's bf16
+frame, whose gap to it :func:`matched_gap` measures.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_golden_dla34.npz")
 TOGGLES_FIXTURE = os.path.join(REPO, "tests", "fixtures",
                                "torch_golden_toggles.npz")
+BF16_FIXTURE = os.path.join(REPO, "tests", "fixtures",
+                            "torch_golden_dla34_bf16.npz")
 WEIGHTS = os.path.join(REPO, "fixtures", "bench_weights_f16.npz")
 N_FRAMES = 4
 H, W = 320, 576           # content = padded size (multiples of 32)
@@ -125,6 +132,51 @@ def run(device: str = "cuda", dtype: str = "float32",
         outs.append(out.numpy())
         states.append(state.numpy())
     return pack(outs, states)
+
+
+def decode_races(device: str = "cuda", dtype: str = "float32",
+                 cut_name: str = None, n: int = 3) -> list:
+    """The ``n`` closest races of the decode's argmax over the golden
+    frames (under the cut ``cut_name``), closest first: for each frame and
+    decoded slot, p_conf's best and second-best cells
+    (``ops/decode.py:penalized_confidence`` over the decode's own inputs)
+    and their gap in ulps of the best.  A gap of 0 is an exact tie, which
+    the first-index rule settles, so any change to the sums before the
+    decode may move that row."""
+    import torch
+
+    from ..models import emm as emm_mod
+    from ..ops.decode import penalized_confidence
+
+    races, calls = [], []
+    inner = emm_mod.decode_argmax
+
+    def wrapped(x4, wh, u, window, valid, sigma, use_c, *rest):
+        slots = (valid.nonzero()[:, 0] if valid is not None
+                 else torch.arange(x4.shape[0], device=x4.device))
+        frame = len(calls)
+        calls.append(len(slots))
+        for i in range(0, len(slots), 8):
+            k = slots[i:i + 8]
+            p, _ = penalized_confidence(x4[k], wh[k], u, window, sigma,
+                                        use_c)
+            top, cell = p.reshape(len(k), -1).topk(2)
+            ulp = torch.nextafter(top[:, 0], torch.full_like(
+                top[:, 0], float("inf"))) - top[:, 0]
+            for j in range(len(k)):
+                races.append(dict(
+                    frame=frame, slot=int(k[j]),
+                    cells=sorted(int(c) for c in cell[j]),
+                    p_conf=[float(v) for v in top[j]],
+                    ulps=float((top[j, 0] - top[j, 1]) / ulp[j])))
+        return inner(x4, wh, u, window, valid, sigma, use_c, *rest)
+
+    emm_mod.decode_argmax = wrapped
+    try:
+        run(device, dtype, cut_name)
+    finally:
+        emm_mod.decode_argmax = inner
+    return sorted(races, key=lambda r: r["ulps"])[:n]
 
 
 def compare(got: dict, want: dict) -> dict:

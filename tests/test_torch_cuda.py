@@ -7,8 +7,9 @@ and without JAX, run them with
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (``--noconftest``: the suite's conftest imports JAX). Shapes are the
-main path's and the other shapes the JAX kernels take (predictor f32,
-29x29 and 61x61 with 1, 37 and 128 live slots, decode s_hi 464 and 512,
+main path's and the other shapes the JAX kernels take (predictor bf16
+and f32 at 16x16, 29x29, 61x61 and two narrow maps with 0, 1, 37 and 128
+live slots, kernel 8 with groups of 2 and 8 slots, decode s_hi 464 and 512,
 the deformable conv at DLA-102's stages and with its taps split, the
 unmasked xcorr's three passes at the training shapes in every dtype mix
 and at other widths, the window pool at each site's size and window with
@@ -16,7 +17,8 @@ every kind of ``valid``, the masked xcorr with 0, 1, 37 and 128 of 128
 slots live at 16x16, 61x61 and two generic widths, the pool's table
 gradient at the three training sites and under a crowded tile), small
 elsewhere. Kernel 2's live slots must equal kernel 6's output bit for
-bit, and kernel 7 must give the same bits from launch to launch.
+bit, kernels 3, 7 and 8 must give the same bits from launch to launch,
+and kernel 8 kernel 3's bits.
 Tolerances as in ``chip_smoke.py``: pool/xcorr f32 sums in another order
 (1e-4 + 1e-3|x|), predictor logits 3e-2 in bf16 (tower rounding) and
 1e-4 in f32, decode idx exact and scores 1e-5, deformable conv 2e-5 of
@@ -150,23 +152,59 @@ def test_predictor_kernel_tiled_shapes(dev, s, c, dtype, tol):
         torch.testing.assert_close(got, want, atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("live", [1, 37, 128])
-@pytest.mark.parametrize("s,c", [(16, 128), (29, 128), (61, 128), (13, 64)])
+_PRED_SHAPES = [(16, 128), (29, 128), (61, 128), (13, 64), (11, 32)]
+
+
+def _predictor_case(dev, s, c, live, dtype, seed=29, k=128):
+    g = torch.Generator().manual_seed(seed)
+    params = _predictor_params(g, c, dtype, dev)
+    x = torch.randn(k, s, s, c, generator=g).to(dev, dtype)
+    valid = torch.zeros(k, dtype=torch.bool)
+    valid[torch.randperm(k, generator=g)[:live]] = True
+    return x, valid.to(dev), params
+
+
+@pytest.mark.parametrize("live", [0, 1, 37, 128])
+@pytest.mark.parametrize("s,c", _PRED_SHAPES)
 def test_predictor_kernel_wgmma(dev, s, c, live):
-    """The bf16 tower conv on wgmma at the main path's 16x16, the AOT
-    recipe's 29x29, SEARCH_REGION 5's 61x61 and a narrow 13x13x64, with
-    1, 37 and all 128 of 128 slots live: against the plain version,
-    dead slots exactly zero."""
-    g = torch.Generator().manual_seed(29)
-    params = _predictor_params(g, c, torch.bfloat16, dev)
-    x = torch.randn(128, s, s, c, generator=g).to(dev, torch.bfloat16)
-    valid = torch.zeros(128, dtype=torch.bool)
-    valid[torch.randperm(128, generator=g)[:live]] = True
-    valid = valid.to(dev)
+    """The bf16 tower conv on wgmma and the head pass at the main path's
+    16x16, the AOT recipe's 29x29, SEARCH_REGION 5's 61x61 (head bands
+    starting mid-row) and narrow 13x13x64 and 11x11x32 maps, with 0, 1,
+    37 and all 128 of 128 slots live: against the plain version, dead
+    slots exactly zero."""
+    x, valid, params = _predictor_case(dev, s, c, live, torch.bfloat16)
     for got, want in zip(emm_predictor(x, valid, params),
                          emm_predictor_plain(x, valid, params)):
         assert (got[~valid] == 0).all()
         torch.testing.assert_close(got, want, atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("live", [0, 1, 37, 128])
+@pytest.mark.parametrize("s,c", _PRED_SHAPES)
+def test_predictor_kernel_f32_live_slots(dev, s, c, live):
+    """The f32 form (FFMA tower conv, the same head pass) at the same
+    shapes and occupancies: within 1e-4 of the plain version."""
+    x, valid, params = _predictor_case(dev, s, c, live, torch.float32)
+    for got, want in zip(emm_predictor(x, valid, params),
+                         emm_predictor_plain(x, valid, params)):
+        assert (got[~valid] == 0).all()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [16, 61])
+def test_predictor_kernels_repeat_bitwise(dev, s, dtype):
+    """Kernels 3 and 8 give the same bits launched twice (the GroupNorm
+    partials are added in a fixed order, no atomics), and kernel 8, which
+    runs kernel 3's kernels over groups of slots, gives kernel 3's bits."""
+    from siammot_tpu_torch.ops.predictor import emm_predictor_blocked
+    x, valid, params = _predictor_case(dev, s, 128, 37, dtype, seed=31)
+    first = emm_predictor(x, valid, params)
+    for out in (emm_predictor(x, valid, params),
+                emm_predictor_blocked(x, valid, params, 8),
+                emm_predictor_blocked(x, valid, params, 8)):
+        for a, b in zip(first, out):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("s,up", [(29, 16), (32, 16), (13, 16), (16, 8)])
@@ -543,6 +581,29 @@ def test_predictor_blocked_kernel(dev, dtype, tol):
                              emm_predictor_blocked_plain(*args)):
             assert (got[~valid.to(dev)] == 0).all()
             torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,s,c,block", [(32, 16, 128, 2), (32, 16, 128, 8),
+                                         (16, 29, 64, 2), (32, 61, 128, 8)])
+def test_predictor_blocked_kernel_groups(dev, dtype, k, s, c, block):
+    """Kernel 8 with groups of 2 and 8 slots, at 16x16, 29x29 and 61x61:
+    the live slots at the front as the step's top-k leaves them, so some
+    groups hold no live slot and one is mixed; against its plain version,
+    dead slots exactly zero."""
+    from siammot_tpu_torch.ops.predictor import (emm_predictor_blocked,
+                                                 emm_predictor_blocked_plain)
+    g = torch.Generator().manual_seed(k + s + block)
+    params = _predictor_params(g, c, dtype, dev)
+    x = torch.randn(k, s, s, c, generator=g).to(dev, dtype)
+    valid = torch.zeros(k, dtype=torch.bool, device=dev)
+    valid[:block + block // 2 + 1] = True
+    args = (x, valid, params, block)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(emm_predictor_blocked(*args),
+                         emm_predictor_blocked_plain(*args)):
+        assert (got[~valid] == 0).all()
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -2,7 +2,7 @@
 rows and track-state lanes for the port's end-to-end check
 (``siammot_tpu_torch/utils/golden.py`` says what it holds).
 
-    JAX_PLATFORMS=cpu python tests/torch_port_golden.py [--toggles]
+    JAX_PLATFORMS=cpu python tests/torch_port_golden.py [--toggles | --bf16]
 
 Runs ``SiamMOT.forward_inference`` of the JAX package on the CPU (jitted
 step, Pallas kernels in interpret mode or through their XLA forms, as the
@@ -13,6 +13,9 @@ first frames at 320x576.  Takes a few minutes.  ``--toggles`` writes
 under each cut of ``golden.CUTS`` (given public detections with the
 MOT17 recipe's overrides, ``TPU.MASKED_TRACK_KERNELS`` False,
 ``SEARCH_REGION`` 5), each cut's keys prefixed with its name.
+``--bf16`` writes ``tests/fixtures/torch_golden_dla34_bf16.npz``: the
+default configuration's frames with ``TPU.COMPUTE_DTYPE`` and
+``TPU.POOLER_DTYPE`` bfloat16, the yardstick of the port's bf16 frame.
 """
 
 import os
@@ -35,12 +38,13 @@ from siammot_tpu_torch.utils.weights import load_npz  # noqa: E402
 from torch_port_util import unflatten_params  # noqa: E402
 
 
-def run_jax(cut_name=None):
+def run_jax(cut_name=None, dtype="float32"):
     """The JAX step over the golden frames (under a cut of
-    ``golden.CUTS``): ``golden.pack`` of its rows and states."""
+    ``golden.CUTS``) in ``dtype``: ``golden.pack`` of its rows and
+    states."""
     t0 = time.time()
     cfg = get_cfg()
-    cfg.merge_from_list(golden.overrides("float32", cut_name))
+    cfg.merge_from_list(golden.overrides(dtype, cut_name))
     model = SiamMOT(cfg)
     params = jax.tree.map(jnp.asarray,
                           unflatten_params(load_npz(golden.WEIGHTS)))
@@ -74,6 +78,8 @@ def main():
         path = golden.TOGGLES_FIXTURE
         data = {f"{name}/{k}": v for name in golden.CUTS
                 for k, v in run_jax(name).items()}
+    elif "--bf16" in sys.argv[1:]:
+        path, data = golden.BF16_FIXTURE, run_jax(dtype="bfloat16")
     else:
         path, data = golden.FIXTURE, run_jax()
     os.makedirs(os.path.dirname(path), exist_ok=True)
