@@ -106,7 +106,27 @@ Phases, each printed as it finishes:
      ``TPU.MASKED_TRACK_KERNELS`` False at 720p (kernel 6's forward,
      kernel 10); (6c) ``SEARCH_REGION`` 5 at 720p (a 75x75 search region,
      kernel 2 at 75 -> 61, kernel 3 at 61x61, kernel 5 at
-     s_hi 976).
+     s_hi 976);
+  7. dataset inference through ``tools/test_net``'s main function over
+     the committed 16-frame 640x384 sequence ``tests/fixtures/
+     synmot_mini`` on the bench weights (``utils/dataset_golden.py``):
+     (7a) the frames through the port's reader on the card (nvJPEG; the
+     machine has no libjpeg) against the sha256 of the JAX package's
+     decode, with the largest byte difference to Pillow's libjpeg decode
+     where Pillow is there and hashes to the JAX package's; (7b) the
+     bench weights saved as a port checkpoint from the card and read back
+     bit for bit by ``--model-file``'s loader; (7c) bf16 in
+     public-detection and RPN mode: the main path's four kernels'
+     launches a frame, each kernel against its plain version on the
+     last frame's inputs, a second call that reads the per-video JSON
+     cache and runs no frame, the CLEAR-MOT summary beside the JAX
+     golden's and the "Speed" in frames per second; (7d) the same two
+     modes in f32, held to the JAX golden (``tests/fixtures/
+     torch_golden_dataset.json.gz``): on libjpeg's frames per-video JSON,
+     tracks and summary within the CPU's tolerances; on nvJPEG's the
+     summary's MOTA and IDF1 within ``DECODED_ELSEWHERE_ATOL``, and the
+     same runs on the JAX package's bytes (Pillow's decode) within the
+     CPU's tolerances.
 
 Each end-to-end phase sets every kernel's launch count to 0 just before
 it drives its path and reads the counts just after.
@@ -116,10 +136,12 @@ It prints a JSON line of per-kernel numbers, then, last,
 so does a machine without a CUDA device, or a directory without the port.
 """
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -755,20 +777,19 @@ def _wrappers():
             "deform_conv": deform_conv2d}
 
 
-def drive_frames(model, params, stream, image_size, per_frame, **track_kw):
-    """``track_frames`` over ``stream`` with every kernel's count set to
-    0 just before and read just after; each must equal ``per_frame`` of
-    it times the frames (0 if not listed).  Keeps the inputs each stage
-    got at the last frame (by reference: no copies inside the timed
+@contextlib.contextmanager
+def kernel_capture():
+    """Every kernel's count set to 0 on entry and read on exit into the
+    yielded ``(captured, launches)``; meanwhile the inputs each stage got
+    at the last frame are kept (by reference: no copies inside a timed
     loop): the pools, the xcorr (masked or unmasked), the predictor
     (per-slot or blocked), the decode's dispatch and the deformable
     convs."""
     import siammot_tpu_torch.models.dla as dla_mod
     import siammot_tpu_torch.models.emm as emm_mod
     import siammot_tpu_torch.ops.roi_align_windowed as rw_mod
-    from siammot_tpu_torch.engine.inferencer import track_frames
 
-    captured = {}
+    captured, launches = {}, {}
 
     def capture(name, fn, keep):
         def wrapped(*args):
@@ -792,17 +813,30 @@ def drive_frames(model, params, stream, image_size, per_frame, **track_kw):
     try:
         for fn in counters.values():
             fn.launches = 0
-        result = track_frames(model, params, stream, image_size, **track_kw)
-        launches = {n: fn.launches for n, fn in counters.items()}
+        yield captured, launches
+        launches.update({n: fn.launches for n, fn in counters.items()})
     finally:
         for m, n, f in originals:
             setattr(m, n, f)
-    n = len(stream)
+
+
+def check_launches(launches, per_frame, n):
+    """Each kernel's count must equal ``per_frame`` of it times the ``n``
+    frames (0 if not listed); returns the kernels launched."""
     for name, count in launches.items():
         if count != per_frame.get(name, 0) * n:
             raise AssertionError(f"{name}: {count} launches over {n} frames, "
                                  f"expected {per_frame.get(name, 0) * n}")
-    return result, {k: v for k, v in launches.items() if v}, captured
+    return {k: v for k, v in launches.items() if v}
+
+
+def drive_frames(model, params, stream, image_size, per_frame, **track_kw):
+    """``track_frames`` over ``stream`` inside :func:`kernel_capture`; each
+    kernel's count must equal ``per_frame`` of it times the frames."""
+    from siammot_tpu_torch.engine.inferencer import track_frames
+    with kernel_capture() as (captured, launches):
+        result = track_frames(model, params, stream, image_size, **track_kw)
+    return result, check_launches(launches, per_frame, len(stream)), captured
 
 
 def check_last_frame(result, k_slots):
@@ -2095,6 +2129,245 @@ def toggles_phase(dev, report, card):
     return out
 
 
+# -- phase 7: dataset inference through tools/test_net -----------------------
+
+def decode_phase(dev):
+    """7a: the committed sequence's frames through the port's reader on
+    the card against the digests of the JAX package's decode (libjpeg),
+    and the largest byte difference where it can be measured."""
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.data import native
+    from siammot_tpu_torch.data.transforms import EvalTransform
+    from siammot_tpu_torch.data.video_loader import normalized_frame_source
+    from siammot_tpu_torch.utils import dataset_golden as dg
+    t0 = time.perf_counter()
+    reader = native.FrameReader(dev)
+    built = time.perf_counter() - t0
+    cfg = get_cfg()
+    cfg.merge_from_file(dg.RECIPE)
+    want = dg.load()
+    frames = [x for x, _ in normalized_frame_source(
+        dg.SEQUENCE, EvalTransform(cfg), device=dev)]
+    got = dg.frame_digests(frames)
+    ref = want["frames"][dg.VIDEO]
+    same = sum(a == b for a, b in zip(got, ref))
+    log(f"  decoder {reader.decoder} (built in {built:.1f} s); {same} of "
+        f"{len(ref)} frames' sha256 equal to the JAX package's "
+        f"({want['decoder']}) decode")
+    if len(got) != len(ref):
+        raise AssertionError(f"{len(got)} frames decoded, {len(ref)} "
+                             f"expected")
+    diff = libjpeg_byte_difference(frames, ref)
+    if reader.decoder == "libjpeg" and same != len(ref):
+        raise AssertionError(f"{len(ref) - same} of {len(ref)} frames decode "
+                             f"to other bytes than the JAX package's")
+    return reader.decoder, same, diff
+
+
+def libjpeg_byte_difference(frames, ref):
+    """The largest byte difference between the port's frames and libjpeg's
+    decode of the same files, through Pillow's bundled libjpeg where this
+    machine has Pillow and its decode hashes to the JAX package's (the
+    JAX digests alone cannot give a difference).  None when not measured."""
+    try:
+        from PIL import Image
+    except ImportError:
+        log("  largest byte difference to libjpeg: not measured (no Pillow "
+            "here)")
+        return None
+    from siammot_tpu_torch.data.video_loader import jpeg_files
+    from siammot_tpu_torch.utils import dataset_golden as dg
+    pil = [np.asarray(Image.open(f).convert("RGB"))[None]
+           for f in jpeg_files(dg.SEQUENCE)]
+    if dg.frame_digests(pil) != ref:
+        log("  largest byte difference to libjpeg: not measured (Pillow's "
+            "decode is not the JAX package's)")
+        return None
+    d = [np.abs(a.astype(np.int16) - b.astype(np.int16)) for a, b in
+         zip(frames, pil)]
+    worst = max(int(x.max()) for x in d)
+    log(f"  Pillow's libjpeg decode hashes to the JAX package's; the port's "
+        f"frames differ from it by at most {worst} (of 255), "
+        f"{np.mean([(x > 0).mean() for x in d]):.4f} of the bytes differ, "
+        f"mean |d| {np.mean([x.mean() for x in d]):.4f}")
+    return worst
+
+
+def checkpoint_phase(dev, out_dir):
+    """7b: the bench weights as a port checkpoint (``Checkpointer.save``
+    from the card) read back by ``load_model_file`` (what ``--model-file``
+    calls), bit for bit.  Returns the checkpoint's path."""
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils.checkpoint import (Checkpointer,
+                                                    load_model_file)
+    from siammot_tpu_torch.utils.dataset_golden import WEIGHTS
+    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
+    sd = jax_to_torch(load_npz(WEIGHTS))
+    path = Checkpointer(out_dir).save(0, {k: v.to(dev) for k, v in
+                                          sd.items()})
+    back = load_model_file(path, SiamMOT(get_cfg(), device=str(dev)))
+    bad = [k for k in sd if k not in back or back[k].dtype != sd[k].dtype
+           or not torch.equal(back[k], sd[k])]
+    if bad or set(back) != set(sd):
+        raise AssertionError(f"checkpoint round trip: {len(bad)} tensors "
+                             f"differ, e.g. {bad[:3]}")
+    log(f"  {len(sd)} tensors saved from the card to "
+        f"{os.path.basename(path)} ({os.path.getsize(path)} B) and read "
+        f"back bit for bit")
+    return path
+
+
+def dataset_run(dev, report, card, run, out_dir, model_file, check=True):
+    """One run of ``utils/dataset_golden.RUNS`` through the port's
+    ``tools/test_net`` main function on the card: 4 kernels' launches a
+    frame, each kernel against its plain version on the last frame's
+    inputs (with ``check``), then a second call that reads the per-video
+    cache and runs no frame.  Returns (frames per second, the
+    ``DatasetInference``)."""
+    from siammot_tpu_torch.tools import test_net
+    from siammot_tpu_torch.utils import dataset_golden as dg
+    args = dg.cli_args(run, out_dir, model_file, device=str(dev))
+    with kernel_capture() as (captured, launches):
+        inf = test_net.main(args)
+    what = f"dataset_{run}"
+    n, seconds = inf.speed[dg.VIDEO]
+    counts = check_launches(launches, MAIN_PATH, n)
+    for name, count in counts.items():
+        report[name].setdefault("launches_by_path", {})[what] = count
+        report[name]["launches"] = report[name].get("launches", 0) + count
+    if check:
+        check_captured(captured, report, what)
+    with kernel_capture() as (_, again):
+        cached = test_net.main(args)
+    if any(again.values()) or cached.speed \
+            or dg.summaries(cached.accs) != dg.summaries(inf.accs):
+        raise AssertionError(f"{run}: the second call did not read the "
+                             f"cache ({again}, {cached.speed})")
+    log(f"  {what}: {n} frames, Speed {n / seconds:.3f} fps ({card}; first "
+        f"frame included); launches {counts}; cache read back with no "
+        f"frame step")
+    return n / seconds, inf
+
+
+@contextlib.contextmanager
+def jax_bytes_reader():
+    """The frames as the JAX package decoded them, in place of the port's
+    reader: Pillow's bundled libjpeg, whose digests of the committed
+    sequence ``libjpeg_byte_difference`` checked against the JAX
+    package's, resized (where needed) by the port's bilinear.  Only the
+    check that separates the decoder from the rest of the path uses it."""
+    from PIL import Image
+
+    from siammot_tpu_torch.data import native
+
+    class PillowReader:
+        decoder = "Pillow's libjpeg"
+
+        def __init__(self, device="cpu"):
+            pass
+
+        def decode(self, path, out_w, out_h):
+            img = np.array(Image.open(path).convert("RGB"))
+            if img.shape[:2] == (out_h, out_w):
+                return img
+            return native.resize_u8(img, out_w, out_h)
+
+        def decode_normalize(self, path, out_w, out_h, mean, std):
+            img = np.array(Image.open(path).convert("RGB"))
+            return native.resize_normalize(img, out_w, out_h, mean, std)
+
+    port_reader = native.FrameReader
+    native.FrameReader = PillowReader
+    try:
+        yield
+    finally:
+        native.FrameReader = port_reader
+
+
+def dataset_phase(dev, report, card):
+    """Phase 7: dataset inference over ``tests/fixtures/synmot_mini``
+    through ``tools/test_net`` on the card: 7a decode, 7b checkpoint, 7c
+    the bf16 runs (each kernel against its plain version on the last
+    frame's inputs; summaries beside the JAX golden's), 7d the f32 runs,
+    held to the JAX golden (``utils/dataset_golden.py``): on libjpeg's
+    frames (the JAX package's bytes) per-video JSON, tracks and summary
+    within the CPU's tolerances; on nvJPEG's the summary within
+    ``DECODED_ELSEWHERE_ATOL``, and then also on the JAX package's bytes
+    (Pillow's libjpeg, where this machine has it) within the CPU's
+    tolerances."""
+    from siammot_tpu_torch.data.motion_dataset import DataSample
+    from siammot_tpu_torch.tools import test_net
+    from siammot_tpu_torch.utils import dataset_golden as dg
+    golden = dg.load()["runs"]
+    out = {}
+
+    def hold_exact(run, inf, out_dir, what):
+        pred = DataSample.load(os.path.join(out_dir,
+                                            f"{dg.VIDEO}.json")).to_dict()
+        err = dg.compare_samples(pred, golden[run]["predictions"][dg.VIDEO],
+                                 what)
+        terr = dg.compare_samples(inf.results[dg.VIDEO].to_dict(),
+                                  golden[run]["tracks"][dg.VIDEO],
+                                  f"{what} tracks")
+        serr = dg.compare_summaries(dg.summaries(inf.accs),
+                                    golden[run]["summary"], what)
+        log(f"    {what} held to the JAX golden: {len(pred['entities'])} "
+            f"entities, ids, frames and labels exact, max box err "
+            f"{err['box']:.4g} px, max confidence err {err['conf']:.4g} "
+            f"(tracks {terr['box']:.4g} px, {terr['conf']:.4g}); summary "
+            f"max diff {serr:.3g}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        log("[7a] decode:")
+        decoder, _, byte_diff = decode_phase(dev)
+        log("[7b] checkpoint round trip on the card:")
+        ckpt = checkpoint_phase(dev, os.path.join(tmp, "ckpt"))
+        for step, dtype in (("7c", "bf16"), ("7d", "f32")):
+            log(f"[{step}] {dtype}: public-detection and RPN mode "
+                f"({decoder} frames):")
+            for mode in dg.MODES:
+                run = f"{mode}_{dtype}"
+                out_dir = os.path.join(tmp, run)
+                # the f32 runs are held to the JAX golden, which their rows
+                # must meet, in place of the kernel checks
+                fps, inf = dataset_run(dev, report, card, run, out_dir, ckpt,
+                                       check=dtype == "bf16")
+                got = dg.summaries(inf.accs)
+                log(f"    port {dg.summary_line(got['OVERALL'])}")
+                log(f"    JAX  "
+                    f"{dg.summary_line(golden[run]['summary']['OVERALL'])}")
+                out[run] = (fps, got["OVERALL"])
+                if dtype == "bf16":
+                    continue
+                if decoder == "libjpeg":
+                    hold_exact(run, inf, out_dir, run)
+                    continue
+                d = dg.compare_summary_band(got, golden[run]["summary"], run)
+                log(f"    {run} on {decoder}'s frames (largest byte "
+                    f"difference {byte_diff}): MOTA {d['mota']:.4f} and IDF1 "
+                    f"{d['idf1']:.4f} from JAX's (limit "
+                    f"{dg.DECODED_ELSEWHERE_ATOL})")
+                if byte_diff is None:
+                    log(f"    {run} on the JAX package's bytes: not measured "
+                        f"(no Pillow whose decode is the JAX package's)")
+                    continue
+                jax_dir = os.path.join(tmp, f"{run}_jax_bytes")
+                with jax_bytes_reader(), kernel_capture() as (_, launches):
+                    jinf = test_net.main(dg.cli_args(run, jax_dir, ckpt,
+                                                     device=str(dev)))
+                counts = check_launches(launches, MAIN_PATH,
+                                        jinf.speed[dg.VIDEO][0])
+                for name, count in counts.items():
+                    report[name]["launches_by_path"][f"dataset_{run}_jax"] = \
+                        count
+                    report[name]["launches"] += count
+                hold_exact(run, jinf, jax_dir, f"{run} (JAX's bytes)")
+        log(f"  phase 7 wall time {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2194,6 +2467,12 @@ def main():
     toggles = toggles_phase(dev, report, card)
     log(f"[6] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[7] dataset inference through tools/test_net over "
+        f"tests/fixtures/synmot_mini (DLA-34-FPN-EMM, bench weights; {card}):")
+    dataset = dataset_phase(dev, report, card)
+    log(f"[7] done in {time.perf_counter() - t0:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
@@ -2210,7 +2489,10 @@ def main():
         f"MOT17 given {toggles['6a'][0]:.3f} ms/frame ({toggles['6a'][1]} "
         f"live), unmasked {toggles['6b'][0]:.3f} ({toggles['6b'][1]}), "
         f"SEARCH_REGION 5 {toggles['6c'][0]:.3f} ({toggles['6c'][1]}); "
-        f"card {card}")
+        f"dataset Speed "
+        + ", ".join(f"{run} {fps:.3f} fps (MOTA {s['mota']:.4f})"
+                    for run, (fps, s) in dataset.items())
+        + f"; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

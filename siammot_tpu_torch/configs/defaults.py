@@ -97,7 +97,17 @@ _C.INFERENCE.USE_GIVEN_DETECTIONS = False
 _C.INFERENCE.CLIP_LEN = 1
 
 _C.DATALOADER = CN()
+_C.DATALOADER.NUM_WORKERS = 4
 _C.DATALOADER.SIZE_DIVISIBILITY = 32
+_C.DATALOADER.ASPECT_RATIO_GROUPING = False
+
+# dataset keys of data/dataset_info.py, under ROOT_DIR
+_C.DATASETS = CN()
+_C.DATASETS.TRAIN = ()
+_C.DATASETS.TEST = ()
+_C.DATASETS.ROOT_DIR = ""
+
+_C.OUTPUT_DIR = "."
 
 _C.SOLVER = CN()
 _C.SOLVER.BASE_LR = 0.02
@@ -124,6 +134,13 @@ _C.TPU.COMPUTE_DTYPE = "bfloat16"
 # dtype of the stacked FPN table the window pool reads at inference
 # (training always packs an f32 table)
 _C.TPU.POOLER_DTYPE = "bfloat16"
+# the JAX package's padded detection capacity; neither package's step
+# reads it, it is here so that options naming it apply
+_C.TPU.MAX_DETECTIONS = 256
+# ship raw uint8 frames and normalise them on the device
+# (models/siammot.normalize_images); False normalises on the host
+# (data/transforms.EvalTransform)
+_C.TPU.DEVICE_NORMALIZE = True
 # padded ground-truth capacity per training frame
 _C.TPU.MAX_GT = 100
 # per-site window sizes of the windowed pool (feature px, rows == cols)

@@ -45,6 +45,15 @@ class ScheduledSGD:
         self.schedule = schedule
         self.count = 0
 
+    def state_dict(self) -> dict:
+        """The SGD state (momentum buffers, groups) and the update count:
+        the schedule's place, so a resumed run does not warm up again."""
+        return {"sgd": self.sgd.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.sgd.load_state_dict(state["sgd"])
+        self.count = int(state["count"])
+
     def zero_grad(self) -> None:
         self.sgd.zero_grad(set_to_none=True)
 

@@ -2,7 +2,9 @@
 and ``SmoothedValue``).
 
 Iteration-based, with periodic smoothed-loss logging and optional
-periodic checkpoints.  Each iteration's sampler draws come from a
+periodic checkpoints (``utils.checkpoint.Checkpointer``; ``utils.
+checkpoint.resume`` loads the latest into the net and the optimizer and
+gives ``start_iter``).  Each iteration's sampler draws come from a
 generator seeded by (seed, iteration), as the JAX loop folds the
 iteration into its key, so a run resumed at iteration k draws what the
 uninterrupted run drew.  SIGTERM, or a stop file at a step boundary,

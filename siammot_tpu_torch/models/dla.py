@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -212,6 +213,97 @@ class S2DStem(nn.Module):
         x = F.relu(self.s2d_level0_bn(self.s2d_level0_conv(x)))
         x = self.s2d_level1_conv(F.pad(x, (1, 0, 1, 0)))
         return F.relu(self.s2d_level1_bn(x))
+
+
+# -- the plain stem's weights <-> the S2D stem's (own copies of
+# ``siammot_tpu/models/dla.py:_phase_decompose``, ``stem_to_s2d`` and
+# ``s2d_to_stem``; numpy, HWIO kernels, as the flax tree holds them) -------
+
+def _phase_decompose(kernel: np.ndarray, pad: int, out_phases: bool):
+    """Standard [kh, kw, ci, co] stride-1 kernel -> S2D kernel.
+
+    S2D input channels are ordered (alpha, beta, c); output channels
+    (a, b, o) when ``out_phases`` (stride-1 full-res output) else plain o
+    (stride-2 output on the phase grid, i.e. a = b = 0).
+    """
+    kh, kw, ci, co = kernel.shape
+    a_range = (0, 1) if out_phases else (0,)
+    # tap index s = a + u - pad = 2U + alpha
+    s_lo = min(a_range) - pad
+    s_hi = max(a_range) + kh - 1 - pad
+    u_lo, u_hi = s_lo >> 1, s_hi >> 1
+    kh2 = u_hi - u_lo + 1
+    n_out = 4 * co if out_phases else co
+    out = np.zeros((kh2, kh2, 4 * ci, n_out), kernel.dtype)
+    for a in a_range:
+        for b_ in a_range:
+            for u in range(kh):
+                for v in range(kw):
+                    sy, sx = a + u - pad, b_ + v - pad
+                    uy, al = sy >> 1, sy & 1
+                    ux, be = sx >> 1, sx & 1
+                    oc = slice((a * 2 + b_) * co, (a * 2 + b_ + 1) * co) \
+                        if out_phases else slice(0, co)
+                    ic = slice((al * 2 + be) * ci, (al * 2 + be + 1) * ci)
+                    out[uy - u_lo, ux - u_lo, ic, oc] = kernel[u, v]
+    return out, (-u_lo, u_hi)
+
+
+def stem_to_s2d(base_k, base_bn, l0_k, l0_bn, l1_k, l1_bn) -> dict:
+    """Map standard stem weights (HWIO kernels + {scale, bias} FrozenBN
+    pairs) onto the S2D stem's flax tree.  Exact."""
+
+    def tile_bn(bn):
+        return {"scale": np.tile(np.asarray(bn["scale"]), 4),
+                "bias": np.tile(np.asarray(bn["bias"]), 4)}
+
+    k_base, _ = _phase_decompose(np.asarray(base_k), pad=3, out_phases=True)
+    k_l0, _ = _phase_decompose(np.asarray(l0_k), pad=1, out_phases=True)
+    k_l1, _ = _phase_decompose(np.asarray(l1_k), pad=1, out_phases=False)
+    return {
+        "s2d_base_conv": {"kernel": k_base},
+        "s2d_base_bn": tile_bn(base_bn),
+        "s2d_level0_conv": {"kernel": k_l0},
+        "s2d_level0_bn": tile_bn(l0_bn),
+        "s2d_level1_conv": {"kernel": k_l1},
+        "s2d_level1_bn": {"scale": np.asarray(l1_bn["scale"]),
+                          "bias": np.asarray(l1_bn["bias"])},
+    }
+
+
+def s2d_to_stem(s2d: dict, c0: int, c1: int) -> dict:
+    """Inverse of ``stem_to_s2d``: recover the standard stem weights.
+    Every original tap appears once in each output-phase block, so the
+    (a, b) = (0, 0) block suffices."""
+
+    def un_phase(k2, kh, pad, ci, co):
+        k = np.zeros((kh, kh, ci, co), np.asarray(k2).dtype)
+        u_lo = (-pad) >> 1
+        for u in range(kh):
+            for v in range(kh):
+                sy, sx = u - pad, v - pad
+                uy, al = sy >> 1, sy & 1
+                ux, be = sx >> 1, sx & 1
+                ic = slice((al * 2 + be) * ci, (al * 2 + be + 1) * ci)
+                k[u, v] = np.asarray(k2)[uy - u_lo, ux - u_lo, ic, :co]
+        return k
+
+    def untile_bn(bn, c):
+        return {"scale": np.asarray(bn["scale"])[:c],
+                "bias": np.asarray(bn["bias"])[:c]}
+
+    return {
+        "base_conv": {"kernel": un_phase(
+            s2d["s2d_base_conv"]["kernel"], 7, 3, 3, c0)},
+        "base_bn": untile_bn(s2d["s2d_base_bn"], c0),
+        "level0_conv0": {"kernel": un_phase(
+            s2d["s2d_level0_conv"]["kernel"], 3, 1, c0, c0)},
+        "level0_bn0": untile_bn(s2d["s2d_level0_bn"], c0),
+        "level1_conv0": {"kernel": un_phase(
+            s2d["s2d_level1_conv"]["kernel"], 3, 1, c0, c1)},
+        "level1_bn0": {"scale": np.asarray(s2d["s2d_level1_bn"]["scale"]),
+                       "bias": np.asarray(s2d["s2d_level1_bn"]["bias"])},
+    }
 
 
 # variants (reference dla.py:307-374); Res2Net bodies are not ported

@@ -1,36 +1,22 @@
 """Boxes <-> AnnoEntity bridging (own copy of
 ``siammot_tpu.utils.entities``).
 
-Converts a frame's padded ``Boxes`` rows to ``AnnoEntity`` records
-(original-resolution xywh, confidence, {class: confidence} labels, id,
-time) and given public detections (MOT17's, for instance) back into
-padded tensors in network-input coordinates.  ``AnnoEntity`` keeps the
-fields of ``siammot_tpu/data/motion_dataset.py:AnnoEntity`` that these two
-functions use.
+Converts a frame's padded ``Boxes`` rows to ``data.motion_dataset.
+AnnoEntity`` records (original-resolution xywh, confidence, {class:
+confidence} labels, id, time, frame index) and given public detections
+(MOT17's, for instance) back into padded tensors in network-input
+coordinates.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import torch
 
 from ..core.structures import Boxes
+from ..data.motion_dataset import AnnoEntity
 
 DEFAULT_CLASS_TABLE = {1: "person", 2: "vehicle"}
-
-
-@dataclasses.dataclass
-class AnnoEntity:
-    """One box annotation or prediction at one video time."""
-
-    time: float = 0.0                 # milliseconds
-    id: int = -1
-    bbox: list = None                 # [x, y, w, h]
-    confidence: float = 1.0
-    labels: dict = dataclasses.field(default_factory=dict)
-    blob: dict = dataclasses.field(default_factory=dict)
 
 
 def boxes_to_entities(out: dict, frame_idx: int, time_ms: float,
@@ -49,14 +35,14 @@ def boxes_to_entities(out: dict, frame_idx: int, time_ms: float,
         x1, y1, x2, y2 = boxes[i]
         x1, x2 = x1 * sx, x2 * sx
         y1, y2 = y1 * sy, y2 * sy
+        e = AnnoEntity(time=time_ms, id=int(ids[i]))
+        e.bbox = [float(x1), float(y1),
+                  float(x2 - x1 + 1), float(y2 - y1 + 1)]
+        e.confidence = float(scores[i])
         name = class_table.get(int(labels[i]), str(int(labels[i])))
-        entities.append(AnnoEntity(
-            time=time_ms, id=int(ids[i]),
-            bbox=[float(x1), float(y1), float(x2 - x1 + 1),
-                  float(y2 - y1 + 1)],
-            confidence=float(scores[i]),
-            labels={name: float(scores[i])},
-            blob={"frame_idx": int(frame_idx)}))
+        e.labels = {name: float(scores[i])}
+        e.blob = {"frame_idx": int(frame_idx)}
+        entities.append(e)
     return entities
 
 

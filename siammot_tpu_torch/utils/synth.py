@@ -188,7 +188,7 @@ def public_detections(boxes, frame_wh, seed: int = 0,
                       scale_xy=(1.0, 1.0), drop: float = 0.1,
                       false_positives: int = 3) -> list:
     """Public detections of the sprites, per frame a list of
-    ``utils.entities.AnnoEntity`` in original-resolution xywh.
+    ``data.motion_dataset.AnnoEntity`` in original-resolution xywh.
 
     boxes: per frame the sprite boxes [N, 4] (inclusive pixel corners,
     ``render_scene``) of a frame of ``frame_wh`` (w, h); scale_xy: the
@@ -201,7 +201,7 @@ def public_detections(boxes, frame_wh, seed: int = 0,
     """
     import torch
 
-    from .entities import AnnoEntity
+    from ..data.motion_dataset import AnnoEntity
 
     g = torch.Generator().manual_seed(seed)
     fw, fh = frame_wh
@@ -232,8 +232,9 @@ def public_detections(boxes, frame_wh, seed: int = 0,
         frame = []
         for (x, y), (w, h), c in zip(x1y1.tolist(), wh.tolist(),
                                      conf.tolist()):
-            frame.append(AnnoEntity(
-                bbox=[x * sx, y * sy, (w - 1) * sx + 1, (h - 1) * sy + 1],
-                confidence=c, labels={"person": c}))
+            e = AnnoEntity()
+            e.bbox = [x * sx, y * sy, (w - 1) * sx + 1, (h - 1) * sy + 1]
+            e.confidence, e.labels = c, {"person": c}
+            frame.append(e)
         out.append(frame)
     return out

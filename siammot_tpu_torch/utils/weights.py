@@ -18,9 +18,11 @@ alone; only the leaf and the layout change:
 
 A JAX gradient tree has the parameter tree's layout, so the same
 conversion carries gradients across (the training parity tests do).
-``load_npz`` reads the f16 bench weights as f32: the training step's
-master parameters (``SiamMOT.build_master``).  ``seeded_params`` draws
-weights for a network the repo has none for (the DCN bodies).
+:func:`torch_to_jax` is its inverse, for writing the flat tree back
+(``save_npz``).  ``load_npz`` reads the f16 bench weights as f32: the
+training step's master parameters (``SiamMOT.build_master``).
+``seeded_params`` draws weights for a network the repo has none for (the
+DCN bodies).
 """
 
 from __future__ import annotations
@@ -61,6 +63,37 @@ def jax_to_torch(flat: dict) -> dict:
             raise KeyError(f"two keys map to {name}")
         out[name] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def torch_to_jax(state_dict: dict) -> dict:
+    """Inverse of :func:`jax_to_torch`: a port state dict -> the flat flax
+    tree (``{"params/...": ndarray}``, dtypes kept).  A ``weight`` is a
+    conv or dense weight and goes back to HWIO or [in, out] under
+    ``kernel``; ``kernel``, ``bias`` and ``scale`` keep their layout."""
+    out = {}
+    for name, t in state_dict.items():
+        path, leaf = name.rsplit(".", 1)
+        a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t)
+        if leaf == "weight":
+            if a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:
+                a = a.T
+            else:
+                raise ValueError(f"unexpected weight rank {a.ndim}: {name}")
+            leaf = "kernel"
+        elif leaf not in ("kernel", "bias", "scale"):
+            raise KeyError(f"unknown parameter leaf: {name}")
+        out["params/" + path.replace(".", "/") + "/" + leaf] = \
+            np.ascontiguousarray(a)
+    return out
+
+
+def save_npz(path: str, state_dict: dict) -> None:
+    """Write a port state dict as a flat flax-tree ``.npz`` (the layout of
+    ``fixtures/bench_weights_f16.npz``, which the JAX package reads)."""
+    np.savez(path, **torch_to_jax(state_dict))
 
 
 def load_npz(path: str) -> dict:

@@ -1,16 +1,20 @@
-"""The port stands alone: with ``jax``, ``flax``, ``yaml``, ``siammot_tpu``,
-``tests`` and ``tools`` unimportable (as on the machine with the card,
-which has none of the first three), every module of ``siammot_tpu_torch``
-and ``chip_smoke`` imports, two frames of ``track_frames`` run on the
+"""The port stands alone: with ``jax``, ``flax``, ``yaml``, ``cv2``,
+``siammot_tpu``, ``tests`` and ``tools`` unimportable (as on the machine
+with the card, which has none of the first four), every module of
+``siammot_tpu_torch`` and ``chip_smoke`` imports, two frames of
+``track_frames`` run on the
 CPU (and one frame of a DLA-46-C-FPN body with deformable stages), and
 so does the training slice's code: a synthetic 720p training
 batch (``utils/synth.train_batches``), the samplers (``core/matcher``,
 ``models/emm_sampler``), the optimizer (``engine/solver``) and two
 iterations of ``engine/trainer.do_train``; the MOT17 public-detection
 recipe is read without ``yaml`` and tracks a given-detection frame, and
-a ``TPU.MASKED_TRACK_KERNELS`` False frame runs.  Also: no CUDA source
-includes PyTorch's headers (they make the build take minutes instead of
-seconds)."""
+a ``TPU.MASKED_TRACK_KERNELS`` False frame runs; and the dataset path: a
+tiny MOT-layout sequence (rendered with ``cv2`` before the block) is
+ingested, tracked by ``DatasetInference`` and evaluated, then run again
+through ``tools/test_net``'s main function in public-detection mode from
+a port checkpoint.  Also: no CUDA source includes PyTorch's headers (they
+make the build take minutes instead of seconds)."""
 
 import os
 import subprocess
@@ -21,7 +25,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
-    BLOCKED = ("jax", "flax", "yaml", "siammot_tpu", "tests", "tools")
+    BLOCKED = ("jax", "flax", "yaml", "cv2", "siammot_tpu", "tests",
+               "tools")
 
     def blocked(name):
         return name.split(".")[0] in BLOCKED
@@ -51,16 +56,16 @@ SCRIPT = textwrap.dedent("""
     from siammot_tpu_torch.models.siammot import SiamMOT
 
     cfg = get_cfg()
-    cfg.merge_from_list([
-        "MODEL.BACKBONE.CONV_BODY", "DLA-MINI-FPN",
-        "MODEL.DLA.DLA_STAGE2_OUT_CHANNELS", 16,
-        "MODEL.DLA.DLA_STAGE3_OUT_CHANNELS", 32,
-        "MODEL.DLA.DLA_STAGE4_OUT_CHANNELS", 64,
-        "MODEL.DLA.DLA_STAGE5_OUT_CHANNELS", 64,
-        "MODEL.DLA.BACKBONE_OUT_CHANNELS", 32,
-        "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 64,
-        "TPU.MAX_TRACKS", 8,
-        "TPU.COMPUTE_DTYPE", "float32", "TPU.POOLER_DTYPE", "float32"])
+    mini = ["MODEL.BACKBONE.CONV_BODY", "DLA-MINI-FPN",
+            "MODEL.DLA.DLA_STAGE2_OUT_CHANNELS", 16,
+            "MODEL.DLA.DLA_STAGE3_OUT_CHANNELS", 32,
+            "MODEL.DLA.DLA_STAGE4_OUT_CHANNELS", 64,
+            "MODEL.DLA.DLA_STAGE5_OUT_CHANNELS", 64,
+            "MODEL.DLA.BACKBONE_OUT_CHANNELS", 32,
+            "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 64,
+            "TPU.MAX_TRACKS", 8,
+            "TPU.COMPUTE_DTYPE", "float32", "TPU.POOLER_DTYPE", "float32"]
+    cfg.merge_from_list(mini)
     model = SiamMOT(cfg, device="cpu")
     rng = np.random.RandomState(0)
     params = {k: torch.from_numpy(
@@ -135,6 +140,40 @@ SCRIPT = textwrap.dedent("""
     assert all(o["valid"].any() for o in ures.outputs)
     assert np.isfinite(ures.outputs[1]["boxes"]).all()
 
+    # the dataset path over the sequence rendered before the block:
+    # ingestion, DatasetInference with CLEAR-MOT, then test_net's main
+    # function in public-detection mode from a port checkpoint
+    import tempfile
+    from siammot_tpu_torch.data.ingestion.ingest_mot import ingest_mot
+    from siammot_tpu_torch.data.motion_dataset import MotionDataset
+    from siammot_tpu_torch.engine.inferencer import DatasetInference
+    from siammot_tpu_torch.tools import test_net
+    from siammot_tpu_torch.utils.checkpoint import Checkpointer
+    data = os.path.join(DATA, "synmot_mini")
+    ingest_mot(data)
+    ds = MotionDataset(root_path=data)
+    assert [s for s, _ in ds.get_split("test")] == ["SEQ-01"]
+    small = ["INPUT.MIN_SIZE_TEST", 96, "INPUT.MAX_SIZE_TEST", 128]
+    icfg = cfg.clone()
+    icfg.merge_from_list(small)
+    out = tempfile.mkdtemp()
+    inf = DatasetInference(icfg, SiamMOT(icfg, device="cpu"), params,
+                           ds.get_split("test"), out,
+                           dataset_root=ds.data_root_path)
+    accs, text = inf()
+    assert "OVERALL" in text and inf.speed["SEQ-01"][0] == 3
+    assert os.path.exists(os.path.join(out, "SEQ-01.json"))
+    ckpt = Checkpointer(os.path.join(out, "ckpt")).save(1, params)
+    opts = [str(v) for v in mini + small + ["DATASETS.ROOT_DIR", DATA]]
+    tinf = test_net.main(["--config-file", os.path.join(
+        REPO, "configs", "dla", "DLA_34_FPN_EMM_SYNMOT_HARD.yaml"),
+        "--output-dir", os.path.join(out, "given"), "--model-file", ckpt,
+        "--test-dataset", "SYNMOT_MINI", "--device", "cpu"] + opts)
+    assert tinf._cfg.INFERENCE.USE_GIVEN_DETECTIONS
+    assert tinf.speed["SEQ-01"][0] == 3 and "SEQ-01" in tinf.accs
+    assert not any(blocked(m) for m in sys.modules), sorted(
+        m for m in sys.modules if blocked(m))
+
     # the training slice: a 720p batch of two clip pairs, then two steps
     from siammot_tpu_torch.core.structures import Boxes
     from siammot_tpu_torch.engine.solver import (build_train_step,
@@ -181,11 +220,36 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_runs_without_jax_yaml_or_the_jax_package():
+def _render_sequence(root, n_frames=3, w=128, h=96):
+    """A MOT-layout test sequence (JPEG frames, gt, public detections)
+    under ``root/synmot_mini``, written with cv2 before the block."""
+    import cv2
+    import numpy as np
+    seq = root / "synmot_mini" / "test" / "SEQ-01"
+    for d in ("img1", "gt", "det"):
+        (seq / d).mkdir(parents=True)
+    (seq / "seqinfo.ini").write_text(
+        f"[Sequence]\nname=SEQ-01\nimDir=img1\nframeRate=10\n"
+        f"seqLength={n_frames}\nimWidth={w}\nimHeight={h}\nimExt=.jpg\n")
+    rng = np.random.RandomState(0)
+    gt, det = [], []
+    for t in range(n_frames):
+        cv2.imwrite(str(seq / "img1" / f"{t + 1:06d}.jpg"),
+                    rng.randint(0, 255, (h, w, 3)).astype(np.uint8))
+        for k in range(2):
+            gt.append(f"{t + 1},{k + 1},{10 + 50 * k + t},12,30,60,1,1,1.0")
+            det.append(f"{t + 1},-1,{11 + 50 * k + t},13,29,58,0.9")
+    (seq / "gt" / "gt.txt").write_text("\n".join(gt))
+    (seq / "det" / "det.txt").write_text("\n".join(det))
+
+
+def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
+    _render_sequence(tmp_path)
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     res = subprocess.run(
-        [sys.executable, "-c", f"REPO = {REPO!r}\n" + SCRIPT],
+        [sys.executable, "-c",
+         f"REPO = {REPO!r}\nDATA = {str(tmp_path)!r}\n" + SCRIPT],
         capture_output=True, text=True, timeout=600, cwd="/", env=env)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "ISOLATED" in res.stdout

@@ -16,6 +16,12 @@ MOT17 recipe's overrides, ``TPU.MASKED_TRACK_KERNELS`` False,
 ``--bf16`` writes ``tests/fixtures/torch_golden_dla34_bf16.npz``: the
 default configuration's frames with ``TPU.COMPUTE_DTYPE`` and
 ``TPU.POOLER_DTYPE`` bfloat16, the yardstick of the port's bf16 frame.
+``--dataset`` writes ``tests/fixtures/torch_golden_dataset.json.gz``: the
+JAX ``DatasetInference`` over ``tests/fixtures/synmot_mini`` in each run
+of ``siammot_tpu_torch/utils/dataset_golden.py``'s ``RUNS`` (what it
+holds is said there; a few minutes).  ``--export-npz CKPT OUT`` converts
+the JAX package's orbax checkpoint CKPT (a ``model_*`` directory) into a
+flat flax-tree ``.npz`` that the port reads (``--model-file OUT``).
 """
 
 import os
@@ -73,7 +79,81 @@ def run_jax(cut_name=None, dtype="float32"):
     return golden.pack(outs, states)
 
 
+def run_dataset() -> dict:
+    """The JAX ``DatasetInference`` over the committed sequence in every
+    run of ``dataset_golden.RUNS``, and the frames' digests as the JAX
+    package decoded them."""
+    import tempfile
+
+    from siammot_tpu.data import native
+    from siammot_tpu.data.filters import build_data_filter_fn
+    from siammot_tpu.data.motion_dataset import DataSample, MotionDataset
+    from siammot_tpu.data.transforms import EvalTransform
+    from siammot_tpu.data.video_loader import (normalized_frame_source,
+                                               resolve_data_path)
+    from siammot_tpu.engine.inferencer import DatasetInference
+    from siammot_tpu_torch.utils import dataset_golden as dg
+
+    root = os.path.join(dg.ROOT_DIR, "synmot_mini")
+    ds = MotionDataset("anno.json", root_path=root)
+    samples = ds.get_split("test")
+    pub = dict(MotionDataset("anno_pub_detection.json", root_path=root))
+    params = jax.tree.map(jnp.asarray, unflatten_params(load_npz(dg.WEIGHTS)))
+    out = {"decoder": "libjpeg" if native.available() else "cv2",
+           "frames": {}, "runs": {}}
+    for run in dg.RUNS:
+        t0 = time.time()
+        cfg = get_cfg()
+        cfg.merge_from_file(dg.RECIPE)
+        cfg.merge_from_list(dg.overrides(run))
+        if not out["frames"]:
+            tr = EvalTransform(cfg)
+            for sid, s in samples:
+                src = normalized_frame_source(
+                    resolve_data_path(s, ds.data_root_path), tr)
+                out["frames"][sid] = dg.frame_digests(x for x, _ in src)
+        with tempfile.TemporaryDirectory() as tmp:
+            inf = DatasetInference(
+                cfg, SiamMOT(cfg), params, samples, tmp,
+                build_data_filter_fn("SYNMOT_HARD"),
+                pub if cfg.INFERENCE.USE_GIVEN_DETECTIONS else None,
+                dataset_root=ds.data_root_path)
+            accs, text = inf()
+            preds = {sid: DataSample.load(os.path.join(tmp, f"{sid}.json"))
+                     .to_dict() for sid, _ in samples}
+        out["runs"][run] = {
+            "predictions": preds,
+            "tracks": {sid: r.to_dict() for sid, r in inf.results.items()},
+            "summary": dg.summaries(accs), "summary_text": text}
+        overall = out["runs"][run]["summary"]["OVERALL"]
+        print(f"{run}: {dg.summary_line(overall)} ({time.time() - t0:.0f} s)",
+              flush=True)
+    return out
+
+
+def export_npz(ckpt: str, path: str) -> None:
+    """An orbax checkpoint of the JAX package -> a flat flax-tree npz."""
+    from siammot_tpu.utils.checkpoint import Checkpointer, _flatten
+    restored = Checkpointer(os.path.dirname(os.path.abspath(ckpt))).load(
+        ckpt, like=None)
+    flat = {f"params/{k}" if not k.startswith("params/") else k:
+            np.asarray(v) for k, v in _flatten(restored["params"]).items()}
+    np.savez(path, **flat)
+    print(f"wrote {path} ({len(flat)} arrays, iteration "
+          f"{restored.get('iteration')})")
+
+
 def main():
+    if "--export-npz" in sys.argv[1:]:
+        i = sys.argv.index("--export-npz")
+        export_npz(sys.argv[i + 1], sys.argv[i + 2])
+        return
+    if "--dataset" in sys.argv[1:]:
+        from siammot_tpu_torch.utils import dataset_golden as dg
+        data = run_dataset()
+        dg.dump(data)
+        print(f"wrote {dg.FIXTURE} ({os.path.getsize(dg.FIXTURE)} B)")
+        return
     if "--toggles" in sys.argv[1:]:
         path = golden.TOGGLES_FIXTURE
         data = {f"{name}/{k}": v for name in golden.CUTS
