@@ -126,7 +126,26 @@ Phases, each printed as it finishes:
      tracks and summary within the CPU's tolerances; on nvJPEG's the
      summary's MOTA and IDF1 within ``DECODED_ELSEWHERE_ATOL``, and the
      same runs on the JAX package's bytes (Pillow's decode) within the
-     CPU's tolerances.
+     CPU's tolerances;
+  8. multi-stream inference: S video streams as lanes of one batched
+     frame step (``SiamMOT.forward_streams``) on the bench weights: (8a)
+     four 720p crowd scenes (seeds 42-45) for 6 frames, each lane against
+     its own ``forward_inference`` run, in f32 within ``utils/golden.py``'s
+     tolerances with ids, masks and integer state lanes exact, and in
+     bf16 with the gap printed; kernels 1-4 against their plain versions
+     on the last bf16 step's 4 x 128-slot inputs; (8b) the bf16 step at
+     S = 1, 2, 4, 8 and 16 after 3 warm-up steps: aggregate frames per
+     second, ms per step, live slots and peak memory over 8 timed steps,
+     each kernel's launches a step (the same at every S), and at S = 1
+     and 8 the host synchronisations of one step
+     (``torch.cuda.set_sync_debug_mode``), which may differ only by NMS
+     convergence rounds past the first 16; (8c) ``tools/test_net
+     --n-streams 2`` over ``tests/fixtures/synmot_multi`` (videos of 10, 7
+     and 4 frames) in f32 in both modes, on the JAX package's bytes held
+     to ``tests/fixtures/torch_golden_multistream.json.gz`` within the
+     CPU's tolerances, and on nvJPEG's frames (one reader a stream) with
+     MOTA and IDF1 within ``DECODED_ELSEWHERE_ATOL``.  Every batched run's
+     launches count under the ``multistream`` path.
 
 Each end-to-end phase sets every kernel's launch count to 0 just before
 it drives its path and reads the counts just after.
@@ -2368,6 +2387,341 @@ def dataset_phase(dev, report, card):
     return out
 
 
+# -- phase 8: multi-stream inference ----------------------------------------
+
+MS_LANES, MS_FRAMES = 4, 6        # 8a: 720p crowd streams, frames each
+MS_SWEEP = (1, 2, 4, 8, 16)       # 8b: streams a batched step
+MS_WARMUP, MS_TIMED = 3, 8        # 8b: steps a stream count
+MS_SCENES, MS_SCENE_FRAMES = 4, 16
+
+
+def ms_scenes():
+    """The crowd scene with seeds 42 + i, i < MS_SCENES, 16 frames each."""
+    from siammot_tpu_torch.utils.synth import render_scene
+    return [render_scene(MS_SCENE_FRAMES, HP, 42 + i)[0]
+            for i in range(MS_SCENES)]
+
+
+def ms_batch(scenes, n, t):
+    """Step ``t``'s frames of ``n`` streams, uint8 [n, 1, HP, W, 3]: lane
+    i shows scene i % MS_SCENES, shifted 3 frames a round of four."""
+    return np.stack([scenes[i % MS_SCENES][(t + 3 * (i // MS_SCENES))
+                                           % MS_SCENE_FRAMES]
+                     for i in range(n)])
+
+
+def ms_runs(model, net, scenes, dev):
+    """MS_LANES streams of MS_FRAMES frames, each lane on its own through
+    ``forward_inference`` and all as lanes of ``forward_streams`` (its
+    kernels captured): per lane and frame (rows, state) as numpy, and the
+    batched run's captured inputs and launch counts."""
+    from siammot_tpu_torch.parallel.multistream import empty_states
+    seq = []
+    for i in range(MS_LANES):
+        state, lane = model.empty_state(), []
+        for t in range(MS_FRAMES):
+            out, state = model.forward_inference(
+                net, torch.as_tensor(scenes[i][t]).to(dev), state, (W, H))
+            lane.append((out.numpy(), state.numpy()))
+        seq.append(lane)
+    states, batched = empty_states(model, MS_LANES), []
+    with kernel_capture() as (captured, launches):
+        for t in range(MS_FRAMES):
+            out, states = model.forward_streams(
+                net, torch.as_tensor(ms_batch(scenes, MS_LANES, t)).to(dev),
+                states, (W, H))
+            batched.append((out.numpy(), states.numpy()))
+    return seq, batched, captured, launches
+
+
+def ms_lane_gap(seq, batched):
+    """Each lane of the batched run against its own run: mask and integer
+    mismatches (rows and state lanes), the largest box and score errors
+    on rows valid in both, the largest state box error; and, with rows
+    matched by IoU as ``golden.matched_gap`` matches them (rows that move
+    between lanes and runs: the bf16 gap), the rows without a match of
+    IoU >= 0.5, the track ids that differ and the largest box error of
+    the matched rows, on the first frame and over all."""
+    from siammot_tpu_torch.utils import golden
+    r = dict(valid_mismatch=0, int_mismatch=0, box_err=0.0, score_err=0.0,
+             state_mismatch=0, state_box_err=0.0, rows=0)
+    m = dict(unmatched=0, ids_differ=0, box_err=0.0, first_unmatched=0,
+             first_ids_differ=0, first_box_err=0.0)
+    for i, lane in enumerate(seq):
+        for t, (o, st) in enumerate(lane):
+            bo, bs = batched[t]
+            g = {k: v[i] for k, v in bo.items()}
+            r["valid_mismatch"] += int((g["valid"] != o["valid"]).sum())
+            both = g["valid"] & o["valid"]
+            r["rows"] += int(o["valid"].sum())
+            r["int_mismatch"] += int(sum(
+                (g[f][both] != o[f][both]).sum() for f in ("ids", "labels")))
+            if both.any():
+                r["box_err"] = max(r["box_err"], float(np.abs(
+                    g["boxes"][both] - o["boxes"][both]).max()))
+                r["score_err"] = max(r["score_err"], float(np.abs(
+                    g["scores"][both] - o["scores"][both]).max()))
+            r["state_mismatch"] += int(sum(
+                np.sum(bs[f][i] != st[f]) for f in golden.STATE_EXACT))
+            r["state_box_err"] = max(r["state_box_err"], *(float(np.abs(
+                bs[f][i] - st[f]).max()) for f in ("boxes", "sr")))
+            ov, gv = o["valid"].nonzero()[0], g["valid"].nonzero()[0]
+            if not len(ov):
+                continue
+            unmatched, differ, err = len(ov), 0, 0.0
+            if len(gv):
+                iou = golden._iou(o["boxes"][ov], g["boxes"][gv])
+                best = iou.argmax(1)
+                ok = iou[np.arange(len(ov)), best] >= 0.5
+                oi, gi = ov[ok], gv[best[ok]]
+                unmatched = int((~ok).sum())
+                tracked = (o["ids"][oi] >= 0) | (g["ids"][gi] >= 0)
+                differ = int((o["ids"][oi] != g["ids"][gi])[tracked].sum())
+                if len(oi):
+                    err = float(np.abs(o["boxes"][oi]
+                                       - g["boxes"][gi]).max())
+            m["unmatched"] += unmatched
+            m["ids_differ"] += differ
+            m["box_err"] = max(m["box_err"], err)
+            if t == 0:
+                m["first_unmatched"] += unmatched
+                m["first_ids_differ"] += differ
+                m["first_box_err"] = max(m["first_box_err"], err)
+    r["ok"] = (r["valid_mismatch"] == 0 and r["int_mismatch"] == 0
+               and r["state_mismatch"] == 0
+               and r["box_err"] <= golden.BOX_ATOL
+               and r["score_err"] <= golden.SCORE_ATOL
+               and r["state_box_err"] <= 2 * golden.BOX_ATOL)
+    r["matched"] = m
+    return r
+
+
+def ms_count(report, launches, what):
+    """Add a phase-8 run's launches to the ``multistream`` path."""
+    for name in MAIN_PATH:
+        by = report[name].setdefault("launches_by_path", {})
+        by["multistream"] = by.get("multistream", 0) + launches[name]
+        report[name]["launches"] += launches[name]
+    log(f"    {what}: launches "
+        + ", ".join(f"{n} {launches[n]}" for n in MAIN_PATH))
+
+
+def ms_lanes_phase(dev, report, scenes, params):
+    """8a: f32 lanes against their own runs within ``utils/golden.py``'s
+    tolerances (ids and integer lanes exactly); the bf16 gap; kernels 1-4
+    against their plain versions on the last bf16 batched step's
+    S x 128-slot inputs."""
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils import golden
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_cfg()
+        cfg.merge_from_list(golden.overrides(dtype))
+        model = SiamMOT(cfg, device=str(dev))
+        net = model.cast_params(params)
+        seq, batched, captured, launches = ms_runs(model, net, scenes, dev)
+        check_launches(launches, MAIN_PATH, MS_FRAMES)
+        ms_count(report, launches, f"{dtype} batched run, {MS_LANES} "
+                 f"streams x {MS_FRAMES} steps")
+        gap = ms_lane_gap(seq, batched)
+        live = int((batched[-1][1]["ids"] >= 0).sum())
+        log(f"  {dtype}: {MS_LANES} streams x {MS_FRAMES} frames, {live} "
+            f"live slots of {MS_LANES * K} at the end; each lane against "
+            f"its own run: {gap}")
+        if dtype == "float32" and not gap["ok"]:
+            raise AssertionError(f"f32 lanes differ from their own runs "
+                                 f"beyond utils/golden.py's tolerances: "
+                                 f"{gap}")
+    check_captured(captured, report, f"multistream bf16 ({MS_LANES} x {K} "
+                   f"slots)")
+    log(f"  kernels 1-4 agree with their plain versions on the last "
+        f"batched step's inputs "
+        f"({int(captured['xcorr_masked'][0][2].sum())} live of "
+        f"{captured['xcorr_masked'][0][2].numel()} slots)")
+
+
+def ms_sync_count(model, net, states, images):
+    """Host synchronisations of one batched step, counted by
+    ``torch.cuda.set_sync_debug_mode`` (one warning each) and by the
+    Python line that made each; and the NMS convergence checks and
+    extra rounds in it."""
+    import warnings
+    from collections import Counter
+
+    from siammot_tpu_torch.core.nms import nms_mask
+    syncs0, extra0 = nms_mask.syncs, nms_mask.extra_rounds
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.forward_streams(net, images, states, (W, H))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = Counter(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+                    for w in caught if "called a synchronizing CUDA "
+                    "operation" in str(w.message))
+    return (sum(sites.values()), nms_mask.syncs - syncs0,
+            nms_mask.extra_rounds - extra0, dict(sites))
+
+
+def ms_sweep_phase(dev, report, card, scenes, params):
+    """8b: the batched step at S = 1, 2, 4, 8, 16 streams, bf16, bench
+    weights: MS_WARMUP + MS_TIMED steps each, the frames uploaded from
+    pinned memory each step and the step timed to the end of its device
+    work, as ``track_frames`` times a frame; kernel launches and host
+    synchronisations per step."""
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.core.nms import FORI_ROUNDS
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.parallel.multistream import empty_states
+    model = SiamMOT(get_cfg(), device=str(dev))
+    net = model.cast_params(params)
+    out, syncs = {}, {}
+    for n in MS_SWEEP:
+        batches = [torch.as_tensor(ms_batch(scenes, n, t)).pin_memory()
+                   for t in range(MS_WARMUP + MS_TIMED + 1)]
+        states = empty_states(model, n)
+        for t in range(MS_WARMUP):
+            _, states = model.forward_streams(
+                net, batches[t].to(dev, non_blocking=True), states, (W, H))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sec = []
+        with kernel_capture() as (_, launches):
+            for t in range(MS_WARMUP, MS_WARMUP + MS_TIMED):
+                t0 = time.perf_counter()
+                _, states = model.forward_streams(
+                    net, batches[t].to(dev, non_blocking=True), states,
+                    (W, H))
+                torch.cuda.synchronize()
+                sec.append(time.perf_counter() - t0)
+        check_launches(launches, MAIN_PATH, MS_TIMED)
+        ms_count(report, launches, f"S = {n}, {MS_TIMED} timed steps")
+        peak = torch.cuda.max_memory_allocated()
+        ms = 1e3 * float(np.mean(sec))
+        live = int(states.occupied.sum())
+        out[n] = dict(fps=n * 1e3 / ms, ms_step=ms,
+                      median_ms=1e3 * float(np.median(sec)), live=live,
+                      peak_gib=peak / 2 ** 30)
+        log(f"  S = {n:2d}: {out[n]['fps']:.3f} fps aggregate, "
+            f"{ms:.3f} ms/step (median {out[n]['median_ms']:.3f}), "
+            f"{ms / n:.3f} ms/frame, {live} live slots of {n * K}, peak "
+            f"{peak / 2 ** 30:.3f} GiB ({card})")
+        if n in (1, 8):
+            images = batches[-1].to(dev, non_blocking=True)
+            torch.cuda.synchronize()
+            syncs[n] = ms_sync_count(model, net, states, images)
+            log(f"    S = {n}: {syncs[n][0]} host synchronisations in one "
+                f"step (set_sync_debug_mode), of which NMS convergence "
+                f"checks {syncs[n][1]}, {syncs[n][2]} of them rounds past "
+                f"the first {FORI_ROUNDS}; by line: {syncs[n][3]}")
+    # none a stream: S = 8 may add only NMS rounds to S = 1's count
+    if syncs[8][0] - syncs[8][2] > syncs[1][0] - syncs[1][2]:
+        raise AssertionError(f"host synchronisations a step beyond the NMS "
+                             f"rounds: {syncs[1][:3]} at S = 1, "
+                             f"{syncs[8][:3]} at S = 8 (one a stream?)")
+    return out, syncs
+
+
+def ms_dataset_phase(dev, report, card):
+    """8c: ``tools/test_net --n-streams 2`` over ``tests/fixtures/
+    synmot_multi`` in f32, both modes: on the JAX package's bytes
+    (Pillow's libjpeg, where its decode hashes to the JAX package's)
+    held to ``tests/fixtures/torch_golden_multistream.json.gz`` within the
+    CPU's tolerances; on nvJPEG's frames (one reader a stream) the
+    CLEAR-MOT summary within ``DECODED_ELSEWHERE_ATOL``."""
+    from siammot_tpu_torch.data.video_loader import jpeg_files
+    from siammot_tpu_torch.engine.multistream_inferencer import (
+        pack_waves, wave_lane_steps)
+    from siammot_tpu_torch.tools import test_net
+    from siammot_tpu_torch.utils import dataset_golden as dg
+    want = dg.load(dg.MULTI_FIXTURE)
+    n_frames = {v: len(d) for v, d in want["frames"].items()}
+    waves = pack_waves([(v, range(n)) for v, n in n_frames.items()],
+                       dg.MULTI_STREAMS)
+    steps = wave_lane_steps(waves, dg.MULTI_STREAMS) // dg.MULTI_STREAMS
+    try:
+        from PIL import Image
+        pil = {v: dg.frame_digests(
+            np.asarray(Image.open(f).convert("RGB"))[None]
+            for f in jpeg_files(os.path.join(dg.ROOT_DIR, "synmot_multi",
+                                             "test", v, "img1")))
+            for v in n_frames}
+        jax_bytes = pil == want["frames"]
+    except ImportError:
+        jax_bytes = False
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in dg.MULTI_RUNS:
+            golden = want["runs"][run]
+            for reader in ("nvJPEG", "JAX bytes"):
+                if reader == "JAX bytes" and not jax_bytes:
+                    log(f"    {run} on the JAX package's bytes: not measured "
+                        f"(no Pillow whose decode is the JAX package's)")
+                    continue
+                out_dir = os.path.join(tmp, f"{run}_{reader[:3]}")
+                args = dg.cli_args(run, out_dir, dg.WEIGHTS, str(dev),
+                                   dg.MULTI_STREAMS)
+                ctx = jax_bytes_reader() if reader == "JAX bytes" \
+                    else contextlib.nullcontext()
+                with ctx, kernel_capture() as (_, launches):
+                    inf = test_net.main(args)
+                check_launches(launches, MAIN_PATH, steps)
+                ms_count(report, launches, f"{run} ({reader}), {steps} "
+                         f"steps of {dg.MULTI_STREAMS} streams")
+                frames = sum(n for n, _ in inf.speed.values())
+                seconds = sum(s_ for _, s_ in inf.speed.values())
+                got = dg.summaries(inf.accs)
+                log(f"    {run} ({reader}): {frames} frames in "
+                    f"{seconds:.3f} s, {frames / seconds:.3f} fps ({card}); "
+                    f"port {dg.summary_line(got['OVERALL'])}")
+                log(f"    {' ' * len(run)}  JAX  "
+                    f"{dg.summary_line(golden['summary']['OVERALL'])}")
+                if frames != sum(n_frames.values()):
+                    raise AssertionError(f"{run}: {frames} frames tracked")
+                if reader == "nvJPEG":
+                    d = dg.compare_summary_band(got, golden["summary"], run)
+                    log(f"    MOTA {d['mota']:.4f} and IDF1 {d['idf1']:.4f} "
+                        f"from JAX's (limit {dg.DECODED_ELSEWHERE_ATOL})")
+                    out[run] = frames / seconds
+                    continue
+                for v in n_frames:
+                    with open(os.path.join(out_dir, f"{v}.json")) as f:
+                        pred = dg.compare_samples(
+                            json.load(f), golden["predictions"][v],
+                            f"{run} {v}")
+                    dg.compare_samples(inf.results[v].to_dict(),
+                                       golden["tracks"][v],
+                                       f"{run} {v} tracks")
+                    log(f"      {v}: {n_frames[v]} frames held to the JAX "
+                        f"golden (max box err {pred['box']:.4g} px, "
+                        f"confidence {pred['conf']:.4g})")
+                serr = dg.compare_summaries(got, golden["summary"], run)
+                log(f"    summary max diff {serr:.3g}")
+    return out
+
+
+def multistream_phase(dev, report, card):
+    """Phase 8: 8a lanes, 8b the stream sweep, 8c dataset inference."""
+    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
+    t0 = time.perf_counter()
+    scenes = ms_scenes()
+    params = jax_to_torch(load_npz(FIXTURE))
+    log(f"  {MS_SCENES} scenes of {MS_SCENE_FRAMES} frames ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[8a] {MS_LANES} streams as lanes of one step against their own "
+        f"runs (f32 gated, bf16 gap):")
+    ms_lanes_phase(dev, report, scenes, params)
+    log(f"[8b] the batched step at S = {MS_SWEEP}, bf16:")
+    sweep, syncs = ms_sweep_phase(dev, report, card, scenes, params)
+    log("[8c] tools/test_net --n-streams 2 over tests/fixtures/synmot_multi, "
+        "f32:")
+    dataset = ms_dataset_phase(dev, report, card)
+    log(f"  phase 8 wall time {time.perf_counter() - t0:.1f} s")
+    return sweep, syncs, dataset
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2473,6 +2827,12 @@ def main():
     dataset = dataset_phase(dev, report, card)
     log(f"[7] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[8] multi-stream inference: DLA-34-FPN-EMM, bench weights, "
+        f"streams as lanes of one batched step ({card}):")
+    sweep, syncs, ms_dataset = multistream_phase(dev, report, card)
+    log(f"[8] done in {time.perf_counter() - t0:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
@@ -2492,6 +2852,12 @@ def main():
         f"dataset Speed "
         + ", ".join(f"{run} {fps:.3f} fps (MOTA {s['mota']:.4f})"
                     for run, (fps, s) in dataset.items())
+        + "; multi-stream "
+        + ", ".join(f"S={n} {r['fps']:.3f} fps ({r['ms_step']:.3f} ms/step)"
+                    for n, r in sweep.items())
+        + f", host syncs a step {syncs[1][0]} at S=1, {syncs[8][0]} at S=8"
+        + ", test_net --n-streams 2 "
+        + ", ".join(f"{run} {fps:.3f} fps" for run, fps in ms_dataset.items())
         + f"; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,11 @@ earlier box is killed.  Each round is one batched ``[2, N] @ [N, N]``
 product.  ``FORI_ROUNDS`` rounds run without looking at the result; then
 the loop checks convergence (one host sync) and runs on until every box
 is decided, so the keep set always equals serial greedy NMS
-(PARITY.md #14).
+(PARITY.md #14).  Sets with leading batch axes (levels, classes, video
+streams) share one loop: the check covers them all, so a call makes one
+host sync for any number of sets, plus one per round past
+``FORI_ROUNDS`` that its slowest set needs; ``nms_mask.syncs`` and
+``nms_mask.extra_rounds`` count both.
 """
 
 from __future__ import annotations
@@ -64,7 +68,10 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 
     for _ in range(FORI_ROUNDS):
         decided, keep = round_(decided, keep)
+    nms_mask.syncs += 1
     while not bool(decided.all()):
+        nms_mask.syncs += 1
+        nms_mask.extra_rounds += 1
         decided, keep = round_(decided, keep)
 
     if max_out is not None and max_out < n:
@@ -75,14 +82,19 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     return torch.zeros_like(keep).scatter(-1, order, keep)
 
 
+nms_mask.syncs = 0
+nms_mask.extra_rounds = 0
+
+
 def batched_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
                      valid: torch.Tensor, idxs: torch.Tensor,
                      iou_threshold: float,
                      max_out: int | None = None) -> torch.Tensor:
-    """Category-aware NMS over one set: boxes with different ``idxs``
-    never suppress each other (the torchvision offset trick)."""
-    max_coord = torch.where(valid[:, None], boxes,
-                            torch.zeros_like(boxes)).max()
-    offsets = idxs.to(boxes.dtype) * (max_coord + 1024.0)
-    return nms_mask(boxes + offsets[:, None], scores, valid, iou_threshold,
+    """Category-aware NMS over sets ``[..., N]``: boxes with different
+    ``idxs`` never suppress each other (the torchvision offset trick, its
+    offset taken from each set's own boxes)."""
+    max_coord = torch.where(valid[..., None], boxes,
+                            torch.zeros_like(boxes)).amax(dim=(-2, -1))
+    offsets = idxs.to(boxes.dtype) * (max_coord[..., None] + 1024.0)
+    return nms_mask(boxes + offsets[..., None], scores, valid, iou_threshold,
                     max_out)

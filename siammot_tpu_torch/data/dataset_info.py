@@ -15,6 +15,9 @@ dataset_maps = {
     # one 16-frame SYNMOT_HARD test sequence committed to the repo
     # (tests/fixtures/synmot_mini, DATASETS.ROOT_DIR tests/fixtures)
     "SYNMOT_MINI": ["synmot_mini", "anno.json", "splits.json", "video"],
+    # three SYNMOT_HARD test sequences of 10, 7 and 4 frames for the
+    # multi-stream engine (tests/fixtures/synmot_multi)
+    "SYNMOT_MULTI": ["synmot_multi", "anno.json", "splits.json", "video"],
     # CrowdHuman-style crowded stills (tools/make_synth_crowd.py) for
     # detector pretraining, mirroring the reference's CrowdHuman fbox keys
     "SYNCROWD_train_fbox": ["SYNCROWD",

@@ -5,6 +5,8 @@ Image folders of JPEG frames, the layout of MOT17, SYNMOT and the
 ingested datasets, decode with the port's frame reader
 (``data/native.py``: libjpeg on the CPU, nvJPEG on the card) on a
 background prefetch thread that overlaps decoding with the device's step.
+Each source owns its reader (on the card an nvJPEG handle and a CUDA
+stream of its own), so the multi-stream engine's S sources decode at once.
 Video files and other image formats have no reader in the port: the JAX
 package reads them with ``cv2``, which the port does not use, so they
 raise.

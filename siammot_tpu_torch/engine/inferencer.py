@@ -11,7 +11,9 @@ on a prefetch thread (``data/video_loader.py``; libjpeg when the model
 runs on the CPU, nvJPEG when it runs on the card), the outputs as
 ``AnnoEntity`` records in the video's own resolution.
 ``DatasetInference`` runs it over a dataset with a per-video JSON cache
-(the prediction before the post-filter, in the JAX package's layout),
+(the prediction before the post-filter, in the JAX package's layout;
+with ``n_streams`` > 1 the uncached videos run first as lanes of one
+batched step, ``engine/multistream_inferencer.py``),
 drops short and unsure tracks (mean confidence >= 0.7 and length >= 5)
 and evaluates CLEAR-MOT (``eval/clearmot.py``) and detection AP
 (``eval/det_ap.py``).
@@ -137,10 +139,6 @@ class DatasetInference:
     def __init__(self, cfg, model, params, dataset, output_dir,
                  data_filter_fn=None, public_detection=None,
                  dataset_root: str = "", n_streams: int = 1):
-        if int(n_streams) > 1:
-            raise NotImplementedError(
-                "--n-streams > 1 (the multi-stream engine) is not ported "
-                "yet (ROADMAP.md, queue 1, item 5)")
         self._cfg = cfg
         self._model = model
         self._params = params
@@ -152,6 +150,7 @@ class DatasetInference:
         self._transform = EvalTransform(cfg)
         self._track_conf = 0.7
         self._track_len = 5
+        self._n_streams = max(int(n_streams), 1)
         self.results = {}
         self.speed = {}
         self.accs = {}
@@ -184,7 +183,32 @@ class DatasetInference:
                     out.add_entity(e)
         return out
 
+    def _run_multistream(self):
+        """Track every uncached video through the multi-stream engine and
+        write the per-video caches the sequential engine would write."""
+        from .multistream_inferencer import do_inference_multistream
+
+        todo = [(sid, s) for sid, s in self._dataset
+                if not os.path.exists(
+                    os.path.join(self._output_dir, f"{s.id}.json"))]
+        if not todo:
+            return
+        preds, speed = do_inference_multistream(
+            self._cfg, self._model, self._params, todo,
+            transforms=self._transform, dataset_root=self._dataset_root,
+            n_streams=self._n_streams,
+            given_detections=self._pub_detection)
+        for sid, sample in todo:
+            n, seconds = speed[sid]
+            self.speed[sample.id] = (n, seconds)
+            logger.info("Sample_id %s / Speed %.1f fps", sample.id,
+                        n / max(seconds, 1e-6))
+            preds[sid].dump(os.path.join(self._output_dir,
+                                         f"{sample.id}.json"))
+
     def __call__(self):
+        if self._n_streams > 1:
+            self._run_multistream()
         for _, sample in self._dataset:
             result = self._inference_on_video(sample)
             result = self._postprocess_tracks(result)

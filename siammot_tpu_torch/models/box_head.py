@@ -36,9 +36,7 @@ class BoxHeadFeatureExtractor(nn.Module):
 
     def forward(self, pack, rois, levels, valid, img_idx=None):
         """rois [R, 4], levels [R], valid [R] (None: the differentiable
-        training pool), img_idx [R] (default: all image 0)."""
-        if img_idx is None:
-            img_idx = torch.zeros_like(levels)
+        training pool), img_idx [R] (None: a one-image pack)."""
         pool = windowed_pool(pack, rois, img_idx, levels, self.resolution,
                              self.sampling_ratio, self.window, valid=valid)
         # the pool stays f32; the MLP runs in the trunk dtype.  fc6 reads
@@ -99,37 +97,38 @@ class BoxHeadConfig:
 
 def postprocess(class_logits: torch.Tensor, box_deltas: torch.Tensor,
                 proposals: Boxes, image_size, hcfg: BoxHeadConfig) -> Boxes:
-    """Track-aware post-processing for one image.
+    """Track-aware post-processing, per image.
 
-    class_logits [N, C], box_deltas [N, 4C].  Returns padded Boxes of
-    capacity N * (C - 1): every (proposal, class) pair, its keep decision
-    in ``valid``.
+    class_logits [..., N, C], box_deltas [..., N, 4C] (leading axes: one
+    image each).  Returns padded Boxes of capacity N * (C - 1), class
+    blocks in class order: every (proposal, class) pair, its keep
+    decision in ``valid``.  One NMS call covers every image and class.
     """
-    n, c = class_logits.shape
+    *lead, n, c = class_logits.shape
     prob = torch.softmax(class_logits, dim=-1)
     is_track = (proposals.ids >= 0) & proposals.valid
     onehot = F.one_hot(proposals.labels.long(), c).to(prob.dtype)
-    prob = torch.where(is_track[:, None], onehot * (prob + 1.0), prob)
+    prob = torch.where(is_track[..., None], onehot * (prob + 1.0), prob)
 
     decoded = box_ops.decode(box_deltas, proposals.boxes,
-                             hcfg.reg_weights).reshape(n, c, 4)
+                             hcfg.reg_weights).reshape(*lead, n, c, 4)
     if not hcfg.amodal:
         decoded = box_ops.clip_to_image(decoded, image_size)
 
-    outs = []
-    for j in range(1, c):
-        boxes_j = decoded[:, j]
-        scores_j = prob[:, j]
-        above = (scores_j > hcfg.score_thresh) & proposals.valid
-        det_keep = nms_mask(boxes_j, scores_j, above & ~is_track,
-                            hcfg.nms_thresh)
-        outs.append(Boxes(
-            boxes=boxes_j, scores=scores_j, ids=proposals.ids,
-            labels=torch.full((n,), j, dtype=torch.int32,
-                              device=boxes_j.device),
-            valid=det_keep | (above & is_track)))
-    return Boxes(*(torch.cat([getattr(o, f.name) for o in outs])
-                   for f in dataclasses.fields(Boxes)))
+    # classes 1..C-1 as a batch axis in front of the rows
+    boxes = decoded[..., 1:, :].movedim(-2, -3)           # [..., C-1, N, 4]
+    scores = prob[..., 1:].movedim(-1, -2)                # [..., C-1, N]
+    valid = proposals.valid[..., None, :]
+    track = is_track[..., None, :]
+    above = (scores > hcfg.score_thresh) & valid
+    det_keep = nms_mask(boxes, scores, above & ~track, hcfg.nms_thresh)
+    shape = (*lead, c - 1, n)
+    labels = torch.arange(1, c, dtype=torch.int32, device=boxes.device)
+    rows = (*lead, (c - 1) * n)
+    return Boxes(boxes=boxes.reshape(*rows, 4), scores=scores.reshape(rows),
+                 ids=proposals.ids[..., None, :].expand(shape).reshape(rows),
+                 labels=labels[:, None].expand(shape).reshape(rows),
+                 valid=(det_keep | (above & track)).reshape(rows))
 
 
 def subsample_proposals(draw, proposals: Boxes, gt: Boxes,

@@ -188,11 +188,9 @@ class EMMHead(nn.Module):
 def pool_template(pack, boxes, ecfg: EMMConfig, window: int, valid,
                   img_idx=None):
     """15x15 template crops at track boxes (unpadded coords) of images
-    ``img_idx`` (default 0); dead rows pool to zeros, and ``valid=None``
-    is the differentiable training pool."""
+    ``img_idx`` (None: a one-image pack); dead rows pool to zeros, and
+    ``valid=None`` is the differentiable training pool."""
     levels = box_ops.map_rois_to_levels(boxes, 2, 2 + len(ecfg.scales) - 1)
-    if img_idx is None:
-        img_idx = torch.zeros_like(levels)
     return windowed_pool(pack, boxes, img_idx, levels, ecfg.resolution,
                          ecfg.sampling_ratio, window, valid=valid)
 
@@ -200,11 +198,10 @@ def pool_template(pack, boxes, ecfg: EMMConfig, window: int, valid,
 def pool_search_region(pack, template_boxes, sr_boxes, ecfg: EMMConfig,
                        window: int, valid, img_idx=None):
     """30x30 SR crops: level from the template box, crop from the SR box
-    in padded coords (reference sr_pool.py:64-74)."""
+    in padded coords (reference sr_pool.py:64-74); ``img_idx`` as in
+    :func:`pool_template`."""
     levels = box_ops.map_rois_to_levels(template_boxes, 2,
                                         2 + len(ecfg.scales) - 1)
-    if img_idx is None:
-        img_idx = torch.zeros_like(levels)
     return windowed_pool(pack, sr_boxes, img_idx, levels, ecfg.sr_size,
                          ecfg.sampling_ratio, window,
                          pad_pixels=ecfg.pad_pixels, valid=valid)

@@ -4,7 +4,8 @@
 Inference: DLA-FPN backbone -> RPN (or given public detections) ->
 shared box-head pass over proposals and propagated tracks -> EMM track
 head over K padded slots -> track solver -> next-frame TrackState, one
-frame per ``forward_inference`` call.  Its kernels (window pool, masked
+frame of each of S video streams per ``forward_streams`` call (S = 1:
+``forward_inference``).  Its kernels (window pool, masked
 xcorr, masked or slot-blocked predictor, decode whole-map or striped; or,
 with ``TPU.MASKED_TRACK_KERNELS`` False, the unmasked xcorr and decode)
 are CUDA kernels on the card, and so is the deformable conv of a DCN
@@ -27,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from ..core import boxes as box_ops
-from ..core.structures import Boxes, concat_boxes
+from ..core.structures import Boxes, concat_boxes, take_rows
 from .box_head import (BoxHead, BoxHeadConfig, box_head_loss, pool_levels,
                        postprocess, subsample_proposals)
 from .dla import DLA_VARIANTS, DeformConv, build_dla
@@ -233,102 +234,142 @@ class SiamMOT:
         padded shape.  given: optional public detections (``Boxes`` in
         network-input coordinates, ``utils.entities.entities_to_boxes``)
         that replace the RPN proposals (MOT17 mode).  Returns (out: Boxes
-        over all candidate rows, state': TrackState).
+        over all candidate rows, state': TrackState).  This is
+        :meth:`forward_streams` with one stream.
+        """
+        out, states = self.forward_streams(
+            net, images[None], state.map(lambda t: t[None]), image_size,
+            None if given is None else given.map(lambda t: t[None]))
+        return out.lane(0), states.lane(0)
+
+    @torch.no_grad()
+    def forward_streams(self, net: SiamMOTNet, images: torch.Tensor,
+                        states: TrackState, image_size=None, given=None):
+        """One frame of each of S independent video streams, as one
+        batched step: the trunk, FPN, RPN and box head run once over the
+        S images, and every kernel launches once over all streams' slots
+        and ROIs (each ROI and slot pools from its own stream's image).
+        Streams never mix: each has its own proposals, NMS sets, track
+        slots and ids, so each lane equals its own one-stream run.
+
+        images: [S, 1, H, W, 3] (as :meth:`forward_inference`'s, one frame
+        per stream, all of the content size ``image_size``); states: a
+        TrackState stacked over S (``parallel/multistream.
+        empty_states``); given: None, or public detections stacked over S
+        (``core/structures.stack_boxes``; an all-invalid set for a stream
+        without any).  Returns (out: Boxes [S, M], states').
         """
         ecfg, hcfg = self.ecfg, self.hcfg
         dt = self.compute_dtype
         images = images.to(self.device)
-        h, w = images.shape[1:3]
+        s, _, h, w = images.shape[:4]
         image_size = tuple(image_size or (w, h))
         k = self.max_tracks
+        if states.ids.shape != (s, k):
+            raise ValueError(f"states hold {tuple(states.ids.shape)} slots, "
+                             f"want [{s}, {k}] for {s} streams")
         x = normalize_images(
-            images, self.cfg.INPUT.PIXEL_MEAN, self.cfg.INPUT.PIXEL_STD,
+            images[:, 0], self.cfg.INPUT.PIXEL_MEAN, self.cfg.INPUT.PIXEL_STD,
             self.cfg.INPUT.TO_BGR255,
-            frame_sizes=torch.tensor([image_size], dtype=torch.int32))
+            frame_sizes=torch.tensor([image_size] * s, dtype=torch.int32))
 
         feats = net.fpn(net.body(x.to(dt)))                  # NCHW, dt
         feats_nhwc = [f.permute(0, 2, 3, 1).float() for f in feats]
         pack = pack_levels(feats_nhwc[:len(self.box_scales)],
                            self.box_scales, dtype=self.pooler_dtype)
+        lanes = torch.arange(s, dtype=torch.int32, device=self.device)
 
-        # ---- proposals: the RPN's, or the given detections
+        # ---- proposals: each stream's RPN (its own top-n: the batch-joint
+        # quota is training-only), or its given detections
         if given is None:
             logits, deltas = net.rpn(feats)
             pb, ps, pv = select_proposals(
                 [l.float() for l in logits], [d.float() for d in deltas],
                 self.anchors_for((h, w)), image_size, self.rcfg)
-            n_prop = pb.shape[1]
-            prop = Boxes(boxes=pb[0], scores=ps[0],
-                         ids=torch.full((n_prop,), -1, dtype=torch.int32,
+            prop = Boxes(boxes=pb, scores=ps,
+                         ids=torch.full(pv.shape, -1, dtype=torch.int32,
                                         device=self.device),
-                         labels=torch.zeros((n_prop,), dtype=torch.int32,
+                         labels=torch.zeros(pv.shape, dtype=torch.int32,
                                             device=self.device),
-                         valid=pv[0])
+                         valid=pv)
         else:
             prop = given.map(lambda t: t.to(self.device))
-            n_prop = prop.capacity
+        n_prop = prop.capacity
 
-        # ---- track propagation (EMM) over K padded slots; the SR pool
-        # skips dead slots, and so does every EMM kernel when masked
-        occupied = state.occupied
+        # ---- track propagation (EMM) over the S x K padded slots, flat;
+        # the SR pool skips dead slots, and so does every EMM kernel when
+        # masked
+        def flat(t):
+            return t.reshape(s * k, *t.shape[2:])
+
+        slot_img = lanes.repeat_interleave(k)
+        occupied = flat(states.occupied)
         occ_k = occupied if self.masked_kernels else None
-        sr_feats = pool_search_region(pack, state.boxes, state.sr, ecfg,
-                                      self.window_sr, occupied)
+        sr_feats = pool_search_region(pack, flat(states.boxes),
+                                      flat(states.sr), ecfg, self.window_sr,
+                                      occupied, slot_img)
         cls_l, ctr_l, reg_l = net.emm(sr_feats.to(dt),
-                                      state.template.to(dt), occ_k)
+                                      flat(states.template).to(dt), occ_k)
         tboxes, tconf = decode_response_fused(
-            cls_l, ctr_l, reg_l, state.sr, state.boxes, ecfg, UPSCALE,
-            occ_k)
-        tvalid = occupied
+            cls_l, ctr_l, reg_l, flat(states.sr), flat(states.boxes), ecfg,
+            UPSCALE, occ_k)
+        tboxes, tconf = tboxes.reshape(s, k, 4), tconf.reshape(s, k)
+        tvalid = states.occupied
         if not ecfg.amodal:
             tboxes = box_ops.clip_to_image(tboxes, image_size)
             tvalid = tvalid & box_ops.nonempty_mask(tboxes)
 
         # ---- one box-head pass over proposals + track refinement
-        all_rois = torch.cat([prop.boxes, tboxes])
-        all_valid = torch.cat([prop.valid, tvalid])
+        r = n_prop + k
+        all_rois = torch.cat([prop.boxes, tboxes], 1).reshape(s * r, 4)
+        all_valid = torch.cat([prop.valid, tvalid], 1).reshape(s * r)
         levels = pool_levels(all_rois, len(self.box_scales))
-        cl, bd = net.box(pack, all_rois, levels, all_valid)
-        cl, bd = cl.float(), bd.float()
-        detections = postprocess(cl[:n_prop], bd[:n_prop], prop, image_size,
-                                 hcfg)
+        cl, bd = net.box(pack, all_rois, levels, all_valid,
+                         lanes.repeat_interleave(r))
+        cl, bd = cl.float().reshape(s, r, -1), bd.float().reshape(s, r, -1)
+        detections = postprocess(cl[:, :n_prop], bd[:, :n_prop], prop,
+                                 image_size, hcfg)
 
-        t_prob = torch.softmax(cl[n_prop:], dim=-1)
-        lab = state.labels.clamp(0, self.num_classes - 1).long()
-        app_score = torch.gather(t_prob, 1, lab[:, None])[:, 0]
-        dec = box_ops.decode(bd[n_prop:], tboxes, hcfg.reg_weights).reshape(
-            k, self.num_classes, 4)
-        rboxes = torch.gather(dec, 1, lab[:, None, None].expand(k, 1, 4))[:, 0]
+        t_prob = torch.softmax(cl[:, n_prop:], dim=-1)
+        lab = states.labels.clamp(0, self.num_classes - 1).long()
+        app_score = torch.gather(t_prob, 2, lab[..., None])[..., 0]
+        dec = box_ops.decode(bd[:, n_prop:], tboxes,
+                             hcfg.reg_weights).reshape(s, k,
+                                                       self.num_classes, 4)
+        rboxes = torch.gather(dec, 2, lab[..., None, None].expand(
+            s, k, 1, 4))[:, :, 0]
         if not hcfg.amodal:
             rboxes = box_ops.clip_to_image(rboxes, image_size)
         rscores = app_score + 1.0 if self.tracktor \
             else (app_score + tconf) / 2.0 + 1.0
-        tracks = Boxes(boxes=rboxes, scores=rscores, ids=state.ids,
-                       labels=state.labels, valid=tvalid)
+        tracks = Boxes(boxes=rboxes, scores=rscores, ids=states.ids,
+                       labels=states.labels, valid=tvalid)
 
-        # ---- solver
-        out, row_is_active, upd = solve(state, concat_boxes(detections,
-                                                            tracks),
+        # ---- solver, each stream against its own slots
+        out, row_is_active, upd = solve(states, concat_boxes(detections,
+                                                             tracks),
                                         self.scfg)
 
         # ---- next-frame memory: compact actives to K, extract caches
         pri = torch.where(row_is_active, out.scores,
                           torch.full_like(out.scores, -np.inf))
-        _, top = topk(pri, k)
-        act = out.map(lambda t: t[top])
-        act = dataclasses.replace(act, valid=row_is_active[top])
-        fresh_template = pool_template(pack, act.boxes, ecfg,
-                                       self.window_template, act.valid)
+        _, top = topk(pri, k)                                # [S, K]
+        act = out.map(lambda t: take_rows(t, top))
+        act = dataclasses.replace(act, valid=take_rows(row_is_active, top))
+        fresh_template = pool_template(
+            pack, flat(act.boxes), ecfg, self.window_template,
+            flat(act.valid), slot_img)
         fresh_sr = make_search_region(act.boxes, ecfg)
-        new_state = rebuild_state(
-            state.replace(active=upd["active_after"],
-                          last_active=upd["last_active"],
-                          ids=torch.where(upd["expired"],
-                                          torch.full_like(state.ids, -1),
-                                          state.ids)),
-            act, act.valid, fresh_template, fresh_sr, upd["keep_dormant"],
-            upd["next_id"], state.frame_idx)
-        return out, new_state
+        new_states = rebuild_state(
+            states.replace(active=upd["active_after"],
+                           last_active=upd["last_active"],
+                           ids=torch.where(upd["expired"],
+                                           torch.full_like(states.ids, -1),
+                                           states.ids)),
+            act, act.valid, fresh_template.reshape(
+                s, k, *fresh_template.shape[1:]),
+            fresh_sr, upd["keep_dormant"], upd["next_id"], states.frame_idx)
+        return out, new_states
 
     # -- training step ------------------------------------------------------
 

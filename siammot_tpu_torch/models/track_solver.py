@@ -14,7 +14,7 @@ import dataclasses
 import torch
 
 from ..core.nms import nms_mask
-from ..core.structures import Boxes
+from ..core.structures import Boxes, take_rows
 from .track_state import TrackState, rows_to_slots
 
 
@@ -36,11 +36,12 @@ class SolverConfig:
 
 
 def solve(state: TrackState, rows: Boxes, scfg: SolverConfig):
-    """Returns (out [M] Boxes with final ids and (0, 1] scores,
-    row_is_active [M] bool, upd: dict of slot updates for
-    ``rebuild_state``)."""
+    """Returns (out [..., M] Boxes with final ids and (0, 1] scores,
+    row_is_active [..., M] bool, upd: dict of slot updates for
+    ``rebuild_state``).  Leading axes are streams: each matches its rows
+    to its own slots and numbers new tracks from its own ``next_id``."""
     slot, has_slot = rows_to_slots(rows.ids, rows.valid, state)
-    row_from_active = has_slot & state.active[slot]
+    row_from_active = has_slot & take_rows(state.active, slot)
 
     scores = rows.scores + row_from_active.to(rows.scores.dtype)
     keep = nms_mask(rows.boxes, scores, rows.valid, scfg.nms_thresh)
@@ -52,23 +53,26 @@ def solve(state: TrackState, rows: Boxes, scfg: SolverConfig):
     start = keep & is_det & (adj >= scfg.start_thresh)
     # new ids follow NMS score-descending order (the reference assigns
     # them over the kept boxlist, track_solver.py:96-97)
-    m = rows.ids.shape[0]
+    m = rows.ids.shape[-1]
     start_key = torch.where(start, -adj, torch.full_like(adj, float("inf")))
-    start_order = torch.sort(start_key, stable=True)[1]
-    start_rank = torch.zeros(m, dtype=torch.int32, device=adj.device)
-    start_rank[start_order] = torch.arange(m, dtype=torch.int32,
-                                           device=adj.device)
-    new_ids = torch.where(start, state.next_id + start_rank, rows.ids)
-    next_id = state.next_id + start.sum(dtype=torch.int32)
+    start_order = torch.sort(start_key, dim=-1, stable=True)[1]
+    start_rank = torch.empty_like(start_order, dtype=torch.int32).scatter_(
+        -1, start_order, torch.arange(m, dtype=torch.int32,
+                                      device=adj.device).expand_as(
+                                          start_order).contiguous())
+    new_ids = torch.where(start, state.next_id[..., None] + start_rank,
+                          rows.ids)
+    next_id = state.next_id + start.sum(-1, dtype=torch.int32)
 
     low = keep & (rows.ids >= 0) & (adj < scfg.track_thresh)
 
-    eq = (rows.ids[:, None] == state.ids[None, :]) & \
-        state.occupied[None, :] & (rows.ids >= 0)[:, None]
+    eq = (rows.ids[..., :, None] == state.ids[..., None, :]) & \
+        state.occupied[..., None, :] & (rows.ids >= 0)[..., :, None]
 
     def slot_any(row_mask):
-        return (eq & row_mask[:, None]).any(dim=0)
+        return (eq & row_mask[..., :, None]).any(dim=-2)
 
+    frame = state.frame_idx[..., None]
     kept_slot = slot_any(keep)
     low_slot = slot_any(low)
     # suspend on low score or NMS removal; a track absent from the rows
@@ -77,11 +81,9 @@ def solve(state: TrackState, rows: Boxes, scfg: SolverConfig):
     resume_slot = state.occupied & ~state.active & \
         slot_any(keep & (adj >= scfg.resume_thresh))
     active_after = (state.active & ~inactive_slot) | resume_slot
-    last_active = torch.where(inactive_slot, state.frame_idx - 1,
-                              state.last_active)
+    last_active = torch.where(inactive_slot, frame - 1, state.last_active)
     dormant = state.occupied & ~active_after
-    expired = dormant & (state.frame_idx - last_active
-                         >= scfg.max_dormant_frames)
+    expired = dormant & (frame - last_active >= scfg.max_dormant_frames)
 
     out = Boxes(boxes=rows.boxes, scores=adj,
                 ids=torch.where(low, torch.full_like(new_ids, -1),
@@ -89,7 +91,7 @@ def solve(state: TrackState, rows: Boxes, scfg: SolverConfig):
                 labels=rows.labels, valid=keep)
     row_slot_after, row_has_after = rows_to_slots(out.ids, out.valid, state)
     row_is_active = out.valid & (out.ids >= 0) & (
-        start | (row_has_after & active_after[row_slot_after]))
+        start | (row_has_after & take_rows(active_after, row_slot_after)))
     upd = dict(active_after=active_after, last_active=last_active,
                expired=expired, next_id=next_id,
                keep_dormant=dormant & ~expired)

@@ -11,7 +11,10 @@ on IEEE division and ``expf`` (a zero extent gives inf, exp(-inf) 0).
 
 Every entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0.  A kernel launches on PyTorch's
-current stream and does not synchronise.
+current stream and does not synchronise.  The kernels take their sizes
+as C ``int`` and count elements within a tensor in 32 bits:
+:func:`check_extent` refuses, before any launch, a tensor of more than
+``INT32_MAX`` elements.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -105,6 +109,24 @@ def check(name: str, err: int) -> None:
     if err != 0:
         msg = library().siammot_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({err})")
+
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def check_extent(name: str, *items) -> None:
+    """Each item (a tensor the kernel reads, or the shape of one it
+    writes) must hold at most ``INT32_MAX`` elements: past that the
+    kernel's 32-bit element counts would wrap.  Raises ``ValueError``
+    naming the limit."""
+    for t in items:
+        n = t.numel() if isinstance(t, torch.Tensor) else math.prod(t)
+        if n > INT32_MAX:
+            shape = tuple(t.shape) if isinstance(t, torch.Tensor) else t
+            raise ValueError(
+                f"{name}: a tensor of {n} elements {shape} is past the "
+                f"kernel's 32-bit element counts (limit 2**31 - 1 = "
+                f"{INT32_MAX}); run fewer streams or slots a call")
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -80,6 +80,7 @@ def _launch(x4, wh, u, window, valid, sigma, use_centerness):
     k, s, s_hi = _check(x4, wh, u, window, valid)
     if s > S_MAX:
         raise ValueError(f"decode kernel takes s <= {S_MAX}, got {s}")
+    cuda.check_extent("emm_decode", x4, window, (k, decode_bands(s_hi), 3))
     partial = torch.empty((k, decode_bands(s_hi), 3), dtype=torch.int32,
                           device=x4.device)
     idx = torch.empty((k,), dtype=torch.int32, device=x4.device)

@@ -134,6 +134,8 @@ def _launch(x, valid, params, name):
     ctr, reg)."""
     ps = _check(x, valid, params)
     k, s, _, c = x.shape
+    cuda.check_extent(name, x, (2, k, c, s * s),
+                      (2, k, stat_tiles(s, c, x.dtype), GROUPS, 2))
     bf16 = x.dtype == torch.bfloat16
     if bf16:
         if any(t.data_ptr() % 16 for t in (x, *ps)):

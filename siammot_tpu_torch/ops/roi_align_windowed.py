@@ -35,6 +35,10 @@ class LevelPack:
     scales: tuple
     num_levels: int
 
+    @property
+    def images(self) -> int:
+        return self.row_offsets.shape[0] // self.num_levels
+
 
 def stack_levels(features: list):
     """Stack per-level [B, Hi, Wi, C] maps into one row table.
@@ -170,8 +174,15 @@ def roi_align_windowed(table, row_offsets, heights, widths, rois, block_idx,
 def windowed_pool(pack: LevelPack, rois, img_idx, levels, output_size: int,
                   sampling_ratio: int, window: int, pad_pixels: int = 0,
                   *, valid):
-    """FPN pooling of ``rois`` over a LevelPack; ``valid=None`` is the
-    differentiable training pool."""
+    """FPN pooling of ``rois`` over a LevelPack; ``img_idx`` [N] is each
+    ROI's image in the pack (None only for a one-image pack: a pack of
+    several images must be told, or every ROI would pool image 0);
+    ``valid=None`` is the differentiable training pool."""
+    if img_idx is None:
+        if pack.images != 1:
+            raise ValueError(f"windowed_pool: a pack of {pack.images} "
+                             f"images needs each ROI's image index")
+        img_idx = torch.zeros_like(levels)
     scales = torch.as_tensor(np.array(pack.scales, np.float32),
                              device=rois.device)[levels.long()]
     return roi_align_windowed(

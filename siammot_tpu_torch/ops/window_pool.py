@@ -56,6 +56,7 @@ def window_pool(table: torch.Tensor, origins: torch.Tensor, wy: torch.Tensor,
         return window_pool_plain(table, origins, wy, wx, valid)
     n, s, win = wy.shape
     r, wmax, c = table.shape
+    cuda.check_extent("window_pool", table, origins, wy, wx, (n, s, s, c))
     if table.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"window_pool: table dtype {table.dtype}")
     _check_geometry("window_pool", table, origins, wy, wx, valid)

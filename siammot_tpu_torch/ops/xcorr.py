@@ -145,6 +145,7 @@ def xcorr_depthwise_masked(search: torch.Tensor, template: torch.Tensor,
                         "bool")
     ho = search.shape[1] - template.shape[1] + 1
     wo = search.shape[2] - template.shape[2] + 1
+    cuda.check_extent("xcorr", search, template, (k, ho, wo, c))
     _out_fits("xcorr", ho, wo, 64)
     out = torch.empty((k, ho, wo, c), dtype=torch.float32,
                       device=search.device)

@@ -13,8 +13,10 @@ track post-filter, CLEAR-MOT summary).
 ``--model-file`` takes a port checkpoint (a ``model_*.pth`` file, or a
 directory whose latest is taken), a reference ``.pth`` or a flat
 flax-tree ``.npz``; without it the network runs on its fresh
-initialisation, as the JAX tool's does.  The model runs on the card
-unless ``--device cpu`` asks for the CPU.
+initialisation, as the JAX tool's does.  ``--n-streams S`` tracks S
+videos at once as lanes of one batched frame step (the multi-stream
+engine).  The model runs on the card unless ``--device cpu`` asks for
+the CPU.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ def parse_args(argv=None):
     parser.add_argument("--set", default="test",
                         choices=("train", "val", "test"))
     parser.add_argument("--n-streams", type=int, default=1,
-                        help="the multi-stream engine: not ported, > 1 "
-                             "raises")
+                        help="track this many videos at once, as lanes of "
+                             "one batched frame step (each video's output "
+                             "equals its own run with 1)")
     parser.add_argument("--eval-det-ap", action="store_true",
                         help="also report detection AP@[0.50:0.95] over the "
                              "post-filtered tracks")

@@ -19,6 +19,16 @@ leaves the frames at their own size (so no resize), on the bench weights
 JSON cache), the post-filtered tracks and the CLEAR-MOT summaries; and
 the sha256 of every frame as the JAX package decoded it, with its
 decoder.
+
+The multi-stream engine's check is the same over ``tests/fixtures/
+synmot_multi`` (``SYNMOT_MULTI``): three test sequences of 10, 7 and 4
+frames made the same way with seeds 11, 12 and 13, so that two streams
+(:data:`MULTI_STREAMS`) give a wave whose shorter video rides along as a
+masked lane, then a wave with an empty lane.  ``tests/torch_port_golden.py
+--multistream`` writes ``tests/fixtures/torch_golden_multistream.json.gz``:
+the JAX ``DatasetInference(n_streams=2)`` in each run of
+:data:`MULTI_RUNS` (f32, public-detection and RPN mode), laid out as
+above.
 """
 
 from __future__ import annotations
@@ -45,6 +55,12 @@ WEIGHTS = os.path.join(REPO, "fixtures", "bench_weights_f16.npz")
 MODES = {"given": [], "rpn": ["INFERENCE.USE_GIVEN_DETECTIONS", False]}
 RUNS = {f"{mode}_{dt}": (mode, dtype) for mode in MODES
         for dt, dtype in (("f32", "float32"), ("bf16", "bfloat16"))}
+MULTI_FIXTURE = os.path.join(REPO, "tests", "fixtures",
+                             "torch_golden_multistream.json.gz")
+MULTI_DATASET = "SYNMOT_MULTI"
+MULTI_VIDEOS = ("SYN-TE-01", "SYN-TE-02", "SYN-TE-03")
+MULTI_STREAMS = 2
+MULTI_RUNS = ("given_f32", "rpn_f32")
 # f32 on both sides, sums in other orders: entity ids, frames and labels
 # exactly, boxes to 1e-2 px, confidences to 1e-4 (the frame golden's
 # tolerances); the CLEAR-MOT summary's counts, MOTA and IDF1 (ratios of
@@ -74,11 +90,14 @@ def overrides(run: str) -> list:
 
 
 def cli_args(run: str, output_dir: str, model_file: str = WEIGHTS,
-                  device: str = "cuda") -> list:
-    """The port's ``tools/test_net`` arguments of a run."""
+             device: str = "cuda", n_streams: int = 1) -> list:
+    """The port's ``tools/test_net`` arguments of a run: over
+    ``SYNMOT_MINI``, or with ``n_streams`` > 1 over ``SYNMOT_MULTI``."""
+    dataset = DATASET if n_streams == 1 else MULTI_DATASET
     return ["--config-file", RECIPE, "--output-dir", output_dir,
-            "--model-file", model_file, "--test-dataset", DATASET,
-            "--set", "test", "--device", device] \
+            "--model-file", model_file, "--test-dataset", dataset,
+            "--set", "test", "--device", device,
+            "--n-streams", str(n_streams)] \
         + [str(v) for v in overrides(run)]
 
 

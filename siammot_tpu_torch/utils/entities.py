@@ -5,7 +5,8 @@ Converts a frame's padded ``Boxes`` rows to ``data.motion_dataset.
 AnnoEntity`` records (original-resolution xywh, confidence, {class:
 confidence} labels, id, time, frame index) and given public detections
 (MOT17's, for instance) back into padded tensors in network-input
-coordinates.
+coordinates, one set per frame or, for the multi-stream step, one set per
+stream stacked into ``[S, G]``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.structures import Boxes
+from ..core.structures import Boxes, stack_boxes
 from ..data.motion_dataset import AnnoEntity
 
 DEFAULT_CLASS_TABLE = {1: "person", 2: "vehicle"}
@@ -72,3 +73,14 @@ def entities_to_boxes(entities: list, capacity: int, scale_xy=(1.0, 1.0),
                                 device=device),
                  labels=torch.from_numpy(labels).to(device),
                  valid=torch.from_numpy(valid).to(device))
+
+
+def entities_to_stacked_boxes(per_stream: list, capacity: int, scales: list,
+                              class_table=None, device="cpu") -> Boxes:
+    """Given detections of S streams (one entity list each, scaled by its
+    stream's (sx, sy) in ``scales``) -> Boxes stacked ``[S, capacity]``;
+    an empty list (a stream with no detections, or without a frame at
+    this step) gives an all-invalid set."""
+    return stack_boxes([entities_to_boxes(e, capacity, sc, class_table,
+                                          device)
+                        for e, sc in zip(per_stream, scales)])

@@ -13,7 +13,7 @@ a ``TPU.MASKED_TRACK_KERNELS`` False frame runs; and the dataset path: a
 tiny MOT-layout sequence (rendered with ``cv2`` before the block) is
 ingested, tracked by ``DatasetInference`` and evaluated, then run again
 through ``tools/test_net``'s main function in public-detection mode from
-a port checkpoint.  Also: no CUDA source includes PyTorch's headers (they
+a port checkpoint, once with one stream and once with two.  Also: no CUDA source includes PyTorch's headers (they
 make the build take minutes instead of seconds)."""
 
 import os
@@ -171,6 +171,13 @@ SCRIPT = textwrap.dedent("""
         "--test-dataset", "SYNMOT_MINI", "--device", "cpu"] + opts)
     assert tinf._cfg.INFERENCE.USE_GIVEN_DETECTIONS
     assert tinf.speed["SEQ-01"][0] == 3 and "SEQ-01" in tinf.accs
+    # the multi-stream engine: the sequence beside an empty lane
+    minf = test_net.main(["--config-file", os.path.join(
+        REPO, "configs", "dla", "DLA_34_FPN_EMM_SYNMOT_HARD.yaml"),
+        "--output-dir", os.path.join(out, "streams"), "--model-file", ckpt,
+        "--test-dataset", "SYNMOT_MINI", "--device", "cpu",
+        "--n-streams", "2"] + opts)
+    assert minf.speed["SEQ-01"][0] == 3 and "SEQ-01" in minf.accs
     assert not any(blocked(m) for m in sys.modules), sorted(
         m for m in sys.modules if blocked(m))
 

@@ -2,7 +2,8 @@
 rows and track-state lanes for the port's end-to-end check
 (``siammot_tpu_torch/utils/golden.py`` says what it holds).
 
-    JAX_PLATFORMS=cpu python tests/torch_port_golden.py [--toggles | --bf16]
+    JAX_PLATFORMS=cpu python tests/torch_port_golden.py \
+        [--toggles | --bf16 | --dataset | --multistream]
 
 Runs ``SiamMOT.forward_inference`` of the JAX package on the CPU (jitted
 step, Pallas kernels in interpret mode or through their XLA forms, as the
@@ -19,7 +20,11 @@ default configuration's frames with ``TPU.COMPUTE_DTYPE`` and
 ``--dataset`` writes ``tests/fixtures/torch_golden_dataset.json.gz``: the
 JAX ``DatasetInference`` over ``tests/fixtures/synmot_mini`` in each run
 of ``siammot_tpu_torch/utils/dataset_golden.py``'s ``RUNS`` (what it
-holds is said there; a few minutes).  ``--export-npz CKPT OUT`` converts
+holds is said there; a few minutes).  ``--multistream`` writes
+``tests/fixtures/torch_golden_multistream.json.gz``: the JAX
+``DatasetInference(n_streams=2)`` over ``tests/fixtures/synmot_multi`` in
+each run of ``dataset_golden.MULTI_RUNS`` (about two minutes).
+``--export-npz CKPT OUT`` converts
 the JAX package's orbax checkpoint CKPT (a ``model_*`` directory) into a
 flat flax-tree ``.npz`` that the port reads (``--model-file OUT``).
 """
@@ -79,9 +84,10 @@ def run_jax(cut_name=None, dtype="float32"):
     return golden.pack(outs, states)
 
 
-def run_dataset() -> dict:
-    """The JAX ``DatasetInference`` over the committed sequence in every
-    run of ``dataset_golden.RUNS``, and the frames' digests as the JAX
+def run_dataset(folder="synmot_mini", runs=None, n_streams=1) -> dict:
+    """The JAX ``DatasetInference`` (with ``n_streams``) over the committed
+    sequences under ``tests/fixtures/<folder>`` in every run of ``runs``
+    (default ``dataset_golden.RUNS``), and the frames' digests as the JAX
     package decoded them."""
     import tempfile
 
@@ -94,14 +100,14 @@ def run_dataset() -> dict:
     from siammot_tpu.engine.inferencer import DatasetInference
     from siammot_tpu_torch.utils import dataset_golden as dg
 
-    root = os.path.join(dg.ROOT_DIR, "synmot_mini")
+    root = os.path.join(dg.ROOT_DIR, folder)
     ds = MotionDataset("anno.json", root_path=root)
     samples = ds.get_split("test")
     pub = dict(MotionDataset("anno_pub_detection.json", root_path=root))
     params = jax.tree.map(jnp.asarray, unflatten_params(load_npz(dg.WEIGHTS)))
     out = {"decoder": "libjpeg" if native.available() else "cv2",
            "frames": {}, "runs": {}}
-    for run in dg.RUNS:
+    for run in runs or dg.RUNS:
         t0 = time.time()
         cfg = get_cfg()
         cfg.merge_from_file(dg.RECIPE)
@@ -117,7 +123,7 @@ def run_dataset() -> dict:
                 cfg, SiamMOT(cfg), params, samples, tmp,
                 build_data_filter_fn("SYNMOT_HARD"),
                 pub if cfg.INFERENCE.USE_GIVEN_DETECTIONS else None,
-                dataset_root=ds.data_root_path)
+                dataset_root=ds.data_root_path, n_streams=n_streams)
             accs, text = inf()
             preds = {sid: DataSample.load(os.path.join(tmp, f"{sid}.json"))
                      .to_dict() for sid, _ in samples}
@@ -147,6 +153,13 @@ def main():
     if "--export-npz" in sys.argv[1:]:
         i = sys.argv.index("--export-npz")
         export_npz(sys.argv[i + 1], sys.argv[i + 2])
+        return
+    if "--multistream" in sys.argv[1:]:
+        from siammot_tpu_torch.utils import dataset_golden as dg
+        data = run_dataset("synmot_multi", dg.MULTI_RUNS, dg.MULTI_STREAMS)
+        dg.dump(data, dg.MULTI_FIXTURE)
+        print(f"wrote {dg.MULTI_FIXTURE} "
+              f"({os.path.getsize(dg.MULTI_FIXTURE)} B)")
         return
     if "--dataset" in sys.argv[1:]:
         from siammot_tpu_torch.utils import dataset_golden as dg
