@@ -145,7 +145,25 @@ Phases, each printed as it finishes:
      to ``tests/fixtures/torch_golden_multistream.json.gz`` within the
      CPU's tolerances, and on nvJPEG's frames (one reader a stream) with
      MOTA and IDF1 within ``DECODED_ELSEWHERE_ATOL``.  Every batched run's
-     launches count under the ``multistream`` path.
+     launches count under the ``multistream`` path;
+  9. training through ``tools/train_net``'s main function: (9a) the
+     SYNMOT_HARD recipe (DLA-34 at full width, 2 clips a batch, 384x640
+     static input, bf16 compute, f32 masters) over the committed training
+     fixture (``tests/fixtures/synmot_multi`` as a train split and four
+     crowded stills, ``tests/fixtures/syncrowd_mini``) from the bench
+     weights, 12 iterations with checkpoints every 6: the losses in the
+     run's event file (read by the port's own reader) finite, per step
+     exactly 3 window-pool forward and backward launches and one of each
+     xcorr pass, the checkpoints there, s/it, the loader wait a step and
+     peak memory, each kernel against its plain version on the last
+     step's inputs; (9b) the checkpoints past 6 deleted, a second call
+     resumes at 6: its loader batches 7-12 hash (sha256) to 9a's, the
+     losses printed beside 9a's; (9c) the loader alone at
+     ``configs/dla/DLA_34_FPN_EMM.yaml``'s batch (16 clips, short side
+     640-960, 8 workers) on nvJPEG's route: clips per second and ms a
+     batch over 20 batches after 3, and nvJPEG's JPEG round trip against
+     libjpeg's (``tests/fixtures/jpeg_roundtrip.npz``).  Both calls'
+     launches count under the ``train_net`` path.
 
 Each end-to-end phase sets every kernel's launch count to 0 just before
 it drives its path and reads the counts just after.
@@ -156,6 +174,7 @@ so does a machine without a CUDA device, or a directory without the port.
 """
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -1318,51 +1337,20 @@ def wide_sr_xcorr_passes(dev, report, g):
         f"75x75 x 15x15 -> 61x61 f32 N={n} (SEARCH_REGION 5)"] = passes
 
 
-def train_phase(dev, report, card, path="training", overrides=(),
-                warmup=TRAIN_WARMUP, timed=TRAIN_TIMED):
-    """A training path end to end at full width: phase 4 (the default
-    configuration, ``warmup`` + ``timed`` steps) and phase 4b (``overrides``
-    ``SEARCH_REGION`` 5: a 75x75 search region, kernel 6's passes at 75
-    -> 61).  Every loss finite at every step; per step exactly 3 window-pool
-    forward and 3 backward launches and one of each xcorr pass, the counts
-    set to 0 just before ``do_train`` and read just after; each kernel
-    against its plain version on the last step's inputs.  Returns
-    (mean ms/step, median, peak device bytes)."""
-    import itertools
-
+@contextlib.contextmanager
+def train_kernel_capture(steps):
+    """Count and capture the training kernels' launches while a training
+    run of ``steps`` steps runs: kernel 1 (``window_pool``), kernel 7
+    (``window_pool_bwd``) and kernel 6's three passes.  Yields (captured,
+    launches): ``captured`` keeps by reference what each kernel got at the
+    last step (and the bits of the last step's three table gradients),
+    ``launches`` is filled with each wrapper's count on exit; the counts
+    are set to 0 on entry."""
     import siammot_tpu_torch.ops.window_pool as wp_mod
     import siammot_tpu_torch.ops.xcorr as xc_mod
-    from siammot_tpu_torch.configs.defaults import get_cfg
-    from siammot_tpu_torch.engine.solver import (build_train_step,
-                                                 make_optimizer)
-    from siammot_tpu_torch.engine.trainer import do_train
-    from siammot_tpu_torch.models.siammot import SiamMOT
-    from siammot_tpu_torch.ops.window_pool import (tile_counts,
-                                                   touched_rects,
-                                                   window_pool,
-                                                   window_pool_bwd,
-                                                   window_pool_bwd_plain,
-                                                   window_pool_plain)
-    from siammot_tpu_torch.utils.synth import train_batches
-    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
 
-    t0 = time.perf_counter()
-    cfg = get_cfg()
-    cfg.merge_from_list(list(overrides))
-    model = SiamMOT(cfg, device=str(dev))
-    net = model.build_master(jax_to_torch(load_npz(FIXTURE)))
-    optimizer = make_optimizer(cfg, net)
-    step = build_train_step(model, optimizer)
-    steps = warmup + timed
-    batches = list(itertools.islice(
-        train_batches(7, HP, cfg.TPU.MAX_GT), steps))
-    log(f"  f32 masters ({sum(p.numel() for p in net.parameters())} "
-        f"parameters) and {steps} batches of 2 clips x 2 frames ready in "
-        f"{time.perf_counter() - t0:.1f} s")
-
-    # keep what each kernel got at the last step (by reference)
     captured = {"pool": [], "bwd": [], "forward": [], "grad_template": [],
-                "grad_search": []}
+                "grad_search": [], "bwd_bits": []}
 
     def capture(name, fn, keep):
         def wrapped(*args):
@@ -1370,25 +1358,19 @@ def train_phase(dev, report, card, path="training", overrides=(),
             captured[name] = (captured[name] + [args])[-keep:]
             if name == "bwd":  # the last step's table gradients' bits
                 last = len(captured["bwd_bits"]) >= 3 * (steps - 1)
-                captured["bwd_bits"].append(bits(out) if last else None)
+                captured["bwd_bits"].append(tensor_bits(out) if last
+                                            else None)
             return out
         return wrapped
 
-    def bits(t):
-        """A fingerprint of a tensor's bits (their int32 sum, and the f64
-        sum of the values)."""
-        return (int(t.view(torch.int32).sum(dtype=torch.int64)),
-                float(t.sum(dtype=torch.float64)))
-
-    captured["bwd_bits"] = []
     passes = xcorr_passes()
-    patches = [(wp_mod, "window_pool", capture("pool", window_pool, 3)),
+    patches = [(wp_mod, "window_pool",
+                capture("pool", wp_mod.window_pool, 3)),
                (wp_mod, "window_pool_bwd",
-                capture("bwd", window_pool_bwd, 3))]
+                capture("bwd", wp_mod.window_pool_bwd, 3))]
     patches += [(xc_mod, fn.__name__, capture(name, fn, 1))
                 for name, fn, _ in passes]
     originals = [(m, n, getattr(m, n)) for m, n, _ in patches]
-    metrics = []
     for m, n, f in patches:
         setattr(m, n, f)
     # these wrappers are patched in their own modules, where each counts
@@ -1398,50 +1380,60 @@ def train_phase(dev, report, card, path="training", overrides=(),
                 "window_pool_bwd": wp_mod.window_pool_bwd,
                 **{name: getattr(xc_mod, fn.__name__)
                    for name, fn, _ in passes}}
+    launches = {}
     try:
         for fn in counters.values():
             fn.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        log_ = do_train(model, step, net, optimizer, iter(batches), None,
-                        max_iter=steps, checkpoint_period=10 ** 9,
-                        log_period=1,
-                        tensorboard_writer=lambda it, m: metrics.append(m))
-        launches = {n: fn.launches for n, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated(dev)
+        yield captured, launches
+        launches.update({n: fn.launches for n, fn in counters.items()})
     finally:
         for m, n, f in originals:
             setattr(m, n, f)
 
-    if log_.iteration != steps or len(metrics) != steps:
-        raise AssertionError(f"ran {log_.iteration} of {steps} steps")
-    for i, m in enumerate(metrics):
-        if len(m) != 8 or not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"step {i + 1}: losses {m}")
-    per_step = {"window_pool": 3, "window_pool_bwd": 3, "forward": 1,
-                "grad_template": 1, "grad_search": 1}
+
+def tensor_bits(t):
+    """A fingerprint of a tensor's bits (their int32 sum, and the f64 sum
+    of the values)."""
+    return (int(t.view(torch.int32).sum(dtype=torch.int64)),
+            float(t.sum(dtype=torch.float64)))
+
+
+TRAIN_PER_STEP = {"window_pool": 3, "window_pool_bwd": 3, "forward": 1,
+                  "grad_template": 1, "grad_search": 1}
+
+
+def count_train_launches(launches, steps, report, path):
+    """Each training kernel must have launched exactly its per-step count
+    in ``steps`` steps; adds the counts to ``report`` under ``path``."""
+    passes = xcorr_passes()
     for name, count in launches.items():
-        if count != per_step[name] * steps:
-            raise AssertionError(f"{name}: {count} launches in {steps} "
-                                 f"training steps, expected "
-                                 f"{per_step[name] * steps}")
+        if count != TRAIN_PER_STEP[name] * steps:
+            raise AssertionError(f"{path} {name}: {count} launches in "
+                                 f"{steps} training steps, expected "
+                                 f"{TRAIN_PER_STEP[name] * steps}")
     for name, count in (("window_pool", launches["window_pool"]),
                         ("window_pool_bwd", launches["window_pool_bwd"]),
                         ("xcorr", sum(launches[n] for n, _, _ in passes))):
-        report[name].setdefault("launches_by_path", {})[path] = count
+        by_path = report[name].setdefault("launches_by_path", {})
+        by_path[path] = by_path.get(path, 0) + count
         report[name]["launches"] += count
     for name, _, _ in passes:
-        row = report["xcorr"]["passes"][name]
+        row = report["xcorr"].setdefault("passes", {}).setdefault(name, {})
         row["launches"] = row.get("launches", 0) + launches[name]
 
-    sec = np.array(log_.step_seconds[warmup:])
-    first, last = metrics[0], metrics[-1]
-    log(f"  {steps} SGD steps: {1e3 * sec.mean():.3f} ms/step over the last "
-        f"{timed} (median {1e3 * np.median(sec):.3f}, first step "
-        f"{1e3 * log_.step_seconds[0]:.1f} ms); peak device memory "
-        f"{peak / 2 ** 30:.3f} GiB ({card}); launches {launches}")
-    log("  losses, step 1 -> " + str(steps) + ": " + ", ".join(
-        f"{k} {first[k]:.4f} -> {last[k]:.4f}" for k in sorted(first)))
 
+def check_train_kernels(captured, report, path):
+    """Each training kernel against its plain version on the inputs and
+    upstream gradients it got at the last step of a run
+    (:func:`train_kernel_capture`); the last step's table gradients must
+    come back bitwise when launched again."""
+    from siammot_tpu_torch.ops.window_pool import (tile_counts,
+                                                   touched_rects,
+                                                   window_pool,
+                                                   window_pool_bwd,
+                                                   window_pool_bwd_plain,
+                                                   window_pool_plain)
+    passes = xcorr_passes()
     # each kernel against its plain version on the last step's inputs
     for site, args in zip(("box_pool", "template_pool", "sr_pool"),
                           captured["pool"]):
@@ -1457,7 +1449,7 @@ def train_phase(dev, report, card, path="training", overrides=(),
         k = window_pool_bwd(*args)
         p = window_pool_bwd_plain(*args)
         torch.cuda.synchronize()
-        if bits(k) != step_bits:
+        if tensor_bits(k) != step_bits:
             raise AssertionError(f"step {site} backward: launched again on "
                                  "the step's inputs, other bits")
         err, rel = close_scaled(k, p, f"step {site} backward")
@@ -1487,6 +1479,68 @@ def train_phase(dev, report, card, path="training", overrides=(),
                          "step xcorr autograd", scaled=True)
     log(f"  kernels agree with their plain versions on the last step's "
         f"inputs and upstream gradients")
+
+
+def train_phase(dev, report, card, path="training", overrides=(),
+                warmup=TRAIN_WARMUP, timed=TRAIN_TIMED):
+    """A training path end to end at full width: phase 4 (the default
+    configuration, ``warmup`` + ``timed`` steps) and phase 4b (``overrides``
+    ``SEARCH_REGION`` 5: a 75x75 search region, kernel 6's passes at 75
+    -> 61).  Every loss finite at every step; per step exactly 3 window-pool
+    forward and 3 backward launches and one of each xcorr pass, the counts
+    set to 0 just before ``do_train`` and read just after; each kernel
+    against its plain version on the last step's inputs.  Returns
+    (mean ms/step, median, peak device bytes)."""
+    import itertools
+
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.engine.solver import (build_train_step,
+                                                 make_optimizer)
+    from siammot_tpu_torch.engine.trainer import do_train
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils.synth import train_batches
+    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
+
+    t0 = time.perf_counter()
+    cfg = get_cfg()
+    cfg.merge_from_list(list(overrides))
+    model = SiamMOT(cfg, device=str(dev))
+    net = model.build_master(jax_to_torch(load_npz(FIXTURE)))
+    optimizer = make_optimizer(cfg, net)
+    step = build_train_step(model, optimizer)
+    steps = warmup + timed
+    batches = list(itertools.islice(
+        train_batches(7, HP, cfg.TPU.MAX_GT), steps))
+    log(f"  f32 masters ({sum(p.numel() for p in net.parameters())} "
+        f"parameters) and {steps} batches of 2 clips x 2 frames ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    metrics = []
+    with train_kernel_capture(steps) as (captured, launches):
+        torch.cuda.reset_peak_memory_stats(dev)
+        log_ = do_train(model, step, net, optimizer, iter(batches), None,
+                        max_iter=steps, checkpoint_period=10 ** 9,
+                        log_period=1,
+                        tensorboard_writer=lambda it, m: metrics.append(m))
+        peak = torch.cuda.max_memory_allocated(dev)
+
+    if log_.iteration != steps or len(metrics) != steps:
+        raise AssertionError(f"ran {log_.iteration} of {steps} steps")
+    for i, m in enumerate(metrics):
+        if len(m) != 8 or not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"step {i + 1}: losses {m}")
+    count_train_launches(launches, steps, report, path)
+
+    sec = np.array(log_.step_seconds[warmup:])
+    first, last = metrics[0], metrics[-1]
+    log(f"  {steps} SGD steps: {1e3 * sec.mean():.3f} ms/step over the last "
+        f"{timed} (median {1e3 * np.median(sec):.3f}, first step "
+        f"{1e3 * log_.step_seconds[0]:.1f} ms); peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB ({card}); launches {launches}")
+    log("  losses, step 1 -> " + str(steps) + ": " + ", ".join(
+        f"{k} {first[k]:.4f} -> {last[k]:.4f}" for k in sorted(first)))
+
+    check_train_kernels(captured, report, path)
     return 1e3 * float(sec.mean()), 1e3 * float(np.median(sec)), peak
 
 
@@ -2722,6 +2776,244 @@ def multistream_phase(dev, report, card):
     return sweep, syncs, dataset
 
 
+# -- phase 9: training through tools/train_net --------------------------------
+
+TRAIN_NET_ITERS, TRAIN_NET_PERIOD = 12, 6
+TRAIN_KEYS = ("SYNMOT_MULTI_TRAIN", "SYNCROWD_MINI_train_fbox")
+TRAIN_FIXTURES = os.path.join(REPO, "tests", "fixtures")
+LOADER_WARMUP, LOADER_TIMED = 3, 20
+JPEG_FIXTURE = os.path.join(TRAIN_FIXTURES, "jpeg_roundtrip.npz")
+GT_FIELDS = ("boxes", "scores", "ids", "labels", "valid")
+
+
+def batch_digest(batch) -> str:
+    """sha256 of a loader batch: image bytes, gt fields and sizes."""
+    images, gt, sizes = batch
+    h = hashlib.sha256(images.numpy().tobytes())
+    for f in GT_FIELDS:
+        h.update(getattr(gt, f).numpy().tobytes())
+    h.update(sizes.numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def digesting_loader(digests):
+    """Record the digest of each batch ``tools/train_net``'s loader yields,
+    by the iteration that consumes it, into ``digests``."""
+    import siammot_tpu_torch.data.build as build_mod
+    orig = build_mod.build_train_data_loader
+
+    def wrapped(cfg, start_iter=0, **kw):
+        loader = orig(cfg, start_iter=start_iter, **kw)
+
+        class Digesting:
+            def __iter__(self):
+                for it, batch in enumerate(loader, start_iter + 1):
+                    digests[it] = batch_digest(batch)
+                    yield batch
+        return Digesting()
+
+    build_mod.build_train_data_loader = wrapped
+    try:
+        yield
+    finally:
+        build_mod.build_train_data_loader = orig
+
+
+def train_net_args(train_dir, dev):
+    """9a's command line: the SYNMOT_HARD recipe (2 clips a batch, 384x640
+    static input, bf16 compute and f32 masters) over the committed
+    training fixture, from the bench weights."""
+    return ["--config-file", os.path.join(REPO, "configs", "dla",
+                                          "DLA_34_FPN_EMM_SYNMOT_HARD.yaml"),
+            "--train-dir", train_dir, "--device", str(dev),
+            "DATASETS.ROOT_DIR", TRAIN_FIXTURES,
+            "DATASETS.TRAIN", repr(TRAIN_KEYS), "MODEL.WEIGHT", FIXTURE,
+            "SOLVER.MAX_ITER", str(TRAIN_NET_ITERS),
+            "SOLVER.CHECKPOINT_PERIOD", str(TRAIN_NET_PERIOD),
+            "SOLVER.WARMUP_ITERS", "2"]
+
+
+@contextlib.contextmanager
+def quiet_console():
+    """The port's INFO lines (``train_net`` logs its whole configuration)
+    go to the run's ``log.txt`` only, not to this script's output."""
+    import logging
+    root = logging.getLogger()
+    added = logging.StreamHandler() if not root.handlers else None
+    if added is not None:
+        root.addHandler(added)
+    levels = [(h, h.level) for h in root.handlers]
+    for h, _ in levels:
+        h.setLevel(logging.WARNING)
+    try:
+        yield
+    finally:
+        for h, level in levels:
+            h.setLevel(level)
+        if added is not None:
+            root.removeHandler(added)
+
+
+def train_net_run(dev, report, card, train_dir, steps, what):
+    """One ``tools/train_net`` call with every training kernel counted;
+    returns (run dir, TrainLog, loader digests by iteration, the losses
+    logged at the last iteration, kernel captures)."""
+    from siammot_tpu_torch.engine.tensorboard_writer import read_events
+    from siammot_tpu_torch.tools import train_net
+
+    digests = {}
+    t0 = time.perf_counter()
+    with quiet_console(), digesting_loader(digests), \
+            train_kernel_capture(steps) as (captured, launches):
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, tlog = train_net.main(train_net_args(train_dir, dev))
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+    wall = time.perf_counter() - t0
+    ran = len(tlog.step_seconds)
+    if tlog.iteration != TRAIN_NET_ITERS or ran != steps:
+        raise AssertionError(f"{what}: ran {ran} steps to iteration "
+                             f"{tlog.iteration}, expected {steps} to "
+                             f"{TRAIN_NET_ITERS}")
+    count_train_launches(launches, steps, report, "train_net")
+    for f in (f"model_{TRAIN_NET_PERIOD:07d}.pth", "model_final.pth",
+              "config.yaml", "log.txt"):
+        if not os.path.exists(os.path.join(out, f)):
+            raise AssertionError(f"{what}: no {f} in {out}")
+    tb = [f for f in os.listdir(os.path.join(out, "tb"))
+          if f.startswith("events.out.tfevents.")]
+    losses = {}
+    for f in tb:
+        for ev in read_events(os.path.join(out, "tb", f)):
+            for tag, v in ev["scalars"].items():
+                if ev["step"] == TRAIN_NET_ITERS:
+                    losses[tag] = v
+    if len(losses) != 8 or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{what}: the event file's losses at iteration "
+                             f"{TRAIN_NET_ITERS}: {losses}")
+    sec = np.array(tlog.step_seconds[2:] if ran > 4 else tlog.step_seconds)
+    log(f"  {what}: {ran} steps to iteration {tlog.iteration} in {wall:.1f} "
+        f"s wall: {sec.mean():.4f} s/it (median {np.median(sec):.4f}, "
+        f"{'after 2' if ran > 4 else 'all steps'}), loader wait a step "
+        f"(data meter) median {1e3 * np.median(tlog.data_seconds):.3f} ms, "
+        f"max {1e3 * max(tlog.data_seconds):.3f} ms; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB ({card}); launches {launches}")
+    return out, tlog, digests, losses, captured, peak
+
+
+def jpeg_roundtrip_gap(dev):
+    """nvJPEG's round trip (encode, decode) of the committed crops against
+    libjpeg's, which ``tests/torch_jpeg_fixture.py`` stored from the JAX
+    transform's ``cv2`` calls: per quality the largest byte difference, the
+    share of bytes that differ, the mean difference, and each route's mean
+    difference from the crop itself."""
+    from siammot_tpu_torch.data import native
+    z = np.load(JPEG_FIXTURE)
+    crops = z["crops"]
+    out = {}
+    for q in (50, 75, 100):
+        want = crops.astype(np.int16) + z[f"q{q}"]
+        got = np.stack([native.jpeg_roundtrip(c, q, dev) for c in crops])
+        again = np.stack([native.jpeg_roundtrip(c, q, dev) for c in crops])
+        if not np.array_equal(got, again):
+            raise AssertionError(f"nvJPEG's round trip at quality {q} is "
+                                 f"not repeatable")
+        d = np.abs(got.astype(np.int16) - want)
+        # each route's own loss: its round trip against the crop
+        loss = (float(np.abs(got.astype(np.int16) - crops).mean()),
+                float(np.abs(z[f"q{q}"].astype(np.int16)).mean()))
+        out[q] = (int(d.max()), float((d > 0).mean()), float(d.mean()), loss)
+    return out
+
+
+def loader_phase(dev, card):
+    """9c: the loader alone under ``configs/dla/DLA_34_FPN_EMM.yaml``'s
+    INPUT and batch (16 clips, short side 640-960, long side to 1280, 8
+    workers) over the training fixture, decoding and compressing with
+    nvJPEG: clips per second and ms a batch over ``LOADER_TIMED`` batches
+    after ``LOADER_WARMUP``."""
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.data.build import build_train_data_loader
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "dla",
+                                     "DLA_34_FPN_EMM.yaml"))
+    cfg.merge_from_list(["DATASETS.ROOT_DIR", TRAIN_FIXTURES,
+                         "DATASETS.TRAIN", TRAIN_KEYS, "SOLVER.MAX_ITER",
+                         LOADER_WARMUP + LOADER_TIMED])
+    clips = cfg.SOLVER.VIDEO_CLIPS_PER_BATCH
+    times, shapes = [], set()
+    t = t0 = time.perf_counter()
+    for images, gt, sizes in build_train_data_loader(cfg, device=dev):
+        now = time.perf_counter()
+        times.append(now - t)
+        t = now
+        shapes.add(tuple(images.shape))
+        if dev.type == "cuda" and not images.is_pinned():
+            raise AssertionError("9c: the loader's images are not pinned")
+    if len(times) != LOADER_WARMUP + LOADER_TIMED:
+        raise AssertionError(f"9c: {len(times)} batches")
+    timed = np.array(times[LOADER_WARMUP:])
+    out = dict(clips_per_s=clips * LOADER_TIMED / timed.sum(),
+               ms_batch=1e3 * timed.mean(), ms_batch_median=1e3 * np.median(
+                   timed), first_s=times[0])
+    log(f"  {clips} clips a batch (MIN_SIZE_TRAIN "
+        f"{tuple(cfg.INPUT.MIN_SIZE_TRAIN)}, MAX_SIZE_TRAIN "
+        f"{cfg.INPUT.MAX_SIZE_TRAIN}), {cfg.DATALOADER.NUM_WORKERS} workers, "
+        f"{os.cpu_count()} host cores: {out['clips_per_s']:.3f} clips/s, "
+        f"{out['ms_batch']:.3f} ms a batch (median "
+        f"{out['ms_batch_median']:.3f}) over {LOADER_TIMED} batches after "
+        f"{LOADER_WARMUP} (first batch {times[0]:.2f} s, whole run "
+        f"{time.perf_counter() - t0:.2f} s); padded shapes "
+        f"{sorted(shapes)} ({card})")
+    return out
+
+
+def train_net_phase(dev, report, card):
+    """Phase 9: 9a a training run through ``tools/train_net``'s main
+    function, 9b its resume from iteration 6, 9c the loader alone."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"[9a] train_net: {TRAIN_NET_ITERS} iterations, checkpoints every "
+            f"{TRAIN_NET_PERIOD}:")
+        out, _, digests, losses, captured, peak = train_net_run(
+            dev, report, card, tmp, TRAIN_NET_ITERS, "9a")
+        log("  kernels against their plain versions on the last step's "
+            "inputs:")
+        check_train_kernels(captured, report, "train_net")
+        log(f"[9b] resume at iteration {TRAIN_NET_PERIOD}:")
+        for f in (f"model_{TRAIN_NET_ITERS:07d}.pth", "model_final.pth"):
+            os.remove(os.path.join(out, f))
+        out2, _, digests2, losses2, _, _ = train_net_run(
+            dev, report, card, tmp, TRAIN_NET_ITERS - TRAIN_NET_PERIOD, "9b")
+        if out2 != out:
+            raise AssertionError(f"9b ran in {out2}, not {out}")
+        resumed = list(range(TRAIN_NET_PERIOD + 1, TRAIN_NET_ITERS + 1))
+        if sorted(digests2) != resumed:
+            raise AssertionError(f"9b loaded iterations {sorted(digests2)}")
+        same = [it for it in resumed if digests2[it] == digests[it]]
+        if len(same) != len(resumed):
+            raise AssertionError(f"9b: loader batches of iterations "
+                                 f"{sorted(set(resumed) - set(same))} differ "
+                                 f"from 9a's")
+        log(f"  loader batches of iterations {resumed[0]}-{resumed[-1]}: "
+            f"sha256 equal to 9a's ({len(same)} of {len(resumed)})")
+        log(f"  losses at iteration {TRAIN_NET_ITERS}, 9a -> 9b (not gated: "
+            f"cuDNN is not bitwise): " + ", ".join(
+                f"{k} {losses[k]:.4f} -> {losses2[k]:.4f}"
+                for k in sorted(losses)))
+    log("[9c] the loader alone (nvJPEG decode and JPEG round trip):")
+    loader = loader_phase(dev, card)
+    gap = jpeg_roundtrip_gap(dev)
+    log("  nvJPEG's JPEG round trip against libjpeg's (cv2's) on the "
+        "committed crops: " + ", ".join(
+            f"quality {q}: max byte difference {m}, {100 * f:.3f}% of bytes "
+            f"differ, mean {a:.4f} (mean from the crop: nvJPEG {nl:.4f}, "
+            f"libjpeg {ll:.4f})" for q, (m, f, a, (nl, ll)) in gap.items()))
+    log(f"  phase 9 wall time {time.perf_counter() - t0:.1f} s")
+    return dict(loader=loader, gap=gap, peak=peak)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2833,6 +3125,12 @@ def main():
     sweep, syncs, ms_dataset = multistream_phase(dev, report, card)
     log(f"[8] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[9] training through tools/train_net: DLA-34-FPN-EMM, the "
+        f"SYNMOT_HARD recipe over the committed training fixture ({card}):")
+    trained = train_net_phase(dev, report, card)
+    log(f"[9] done in {time.perf_counter() - t0:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
@@ -2858,6 +3156,10 @@ def main():
         + f", host syncs a step {syncs[1][0]} at S=1, {syncs[8][0]} at S=8"
         + ", test_net --n-streams 2 "
         + ", ".join(f"{run} {fps:.3f} fps" for run, fps in ms_dataset.items())
+        + f"; train_net loader {trained['loader']['clips_per_s']:.3f} clips/s "
+        f"({trained['loader']['ms_batch']:.3f} ms a 16-clip batch), nvJPEG "
+        f"round trip max byte gap "
+        + ", ".join(f"q{q} {g[0]}" for q, g in trained["gap"].items())
         + f"; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -11,6 +11,12 @@ from .node import CfgNode as CN
 _C = CN()
 
 _C.MODEL = CN()
+# tools/train_net's initial weights when the run has no checkpoint: a
+# reference .pth, a port checkpoint (file or directory) or a flax .npz
+_C.MODEL.WEIGHT = ""
+# read by utils/model_name.py (the run directory's name)
+_C.MODEL.BOX_ON = True
+_C.MODEL.TRACK_ON = True
 _C.MODEL.BACKBONE = CN()
 _C.MODEL.BACKBONE.CONV_BODY = "DLA-34-FPN"
 
@@ -59,6 +65,7 @@ _C.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM = 1024
 
 _C.MODEL.TRACK_HEAD = CN()
 _C.MODEL.TRACK_HEAD.TRACKTOR = False
+_C.MODEL.TRACK_HEAD.MODEL = "EMM"
 _C.MODEL.TRACK_HEAD.POOLER_SCALES = (0.25, 0.125, 0.0625, 0.03125)
 _C.MODEL.TRACK_HEAD.POOLER_RESOLUTION = 15
 _C.MODEL.TRACK_HEAD.POOLER_SAMPLING_RATIO = 2
@@ -81,6 +88,17 @@ _C.MODEL.TRACK_HEAD.EMM.TRACK_LOSS_WEIGHT = 1.0
 _C.MODEL.TRACK_HEAD.EMM.CLS_POS_REGION = 0.8
 
 _C.INPUT = CN()
+# training augmentation (data/augmentation.py:build_siam_augmentation)
+_C.INPUT.MIN_SIZE_TRAIN = (800,)
+_C.INPUT.MAX_SIZE_TRAIN = 1333
+_C.INPUT.BRIGHTNESS = 0.0
+_C.INPUT.CONTRAST = 0.0
+_C.INPUT.SATURATION = 0.0
+_C.INPUT.HUE = 0.0
+_C.INPUT.HORIZONTAL_FLIP_PROB_TRAIN = 0.5
+_C.INPUT.MOTION_LIMIT = 0.1
+_C.INPUT.COMPRESSION_LIMIT = 50
+_C.INPUT.MOTION_BLUR_PROB = 0.5
 # test-time resize: short side to MIN_SIZE_TEST unless the long side
 # would pass MAX_SIZE_TEST (resize_dims)
 _C.INPUT.MIN_SIZE_TEST = 800
@@ -89,6 +107,12 @@ _C.INPUT.PIXEL_MEAN = (0.485, 0.456, 0.406)
 _C.INPUT.PIXEL_STD = (0.229, 0.224, 0.225)
 _C.INPUT.TO_BGR255 = False
 _C.INPUT.AMODAL = False
+
+# training clips (data/datasets.py:VideoDataset): window and stride in ms
+_C.VIDEO = CN()
+_C.VIDEO.TEMPORAL_WINDOW = 8
+_C.VIDEO.TEMPORAL_SAMPLING = 4
+_C.VIDEO.RANDOM_FRAMES_PER_CLIP = 2
 
 _C.INFERENCE = CN()
 # MOT17 public-detection mode: the given detections replace the RPN's
@@ -143,6 +167,13 @@ _C.TPU.MAX_DETECTIONS = 256
 _C.TPU.DEVICE_NORMALIZE = True
 # padded ground-truth capacity per training frame
 _C.TPU.MAX_GT = 100
+# static training input (H, W) the collator pads every batch to; 0 pads
+# to the batch's own size-divisible extent
+_C.TPU.INPUT_HEIGHT = 0
+_C.TPU.INPUT_WIDTH = 0
+# the JAX package's data-parallel mesh size; the port trains on one card
+# (0 or 1)
+_C.TPU.DATA_PARALLEL = 0
 # per-site window sizes of the windowed pool (feature px, rows == cols)
 _C.TPU.WINDOW_BOX = 64
 _C.TPU.WINDOW_TEMPLATE = 64

@@ -78,6 +78,48 @@ class CfgNode(dict):
             node[parts[-1]] = value
 
 
+    def dump(self) -> str:
+        """The tree as YAML in the subset :func:`read_yaml` reads (nested
+        mappings, scalars, ``[a, b]`` lists), so a dumped ``config.yaml``
+        merges back into the same tree."""
+        lines: list = []
+
+        def walk(node, indent):
+            for k, v in node.items():
+                if isinstance(v, CfgNode):
+                    lines.append(f"{indent}{k}:")
+                    walk(v, indent + "  ")
+                else:
+                    lines.append(f"{indent}{k}: {_dump_value(v)}")
+
+        walk(self, "")
+        return "\n".join(lines) + "\n"
+
+
+def _dump_value(v: Any) -> str:
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_value(x) for x in v) + "]"
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        mant, _, exp = repr(v).partition("e")
+        if "." not in mant:
+            mant += ".0"
+        return mant + (f"e{exp if exp[0] in '+-' else '+' + exp}"
+                       if exp else "")
+    if isinstance(v, str):
+        return json.dumps(v)
+    raise TypeError(f"config value {v!r} has no YAML form here")
+
+
 def _maybe_literal(s: str) -> Any:
     try:
         return ast.literal_eval(s)

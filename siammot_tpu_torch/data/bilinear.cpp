@@ -16,7 +16,10 @@
 namespace {
 
 // Bilinear resize RGB8 -> normalized float32 HWC: ((x/255) - mean) / std.
-// Matches cv2.INTER_LINEAR sampling (half-pixel centers).
+// Samples at cv2.INTER_LINEAR's half-pixel centres, in float: the JAX
+// package's native reader's bytes, not cv2.resize's (OpenCV's 8-bit resize
+// is fixed-point and differs by one on about a tenth of the bytes; the
+// augmentation's exact port of it is augment.cpp).
 void resize_normalize(const uint8_t* src, int sw, int sh, float* dst, int dw,
                       int dh, const float* mean, const float* stdv) {
   const float sx = float(sw) / dw, sy = float(sh) / dh;

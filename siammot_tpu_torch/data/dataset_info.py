@@ -18,6 +18,15 @@ dataset_maps = {
     # three SYNMOT_HARD test sequences of 10, 7 and 4 frames for the
     # multi-stream engine (tests/fixtures/synmot_multi)
     "SYNMOT_MULTI": ["synmot_multi", "anno.json", "splits.json", "video"],
+    # the same three sequences as a "train" split: the committed training
+    # fixture's videos (DATASETS.ROOT_DIR tests/fixtures)
+    "SYNMOT_MULTI_TRAIN": ["synmot_multi", "anno.json", "splits_train.json",
+                           "video"],
+    # four 640x384 crowded stills (tools/make_synth_crowd.py --train 4
+    # --val 0 --size 640 384), the training fixture's image modality
+    "SYNCROWD_MINI_train_fbox": ["syncrowd_mini",
+                                 "annotations/annotation_train_fbox.json",
+                                 "Images", "image"],
     # CrowdHuman-style crowded stills (tools/make_synth_crowd.py) for
     # detector pretraining, mirroring the reference's CrowdHuman fbox keys
     "SYNCROWD_train_fbox": ["SYNCROWD",

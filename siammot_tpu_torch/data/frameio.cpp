@@ -13,6 +13,10 @@
 //   fio_decode_batch_u8(n, paths, out_w, out_h, out_u8)         -> 0/err
 //   fio_pool_create(n_threads) / fio_pool_destroy()
 //   fio_image_size(path, &w, &h)                                -> 0/err
+//   fio_jpeg_roundtrip_u8(rgb, w, h, quality, out_rgb)          -> 0/err
+//     (the augmentation's JPEG compression: encode in memory at `quality`
+//     with libjpeg's defaults, as cv2.imencode does -- 4:2:0 chroma,
+//     baseline tables, the islow DCT -- then decode as above)
 
 #include <cstddef>
 #include <cstdio>
@@ -24,6 +28,7 @@
 #include <condition_variable>
 #include <csetjmp>
 #include <cstdint>
+#include <cstdlib>
 #include <cstdio>
 #include <cstring>
 #include <functional>
@@ -78,7 +83,10 @@ int decode_jpeg(const char* path, std::vector<uint8_t>* rgb, int* w, int* h) {
 }
 
 // Bilinear resize RGB8 -> normalized float32 HWC: ((x/255) - mean) / std.
-// Matches cv2.INTER_LINEAR sampling (half-pixel centers).
+// Samples at cv2.INTER_LINEAR's half-pixel centres, in float: the JAX
+// package's native reader's bytes, not cv2.resize's (OpenCV's 8-bit resize
+// is fixed-point and differs by one on about a tenth of the bytes; the
+// augmentation's exact port of it is augment.cpp).
 void resize_normalize(const uint8_t* src, int sw, int sh, float* dst, int dw,
                       int dh, const float* mean, const float* stdv) {
   const float sx = float(sw) / dw, sy = float(sh) / dh;
@@ -226,6 +234,67 @@ class Pool {
 
 Pool* g_pool = nullptr;
 
+int jpeg_roundtrip(const uint8_t* rgb, int w, int h, int quality,
+                   uint8_t* out) {
+  unsigned char* buf = nullptr;
+  unsigned long size = 0;
+  {
+    jpeg_compress_struct cinfo;
+    JpegError jerr;
+    cinfo.err = jpeg_std_error(&jerr.mgr);
+    jerr.mgr.error_exit = jpeg_error_exit;
+    if (setjmp(jerr.jump)) {
+      jpeg_destroy_compress(&cinfo);
+      free(buf);
+      return -3;
+    }
+    jpeg_create_compress(&cinfo);
+    jpeg_mem_dest(&cinfo, &buf, &size);
+    cinfo.image_width = w;
+    cinfo.image_height = h;
+    cinfo.input_components = 3;
+    cinfo.in_color_space = JCS_RGB;
+    jpeg_set_defaults(&cinfo);
+    jpeg_set_quality(&cinfo, quality, TRUE);
+    jpeg_start_compress(&cinfo, TRUE);
+    while (cinfo.next_scanline < cinfo.image_height) {
+      JSAMPROW row = const_cast<uint8_t*>(rgb) +
+                     size_t(cinfo.next_scanline) * w * 3;
+      jpeg_write_scanlines(&cinfo, &row, 1);
+    }
+    jpeg_finish_compress(&cinfo);
+    jpeg_destroy_compress(&cinfo);
+  }
+  jpeg_decompress_struct dinfo;
+  JpegError jerr;
+  dinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_error_exit;
+  if (setjmp(jerr.jump)) {
+    jpeg_destroy_decompress(&dinfo);
+    free(buf);
+    return -4;
+  }
+  jpeg_create_decompress(&dinfo);
+  jpeg_mem_src(&dinfo, buf, size);
+  jpeg_read_header(&dinfo, TRUE);
+  dinfo.out_color_space = JCS_RGB;
+  jpeg_start_decompress(&dinfo);
+  if (int(dinfo.output_width) != w || int(dinfo.output_height) != h) {
+    jpeg_destroy_decompress(&dinfo);
+    free(buf);
+    return -5;
+  }
+  while (dinfo.output_scanline < dinfo.output_height) {
+    JSAMPROW row = out + size_t(dinfo.output_scanline) * w * 3;
+    jpeg_read_scanlines(&dinfo, &row, 1);
+  }
+  jpeg_finish_decompress(&dinfo);
+  jpeg_destroy_decompress(&dinfo);
+  free(buf);
+  return 0;
+}
+
+
 }  // namespace
 
 extern "C" {
@@ -240,6 +309,11 @@ int fio_pool_create(int n_threads) {
 void fio_pool_destroy() {
   delete g_pool;
   g_pool = nullptr;
+}
+
+int fio_jpeg_roundtrip_u8(const uint8_t* rgb, int w, int h, int quality,
+                          uint8_t* out) {
+  return jpeg_roundtrip(rgb, w, h, quality, out);
 }
 
 int fio_image_size(const char* path, int* w, int* h) {

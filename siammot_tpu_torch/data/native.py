@@ -15,6 +15,15 @@ do: :class:`FrameReader` decodes
 
 Either way the frame leaves as uint8 RGB (``models.siammot.
 normalize_images`` normalises it on the device) or normalised float32.
+
+The training augmentation's pixel arithmetic runs here too, on the host
+on both routes: ``augment.cpp`` reproduces OpenCV's 8-bit resize, HSV
+conversions, ``filter2D``, ``GaussianBlur`` and the float ``warpAffine``
+of the motion-blur kernel bit for bit, and the JPEG
+round trip follows the route (libjpeg's encoder in ``frameio.cpp`` on the
+CPU, nvJPEG's in ``nvjpeg.cpp`` on the card).  :func:`read_jpeg` and
+:func:`thread_decoder` give each thread its own nvJPEG decoder on the
+card, so a pool of loader threads decodes at once.
 Each library is built at first use with ``g++`` into
 ``siammot_tpu_torch/_build/``, beside the CUDA kernels, named by a hash of
 its sources, its flags and the host's CPU, so a fresh checkout builds it
@@ -32,6 +41,7 @@ import platform
 import shutil
 import struct
 import subprocess
+import threading
 
 import numpy as np
 import torch
@@ -60,12 +70,13 @@ def _cuda_home() -> str:
 
 
 def _load(name: str, src: str, link: list, needs: str,
-          include: tuple = ()) -> ctypes.CDLL:
+          include: tuple = (), extra: tuple = ()) -> ctypes.CDLL:
     """Build ``src`` into ``_build/{name}-{hash}.so`` unless it is there,
-    then load it.  ``needs`` names what a failed build lacks."""
+    then load it.  ``needs`` names what a failed build lacks; ``extra``
+    are flags of this library alone."""
     with open(os.path.join(_DIR, src), "rb") as f:
         h = hashlib.sha256(f.read())
-    flags = CXX_FLAGS + [f"-I{d}" for d in include]
+    flags = CXX_FLAGS + list(extra) + [f"-I{d}" for d in include]
     h.update(" ".join(flags + link).encode())
     h.update(_host_cpu().encode())
     path = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
@@ -75,7 +86,7 @@ def _load(name: str, src: str, link: list, needs: str,
         if cxx is None:
             raise RuntimeError(f"the port's {needs} reader needs a C++ "
                                f"compiler (g++) to build {src}")
-        tmp = f"{path}.{os.getpid()}.tmp"
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [cxx, *flags, os.path.join(_DIR, src), "-o", tmp, "-shared",
                *link]
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -109,7 +120,9 @@ def libjpeg_library() -> ctypes.CDLL:
                             ctypes.POINTER(_c_int)], _c_int),
         ("fio_decode_file", [_c_char_p, _c_int, _c_int, _f32p, _f32p, _f32p],
          _c_int),
-        ("fio_decode_file_u8", [_c_char_p, _c_int, _c_int, _u8p], _c_int)])
+        ("fio_decode_file_u8", [_c_char_p, _c_int, _c_int, _u8p], _c_int),
+        ("fio_jpeg_roundtrip_u8", [_u8p, _c_int, _c_int, _c_int, _u8p],
+         _c_int)])
 
 
 @functools.cache
@@ -120,6 +133,25 @@ def bilinear_library() -> ctypes.CDLL:
          None),
         ("fio_resize_normalize", [_u8p, _c_int, _c_int, _f32p, _c_int, _c_int,
                                   _f32p, _f32p], None)])
+
+
+@functools.cache
+def augment_library() -> ctypes.CDLL:
+    """``augment.cpp``: OpenCV's 8-bit arithmetic of the training
+    augmentation.  Built without contracting a * b + c into fused
+    multiply-adds, so the float paths round where the source says."""
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    return _declare(_load("augment", "augment.cpp", [], "a C++ compiler",
+                          extra=("-ffp-contract=off",)), [
+        ("aug_resize_u8", [_u8p, _c_int, _c_int, _u8p, _c_int, _c_int],
+         None),
+        ("aug_rgb2hsv", [_u8p, _u8p, _size_t], None),
+        ("aug_hsv2rgb", [_u8p, _u8p, _c_int, _c_int], None),
+        ("aug_filter2d_u8", [_u8p, _c_int, _c_int, _u8p, _f32p, _c_int,
+                             _c_int], None),
+        ("aug_gauss_u8", [_u8p, _c_int, _c_int, _u8p, u16p, _c_int], None),
+        ("aug_warp_f32", [_f32p, _c_int, _c_int,
+                          ctypes.POINTER(ctypes.c_double), _f32p], None)])
 
 
 @functools.cache
@@ -137,7 +169,11 @@ def nvjpeg_library() -> ctypes.CDLL:
         ("nvj_image_size", [vp, _c_char_p, _size_t, ctypes.POINTER(_c_int),
                             ctypes.POINTER(_c_int)], _c_int),
         ("nvj_decode_rgbi", [vp, _c_char_p, _size_t, vp, _c_int, _c_int, vp],
-         _c_int)])
+         _c_int),
+        ("nvj_encode_rgbi", [vp, vp, _c_int, _c_int, _c_int, vp,
+                             ctypes.POINTER(_size_t)], _c_int),
+        ("nvj_encoded_bytes", [vp, ctypes.c_char_p, ctypes.POINTER(_size_t),
+                               vp], _c_int)])
 
 
 def _ptr(a: np.ndarray, kind):
@@ -246,6 +282,85 @@ def resize_normalize(img: np.ndarray, out_w: int, out_h: int, mean,
     return out
 
 
+# -- the augmentation's arithmetic (OpenCV's, on the host) -------------------
+
+def cv_resize(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """uint8 [h, w, 3] -> [out_h, out_w, 3], the bytes of ``cv2.resize(img,
+    (out_w, out_h), interpolation=cv2.INTER_LINEAR)``."""
+    src = _rgb8(img)
+    out = np.empty((out_h, out_w, 3), np.uint8)
+    augment_library().aug_resize_u8(_ptr(src, _u8p), src.shape[1],
+                                    src.shape[0], _ptr(out, _u8p), out_w,
+                                    out_h)
+    return out
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` on uint8: hue in [0, 180)."""
+    src = _rgb8(img)
+    out = np.empty_like(src)
+    augment_library().aug_rgb2hsv(_ptr(src, _u8p), _ptr(out, _u8p),
+                                  src.size // 3)
+    return out
+
+
+def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_HSV2RGB)`` on uint8 (hue < 180)."""
+    src = _rgb8(img)
+    out = np.empty_like(src)
+    augment_library().aug_hsv2rgb(_ptr(src, _u8p), _ptr(out, _u8p),
+                                  src.shape[1], src.shape[0])
+    return out
+
+
+def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.filter2D(img, -1, kernel)`` on uint8 with a float32 kernel
+    (centre anchor, ``BORDER_REFLECT_101``)."""
+    src = _rgb8(img)
+    k = np.ascontiguousarray(kernel, np.float32)
+    out = np.empty_like(src)
+    augment_library().aug_filter2d_u8(_ptr(src, _u8p), src.shape[1],
+                                      src.shape[0], _ptr(out, _u8p),
+                                      _ptr(k, _f32p), k.shape[1], k.shape[0])
+    return out
+
+
+def gaussian_blur(img: np.ndarray, taps: np.ndarray) -> np.ndarray:
+    """``cv2.GaussianBlur`` on uint8 with OpenCV's Q8 taps (``data.
+    augmentation.gaussian_taps``) in both directions."""
+    src = _rgb8(img)
+    t = np.ascontiguousarray(taps, np.uint16)
+    out = np.empty_like(src)
+    augment_library().aug_gauss_u8(
+        _ptr(src, _u8p), src.shape[1], src.shape[0], _ptr(out, _u8p),
+        t.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), len(t))
+    return out
+
+
+def warp_affine(img: np.ndarray, m) -> np.ndarray:
+    """``cv2.warpAffine(img, m, (w, h))`` of a float32 [h, w] image
+    (bilinear, zero outside); ``m`` the 2x3 forward map, row-major."""
+    src = np.ascontiguousarray(img, np.float32)
+    m = np.ascontiguousarray(m, np.float64).reshape(6)
+    out = np.empty_like(src)
+    augment_library().aug_warp_f32(
+        _ptr(src, _f32p), src.shape[1], src.shape[0],
+        m.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), _ptr(out, _f32p))
+    return out
+
+
+def libjpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
+    """uint8 RGB -> JPEG at ``quality`` -> uint8 RGB, with libjpeg (the
+    bytes of ``cv2.imdecode(cv2.imencode(".jpg", bgr, quality))``)."""
+    src = _rgb8(img)
+    out = np.empty_like(src)
+    _check(libjpeg_library().fio_jpeg_roundtrip_u8(
+        _ptr(src, _u8p), src.shape[1], src.shape[0], int(quality),
+        _ptr(out, _u8p)), "libjpeg", f"its JPEG round trip at quality "
+                                     f"{quality}")
+    return out
+
+
 # -- the card's route: nvJPEG ------------------------------------------------
 
 class NvJpegDecoder:
@@ -263,18 +378,44 @@ class NvJpegDecoder:
 
     def decode(self, path: str) -> np.ndarray:
         with open(path, "rb") as f:
-            data = f.read()
+            return self.decode_bytes(f.read(), path)
+
+    def decode_bytes(self, data: bytes, what: str) -> np.ndarray:
         w, h = _c_int(), _c_int()
         _check(self._lib.nvj_image_size(self._handle, data, len(data),
                                          ctypes.byref(w), ctypes.byref(h)),
-               "nvJPEG", path)
+               "nvJPEG", what)
         with torch.cuda.stream(self.stream):
             out = torch.empty((h.value, w.value, 3), dtype=torch.uint8,
                               device=self.device)
             _check(self._lib.nvj_decode_rgbi(
                 self._handle, data, len(data), out.data_ptr(), w.value,
-                h.value, self.stream.cuda_stream), "nvJPEG", path)
+                h.value, self.stream.cuda_stream), "nvJPEG", what)
             return out.cpu().numpy()    # waits for the stream
+
+    def encode(self, img: np.ndarray, quality: int) -> bytes:
+        """uint8 [h, w, 3] RGB -> a JPEG stream at ``quality``, 4:2:0."""
+        src = _rgb8(img)
+        h, w = src.shape[:2]
+        what = f"(encoding at quality {quality})"
+        n = _size_t()
+        with torch.cuda.stream(self.stream):
+            dev = torch.from_numpy(src).to(self.device)
+            _check(self._lib.nvj_encode_rgbi(
+                self._handle, dev.data_ptr(), w, h, int(quality),
+                self.stream.cuda_stream, ctypes.byref(n)), "nvJPEG", what)
+            self.stream.synchronize()
+            buf = ctypes.create_string_buffer(n.value)
+            _check(self._lib.nvj_encoded_bytes(
+                self._handle, buf, ctypes.byref(n), self.stream.cuda_stream),
+                "nvJPEG", what)
+        return buf.raw[:n.value]
+
+    def roundtrip(self, img: np.ndarray, quality: int) -> np.ndarray:
+        """The augmentation's JPEG compression on the card: encode, then
+        decode, both with nvJPEG."""
+        return self.decode_bytes(self.encode(img, quality),
+                                 f"(its own stream at quality {quality})")
 
     def close(self) -> None:
         if self._handle:
@@ -283,6 +424,40 @@ class NvJpegDecoder:
 
     def __del__(self):
         self.close()
+
+
+_threads = threading.local()
+
+
+def thread_decoder(device) -> NvJpegDecoder:
+    """This thread's nvJPEG decoder on ``device`` (a handle and a CUDA
+    stream of its own, made at the thread's first call), so loader threads
+    decode at once without sharing one."""
+    device = torch.device(device)
+    decoders = getattr(_threads, "decoders", None)
+    if decoders is None:
+        decoders = _threads.decoders = {}
+    if device not in decoders:
+        decoders[device] = NvJpegDecoder(device)
+    return decoders[device]
+
+
+def read_jpeg(path: str, device="cpu") -> np.ndarray:
+    """One JPEG at its own size as uint8 [h, w, 3] RGB, on ``device``'s
+    route: libjpeg on the CPU, this thread's nvJPEG decoder on the card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return thread_decoder(device).decode(path)
+    return decode_resize(path, *image_size(path))
+
+
+def jpeg_roundtrip(img: np.ndarray, quality: int, device="cpu") -> np.ndarray:
+    """The augmentation's JPEG round trip on ``device``'s route: libjpeg on
+    the CPU, this thread's nvJPEG encoder and decoder on the card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return thread_decoder(device).roundtrip(img, quality)
+    return libjpeg_roundtrip(img, quality)
 
 
 class FrameReader:

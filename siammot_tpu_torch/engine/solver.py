@@ -88,14 +88,18 @@ def make_optimizer(cfg, net: torch.nn.Module) -> ScheduledSGD:
     return ScheduledSGD(groups, make_lr_schedule(cfg), s.MOMENTUM)
 
 
-def build_train_step(model, optimizer: ScheduledSGD, accum_steps: int = 1):
+def build_train_step(model, optimizer: ScheduledSGD, accum_steps: int = 1,
+                     image_size=None):
     """One optimizer step per batch.
 
     Returns ``step(net, images, gt, frame_sizes, draws) -> metrics``: the
     batch runs as ``accum_steps`` equal microbatches of whole frame pairs,
     their gradients averaged before the single update, as the JAX step's
-    scan does.  ``metrics`` holds each loss averaged over the
-    microbatches and their sum as ``loss`` (device scalars).
+    scan does.  ``image_size``: the static (w, h) input the step sees
+    (``TPU.INPUT_WIDTH``, ``TPU.INPUT_HEIGHT``), as the JAX step takes it;
+    None takes the padded batch's own.  ``metrics`` holds each loss
+    averaged over the microbatches and their sum as ``loss`` (device
+    scalars).
     """
 
     def step(net, images, gt, frame_sizes, draws) -> dict:
@@ -109,7 +113,8 @@ def build_train_step(model, optimizer: ScheduledSGD, accum_steps: int = 1):
         for i in range(0, b, mb):
             losses = model.forward_train(
                 net, draws, images[i:i + mb], gt.map(lambda v: v[i:i + mb]),
-                None, None if frame_sizes is None else frame_sizes[i:i + mb])
+                image_size,
+                None if frame_sizes is None else frame_sizes[i:i + mb])
             total = sum(losses.values())
             (total / (b // mb)).backward()
             for k, v in dict(losses, loss=total).items():

@@ -54,6 +54,8 @@ class SmoothedValue:
 class TrainLog:
     iteration: int        # last iteration run
     step_seconds: list    # host seconds per step, logged steps synchronised
+    # host seconds per step spent waiting for the loader's batch
+    data_seconds: list = dataclasses.field(default_factory=list)
 
 
 def do_train(model, train_step, net, optimizer, data_loader, checkpointer,
@@ -97,7 +99,8 @@ def do_train(model, train_step, net, optimizer, data_loader, checkpointer,
             if iteration >= max_iter or stop_requested:
                 break
             iteration += 1
-            meters["data"].update(time.time() - end)
+            log.data_seconds.append(time.time() - end)
+            meters["data"].update(log.data_seconds[-1])
             draws = uniform_draws(model.device, seed * 1_000_003 + iteration)
             dev = model.device
             metrics = train_step(net, images.to(dev),

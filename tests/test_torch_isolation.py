@@ -1,6 +1,7 @@
 """The port stands alone: with ``jax``, ``flax``, ``yaml``, ``cv2``,
-``siammot_tpu``, ``tests`` and ``tools`` unimportable (as on the machine
-with the card, which has none of the first four), every module of
+``PIL``, ``tensorboard``, ``siammot_tpu``, ``tests`` and ``tools``
+unimportable (as on the machine with the card, which has none of the
+first six), every module of
 ``siammot_tpu_torch`` and ``chip_smoke`` imports, two frames of
 ``track_frames`` run on the
 CPU (and one frame of a DLA-46-C-FPN body with deformable stages), and
@@ -13,8 +14,12 @@ a ``TPU.MASKED_TRACK_KERNELS`` False frame runs; and the dataset path: a
 tiny MOT-layout sequence (rendered with ``cv2`` before the block) is
 ingested, tracked by ``DatasetInference`` and evaluated, then run again
 through ``tools/test_net``'s main function in public-detection mode from
-a port checkpoint, once with one stream and once with two.  Also: no CUDA source includes PyTorch's headers (they
-make the build take minutes instead of seconds)."""
+a port checkpoint, once with one stream and once with two; and the
+training CLI: two iterations of ``tools/train_net`` on DLA-MINI over the
+committed training fixture (its loader, augmentation and event file),
+the event file read back by the port's own reader.  Also: no CUDA source
+includes PyTorch's headers (they make the build take minutes instead of
+seconds)."""
 
 import os
 import subprocess
@@ -25,8 +30,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
-    BLOCKED = ("jax", "flax", "yaml", "cv2", "siammot_tpu", "tests",
-               "tools")
+    BLOCKED = ("jax", "flax", "yaml", "cv2", "PIL", "tensorboard",
+               "siammot_tpu", "tests", "tools")
 
     def blocked(name):
         return name.split(".")[0] in BLOCKED
@@ -221,6 +226,35 @@ SCRIPT = textwrap.dedent("""
                    tensorboard_writer=lambda it, m: seen.append(m))
     assert log.iteration == 2 and opt.count == 2 and len(seen) == 2
     assert all(np.isfinite(v) for m in seen for v in m.values()), seen
+
+    # the training CLI over the committed fixture: loader, augmentation,
+    # checkpoints and the event file
+    import glob
+    from siammot_tpu_torch.engine.tensorboard_writer import read_events
+    from siammot_tpu_torch.tools import train_net
+    run_dir, tlog = train_net.main([
+        "--config-file", os.path.join(REPO, "configs", "dla",
+                                      "DLA_34_FPN_EMM_SYNMOT_HARD.yaml"),
+        "--train-dir", tempfile.mkdtemp(), "--device", "cpu"]
+        + [str(v) for v in mini] + [
+        "DATASETS.ROOT_DIR", os.path.join(REPO, "tests", "fixtures"),
+        "DATASETS.TRAIN", "('SYNMOT_MULTI_TRAIN', "
+                          "'SYNCROWD_MINI_train_fbox')",
+        "INPUT.MIN_SIZE_TRAIN", "(96,)", "INPUT.MAX_SIZE_TRAIN", "160",
+        "TPU.INPUT_HEIGHT", "96", "TPU.INPUT_WIDTH", "160",
+        "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", "32",
+        "MODEL.RPN.POST_NMS_TOP_N_TRAIN", "16",
+        "MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", "16",
+        "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16",
+        "MODEL.TRACK_HEAD.PROPOSAL_PER_IMAGE", "8",
+        "SOLVER.MAX_ITER", "2", "SOLVER.CHECKPOINT_PERIOD", "1",
+        "DATALOADER.NUM_WORKERS", "2"])
+    assert tlog.iteration == 2
+    assert os.path.exists(os.path.join(run_dir, "model_0000001.pth"))
+    assert os.path.exists(os.path.join(run_dir, "model_final.pth"))
+    events = read_events(glob.glob(os.path.join(run_dir, "tb",
+                                                "events.out.tfevents.*"))[0])
+    assert [e["step"] for e in events if "loss/total" in e["scalars"]] == [2]
     assert not any(blocked(m) for m in sys.modules), sorted(
         m for m in sys.modules if blocked(m))
     print("ISOLATED", len(names), int((result.state.ids >= 0).sum()))
