@@ -163,7 +163,32 @@ Phases, each printed as it finishes:
      640-960, 8 workers) on nvJPEG's route: clips per second and ms a
      batch over 20 batches after 3, and nvJPEG's JPEG round trip against
      libjpeg's (``tests/fixtures/jpeg_roundtrip.npz``).  Both calls'
-     launches count under the ``train_net`` path.
+     launches count under the ``train_net`` path;
+  10. the other backbones: (10-pre) phases 2 and 2b's kernel checks with
+     256 channels (the ResNet recipes' FPN width): kernels 1-4 at the
+     720p shapes, kernel 6's passes and kernels 1 and 7 at the training
+     sites; (10a) R-50-FPN-EMM (``configs/resnet/R_50_FPN_EMM.yaml`` read
+     by the port's YAML reader: 1280x720, BGR255 pixels, bf16) on seeded
+     weights, 4 warm-up + 12 timed frames of the crowded scene, kernels
+     1-4's launches a frame and each against its plain version on the last
+     frame, then ``tools/test_net`` on the recipe as it is over
+     ``tests/fixtures/synmot_mini`` from those weights; (10b)
+     ``tools/train_net`` on that recipe over the training fixture, 2
+     clips a batch at the recipe's input sizes, 5 steps from
+     seeded weights: every step's losses finite, the stem and layer1
+     (``FREEZE_CONV_BODY_AT`` 2) bitwise unchanged and every other weight
+     moved, kernels 1, 7 and 6 launched 3, 3 and 1 a step and checked on
+     the last step, s/it and peak memory; (10c) DLA-102-DCN-FPN training
+     through ``do_train`` at 736x1280 on seeded weights, 1 + 2 steps: 26
+     kernel-9 launches a step, kernel 9 against its plain version on the
+     last step's inputs, and the last step's gradients of a stride-2, an
+     in-window and an out-of-window deformable layer against the same VJP
+     in f64 on the card; (10d) ``TPU.REMAT`` on one R-50 step: losses and
+     gradients bitwise the plain step's where two plain steps are bitwise
+     alike (cuDNN deterministic), else within 4 times their own gap, both
+     peak memories; (10e) 4 + 8 frames each of DLA-34 with the plain stem on
+     the bench weights through the reference ``.pth`` layout and of
+     DLA-60-RES2NET-FPN on seeded weights, kernels 1-4 checked.
 
 Each end-to-end phase sets every kernel's launch count to 0 just before
 it drives its path and reads the counts just after.
@@ -1140,9 +1165,10 @@ def pool_bwd_bound(table_shape, grad, wy, wx):
     return bound(nbytes, flops, F32_FLOPS)
 
 
-def train_kernel_phase(dev, report):
+def train_kernel_phase(dev, report, wide_sr=True):
     """Kernels 6 and 7 (and kernel 1 over live ROIs) at the training
-    shapes against their plain versions, f32, seeded inputs."""
+    shapes against their plain versions, f32, seeded inputs; with
+    ``wide_sr`` also kernel 6 at SEARCH_REGION 5's shapes."""
     import torch.nn.functional as F
 
     from siammot_tpu_torch.ops.window_pool import (tile_counts,
@@ -1208,7 +1234,8 @@ def train_kernel_phase(dev, report):
     log(f"  xcorr autograd Function against autograd through the plain "
         f"version: max abs err {err:.3g}")
     del search, tmpl, up, s_nchw, t_w, up_nchw, up_w, inputs
-    wide_sr_xcorr_passes(dev, report, g)
+    if wide_sr:
+        wide_sr_xcorr_passes(dev, report, g)
 
     # kernel 1 over live ROIs and kernel 7, the three training sites
     table, sites = train_pool_inputs(g, dev)
@@ -3014,6 +3041,606 @@ def train_net_phase(dev, report, card):
     return dict(loader=loader, gap=gap, peak=peak)
 
 
+# -- phase 10: the other backbones ------------------------------------------
+
+R50_RECIPE = os.path.join(REPO, "configs", "resnet", "R_50_FPN_EMM.yaml")
+BODY_WARMUP, BODY_TIMED = 4, 12           # R-50 frames (10a)
+OTHER_WARMUP, OTHER_TIMED = 4, 8          # plain-stem and Res2Net frames
+R50_TRAIN_ITERS = 5                       # 10b: 1 warm-up + 4 timed
+DCN_TRAIN_WARMUP, DCN_TRAIN_TIMED = 1, 2  # 10c
+# the deformable conv's bf16 gradients against the same VJP in f64 (the
+# coordinates rounded as bf16 rounds them, the rest exact): bf16 rounds
+# the upstream gradient, the samples' gradients and the corner weights,
+# and the f32 sums land in bf16 once: of each gradient's largest
+# magnitude at most 2^-5 an element (a CPU run of stage-shaped layers:
+# 6e-3) and 2^-9 on average (4.5e-4)
+DCN_GRAD_MAX, DCN_GRAD_MEAN = 2.0 ** -5, 2.0 ** -9
+# 10d where two plain steps are not bitwise alike (PyTorch's gather and
+# index backward add with atomics on the card): REMAT's gap to the plain
+# step within 4 times the two plain steps' own gap, leaf by leaf maxima
+REMAT_SPREAD = 4.0
+
+
+def wide_kernel_phase(dev):
+    """10-pre: phases 2 and 2b's checks with every FPN map, response and
+    template at 256 channels (the ResNet bodies' BACKBONE_OUT_CHANNELS):
+    kernels 1-4 at the 720p main path's shapes, kernel 6's training
+    passes and kernels 1 and 7 at the training sites (f32).  Returns
+    their report rows."""
+    global C
+    saved, C = C, 256
+    report = {n: dict(name=n, launches=0, max_abs_err=0.0) for n in KERNELS}
+    try:
+        kernel_phase(dev, report)
+        train_kernel_phase(dev, report, wide_sr=False)
+    finally:
+        C = saved
+    return report
+
+
+def merge_wide(report, wide):
+    """The C = 256 rows under each kernel's ``shapes``."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "sites", "training_sites", "passes", "kernels")
+    for name, row in wide.items():
+        if "ms" not in row:
+            continue
+        report[name].setdefault("shapes", {})["C=256"] = {
+            k: row[k] for k in keys if k in row}
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                          row["max_abs_err"])
+
+
+def r50_cfg(*opts):
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    cfg = get_cfg()
+    cfg.merge_from_file(R50_RECIPE)
+    cfg.merge_from_list(list(opts))
+    return cfg
+
+
+def body_frames_phase(dev, report, card, what, path, model, params, frames,
+                      warmup, timed):
+    """``warmup`` + ``timed`` frames of a body's main path: kernels 1-4's
+    launches a frame exact, live slots, each kernel against its plain
+    version on the last frame's inputs.  Returns (ms/frame, live)."""
+    stream = [frames[i % len(frames)] for i in range(warmup + timed)]
+    result, launches, captured = drive_frames(model, params, stream, (W, H),
+                                              MAIN_PATH)
+    for name in MAIN_PATH:
+        report[name].setdefault("launches_by_path", {})[path] = \
+            launches[name]
+        report[name]["launches"] += launches[name]
+    sec = np.array(result.frame_seconds[warmup:])
+    occupied, active = check_last_frame(result, K)
+    c = captured["emm_predictor"][0][0].shape[-1]
+    log(f"  {what}: {len(stream)} frames, {1e3 * sec.mean():.3f} ms/frame "
+        f"over the last {timed} (median {1e3 * np.median(sec):.3f}, first "
+        f"frame {1e3 * result.frame_seconds[0]:.1f} ms; {card}); live slots "
+        f"{occupied} of {K} ({active} active); FPN channels {c}; launches "
+        f"{launches}")
+    check_captured(captured, report, path)
+    log(f"  {what}: kernels 1-4 agree with their plain versions on the last "
+        f"frame's inputs")
+    return 1e3 * float(sec.mean()), occupied
+
+
+def r50_inference_phase(dev, report, card):
+    """10a: the R-50 recipe read by the port's YAML reader, 720p (the
+    recipe's MIN_SIZE_TEST 800 / MAX_SIZE_TEST 1280 size 1280x720 to
+    1280x720), bf16, seeded weights."""
+    from siammot_tpu_torch.configs.defaults import resize_dims
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils.synth import render_scene
+    from siammot_tpu_torch.utils.weights import seeded_params
+
+    cfg = r50_cfg()
+    size = resize_dims(W, H, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    if size != (W, H) or cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS != 256:
+        raise AssertionError(f"R-50 recipe: input {size}, channels "
+                             f"{cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS}")
+    model = SiamMOT(cfg, device=str(dev))
+    frames = render_scene(16, HP)[0]
+    params, _ = seeded_params(model, frames[0])
+    log(f"  R-50-FPN: {sum(v.numel() for v in params.values())} parameters "
+        f"from a seed, input {size[0]}x{size[1]} (padded {W}x{HP}), "
+        f"{cfg.TPU.COMPUTE_DTYPE}")
+    out = body_frames_phase(dev, report, card, "R-50-FPN", "r50_inference",
+                            model, params, frames, BODY_WARMUP, BODY_TIMED)
+    r50_test_net(dev, report, card, params)
+    return out
+
+
+def r50_test_net(dev, report, card, params):
+    """``tools/test_net`` on the R-50 recipe as it is over
+    ``tests/fixtures/synmot_mini`` (RPN mode), from ``params``
+    saved as a port checkpoint: kernels 1-4's launches a frame and the
+    CLEAR-MOT summary."""
+    from siammot_tpu_torch.tools import test_net
+    from siammot_tpu_torch.utils import dataset_golden as dg
+    from siammot_tpu_torch.utils.checkpoint import Checkpointer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        weight = Checkpointer(os.path.join(tmp, "init")).save(0, params)
+        args = ["--config-file", R50_RECIPE, "--output-dir",
+                os.path.join(tmp, "out"), "--model-file", weight,
+                "--test-dataset", dg.DATASET, "--set", "test", "--device",
+                str(dev), "DATASETS.ROOT_DIR", TRAIN_FIXTURES]
+        with quiet_console(), kernel_capture() as (_, launches):
+            inf = test_net.main(args)
+    n, seconds = inf.speed[dg.VIDEO]
+    counts = check_launches(launches, MAIN_PATH, n)
+    for name, count in counts.items():
+        report[name].setdefault("launches_by_path", {})["r50_test_net"] = \
+            count
+        report[name]["launches"] += count
+    summary = dg.summaries(inf.accs)["OVERALL"]
+    log(f"  test_net, R-50 recipe over {dg.DATASET}: {n} frames, Speed "
+        f"{n / seconds:.3f} fps ({card}); launches {counts}; MOTA "
+        f"{summary['mota']} on seeded weights")
+
+
+@contextlib.contextmanager
+def every_step_logged():
+    """``do_train`` reads each step's losses (log_period 1): every step
+    then ends on the host's wait for the device, and the event file holds
+    every step."""
+    import siammot_tpu_torch.engine.trainer as trainer_mod
+    orig = trainer_mod.do_train
+
+    def wrapped(*args, **kw):
+        kw["log_period"] = 1
+        return orig(*args, **kw)
+
+    trainer_mod.do_train = wrapped
+    try:
+        yield
+    finally:
+        trainer_mod.do_train = orig
+
+
+def r50_train_net_phase(dev, report, card):
+    """10b: ``tools/train_net`` on the R-50 recipe (FREEZE_CONV_BODY_AT 2,
+    its input sizes, bf16 compute, f32 masters) over the committed
+    training fixture at 2 clips a batch, from seeded weights saved as a
+    port checkpoint: every step's losses finite, the stem and layer1
+    bitwise unchanged and every other parameter moved, kernels 1, 7 and 6
+    launched exactly 3, 3 and 1 a step and checked on the last step."""
+    from siammot_tpu_torch.engine.solver import frozen
+    from siammot_tpu_torch.engine.tensorboard_writer import read_events
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.tools import train_net
+    from siammot_tpu_torch.utils.checkpoint import Checkpointer
+    from siammot_tpu_torch.utils.synth import render_scene
+    from siammot_tpu_torch.utils.weights import seeded_params
+
+    cfg = r50_cfg()
+    params, _ = seeded_params(SiamMOT(cfg, device=str(dev)),
+                              render_scene(1, HP)[0][0])
+    with tempfile.TemporaryDirectory() as tmp:
+        weight = Checkpointer(os.path.join(tmp, "init")).save(0, params)
+        args = ["--config-file", R50_RECIPE, "--train-dir", tmp,
+                "--device", str(dev), "DATASETS.ROOT_DIR", TRAIN_FIXTURES,
+                "DATASETS.TRAIN", repr(TRAIN_KEYS), "MODEL.WEIGHT", weight,
+                "SOLVER.VIDEO_CLIPS_PER_BATCH", "2",
+                "SOLVER.MAX_ITER", str(R50_TRAIN_ITERS),
+                "SOLVER.CHECKPOINT_PERIOD", str(R50_TRAIN_ITERS)]
+        t0 = time.perf_counter()
+        with quiet_console(), every_step_logged(), \
+                train_kernel_capture(R50_TRAIN_ITERS) as (captured,
+                                                          launches):
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, tlog = train_net.main(args)
+            torch.cuda.synchronize(dev)
+            peak = torch.cuda.max_memory_allocated(dev)
+        wall = time.perf_counter() - t0
+        if tlog.iteration != R50_TRAIN_ITERS:
+            raise AssertionError(f"10b ran to iteration {tlog.iteration}")
+        count_train_launches(launches, R50_TRAIN_ITERS, report,
+                             "r50_train_net")
+        steps = {}
+        for f in os.listdir(os.path.join(out, "tb")):
+            for ev in read_events(os.path.join(out, "tb", f)):
+                if ev["scalars"]:
+                    steps.setdefault(ev["step"], {}).update(ev["scalars"])
+        if sorted(steps) != list(range(1, R50_TRAIN_ITERS + 1)) or not all(
+                len(m) == 8 and all(np.isfinite(v) for v in m.values())
+                for m in steps.values()):
+            raise AssertionError(f"10b: the event file's losses {steps}")
+        final = torch.load(os.path.join(out, "model_final.pth"),
+                           map_location="cpu", weights_only=True)["model"]
+    names = {n for n, _ in SiamMOT(cfg, device=str(dev)).build_net()
+             .named_parameters()}
+    at = cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT
+    kept = sorted(n for n in names if frozen(n, at))
+    moved = [n for n in names if not torch.equal(final[n], params[n])]
+    still = sorted(names - set(moved) - set(kept))
+    # weight decay moves every weight each step; a bias moves unless its
+    # update stays under its f32 rounding step (a tiny gradient)
+    if set(moved) & set(kept) or any(not n.endswith("bias") for n in still):
+        raise AssertionError(
+            f"10b: frozen parameters that moved "
+            f"{sorted(set(moved) & set(kept))}, others that did not {still}")
+    sec = np.array(tlog.step_seconds[1:])
+    log(f"  10b: {R50_TRAIN_ITERS} steps in {wall:.1f} s wall: "
+        f"{sec.mean():.4f} s/it over the last {len(sec)} (median "
+        f"{np.median(sec):.4f}; first {tlog.step_seconds[0]:.3f} s), loader "
+        f"wait a step median {1e3 * np.median(tlog.data_seconds):.3f} ms; "
+        f"peak device memory {peak / 2 ** 30:.3f} GiB ({card}); launches "
+        f"{launches}")
+    log(f"  10b: {len(kept)} frozen parameters (stem_*, layer1_*) bitwise "
+        f"unchanged, {len(moved)} of the {len(names) - len(kept)} others "
+        f"moved (unmoved biases: {still}); losses step 1 -> "
+        f"{R50_TRAIN_ITERS}: " + ", ".join(
+            f"{k} {steps[1][k]:.4f} -> {steps[R50_TRAIN_ITERS][k]:.4f}"
+            for k in sorted(steps[1])))
+    check_train_kernels(captured, report, "r50_train_net")
+    return float(sec.mean()), peak
+
+
+def dcn_vjp_f64(x, off, k, g, stride, dilation):
+    """The deformable conv's route-B VJP (``ops/deform_conv.py:
+    deform_conv2d_vjp``) in f64: each sample's coordinate rounded as the
+    inputs' dtype rounds it (tap position + offset), everything after
+    exact."""
+    from siammot_tpu_torch.ops.deform_conv import sample_plain
+    b, ho, wo = off.shape[:3]
+    c, co = k.shape[2:]
+    t = torch.arange(9, device=x.device)
+    gy = (torch.arange(ho, device=x.device)[:, None] * stride - dilation
+          + (t // 3)[None] * dilation)[None, :, None, :]
+    gx = (torch.arange(wo, device=x.device)[:, None] * stride - dilation
+          + (t % 3)[None] * dilation)[None, None, :, :]
+    o = off.reshape(b, ho, wo, 9, 2)
+    oy = (gy.to(off.dtype) + o[..., 0]).double() - gy.double()
+    ox = (gx.to(off.dtype) + o[..., 1]).double() - gx.double()
+    with torch.enable_grad():
+        leaves = [x.double().requires_grad_(),
+                  torch.stack([oy, ox], -1).reshape(b, ho, wo,
+                                                    18).requires_grad_(),
+                  k.double().requires_grad_()]
+        s = sample_plain(leaves[0], leaves[1], stride, dilation, False)
+        out = s.reshape(-1, 9 * c) @ leaves[2].reshape(9 * c, co)
+        return torch.autograd.grad(out, leaves,
+                                   g.double().reshape(-1, co))
+
+
+def deform_layer_kind(x, off, kernel, stride, dilation):
+    """Which route a deformable layer's forward took, and its stride."""
+    from siammot_tpu_torch.ops.deform_conv import (in_window,
+                                                   window_route_possible)
+    if stride == 2:
+        return "stride 2, route B"
+    if window_route_possible(x.shape, kernel.shape, stride, dilation,
+                             x.element_size()) and bool(in_window(off)):
+        return "in window, route A forward"
+    return "out of window, route B"
+
+
+@contextlib.contextmanager
+def deform_training_capture():
+    """Kernel 9's count set to 0 on entry; the last 26 forward inputs kept
+    by reference, and of each step's backward calls the first of each
+    kind of layer (:func:`deform_layer_kind`): copies of its saved
+    inputs, of the upstream gradient and of the gradients returned (the
+    optimizer updates an f32 kernel in place, and autograd may add later
+    contributions into gradient buffers)."""
+    import siammot_tpu_torch.models.dla as dla_mod
+    import siammot_tpu_torch.ops.deform_conv as dc_mod
+    fwd, bwd, calls = [], {}, [0]
+    orig_fwd, orig_bwd = dla_mod.deform_conv2d, dc_mod.DeformConv2dFn.backward
+
+    def capture_fwd(*args):
+        fwd[:] = (fwd + [args])[-26:]
+        return orig_fwd(*args)
+
+    def capture_bwd(ctx, grad):
+        grads = orig_bwd(ctx, grad)
+        if calls[0] % 26 == 0:
+            bwd.clear()                   # a new step's backward
+        calls[0] += 1
+        kind = deform_layer_kind(*ctx.saved_tensors, *ctx.geometry)
+        if kind not in bwd:
+            bwd[kind] = (tuple(t.clone() for t in ctx.saved_tensors),
+                         ctx.geometry, grad.clone(),
+                         tuple(t.clone() for t in grads[:3]))
+        return grads
+
+    dla_mod.deform_conv2d = capture_fwd
+    dc_mod.DeformConv2dFn.backward = staticmethod(capture_bwd)
+    dc_mod.deform_conv2d.launches = 0
+    try:
+        yield fwd, bwd
+    finally:
+        dla_mod.deform_conv2d = orig_fwd
+        dc_mod.DeformConv2dFn.backward = staticmethod(orig_bwd)
+
+
+def dcn_step_times(fwd):
+    """Kernel 9's device time summed over a training step's 26 forward
+    inputs (``fwd``), its plain version's, the step's bound (all 26
+    layers' bytes and operations) and the plain route-B backward's time
+    on the same inputs."""
+    from siammot_tpu_torch.ops.deform_conv import (deform_conv2d,
+                                                   deform_conv2d_plain,
+                                                   deform_conv2d_vjp)
+    out = dict(ms=0.0, plain_ms=0.0, backward_plain_ms=0.0)
+    nbytes = ops = 0.0
+    with torch.no_grad():
+        for x, off, kern, stride, dil in fwd:
+            a = (x.detach(), off.detach(), kern.detach(), stride, dil)
+            b, ho, wo = off.shape[:3]
+            c, co = kern.shape[2:]
+            g = torch.ones(b, ho, wo, co, dtype=x.dtype, device=x.device)
+            out["ms"] += device_ms(lambda: deform_conv2d(*a), iters=5)
+            out["plain_ms"] += timed_ms(lambda: deform_conv2d_plain(*a),
+                                        iters=2, warmup=1)
+            out["backward_plain_ms"] += timed_ms(
+                lambda: deform_conv2d_vjp(*a[:3], g, stride, dil), iters=2,
+                warmup=1)
+            nbytes += (x.numel() + off.numel() + kern.numel()
+                       + b * ho * wo * co) * x.element_size()
+            ops += 2.0 * 9 * c * co * b * ho * wo
+    out["bound_ms"], out["bound_by"] = bound(nbytes, ops, BF16_TC_FLOPS)
+    return out
+
+
+def dcn_train_phase(dev, report, card):
+    """10c: DLA-102-DCN-FPN training through phase 4's ``do_train`` route
+    at 736x1280 (2 clips x 2 frames), seeded weights, bf16 compute:
+    every loss finite, 26 kernel-9 launches a step, kernel 9 against its
+    plain version on the last step's 26 inputs, and on the last step the
+    gradients of a stride-2 (route B) layer, an in-window (route A
+    forward) layer and an out-of-window layer against the f64 VJP."""
+    import itertools
+
+    from siammot_tpu_torch.configs.defaults import dla_dcn_overrides, get_cfg
+    from siammot_tpu_torch.engine.solver import (build_train_step,
+                                                 make_optimizer)
+    from siammot_tpu_torch.engine.trainer import do_train
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.ops.deform_conv import deform_conv2d
+    from siammot_tpu_torch.utils.synth import train_batches
+    from siammot_tpu_torch.utils.weights import seeded_params
+
+    cfg = get_cfg()
+    cfg.merge_from_list(dla_dcn_overrides("DLA-102-FPN"))
+    model = SiamMOT(cfg, device=str(dev))
+    steps = DCN_TRAIN_WARMUP + DCN_TRAIN_TIMED
+    batches = list(itertools.islice(train_batches(7, HP, cfg.TPU.MAX_GT),
+                                    steps))
+    params, n_dcn = seeded_params(model, batches[0][0][:1].numpy())
+    net = model.build_master(params)
+    optimizer = make_optimizer(cfg, net)
+    step = build_train_step(model, optimizer)
+    metrics = []
+    with train_kernel_capture(steps) as (captured, launches), \
+            deform_training_capture() as (fwd, bwd):
+        torch.cuda.reset_peak_memory_stats(dev)
+        tlog = do_train(model, step, net, optimizer, iter(batches), None,
+                        max_iter=steps, checkpoint_period=10 ** 9,
+                        log_period=1,
+                        tensorboard_writer=lambda it, m: metrics.append(m))
+        peak = torch.cuda.max_memory_allocated(dev)
+        n9 = deform_conv2d.launches
+    if len(metrics) != steps or not all(
+            np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"10c: losses {metrics}")
+    if n_dcn != 26 or n9 != 26 * steps:
+        raise AssertionError(f"10c: {n9} kernel-9 launches in {steps} steps "
+                             f"of {n_dcn} deformable layers")
+    count_train_launches(launches, steps, report, "dcn_training")
+    row = report["deform_conv"]
+    row["launches"] += n9
+    row.setdefault("launches_by_path", {})["dcn_training"] = n9
+    sec = np.array(tlog.step_seconds[DCN_TRAIN_WARMUP:])
+    log(f"  10c: {steps} SGD steps: {1e3 * sec.mean():.3f} ms/step over the "
+        f"last {DCN_TRAIN_TIMED} (first {1e3 * tlog.step_seconds[0]:.1f} "
+        f"ms), peak device memory {peak / 2 ** 30:.3f} GiB ({card}); "
+        f"kernel 9 launched {n9} times (26 a step, forward only: the "
+        f"backward is the plain route-B VJP); launches {launches}")
+    err = 0.0
+    with torch.no_grad():
+        for i, args in enumerate(fwd):
+            e, _ = check_deform(args, f"10c deform layer {i}")
+            err = max(err, e)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    step = dcn_step_times(fwd)
+    row.setdefault("shapes", {})["training step, 26 layers, 4 x 736x1280 "
+                                 "bf16"] = step
+    log(f"  10c: kernel 9 at the step's 26 shapes: {step['ms']:.4f} ms "
+        f"device, plain {step['plain_ms']:.4f} ms, bound "
+        f"{step['bound_ms']:.4f} ms ({step['bound_by']}); the plain "
+        f"route-B backward {step['backward_plain_ms']:.4f} ms ({card})")
+    # one layer of each kind, from the last step's backward calls
+    picked = {kind: (saved, stride, dil, grad, grads)
+              for kind, (saved, (stride, dil), grad, grads) in bwd.items()}
+    if len(picked) != 3:
+        raise AssertionError(f"10c: layer kinds {sorted(picked)}")
+    for kind, ((x, off, kern), stride, dil, grad, grads) in picked.items():
+        want = dcn_vjp_f64(x, off, kern, grad, stride, dil)
+        errs = {}
+        for name, a, b in zip(("x", "offsets", "kernel"), grads, want):
+            scale = float(b.abs().max())
+            d = (a.double() - b).abs()
+            errs[name] = (float(d.max()) / scale, float(d.mean()) / scale)
+            if errs[name][0] > DCN_GRAD_MAX or errs[name][1] > DCN_GRAD_MEAN:
+                raise AssertionError(f"10c {kind} layer {tuple(x.shape)}: "
+                                     f"{name} gradient off by {errs[name]} "
+                                     f"of its scale")
+        log(f"    {kind} layer, input {tuple(x.shape)}: "
+            f"{str(x.dtype).split('.')[-1]} gradients against the f64 VJP, "
+            f"(max, mean) error of the largest magnitude: " + ", ".join(
+                f"{n} ({m:.3g}, {a:.3g})" for n, (m, a) in errs.items()))
+        del want
+    log(f"  10c: kernel 9 agrees with its plain version on the last step's "
+        f"26 inputs (max abs err {err:.3g}); gradients within {DCN_GRAD_MAX} "
+        f"(max) and {DCN_GRAD_MEAN} (mean) of their scale")
+    check_train_kernels(captured, report, "dcn_training")
+    del fwd, bwd, picked, net, optimizer
+    return 1e3 * float(sec.mean()), peak
+
+
+def remat_phase(dev, card):
+    """10d: one R-50 recipe step (seeded weights, a 736x1280 batch of 2
+    clips x 2 frames, stem and layer1 frozen) without TPU.REMAT twice and
+    with it once, the same draws, cuDNN deterministic: losses and
+    gradients of the remat step bitwise the plain step's when two plain
+    steps are bitwise alike, else within ``REMAT_SPREAD`` times their
+    gap; both peak memories."""
+    import itertools
+
+    from siammot_tpu_torch.core.matcher import uniform_draws
+    from siammot_tpu_torch.engine.solver import make_optimizer
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils.synth import train_batches
+    from siammot_tpu_torch.utils.weights import seeded_params
+
+    cfg = r50_cfg()
+    images, gt, sizes = next(itertools.islice(
+        train_batches(7, HP, cfg.TPU.MAX_GT), 1))
+    params, _ = seeded_params(SiamMOT(cfg, device=str(dev)), images[:1])
+    images, sizes = images.to(dev), sizes.to(dev)
+    gt = gt.map(lambda v: v.to(dev))
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, False, True):
+            model = SiamMOT(r50_cfg("TPU.REMAT", remat), device=str(dev))
+            net = model.build_master(params)
+            make_optimizer(model.cfg, net)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            losses = model.forward_train(net, uniform_draws(dev, 5), images,
+                                         gt, None, sizes)
+            sum(losses.values()).backward()
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated(dev)
+            runs.append(({k: v.detach() for k, v in losses.items()},
+                         {n: p.grad for n, p in net.named_parameters()
+                          if p.grad is not None}, peak, ms))
+            del net, model
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l1, g1, p1, ms1), (l2, g2, _, _), (lr, gr, pr, msr) = runs
+    if set(g1) != set(gr) or any(n.startswith(("body.stem_", "body.layer1_"))
+                                 for n in gr):
+        raise AssertionError("10d: the steps' gradients cover other leaves")
+    def gap(ga, gb):
+        return max(float((ga[n] - gb[n]).abs().max())
+                   / max(float(gb[n].abs().max()), 1e-30) for n in gb)
+
+    spread, worst = gap(g2, g1), gap(gr, g1)
+    repeatable = spread == 0 and all(torch.equal(l1[k], l2[k]) for k in l1)
+    if repeatable:
+        if worst or not all(torch.equal(l1[k], lr[k]) for k in l1):
+            raise AssertionError(f"10d: REMAT's step differs from the plain "
+                                 f"step (max rel {worst:.3g})")
+    elif worst > REMAT_SPREAD * spread:
+        raise AssertionError(f"10d: REMAT's gradients {worst:.3g} of their "
+                             f"scale from the plain step's, two plain steps "
+                             f"{spread:.3g}")
+    verdict = ("bitwise the plain step (two plain steps bitwise alike)"
+               if repeatable else f"within {worst:.3g} of the plain step's "
+               f"gradients, leaf by leaf, where two plain steps differ by "
+               f"{spread:.3g}")
+    log(f"  10d: R-50 recipe step, {len(g1)} gradient leaves: REMAT "
+        f"{verdict}; losses " + ", ".join(
+            f"{k} {float(v):.4f}" for k, v in sorted(lr.items()))
+        + f"; peak device memory {p1 / 2 ** 30:.3f} GiB plain, "
+        f"{pr / 2 ** 30:.3f} GiB with REMAT; forward + backward "
+        f"{ms1:.1f} ms plain, {msr:.1f} ms with REMAT (first calls; "
+        f"{card})")
+    return dict(bitwise=repeatable, max_rel=worst, spread=spread,
+                peak_plain=p1, peak_remat=pr)
+
+
+def other_bodies_phase(dev, report, card):
+    """10e: DLA-34 with the plain stem on the bench weights exported to and
+    re-imported from the reference .pth layout (the trained S2D stem
+    projected onto the plain stem), and DLA-60-RES2NET-FPN on seeded
+    weights, bf16 at 720p."""
+    import logging
+
+    from siammot_tpu_torch.configs.defaults import dla_body_overrides, get_cfg
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils.checkpoint import (export_torch_checkpoint,
+                                                    import_torch_checkpoint)
+    from siammot_tpu_torch.utils.synth import render_scene
+    from siammot_tpu_torch.utils.weights import (jax_to_torch, load_npz,
+                                                 seeded_params)
+
+    frames = render_scene(16, HP)[0]
+    out = {}
+    cfg = get_cfg()
+    cfg.merge_from_list(["TPU.S2D_STEM", False])
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            self.text = record.getMessage()
+
+    keep = Keep(logging.WARNING)
+    ck_log = logging.getLogger("siammot_tpu_torch.utils.checkpoint")
+    ck_log.addHandler(keep)
+    try:
+        ref = export_torch_checkpoint(jax_to_torch(load_npz(FIXTURE)))
+    finally:
+        ck_log.removeHandler(keep)
+    params, left = import_torch_checkpoint(ref, cfg)
+    if left or "body.base_conv.weight" not in params:
+        raise AssertionError(f"10e: plain-stem import left {left}")
+    # the projected stem's detections score under START_TRACK_THRESH on
+    # the sprite scene, so the box classifier is biased to the foreground
+    # (as seeded weights are) for tracks to start and the kernels to work
+    params["box.predictor.cls_score.bias"] = torch.tensor([-3.0, 3.0])
+    log(f"  DLA-34, plain stem: the bench weights through the reference "
+        f".pth layout ({getattr(keep, 'text', 'exact')}); box classifier "
+        f"biased to the foreground")
+    out["dla34_plain_stem"] = body_frames_phase(
+        dev, report, card, "DLA-34-FPN, plain stem", "plain_stem_inference",
+        SiamMOT(cfg, device=str(dev)), params, frames, OTHER_WARMUP,
+        OTHER_TIMED)
+    cfg = get_cfg()
+    cfg.merge_from_list(dla_body_overrides("DLA-60-RES2NET-FPN"))
+    model = SiamMOT(cfg, device=str(dev))
+    params, _ = seeded_params(model, frames[0])
+    log(f"  DLA-60-RES2NET-FPN: {sum(v.numel() for v in params.values())} "
+        f"parameters from a seed")
+    out["dla60_res2net"] = body_frames_phase(
+        dev, report, card, "DLA-60-RES2NET-FPN", "res2net_inference", model,
+        params, frames, OTHER_WARMUP, OTHER_TIMED)
+    return out
+
+
+def backbones_phase(dev, report, card):
+    """Phase 10: the other backbones (10-pre, 10a-10e)."""
+    t0 = time.perf_counter()
+    log("[10-pre] kernels 1-4, 6 and 7 at 256 channels:")
+    merge_wide(report, wide_kernel_phase(dev))
+    torch.cuda.empty_cache()
+    log("[10a] R-50-FPN-EMM inference, the recipe at 720p, seeded weights:")
+    r50 = r50_inference_phase(dev, report, card)
+    torch.cuda.empty_cache()
+    log("[10b] tools/train_net on the R-50 recipe, FREEZE_CONV_BODY_AT 2:")
+    r50_train = r50_train_net_phase(dev, report, card)
+    torch.cuda.empty_cache()
+    log("[10c] DLA-102-DCN-FPN training (kernel 9 forward, the plain "
+        "route-B backward):")
+    dcn = dcn_train_phase(dev, report, card)
+    torch.cuda.empty_cache()
+    log("[10d] TPU.REMAT on the R-50 step:")
+    remat = remat_phase(dev, card)
+    torch.cuda.empty_cache()
+    log("[10e] the plain DLA stem and Res2Net frames:")
+    others = other_bodies_phase(dev, report, card)
+    log(f"  phase 10 wall time {time.perf_counter() - t0:.1f} s")
+    return dict(r50=r50, r50_train=r50_train, dcn=dcn, remat=remat,
+                others=others)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3131,6 +3758,12 @@ def main():
     trained = train_net_phase(dev, report, card)
     log(f"[9] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[10] the other backbones: ResNet-50, the plain DLA stem, Res2Net, "
+        f"DCN training and TPU.REMAT ({card}):")
+    bodies = backbones_phase(dev, report, card)
+    log(f"[10] done in {time.perf_counter() - t0:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
@@ -3160,7 +3793,17 @@ def main():
         f"({trained['loader']['ms_batch']:.3f} ms a 16-clip batch), nvJPEG "
         f"round trip max byte gap "
         + ", ".join(f"q{q} {g[0]}" for q, g in trained["gap"].items())
-        + f"; card {card}")
+        + f"; R-50 {bodies['r50'][0]:.3f} ms/frame ({bodies['r50'][1]} live), "
+        f"R-50 train_net {bodies['r50_train'][0]:.4f} s/it (peak "
+        f"{bodies['r50_train'][1] / 2 ** 30:.3f} GiB), DLA-102-DCN training "
+        f"{bodies['dcn'][0]:.3f} ms/step (peak "
+        f"{bodies['dcn'][1] / 2 ** 30:.3f} GiB), REMAT "
+        f"{'bitwise' if bodies['remat']['bitwise'] else 'within tolerance'} "
+        f"(peak {bodies['remat']['peak_plain'] / 2 ** 30:.3f} -> "
+        f"{bodies['remat']['peak_remat'] / 2 ** 30:.3f} GiB), plain-stem "
+        f"DLA-34 {bodies['others']['dla34_plain_stem'][0]:.3f} ms/frame, "
+        f"DLA-60-RES2NET {bodies['others']['dla60_res2net'][0]:.3f} ms/frame"
+        f"; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,9 @@ _C.MODEL.BOX_ON = True
 _C.MODEL.TRACK_ON = True
 _C.MODEL.BACKBONE = CN()
 _C.MODEL.BACKBONE.CONV_BODY = "DLA-34-FPN"
+# ResNet bodies: freeze the stem (at >= 1) and layer1..layer{at-1} in the
+# optimizer (engine/solver.py:make_optimizer); DLA bodies ignore it
+_C.MODEL.BACKBONE.FREEZE_CONV_BODY_AT = 0
 
 _C.MODEL.DLA = CN()
 _C.MODEL.DLA.DLA_STAGE2_OUT_CHANNELS = 64
@@ -27,6 +30,17 @@ _C.MODEL.DLA.DLA_STAGE4_OUT_CHANNELS = 256
 _C.MODEL.DLA.DLA_STAGE5_OUT_CHANNELS = 512
 _C.MODEL.DLA.BACKBONE_OUT_CHANNELS = 128
 _C.MODEL.DLA.STAGE_WITH_DCN = (False, False, False, False, False, False)
+
+# ResNet bodies (CONV_BODY "R-50-FPN", "R-101-FPN", "R-152-FPN";
+# maskrcnn-benchmark's MODEL.RESNETS defaults, Caffe2 conventions)
+_C.MODEL.RESNETS = CN()
+_C.MODEL.RESNETS.NUM_GROUPS = 1
+_C.MODEL.RESNETS.WIDTH_PER_GROUP = 64
+_C.MODEL.RESNETS.STRIDE_IN_1X1 = True
+_C.MODEL.RESNETS.STEM_OUT_CHANNELS = 64
+_C.MODEL.RESNETS.RES2_OUT_CHANNELS = 256
+_C.MODEL.RESNETS.BACKBONE_OUT_CHANNELS = 256
+_C.MODEL.RESNETS.STAGE_WITH_DCN = (False, False, False, False)
 
 _C.MODEL.RPN = CN()
 _C.MODEL.RPN.ANCHOR_STRIDE = (4, 8, 16, 32, 64)
@@ -178,19 +192,20 @@ _C.TPU.DATA_PARALLEL = 0
 _C.TPU.WINDOW_BOX = 64
 _C.TPU.WINDOW_TEMPLATE = 64
 _C.TPU.WINDOW_SR = 128
-# space-to-depth DLA stem (the only stem the port runs)
+# space-to-depth DLA stem; False runs the plain stem (base 7x7, level0,
+# level1), the reference .pth's layout, which exports exactly
 _C.TPU.S2D_STEM = True
 # kernel toggles of the JAX package; the port rejects USE_PALLAS,
-# POOLER_WINDOWED, DECODE_PALLAS and S2D_STEM False (the JAX package's
-# XLA forms), runs MASKED_TRACK_KERNELS False (the unmasked EMM route)
-# and TRAIN_POOLER_WINDOWED False outside training
+# POOLER_WINDOWED and DECODE_PALLAS False (the JAX package's XLA forms),
+# runs MASKED_TRACK_KERNELS False (the unmasked EMM route) and
+# TRAIN_POOLER_WINDOWED False outside training
 _C.TPU.USE_PALLAS = True
 _C.TPU.POOLER_WINDOWED = True
 _C.TPU.DECODE_PALLAS = True
 _C.TPU.MASKED_TRACK_KERNELS = True
 _C.TPU.TRAIN_POOLER_WINDOWED = True
-# rematerialised backbone in the training backward (not ported: must stay
-# False)
+# recompute the trunk (body + FPN) in the training backward instead of
+# keeping its activations (torch.utils.checkpoint)
 _C.TPU.REMAT = False
 
 
@@ -214,7 +229,8 @@ def resize_dims(w: int, h: int, min_size: int, max_size: int):
     return int(size * w / h), size
 
 
-# stage widths of the Bottleneck DLA bodies (DLA_STAGE2..5_OUT_CHANNELS)
+# stage widths of the Bottleneck DLA bodies (DLA_STAGE2..5_OUT_CHANNELS),
+# which take deformable stages
 DLA_STAGE_WIDTHS = {"DLA-46-C-FPN": (64, 64, 128, 256),
                     "DLA-46-XC-FPN": (64, 64, 128, 256),
                     "DLA-60-FPN": (128, 256, 512, 1024),
@@ -222,12 +238,23 @@ DLA_STAGE_WIDTHS = {"DLA-46-C-FPN": (64, 64, 128, 256),
                     "DLA-169-FPN": (128, 256, 512, 1024)}
 
 
+# and of the Res2Net body, which takes none
+RES2NET_STAGE_WIDTHS = {"DLA-60-RES2NET-FPN": (128, 256, 512, 1024)}
+
+
+def dla_body_overrides(body: str) -> list:
+    """``merge_from_list`` options that select a Bottleneck or Res2Net DLA
+    body with its stage widths."""
+    opts = ["MODEL.BACKBONE.CONV_BODY", body]
+    widths = {**DLA_STAGE_WIDTHS, **RES2NET_STAGE_WIDTHS}[body]
+    for i, c in zip((2, 3, 4, 5), widths):
+        opts += [f"MODEL.DLA.DLA_STAGE{i}_OUT_CHANNELS", c]
+    return opts
+
+
 def dla_dcn_overrides(body: str) -> list:
     """``merge_from_list`` options of a model-zoo ``<body>-DCN`` detector
     as ``tools/bench_variants.py:make_cfg`` builds it: the body, its stage
     widths and deformable 3x3s on stages 3-5."""
-    opts = ["MODEL.BACKBONE.CONV_BODY", body, "MODEL.DLA.STAGE_WITH_DCN",
-            (False, False, False, True, True, True)]
-    for i, c in zip((2, 3, 4, 5), DLA_STAGE_WIDTHS[body]):
-        opts += [f"MODEL.DLA.DLA_STAGE{i}_OUT_CHANNELS", c]
-    return opts
+    return dla_body_overrides(body) + [
+        "MODEL.DLA.STAGE_WITH_DCN", (False, False, False, True, True, True)]

@@ -10,7 +10,8 @@ moves them (the JAX tree holds them as parameters whose gradient is
 stopped).  ``torch.optim.SGD`` with ``dampening`` 0 computes what the
 JAX chain ``add_decayed_weights`` -> ``sgd(momentum)`` does; the rate
 comes from the schedule at the update count, starting at 0, as optax
-counts.
+counts.  ``MODEL.BACKBONE.FREEZE_CONV_BODY_AT`` freezes a ResNet body's
+stem and its first stages (:func:`frozen`).
 """
 
 from __future__ import annotations
@@ -73,12 +74,32 @@ class ScheduledSGD:
         return lr
 
 
+def frozen(name: str, freeze_at: int) -> bool:
+    """``siammot_tpu/parallel/mesh.py``'s ``_frozen`` rule (maskrcnn
+    ``_freeze_backbone``): with ``freeze_at`` >= 1, a body child named
+    ``stem_*`` or ``layer1_*`` .. ``layer{freeze_at-1}_*`` is frozen.
+    Only ResNet bodies have such children, so a DLA body (whose S2D stem
+    is ``stem``) is unaffected, as in the JAX package."""
+    parts = name.split(".")
+    if freeze_at <= 0 or parts[0] != "body" or len(parts) < 2:
+        return False
+    mod = parts[1]
+    return mod.startswith("stem_") or any(
+        mod.startswith(f"layer{s}_") for s in range(1, freeze_at))
+
+
 def make_optimizer(cfg, net: torch.nn.Module) -> ScheduledSGD:
-    """The reference's optimizer over ``net``'s parameters."""
+    """The reference's optimizer over ``net``'s parameters.  Frozen
+    parameters (:func:`frozen`) get ``requires_grad`` False, so no
+    gradient is computed for them, and stay out of the SGD groups: no
+    update and no weight decay, as optax's ``set_to_zero`` leaves them."""
     s = cfg.SOLVER
+    freeze_at = cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT
     weights, biases = [], []
     for name, p in net.named_parameters():
-        if p.requires_grad:
+        if frozen(name, freeze_at):
+            p.requires_grad_(False)
+        elif p.requires_grad:
             leaf = name.rsplit(".", 1)[-1]
             (biases if leaf in ("bias", "scale") else weights).append(p)
     groups = [dict(params=weights, lr_factor=1.0,

@@ -1,14 +1,16 @@
-"""DLA backbone (port of ``siammot_tpu.models.dla``): DLA-34, DLA-MINI
-and the Bottleneck bodies DLA-46-C, 46-XC, 60, 102 and 169, with
-deformable 3x3s (kernel 9) on the stages ``stage_with_dcn`` names.
+"""DLA backbone (port of ``siammot_tpu.models.dla``): DLA-34, DLA-MINI,
+the Bottleneck bodies DLA-46-C, 46-XC, 60, 102 and 169, with deformable
+3x3s (kernel 9) on the stages ``stage_with_dcn`` names, and the Res2Net
+body DLA-60-RES2NET (``Bottle2neck``).
 
 Module names and nesting follow the flax modules, so the JAX parameter
 tree loads key by key (``utils/weights.py``).  Tensors run NCHW
 internally (channels-last memory on the card); the convolutions are
 ``F.conv2d``, as the JAX package leaves them to XLA.  FrozenBN is a
 per-channel affine ``x * scale + bias`` (maskrcnn FrozenBatchNorm2d with
-the statistics folded in).  Res2Net bodies and the plain stem are not
-ported.
+the statistics folded in).  The stem is the space-to-depth form the JAX
+package trains (``S2DStem``) or, with ``s2d_stem`` False, the plain one
+(``base_conv`` 7x7, ``level0``, ``level1``), the reference ``.pth``'s.
 """
 
 from __future__ import annotations
@@ -113,6 +115,53 @@ class Bottleneck(nn.Module):
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
+        return F.relu(out + residual)
+
+
+class Bottle2neck(nn.Module):
+    """Res2Net bottleneck (reference ``DlaBottle2neck``, dla.py:108-170):
+    a 1x1 to ``scale`` splits of ``mid`` channels; splits 0..scale-2 go
+    through grouped 3x3s with a running-sum cascade (off on stride-2
+    blocks, where the last split is average-pooled, padded zeros counted,
+    instead of passed through); concat -> 1x1 -> residual."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 dilation: int = 1, scale: int = 4, cardinality: int = 8,
+                 base_width: int = 4, expansion: int = 2):
+        super().__init__()
+        mid = int(math.floor(planes * (base_width / 64))
+                  * cardinality) // expansion
+        self.mid, self.scale, self.stride = mid, scale, stride
+        self.conv1 = conv(cin, mid * scale, 1)
+        self.bn1 = FrozenBN(mid * scale)
+        for i in range(max(1, scale - 1)):
+            setattr(self, f"convs_{i}", nn.Conv2d(
+                mid, mid, 3, stride=stride, padding=dilation,
+                dilation=dilation, groups=cardinality, bias=False))
+            setattr(self, f"bns_{i}", FrozenBN(mid))
+        self.conv3 = conv(mid * scale, planes, 1)
+        self.bn3 = FrozenBN(planes)
+
+    def forward(self, x, residual=None):
+        if residual is None:
+            residual = x
+        is_first = self.stride > 1
+        out = F.relu(self.bn1(self.conv1(x)))
+        spx = torch.split(out, self.mid, dim=1)
+        spo = []
+        sp = None
+        for i in range(max(1, self.scale - 1)):
+            sp = spx[i] if i == 0 or is_first else sp + spx[i]
+            sp = getattr(self, f"convs_{i}")(sp)
+            sp = F.relu(getattr(self, f"bns_{i}")(sp))
+            spo.append(sp)
+        if self.scale > 1:
+            last = spx[-1]
+            if is_first:
+                last = F.avg_pool2d(last, 3, self.stride, 1,
+                                    count_include_pad=True)
+            spo.append(last)
+        out = self.bn3(self.conv3(torch.cat(spo, dim=1)))
         return F.relu(out + residual)
 
 
@@ -306,7 +355,7 @@ def s2d_to_stem(s2d: dict, c0: int, c1: int) -> dict:
     }
 
 
-# variants (reference dla.py:307-374); Res2Net bodies are not ported
+# variants (reference dla.py:307-374)
 DLA_VARIANTS = {
     "DLA-34-FPN": dict(levels=(1, 1, 1, 2, 2, 1),
                        channels=(16, 32, 64, 128, 256, 512)),
@@ -322,6 +371,11 @@ DLA_VARIANTS = {
     "DLA-60-FPN": dict(levels=(1, 1, 1, 2, 3, 1),
                        channels=(16, 32, 128, 256, 512, 1024),
                        block=Bottleneck),
+    "DLA-60-RES2NET-FPN": dict(levels=(1, 1, 1, 2, 3, 1),
+                               channels=(16, 32, 128, 256, 512, 1024),
+                               block=Bottle2neck,
+                               block_kwargs=dict(cardinality=1,
+                                                 base_width=28)),
     "DLA-102-FPN": dict(levels=(1, 1, 1, 3, 4, 1),
                         channels=(16, 32, 128, 256, 512, 1024),
                         block=Bottleneck, residual_root=True),
@@ -335,15 +389,16 @@ class DLA(nn.Module):
     """DLA feature extractor: NHWC image -> NCHW maps at strides 4..32.
 
     ``stage_with_dcn`` turns the 3x3 of Bottleneck stages deformable; a
-    BasicBlock body ignores it, as the JAX package does."""
+    BasicBlock or Bottle2neck body ignores it, as the JAX package does.
+    ``s2d_stem`` picks the space-to-depth stem, else the plain one."""
 
     def __init__(self, levels, channels, block=BasicBlock,
                  residual_root: bool = False, block_kwargs=None,
-                 stage_with_dcn=(False,) * 6):
+                 stage_with_dcn=(False,) * 6, s2d_stem: bool = True):
         super().__init__()
         ch = channels
-        if levels[0] != 1 or levels[1] != 1:
-            raise ValueError("the S2D stem needs single-conv levels 0 and 1")
+        self.s2d_stem = s2d_stem
+        self.stem_levels = tuple(levels[:2])
 
         def kwargs(stage):
             kw = dict(block_kwargs or {})
@@ -351,7 +406,20 @@ class DLA(nn.Module):
                 kw["with_dcn"] = True
             return kw
 
-        self.stem = S2DStem(ch[0], ch[1])
+        if s2d_stem:
+            if levels[0] != 1 or levels[1] != 1:
+                raise ValueError("the S2D stem needs single-conv levels 0 "
+                                 "and 1")
+            self.stem = S2DStem(ch[0], ch[1])
+        else:
+            self.base_conv = conv(3, ch[0], 7)
+            self.base_bn = FrozenBN(ch[0])
+            for lvl, cin, cout in ((0, ch[0], ch[0]), (1, ch[0], ch[1])):
+                for i in range(levels[lvl]):
+                    setattr(self, f"level{lvl}_conv{i}",
+                            conv(cin if i == 0 else cout, cout, 3,
+                                 lvl + 1 if i == 0 else 1))
+                    setattr(self, f"level{lvl}_bn{i}", FrozenBN(cout))
         self.level2 = Tree(levels[2], ch[1], ch[2], 2,
                            root_residual=residual_root, block=block,
                            block_kwargs=kwargs(2))
@@ -365,17 +433,28 @@ class DLA(nn.Module):
                            root_residual=residual_root, block=block,
                            block_kwargs=kwargs(5))
 
+    def plain_stem(self, x_nhwc):
+        """base(7x7) -> level0 (stride 1) -> level1 (stride 2)."""
+        x = F.relu(self.base_bn(self.base_conv(x_nhwc.permute(0, 3, 1, 2))))
+        for lvl, n in enumerate(self.stem_levels):
+            for i in range(n):
+                x = getattr(self, f"level{lvl}_conv{i}")(x)
+                x = F.relu(getattr(self, f"level{lvl}_bn{i}")(x))
+        return x
+
     def forward(self, x_nhwc):
-        x2 = self.level2(self.stem(x_nhwc))
+        x1 = self.stem(x_nhwc) if self.s2d_stem else self.plain_stem(x_nhwc)
+        x2 = self.level2(x1)
         x3 = self.level3(x2)
         x4 = self.level4(x3)
         x5 = self.level5(x4)
         return [x2, x3, x4, x5]
 
 
-def build_dla(conv_body: str, stage_with_dcn=(False,) * 6) -> DLA:
+def build_dla(conv_body: str, stage_with_dcn=(False,) * 6,
+              s2d_stem: bool = True) -> DLA:
     if conv_body not in DLA_VARIANTS:
-        raise KeyError(f"backbone {conv_body} is not ported yet; "
+        raise KeyError(f"unknown backbone {conv_body}; "
                        f"choices: {sorted(DLA_VARIANTS)}")
-    return DLA(stage_with_dcn=tuple(stage_with_dcn),
+    return DLA(stage_with_dcn=tuple(stage_with_dcn), s2d_stem=s2d_stem,
                **DLA_VARIANTS[conv_body])

@@ -1,21 +1,25 @@
 """SiamMOT inference and training steps (port of
 ``siammot_tpu.models.siammot``).
 
-Inference: DLA-FPN backbone -> RPN (or given public detections) ->
-shared box-head pass over proposals and propagated tracks -> EMM track
-head over K padded slots -> track solver -> next-frame TrackState, one
-frame of each of S video streams per ``forward_streams`` call (S = 1:
-``forward_inference``).  Its kernels (window pool, masked
+Inference: DLA-FPN or ResNet-FPN backbone -> RPN (or given public
+detections) -> shared box-head pass over proposals and propagated tracks
+-> EMM track head over K padded slots -> track solver -> next-frame
+TrackState, one frame of each of S video streams per ``forward_streams``
+call (S = 1: ``forward_inference``).  Its kernels (window pool, masked
 xcorr, masked or slot-blocked predictor, decode whole-map or striped; or,
 with ``TPU.MASKED_TRACK_KERNELS`` False, the unmasked xcorr and decode)
 are CUDA kernels on the card, and so is the deformable conv of a DCN
-body (kernel 9; inference only: its backward is not ported).
+body (kernel 9, whose backward is the plain VJP of the JAX package's
+exact patch form, ``ops/deform_conv.py``).
 
 Training: ``forward_train`` returns the seven reference losses of a batch
 of frame pairs (RPN, box head, EMM), with the pool's backward (kernel 7)
 and the unmasked xcorr and its gradients (kernel 6) as CUDA kernels.
 The convolutions and matrix products around the kernels stay
 ``F.conv2d`` / ``torch.matmul``, as the JAX package leaves them to XLA.
+With ``TPU.REMAT`` the trunk (body + FPN) is recomputed in the backward
+instead of keeping its activations, where the JAX step applies
+``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -26,12 +30,14 @@ import itertools
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ..core import boxes as box_ops
 from ..core.structures import Boxes, concat_boxes, take_rows
 from .box_head import (BoxHead, BoxHeadConfig, box_head_loss, pool_levels,
                        postprocess, subsample_proposals)
 from .dla import DLA_VARIANTS, DeformConv, build_dla
+from .resnet import RESNET_VARIANTS, build_resnet
 from .emm import (EMMConfig, EMMHead, decode_response_fused, emm_loss,
                   make_search_region, pool_search_region, pool_template,
                   response_locations)
@@ -74,10 +80,15 @@ class SiamMOTNet(nn.Module):
     def __init__(self, conv_body: str, channels: int, num_anchors: int,
                  box_resolution: int, box_sampling: int, mlp_dim: int,
                  num_classes: int, window_box: int,
-                 stage_with_dcn=(False,) * 6):
+                 stage_with_dcn=(False,) * 6, s2d_stem: bool = True,
+                 resnet_opts=None):
         super().__init__()
-        self.body = build_dla(conv_body, stage_with_dcn)
-        stage_channels = DLA_VARIANTS[conv_body]["channels"][2:6]
+        if conv_body.startswith("R-"):
+            self.body = build_resnet(conv_body, **(resnet_opts or {}))
+            stage_channels = self.body.stage_channels
+        else:
+            self.body = build_dla(conv_body, stage_with_dcn, s2d_stem)
+            stage_channels = DLA_VARIANTS[conv_body]["channels"][2:6]
         self.fpn = FPN(stage_channels, channels)
         self.rpn = RPNHead(channels, num_anchors)
         self.box = BoxHead(channels, box_resolution, box_sampling, mlp_dim,
@@ -91,9 +102,9 @@ class SiamMOTNet(nn.Module):
 
 
 def _channels_last(net: SiamMOTNet) -> None:
-    """On the card, NHWC convolutions for cuDNN.  The HWIO kernels that
-    kernels 3 and 9 read (EMM predictor, deformable convs) stay
-    contiguous as they are."""
+    """On the card, NHWC convolutions for cuDNN (DLA and ResNet bodies
+    alike).  The HWIO kernels that kernels 3 and 9 read (EMM predictor,
+    deformable convs) stay contiguous as they are."""
     if next(net.parameters()).device.type != "cuda":
         return
     for m in (net.body, net.fpn, net.rpn):
@@ -117,27 +128,34 @@ class SiamMOT:
             raise RuntimeError("SiamMOT: no CUDA device (pass device='cpu' "
                                "for the plain CPU path)")
         tpu = cfg.TPU
-        off = [k for k in ("USE_PALLAS", "POOLER_WINDOWED", "DECODE_PALLAS",
-                           "S2D_STEM") if not tpu[k]]
+        off = [k for k in ("USE_PALLAS", "POOLER_WINDOWED", "DECODE_PALLAS")
+               if not tpu[k]]
         if off:
             raise ValueError(f"the port implements only the Pallas kernel "
                              f"paths; TPU.{off} must stay True")
         # False: the unmasked EMM route (xcorr kernel 6, the predictor over
         # every slot, decode kernel 10), siammot_tpu/models/siammot.py:355
         self.masked_kernels = bool(tpu.MASKED_TRACK_KERNELS)
-        if tpu.REMAT:
-            raise ValueError("TPU.REMAT is not ported yet")
+        self.remat = bool(tpu.REMAT)
         body = cfg.MODEL.BACKBONE.CONV_BODY
-        if body not in DLA_VARIANTS:
-            raise KeyError(f"backbone {body} is not ported yet; "
-                           f"choices: {sorted(DLA_VARIANTS)}")
-        expect = tuple(DLA_VARIANTS[body]["channels"][2:6])
-        got = tuple(getattr(cfg.MODEL.DLA, f"DLA_STAGE{i}_OUT_CHANNELS")
-                    for i in (2, 3, 4, 5))
-        if got != expect:
-            raise ValueError(f"MODEL.DLA.DLA_STAGE*_OUT_CHANNELS {got} do "
-                             f"not match {body}'s stage widths {expect}")
-        self.channels = cfg.MODEL.DLA.BACKBONE_OUT_CHANNELS
+        if body.startswith("R-"):
+            if body not in RESNET_VARIANTS:
+                raise KeyError(f"unknown backbone {body}; choices: "
+                               f"{sorted(RESNET_VARIANTS)}")
+            self.channels = cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS
+        else:
+            if body not in DLA_VARIANTS:
+                raise KeyError(f"unknown backbone {body}; choices: "
+                               f"{sorted(DLA_VARIANTS)} and "
+                               f"{sorted(RESNET_VARIANTS)}")
+            expect = tuple(DLA_VARIANTS[body]["channels"][2:6])
+            got = tuple(getattr(cfg.MODEL.DLA, f"DLA_STAGE{i}_OUT_CHANNELS")
+                        for i in (2, 3, 4, 5))
+            if got != expect:
+                raise ValueError(f"MODEL.DLA.DLA_STAGE*_OUT_CHANNELS {got} "
+                                 f"do not match {body}'s stage widths "
+                                 f"{expect}")
+            self.channels = cfg.MODEL.DLA.BACKBONE_OUT_CHANNELS
         self.num_classes = cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES
         self.box_scales = tuple(cfg.MODEL.ROI_BOX_HEAD.POOLER_SCALES)
         self.ecfg = EMMConfig.from_cfg(cfg)
@@ -165,6 +183,7 @@ class SiamMOT:
 
     def build_net(self) -> SiamMOTNet:
         cfg = self.cfg
+        r = cfg.MODEL.RESNETS
         return SiamMOTNet(
             conv_body=cfg.MODEL.BACKBONE.CONV_BODY,
             channels=self.channels,
@@ -174,7 +193,14 @@ class SiamMOT:
             mlp_dim=cfg.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM,
             num_classes=self.num_classes,
             window_box=cfg.TPU.WINDOW_BOX,
-            stage_with_dcn=tuple(cfg.MODEL.DLA.STAGE_WITH_DCN))
+            stage_with_dcn=tuple(cfg.MODEL.DLA.STAGE_WITH_DCN),
+            s2d_stem=bool(cfg.TPU.S2D_STEM),
+            resnet_opts=dict(stage_with_dcn=tuple(r.STAGE_WITH_DCN),
+                             num_groups=r.NUM_GROUPS,
+                             width_per_group=r.WIDTH_PER_GROUP,
+                             stride_in_1x1=bool(r.STRIDE_IN_1X1),
+                             stem_channels=r.STEM_OUT_CHANNELS,
+                             res2_out_channels=r.RES2_OUT_CHANNELS))
 
     def cast_params(self, params: dict) -> SiamMOTNet:
         """The network on the device in the compute dtype, loaded from a
@@ -401,6 +427,26 @@ class SiamMOT:
             net, cast, (self._train_losses, draws, images, gt, image_size,
                         frame_sizes))
 
+    def _trunk(self, net, x):
+        """Body + FPN of the training step.  With ``TPU.REMAT`` their
+        activations are not kept but recomputed in the backward
+        (non-reentrant ``torch.utils.checkpoint``).  The recomputation
+        runs after ``functional_call`` has put the master parameters back,
+        so it takes the step's cast parameters explicitly."""
+        if not self.remat:
+            return net.fpn(net.body(x))
+        cast = {n: t for n, t in itertools.chain(net.named_parameters(),
+                                                 net.named_buffers())
+                if n.startswith(("body.", "fpn."))}
+
+        def run(x):
+            return torch.func.functional_call(
+                net, cast, (lambda m, x: m.fpn(m.body(x)), x))
+
+        # the trunk draws no random numbers: no RNG state to keep
+        return torch.utils.checkpoint.checkpoint(
+            run, x, use_reentrant=False, preserve_rng_state=False)
+
     def _train_losses(self, net, draws, images, gt, image_size,
                       frame_sizes):
         ecfg, hcfg = self.ecfg, self.hcfg
@@ -412,7 +458,7 @@ class SiamMOT:
                              self.cfg.INPUT.PIXEL_STD,
                              self.cfg.INPUT.TO_BGR255,
                              frame_sizes=frame_sizes)
-        feats = net.fpn(net.body(x.to(dt)))                    # NCHW, dt
+        feats = self._trunk(net, x.to(dt))                     # NCHW, dt
         anchors = self.anchors_for((h, w))
         logits, deltas = net.rpn(feats)
         logits = [l.float() for l in logits]

@@ -1,4 +1,5 @@
-"""Kernel 9: the deformable convolution (DCNv1) forward.
+"""Kernel 9: the deformable convolution (DCNv1), forward on the card, and
+its backward.
 
 Counterpart of ``siammot_tpu/ops/deform_conv.py:deform_conv2d`` with its
 default route, the guarded Pallas kernel (``_pallas_guarded`` ->
@@ -43,6 +44,15 @@ channel tiles alone leave more than half the card's SMs idle, the nine
 taps are split over 3 or 9 blocks whose f32 partial sums a second launch
 adds and rounds once (:func:`tap_splits`).  In f32 it is an FFMA
 implicit GEMM.
+
+The backward (:class:`DeformConv2dFn`) is what the JAX package's
+``_pallas_guarded_bwd`` computes: the VJP of the exact patch form (route
+B) whichever route the forward took, recomputed from the saved inputs in
+their dtype's arithmetic.  JAX leaves it to XLA, so here it is plain
+PyTorch (a gather, and a scatter-add for the input's gradient, whose
+atomics sum in no fixed order on the card: that gradient is not bitwise
+from run to run there).  Only x, the offsets and the kernel are saved;
+the four corner tensors of the samples are rebuilt in the backward.
 """
 
 from __future__ import annotations
@@ -99,19 +109,26 @@ def in_window(offsets: torch.Tensor) -> torch.Tensor:
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,
                   kernel: torch.Tensor, stride: int = 1,
                   dilation: int = 1) -> torch.Tensor:
-    """DCNv1 forward, NHWC.
+    """DCNv1, NHWC.
 
     x [B, H, W, C]; offsets [B, Ho, Wo, 18] tap-major (dy, dx) pairs in
     x's dtype; kernel [3, 3, C, Co] HWIO in x's dtype; padding = dilation.
     Returns [B, Ho, Wo, Co] in x's dtype.  CUDA tensors launch the kernel
-    (f32 or bf16); CPU tensors take :func:`deform_conv2d_plain`.
+    (f32 or bf16); CPU tensors take :func:`deform_conv2d_plain`.  Where a
+    gradient is asked for, the forward is the same and the backward is
+    :func:`deform_conv2d_vjp` (:class:`DeformConv2dFn`).
     """
-    if x.device.type == "cpu":
-        return deform_conv2d_plain(x, offsets, kernel, stride, dilation)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, offsets, kernel)):
-        raise NotImplementedError("deform_conv2d: the kernel is forward "
-                                  "only; training a DCN body is not ported")
+        return DeformConv2dFn.apply(x, offsets, kernel, stride, dilation)
+    return _forward(x, offsets, kernel, stride, dilation)
+
+
+def _forward(x, offsets, kernel, stride, dilation):
+    """The forward: kernel 9 on CUDA tensors, the plain version on CPU
+    ones."""
+    if x.device.type == "cpu":
+        return deform_conv2d_plain(x, offsets, kernel, stride, dilation)
     b, h, w, c = x.shape
     kh, kw, cin, co = kernel.shape
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
@@ -163,6 +180,42 @@ def _launch(x, offsets, kernel, stride, dilation, splits):
 
 
 deform_conv2d.launches = 0
+
+
+class DeformConv2dFn(torch.autograd.Function):
+    """Kernel 9 (or the plain version on the CPU) forward, the route-B
+    VJP backward (``siammot_tpu/ops/deform_conv.py:_pallas_guarded_bwd``).
+    Saves only the inputs."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, kernel, stride, dilation):
+        ctx.save_for_backward(x, offsets, kernel)
+        ctx.geometry = (stride, dilation)
+        return _forward(x, offsets, kernel, stride, dilation)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, offsets, kernel = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        grads = deform_conv2d_vjp(x, offsets, kernel, grad, *ctx.geometry,
+                                  need=need)
+        return (*grads, None, None)
+
+
+def deform_conv2d_vjp(x, offsets, kernel, grad, stride: int = 1,
+                      dilation: int = 1, need=(True, True, True)):
+    """The gradients of (x, offsets, kernel) under the upstream ``grad``:
+    the VJP of route B (``sample_plain(..., route_a=False)`` and the
+    product), recomputed from the inputs in their dtype's arithmetic, as
+    the JAX package differentiates its exact patch form for either
+    forward route.  An input that ``need`` leaves out gets None."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n))
+                  for t, n in zip((x, offsets, kernel), need)]
+        out = _route(*leaves, stride, dilation, route_a=False)
+        wanted = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad))
+    return tuple(next(got) if t.requires_grad else None for t in leaves)
 
 
 def _taps(b, ho, wo, stride, dilation, device):
@@ -224,17 +277,23 @@ def sample_plain(x, offsets, stride, dilation, route_a: bool):
     return s.to(dt)
 
 
+def _route(x, offsets, kernel, stride, dilation, route_a: bool):
+    """One route's samples and the [N, 9C] @ [9C, Co] product with f32
+    sums, rounded once to x's dtype."""
+    b = x.shape[0]
+    c, co = kernel.shape[2], kernel.shape[3]
+    s = sample_plain(x, offsets, stride, dilation, route_a)
+    _, ho, wo = s.shape[:3]
+    out = s.reshape(-1, 9 * c).float() @ kernel.reshape(9 * c, co).float()
+    return out.to(x.dtype).reshape(b, ho, wo, co)
+
+
 def deform_conv2d_plain(x, offsets, kernel, stride: int = 1,
                         dilation: int = 1) -> torch.Tensor:
     """Plain PyTorch version: the route decision, the exact 2x2 gather of
     every sample in the route's arithmetic, and one [N, 9C] @ [9C, Co]
     product with f32 sums, rounded once to x's dtype."""
-    b = x.shape[0]
-    c, co = kernel.shape[2], kernel.shape[3]
     route_a = window_route_possible(x.shape, kernel.shape, stride, dilation,
                                     x.element_size()) \
         and bool(in_window(offsets))
-    s = sample_plain(x, offsets, stride, dilation, route_a)
-    _, ho, wo = s.shape[:3]
-    out = s.reshape(-1, 9 * c).float() @ kernel.reshape(9 * c, co).float()
-    return out.to(x.dtype).reshape(b, ho, wo, co)
+    return _route(x, offsets, kernel, stride, dilation, route_a)

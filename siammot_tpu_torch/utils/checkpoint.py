@@ -165,10 +165,13 @@ def import_torch_checkpoint(path_or_state, cfg):
     The module-name mapping between the reference graph
     (``backbone.body/fpn``, ``rpn.head``, ``roi_heads.box/track``) and the
     flax tree, as ``siammot_tpu.utils.checkpoint.import_torch_checkpoint``
-    does it for the DLA bodies with the S2D stem (the only stem the port
-    runs): FrozenBN folded, the plain stem phase-decomposed onto the S2D
-    stem (exact), fc6's input permuted from C-major to HWC.  A key of the
-    network that the file lacks keeps the freshly built network's value.
+    does it: FrozenBN folded; a ResNet body by maskrcnn's names
+    (``stem.conv1``/``bn1``, ``layer{s}.{b}.conv{1,2,3}``/``bn{1,2,3}``,
+    ``downsample.{0,1}``); a DLA body's plain stem phase-decomposed onto
+    the S2D stem (exact) or, with ``TPU.S2D_STEM`` False, taken as it is,
+    and its trees, with a Bottle2neck's ``convs.{i}``/``bns.{i}``; fc6's
+    input permuted from C-major to HWC.  A key of the network that the
+    file lacks keeps the freshly built network's value.
     """
     if isinstance(path_or_state, (str, os.PathLike)):
         state = torch.load(path_or_state, map_location="cpu",
@@ -218,29 +221,62 @@ def import_torch_checkpoint(path_or_state, cfg):
         used.add(tkey + ".weight")
         used.add(tkey + ".bias")
 
-    # ---- body: the plain stem onto the S2D stem, then the trees
+    # ---- body: a ResNet's stem and stages; or a DLA's stem (the plain
+    # one onto the S2D stem, or as it is), then its trees
     body = "backbone.body."
-    s2d = stem_to_s2d(
-        _conv_kernel(sd[body + "base_layer.0.weight"]),
-        fold_frozen_bn(sd, body + "base_layer.1"),
-        _conv_kernel(sd[body + "level0.0.weight"]),
-        fold_frozen_bn(sd, body + "level0.1"),
-        _conv_kernel(sd[body + "level1.0.weight"]),
-        fold_frozen_bn(sd, body + "level1.1"))
-    for mod, payload in s2d.items():
-        for leaf, val in payload.items():
-            put(f"params/body/stem/{mod}/{leaf}", val)
-    for t in ("base_layer.0", "level0.0", "level1.0"):
-        used.add(body + t + ".weight")
-    for t in ("base_layer.1", "level0.1", "level1.1"):
-        for suf in (".weight", ".bias", ".running_mean", ".running_var"):
-            used.add(body + t + suf)
+    resnet = "params/body/stem_conv1/kernel" in flat
+    if resnet:
+        conv(body + "stem.conv1", "params/body/stem_conv1")
+        bn(body + "stem.bn1", "params/body/stem_bn1")
+        for st in (1, 2, 3, 4):
+            b = 0
+            while f"{body}layer{st}.{b}.conv1.weight" in sd:
+                tb, jb = f"{body}layer{st}.{b}", f"params/body/layer{st}_{b}"
+                for c in (1, 2, 3):
+                    conv(f"{tb}.conv{c}", f"{jb}/conv{c}")
+                    bn(f"{tb}.bn{c}", f"{jb}/bn{c}")
+                if f"{tb}.downsample.0.weight" in sd:
+                    conv(f"{tb}.downsample.0", f"{jb}/downsample_conv")
+                    bn(f"{tb}.downsample.1", f"{jb}/downsample_bn")
+                b += 1
+    elif "params/body/stem/s2d_base_conv/kernel" in flat:
+        s2d = stem_to_s2d(
+            _conv_kernel(sd[body + "base_layer.0.weight"]),
+            fold_frozen_bn(sd, body + "base_layer.1"),
+            _conv_kernel(sd[body + "level0.0.weight"]),
+            fold_frozen_bn(sd, body + "level0.1"),
+            _conv_kernel(sd[body + "level1.0.weight"]),
+            fold_frozen_bn(sd, body + "level1.1"))
+        for mod, payload in s2d.items():
+            for leaf, val in payload.items():
+                put(f"params/body/stem/{mod}/{leaf}", val)
+        for t in ("base_layer.0", "level0.0", "level1.0"):
+            used.add(body + t + ".weight")
+        for t in ("base_layer.1", "level0.1", "level1.1"):
+            for suf in (".weight", ".bias", ".running_mean", ".running_var"):
+                used.add(body + t + suf)
+    else:
+        conv(body + "base_layer.0", "params/body/base_conv")
+        bn(body + "base_layer.1", "params/body/base_bn")
+        for lvl in (0, 1):
+            i = 0
+            while f"{body}level{lvl}.{3 * i}.weight" in sd:
+                conv(f"{body}level{lvl}.{3 * i}",
+                     f"params/body/level{lvl}_conv{i}")
+                bn(f"{body}level{lvl}.{3 * i + 1}",
+                   f"params/body/level{lvl}_bn{i}")
+                i += 1
 
     def map_block(tprefix: str, jprefix: str):
         for c in (1, 2, 3):
             if f"{tprefix}.conv{c}.weight" in sd:
                 conv(f"{tprefix}.conv{c}", f"{jprefix}/conv{c}")
                 bn(f"{tprefix}.bn{c}", f"{jprefix}/bn{c}")
+        i = 0   # a Bottle2neck's split convs (nn.ModuleList convs/bns)
+        while f"{tprefix}.convs.{i}.weight" in sd:
+            conv(f"{tprefix}.convs.{i}", f"{jprefix}/convs_{i}")
+            bn(f"{tprefix}.bns.{i}", f"{jprefix}/bns_{i}")
+            i += 1
 
     def map_tree(tprefix: str, jprefix: str):
         if f"{tprefix}.project.0.weight" in sd:
@@ -255,7 +291,7 @@ def import_torch_checkpoint(path_or_state, cfg):
             map_tree(f"{tprefix}.tree1", f"{jprefix}/tree1")
             map_tree(f"{tprefix}.tree2", f"{jprefix}/tree2")
 
-    for lvl in (2, 3, 4, 5):
+    for lvl in () if resnet else (2, 3, 4, 5):
         map_tree(f"{body}level{lvl}", f"params/body/level{lvl}")
 
     # ---- FPN, RPN head
@@ -310,11 +346,12 @@ def import_torch_checkpoint(path_or_state, cfg):
 def export_torch_checkpoint(state_dict: dict) -> dict:
     """Inverse of :func:`import_torch_checkpoint`: a reference-named state
     dict of torch tensors (OIHW convs, transposed FCs, FrozenBN unfolded
-    with running statistics at identity, the S2D stem projected back onto
+    with running statistics at identity, an S2D stem projected back onto
     the plain stem).  Export then import gives the same tensors, bit for
-    bit, when the S2D stem came from a plain one; a stem trained in S2D
-    form has no exact plain form, and the projection's relative error is
-    logged as a warning when it passes 1e-3."""
+    bit, for a ResNet body, a plain stem, or an S2D stem that came from a
+    plain one; a stem trained in S2D form has no exact plain form, and the
+    projection's relative error is logged as a warning when it passes
+    1e-3."""
     flat = torch_to_jax(state_dict)
     sd: dict = {}
 
@@ -340,6 +377,99 @@ def export_torch_checkpoint(state_dict: dict) -> dict:
         sd[tkey + ".weight"] = flat[jprefix + "/scale"]
         sd[tkey + ".bias"] = flat[jprefix + "/bias"]
 
+    body = "backbone.body."
+    resnet = "params/body/stem_conv1/kernel" in flat
+    if resnet:
+        conv(body + "stem.conv1", "params/body/stem_conv1")
+        bn(body + "stem.bn1", "params/body/stem_bn1")
+        for st in (1, 2, 3, 4):
+            b = 0
+            while f"params/body/layer{st}_{b}/conv1/kernel" in flat:
+                tb, jb = f"{body}layer{st}.{b}", f"params/body/layer{st}_{b}"
+                for c in (1, 2, 3):
+                    conv(f"{tb}.conv{c}", f"{jb}/conv{c}")
+                    bn(f"{tb}.bn{c}", f"{jb}/bn{c}")
+                if f"{jb}/downsample_conv/kernel" in flat:
+                    conv(f"{tb}.downsample.0", f"{jb}/downsample_conv")
+                    bn(f"{tb}.downsample.1", f"{jb}/downsample_bn")
+                b += 1
+    elif "params/body/stem/s2d_base_conv/kernel" in flat:
+        _export_s2d_stem(flat, sd)
+    else:
+        conv(body + "base_layer.0", "params/body/base_conv")
+        bn(body + "base_layer.1", "params/body/base_bn")
+        for lvl in (0, 1):
+            i = 0
+            while f"params/body/level{lvl}_conv{i}/kernel" in flat:
+                conv(f"{body}level{lvl}.{3 * i}",
+                     f"params/body/level{lvl}_conv{i}")
+                bn(f"{body}level{lvl}.{3 * i + 1}",
+                   f"params/body/level{lvl}_bn{i}")
+                i += 1
+
+    def map_block(tprefix, jprefix):
+        for c in (1, 2, 3):
+            if f"{jprefix}/conv{c}/kernel" in flat:
+                conv(f"{tprefix}.conv{c}", f"{jprefix}/conv{c}")
+                bn(f"{tprefix}.bn{c}", f"{jprefix}/bn{c}")
+        i = 0   # a Bottle2neck's split convs
+        while f"{jprefix}/convs_{i}/kernel" in flat:
+            conv(f"{tprefix}.convs.{i}", f"{jprefix}/convs_{i}")
+            bn(f"{tprefix}.bns.{i}", f"{jprefix}/bns_{i}")
+            i += 1
+
+    def map_tree(tprefix, jprefix):
+        if f"{jprefix}/project_conv/kernel" in flat:
+            conv(f"{tprefix}.project.0", f"{jprefix}/project_conv")
+            bn(f"{tprefix}.project.1", f"{jprefix}/project_bn")
+        if f"{jprefix}/root/conv/kernel" in flat:  # leaf tree
+            map_block(f"{tprefix}.tree1", f"{jprefix}/tree1")
+            map_block(f"{tprefix}.tree2", f"{jprefix}/tree2")
+            conv(f"{tprefix}.root.conv", f"{jprefix}/root/conv")
+            bn(f"{tprefix}.root.bn", f"{jprefix}/root/bn")
+        else:
+            map_tree(f"{tprefix}.tree1", f"{jprefix}/tree1")
+            map_tree(f"{tprefix}.tree2", f"{jprefix}/tree2")
+
+    for lvl in () if resnet else (2, 3, 4, 5):
+        map_tree(f"{body}level{lvl}", f"params/body/level{lvl}")
+
+    for i in (1, 2, 3, 4):
+        conv(f"backbone.fpn.fpn_inner{i}", f"params/fpn/inner{i}")
+        conv(f"backbone.fpn.fpn_layer{i}", f"params/fpn/layer{i}")
+    conv("rpn.head.conv", "params/rpn/conv")
+    conv("rpn.head.cls_logits", "params/rpn/cls_logits")
+    conv("rpn.head.bbox_pred", "params/rpn/bbox_pred")
+
+    fx = "roi_heads.box.feature_extractor."
+    jkey = "params/box/feature_extractor/fc6"
+    k = flat[jkey + "/kernel"]                          # [res*res*C, out]
+    c = flat["params/fpn/layer1/kernel"].shape[-1]
+    res = int(np.sqrt(k.shape[0] // c))
+    wt = k.T.reshape(-1, res, res, c).transpose(0, 3, 1, 2)
+    sd[fx + "fc6.weight"] = wt.reshape(wt.shape[0], -1)
+    sd[fx + "fc6.bias"] = flat[jkey + "/bias"]
+    dense(fx + "fc7", "params/box/feature_extractor/fc7")
+    dense("roi_heads.box.predictor.cls_score",
+          "params/box/predictor/cls_score")
+    dense("roi_heads.box.predictor.bbox_pred",
+          "params/box/predictor/bbox_pred")
+
+    tp = "roi_heads.track.tracker.predictor."
+    conv(tp + "cls_tower.0", "params/emm/predictor/cls_tower_conv")
+    gn(tp + "cls_tower.1", "params/emm/predictor/cls_tower_gn")
+    conv(tp + "reg_tower.0", "params/emm/predictor/reg_tower_conv")
+    gn(tp + "reg_tower.1", "params/emm/predictor/reg_tower_gn")
+    conv(tp + "cls.0", "params/emm/predictor/cls")
+    conv(tp + "center.0", "params/emm/predictor/center")
+    conv(tp + "reg.0", "params/emm/predictor/reg")
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sd.items()}
+
+
+def _export_s2d_stem(flat: dict, sd: dict) -> None:
+    """The S2D stem of ``flat`` projected onto the reference's plain stem
+    entries of ``sd``; warns when the projection is lossy."""
     body = "backbone.body."
     s2d_tree = {mod: {leaf.rsplit("/", 1)[1]: flat[leaf] for leaf in flat
                       if leaf.startswith(f"params/body/stem/{mod}/")}
@@ -375,60 +505,6 @@ def export_torch_checkpoint(state_dict: dict) -> dict:
         sd[body + tbn + ".bias"] = std[mbn]["bias"]
         sd[body + tbn + ".running_mean"] = np.zeros_like(s)
         sd[body + tbn + ".running_var"] = np.ones_like(s)
-
-    def map_block(tprefix, jprefix):
-        for c in (1, 2, 3):
-            if f"{jprefix}/conv{c}/kernel" in flat:
-                conv(f"{tprefix}.conv{c}", f"{jprefix}/conv{c}")
-                bn(f"{tprefix}.bn{c}", f"{jprefix}/bn{c}")
-
-    def map_tree(tprefix, jprefix):
-        if f"{jprefix}/project_conv/kernel" in flat:
-            conv(f"{tprefix}.project.0", f"{jprefix}/project_conv")
-            bn(f"{tprefix}.project.1", f"{jprefix}/project_bn")
-        if f"{jprefix}/root/conv/kernel" in flat:  # leaf tree
-            map_block(f"{tprefix}.tree1", f"{jprefix}/tree1")
-            map_block(f"{tprefix}.tree2", f"{jprefix}/tree2")
-            conv(f"{tprefix}.root.conv", f"{jprefix}/root/conv")
-            bn(f"{tprefix}.root.bn", f"{jprefix}/root/bn")
-        else:
-            map_tree(f"{tprefix}.tree1", f"{jprefix}/tree1")
-            map_tree(f"{tprefix}.tree2", f"{jprefix}/tree2")
-
-    for lvl in (2, 3, 4, 5):
-        map_tree(f"{body}level{lvl}", f"params/body/level{lvl}")
-
-    for i in (1, 2, 3, 4):
-        conv(f"backbone.fpn.fpn_inner{i}", f"params/fpn/inner{i}")
-        conv(f"backbone.fpn.fpn_layer{i}", f"params/fpn/layer{i}")
-    conv("rpn.head.conv", "params/rpn/conv")
-    conv("rpn.head.cls_logits", "params/rpn/cls_logits")
-    conv("rpn.head.bbox_pred", "params/rpn/bbox_pred")
-
-    fx = "roi_heads.box.feature_extractor."
-    jkey = "params/box/feature_extractor/fc6"
-    k = flat[jkey + "/kernel"]                          # [res*res*C, out]
-    c = flat["params/fpn/layer1/kernel"].shape[-1]
-    res = int(np.sqrt(k.shape[0] // c))
-    wt = k.T.reshape(-1, res, res, c).transpose(0, 3, 1, 2)
-    sd[fx + "fc6.weight"] = wt.reshape(wt.shape[0], -1)
-    sd[fx + "fc6.bias"] = flat[jkey + "/bias"]
-    dense(fx + "fc7", "params/box/feature_extractor/fc7")
-    dense("roi_heads.box.predictor.cls_score",
-          "params/box/predictor/cls_score")
-    dense("roi_heads.box.predictor.bbox_pred",
-          "params/box/predictor/bbox_pred")
-
-    tp = "roi_heads.track.tracker.predictor."
-    conv(tp + "cls_tower.0", "params/emm/predictor/cls_tower_conv")
-    gn(tp + "cls_tower.1", "params/emm/predictor/cls_tower_gn")
-    conv(tp + "reg_tower.0", "params/emm/predictor/reg_tower_conv")
-    gn(tp + "reg_tower.1", "params/emm/predictor/reg_tower_gn")
-    conv(tp + "cls.0", "params/emm/predictor/cls")
-    conv(tp + "center.0", "params/emm/predictor/center")
-    conv(tp + "reg.0", "params/emm/predictor/reg")
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in sd.items()}
 
 
 def _unflatten(flat: dict) -> dict:

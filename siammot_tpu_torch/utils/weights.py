@@ -22,7 +22,7 @@ conversion carries gradients across (the training parity tests do).
 (``save_npz``).  ``load_npz`` reads the f16 bench weights as f32: the
 training step's master parameters (``SiamMOT.build_master``).
 ``seeded_params`` draws weights for a network the repo has none for (the
-DCN bodies).
+DCN, ResNet and Res2Net bodies).
 """
 
 from __future__ import annotations
@@ -102,16 +102,29 @@ def load_npz(path: str) -> dict:
         return {k: z[k].astype(np.float32) for k in z.files}
 
 
+RESIDUAL_SCALE = 0.2   # a seeded ResNet block's last FrozenBN scale
+
+
 def seeded_params(model, frame, seed: int = 102) -> tuple:
     """Seeded weights for a network without trained weights in the repo
-    (the DLA-102-DCN-FPN slice): kernels N(0, 1/fan_in), norm scales
-    ~1, biases small, the box classifier biased to the foreground so
-    that tracks start.  The offset convs of the deformable layers are
-    then scaled on ``frame`` (uint8 [1, H, W, 3]) so that their outputs
-    have a standard deviation of 0.35 px, inside kernel 9's window, or,
-    for every fourth stride-1 layer, 1.0 px, outside it: the reference
-    zero-initialises them, which would make DCN a plain conv.  Returns
-    (state dict on the CPU, number of deformable layers)."""
+    (the DLA-102-DCN-FPN, ResNet and Res2Net slices): kernels
+    N(0, 1/fan_in), norm scales ~1, biases small, the box classifier
+    biased to the foreground so that tracks start.  A ResNet body's stem
+    conv is divided by the standard deviation of the normalised
+    ``frame`` (uint8 [1, H, W, 3]; the Caffe2 recipes feed 0-255 pixels)
+    and each bottleneck's ``bn3`` scale is multiplied by
+    ``RESIDUAL_SCALE``, so that activations stay O(1) through R-152's 50
+    residual additions.  The offset convs of the deformable layers are
+    then scaled on ``frame`` so that their outputs have a standard
+    deviation of 0.35 px, inside kernel 9's window, or, for every fourth
+    stride-1 layer, 1.0 px, outside it: the reference zero-initialises
+    them, which would make DCN a plain conv.  Last, each FPN output conv
+    is scaled so that its level has unit standard deviation on ``frame``:
+    the heads then see O(1) features and propose boxes near their
+    anchors, as trained weights do (unscaled, DLA-102's levels reach a
+    few hundred, the RPN's deltas clip proposals to zero width, and a
+    training step's regression targets overflow).  Returns (state dict
+    on the CPU, number of deformable layers)."""
     from ..models.dla import DeformConv
     from ..models.siammot import normalize_images
 
@@ -128,6 +141,16 @@ def seeded_params(model, frame, seed: int = 102) -> tuple:
             v = 0.05 * torch.randn(t.shape, generator=g)
         params[name] = v
     params["box.predictor.cls_score.bias"] = torch.tensor([-3.0, 3.0])
+    cfg = model.cfg
+    x = normalize_images(torch.as_tensor(frame).to(model.device),
+                         cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
+                         cfg.INPUT.TO_BGR255)
+    if "body.stem_conv1.weight" in params:
+        params["body.stem_conv1.weight"] /= float(x.std())
+    for name in params:
+        if name.startswith("body.") and name.endswith(("bn3.scale",
+                                                       "root.bn.scale")):
+            params[name] *= RESIDUAL_SCALE
     net = model.cast_params(params)
     stds, strides, hooks = {}, {}, []
     for name, m in net.body.named_modules():
@@ -136,14 +159,14 @@ def seeded_params(model, frame, seed: int = 102) -> tuple:
             hooks.append(m.offset.register_forward_hook(
                 lambda mod, a, out, name=name: stds.__setitem__(
                     name, float(out.float().std()))))
-    cfg = model.cfg
-    x = normalize_images(torch.as_tensor(frame).to(model.device),
-                         cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
-                         cfg.INPUT.TO_BGR255)
     with torch.no_grad():
-        net.body(x.to(model.compute_dtype))
+        feats = net.fpn(net.body(x.to(model.compute_dtype)))
     for h in hooks:
         h.remove()
+    for i, f in enumerate(feats[:-1], start=1):    # P6 is P5 subsampled
+        std = float(f.float().std())
+        for leaf in ("weight", "bias"):
+            params[f"fpn.layer{i}.{leaf}"] /= max(std, 1e-12)
     stride1 = [n for n in stds if strides[n] == 1]
     for name, std in stds.items():
         want = 1.0 if name in stride1[3::4] else 0.35

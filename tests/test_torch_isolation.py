@@ -8,7 +8,9 @@ CPU (and one frame of a DLA-46-C-FPN body with deformable stages), and
 so does the training slice's code: a synthetic 720p training
 batch (``utils/synth.train_batches``), the samplers (``core/matcher``,
 ``models/emm_sampler``), the optimizer (``engine/solver``) and two
-iterations of ``engine/trainer.do_train``; the MOT17 public-detection
+iterations of ``engine/trainer.do_train``, then a frame and a training
+step (stem and layer1 frozen, the trunk recomputed in the backward) of a
+narrow ResNet-50 body; the MOT17 public-detection
 recipe is read without ``yaml`` and tracks a given-detection frame, and
 a ``TPU.MASKED_TRACK_KERNELS`` False frame runs; and the dataset path: a
 tiny MOT-layout sequence (rendered with ``cv2`` before the block) is
@@ -226,6 +228,43 @@ SCRIPT = textwrap.dedent("""
                    tensorboard_writer=lambda it, m: seen.append(m))
     assert log.iteration == 2 and opt.count == 2 and len(seen) == 2
     assert all(np.isfinite(v) for m in seen for v in m.values()), seen
+
+    # a narrow ResNet-50 body: a frame, then a training step with the stem
+    # and layer1 frozen (FREEZE_CONV_BODY_AT 2) and the trunk recomputed
+    # in the backward (TPU.REMAT)
+    rcfg = cfg.clone()
+    rcfg.merge_from_list(["MODEL.BACKBONE.CONV_BODY", "R-50-FPN",
+                          "MODEL.RESNETS.STEM_OUT_CHANNELS", 8,
+                          "MODEL.RESNETS.RES2_OUT_CHANNELS", 16,
+                          "MODEL.RESNETS.WIDTH_PER_GROUP", 4,
+                          "MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 32,
+                          "MODEL.BACKBONE.FREEZE_CONV_BODY_AT", 2,
+                          "TPU.REMAT", True])
+    rmodel = SiamMOT(rcfg, device="cpu")
+    rparams = {k: torch.from_numpy(
+                   (rng.randn(*v.shape) * 0.05
+                    + (1.0 if k.endswith("scale") else 0.0)).astype(
+                        np.float32))
+               for k, v in rmodel.build_net().state_dict().items()}
+    rparams["box.predictor.cls_score.bias"] = torch.tensor([-3.0, 3.0])
+    rres = track_frames(rmodel, rparams, frames[:1], (128, 96))
+    assert np.isfinite(rres.outputs[0]["boxes"]).all()
+    rnet = rmodel.build_master(rparams)
+    ropt = make_optimizer(rcfg, rnet)
+    before = {n: p.detach().clone() for n, p in rnet.named_parameters()}
+    rseen = []
+    rlog = do_train(rmodel, build_train_step(rmodel, ropt), rnet, ropt,
+                    iter([(small, sgt, torch.tensor([[96, 64]] * 2))]),
+                    None, max_iter=1, checkpoint_period=10, log_period=1,
+                    tensorboard_writer=lambda it, m: rseen.append(m))
+    assert rlog.iteration == 1 and len(rseen) == 1
+    assert all(np.isfinite(v) for v in rseen[0].values()), rseen
+    moved = {n: not torch.equal(p, before[n])
+             for n, p in rnet.named_parameters()}
+    frozen = [n for n in moved if n.startswith(("body.stem_",
+                                                 "body.layer1_"))]
+    assert len(frozen) == 11 and not any(moved[n] for n in frozen)
+    assert sum(moved.values()) > 0.9 * (len(moved) - len(frozen))
 
     # the training CLI over the committed fixture: loader, augmentation,
     # checkpoints and the event file

@@ -20,9 +20,23 @@ def random_flax_params(jmodel, image_hw, seed):
     (``{"params/...": ndarray}``, as ``fixtures/bench_weights_f16.npz``
     stores them): kernels ~ N(0, 1/fan_in), norm scales ~ 1, biases small.
     Only the tree's shapes come from flax (``jax.eval_shape``)."""
-    rng = np.random.RandomState(seed)
     shapes = jax.eval_shape(
         lambda r: jmodel.init_params(r, image_hw), jax.random.PRNGKey(0))
+    return draw_params(shapes, seed)
+
+
+def random_module_params(module, x_shape, seed):
+    """The same draws for a flax module applied to one input of
+    ``x_shape`` (f32)."""
+    shapes = jax.eval_shape(
+        lambda r: module.init(r, jax.numpy.zeros(x_shape)),
+        jax.random.PRNGKey(0))
+    return draw_params(shapes, seed)
+
+
+def draw_params(shapes, seed):
+    """Seeded draws over a ``{"params": ...}`` tree of shapes, flat."""
+    rng = np.random.RandomState(seed)
     flat = {}
 
     def walk(tree, prefix):
