@@ -91,12 +91,15 @@ Phases, each printed as it finishes:
      head pass; and kernels
      1-3 at SEARCH_REGION 5's shapes (the SR pool at 75x75, the masked
      xcorr 75 -> 61, the predictor at 61x61 bf16);
-  3c. three cuts of the configuration against the JAX step
+  3c. five cuts of the configuration against the JAX step
      (``tests/fixtures/torch_golden_toggles.npz``): given public
      detections with the MOT17 recipe's overrides (also with
      ``SIAMMOT_PREDICTOR_BLOCK=8``: kernel 8), ``TPU.
-     MASKED_TRACK_KERNELS`` False and ``SEARCH_REGION`` 5, each f32 on the
-     card within ``utils/golden.py``'s tolerances, then each bf16 gap;
+     MASKED_TRACK_KERNELS`` False, ``SEARCH_REGION`` 5,
+     ``TPU.POOLER_WINDOWED`` False (the exact gather pooler) and
+     ``TPU.USE_PALLAS`` and ``DECODE_PALLAS`` False (the XLA forms), each
+     f32 on the card within ``utils/golden.py``'s tolerances, then each
+     bf16 gap;
   6. the paths that select the new kernels, end to end on the bench
      weights in bf16, 4 warm-up + 12 timed frames each, every kernel
      checked on the last frame: (6a) the MOT17 public-detection recipe
@@ -188,7 +191,32 @@ Phases, each printed as it finishes:
      alike (cuDNN deterministic), else within 4 times their own gap, both
      peak memories; (10e) 4 + 8 frames each of DLA-34 with the plain stem on
      the bench weights through the reference ``.pth`` layout and of
-     DLA-60-RES2NET-FPN on seeded weights, kernels 1-4 checked.
+     DLA-60-RES2NET-FPN on seeded weights, kernels 1-4 checked;
+  11. the exact gather pooler and the XLA forms: (11a) the gather
+     pooler's forward and backward kernels (``ops/cuda/roi_align.cu``)
+     against their plain versions at the AOT recipe's training sites (4
+     frames of 2464x2048: box 7x7 at 4 x 256 ROIs, template 7x7 and
+     search region 35x35 at 1024 pairs; bf16 and f32; the backward on a
+     seeded upstream gradient) and at the 720p inference sites (128 slots
+     with 37 live at 30x30 and 15x15, the box head's 428 rows at 7x7;
+     dead rows exactly zero), each with device ms, the plain version's ms
+     and the bound; (11b) ``tools/train_net`` on the AOT recipe as
+     shipped (DLA-34, ``TRAIN_POOLER_WINDOWED`` False, SEARCH_REGION 5,
+     template 7) at 2 clips a batch over 8 frames of the sprite scene
+     rendered at 2448x2048 and written by nvJPEG, from the bench weights,
+     4 steps: losses finite, every weight moved, 3 gather forward and 3
+     backward launches and one of each xcorr pass a step, each kernel
+     checked on the last step, s/it, peak memory and the kernel that
+     computes kernel 6's template gradient (by its launch rule) and its
+     device ms;
+     (11c) ``TPU.POOLER_WINDOWED`` False at 720p beside the windowed route
+     in the same run, then the AOT recipe with the gather pooler on three
+     2448x2048 frames; (11d) ``TPU.USE_PALLAS`` and ``DECODE_PALLAS``
+     False at 720p (the XLA decode held to its CPU form on the last
+     frame); (11e) ``SEARCH_REGION`` 5.5 at 720p (kernel 2 at 82 -> 68,
+     kernel 3 at 68x68, the XLA decode at s_hi 1088) and the golden
+     frames' closest argmax races there.  The f32 gather and XLA-form
+     cuts are held to the JAX rows in 3c.
 
 Each end-to-end phase sets every kernel's launch count to 0 just before
 it drives its path and reads the counts just after.
@@ -407,6 +435,56 @@ def check_decode(args, what):
            / want[1][same].abs().clamp(min=1e-6)).max() if same.any() \
         else torch.zeros(())
     return err, float(rel)
+
+
+# the gather pooler (roi_align), kernel against plain version on the card,
+# each against the plain output's (gradient's) largest magnitude:
+#  forward f32: the same operations except the order of the r*r sample
+#    sum -> 1e-5; bf16: that sum may round the other way -> one bf16 ulp
+#    at the largest magnitude, 2^-7 of it
+#  backward: f32 sums (atomic adds in the kernel, index_add_'s in the
+#    plain form) of up to a few hundred products an element, in no fixed
+#    order -> 1e-4
+ROI_F32_REL, ROI_BF16_REL, ROI_BWD_REL = 1e-5, 2.0 ** -7, 1e-4
+
+
+def check_roi_align(args, what):
+    """The gather pooler's forward kernel against its plain version on
+    ``roi_align_fwd``'s arguments; rows not ``valid`` exactly zero;
+    returns the max abs err."""
+    from siammot_tpu_torch.ops.roi_align import roi_align_fwd, roi_align_plain
+    k = roi_align_fwd(*args)
+    p = roi_align_plain(*args)
+    torch.cuda.synchronize()
+    if args[6] is not None:
+        dead_zero(k, args[6], what)
+    rel = ROI_BF16_REL if k.dtype == torch.bfloat16 else ROI_F32_REL
+    return close_to_scale(k, p, rel, what)
+
+
+def check_roi_align_bwd(args, what):
+    """The gather pooler's backward kernel against its plain version on
+    ``roi_align_bwd``'s arguments; returns the max abs err."""
+    from siammot_tpu_torch.ops.roi_align import (roi_align_bwd,
+                                                 roi_align_bwd_plain)
+    k = roi_align_bwd(*args)
+    p = roi_align_bwd_plain(*args)
+    torch.cuda.synchronize()
+    return close_to_scale(k, p, ROI_BWD_REL, what)
+
+
+def close_to_scale(kernel, plain, rel, what):
+    """|kernel - plain| within ``rel`` of plain's largest magnitude, all
+    finite; returns the max abs err."""
+    kernel, plain = kernel.detach().float(), plain.detach().float()
+    if not torch.isfinite(kernel).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    scale = float(plain.abs().max())
+    err = float((kernel - plain).abs().max()) if plain.numel() else 0.0
+    if err > rel * scale:
+        raise AssertionError(f"{what}: max abs err {err:.3g} past {rel:.3g} "
+                             f"of the scale {scale:.3g}")
+    return err
 
 
 # -- seeded inputs at the main path's shapes ---------------------------------
@@ -662,6 +740,11 @@ KERNELS = {
     "emm_decode_unmasked": dict(
         source="siammot_tpu_torch/ops/cuda/decode.cu",
         replaces="siammot_tpu/ops/pallas/decode.py:236"),
+    # the exact gather pooler: JAX computes it with XLA (no pl.pallas_call)
+    "roi_align": dict(source="siammot_tpu_torch/ops/cuda/roi_align.cu",
+                      replaces="siammot_tpu/ops/roi_align.py:170"),
+    "roi_align_bwd": dict(source="siammot_tpu_torch/ops/cuda/roi_align.cu",
+                          replaces="siammot_tpu/ops/roi_align.py:170"),
 }
 # launches a frame of each inference path (kernels not listed: none)
 MAIN_PATH = {"window_pool": 3, "xcorr_masked": 1, "emm_predictor": 1,
@@ -827,10 +910,11 @@ def _wrappers():
     from siammot_tpu_torch.ops.deform_conv import deform_conv2d
     from siammot_tpu_torch.ops.predictor import (emm_predictor,
                                                  emm_predictor_blocked)
+    from siammot_tpu_torch.ops.roi_align import roi_align_fwd
     from siammot_tpu_torch.ops.window_pool import window_pool
     from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
                                              xcorr_depthwise_masked)
-    return {"window_pool": window_pool,
+    return {"window_pool": window_pool, "roi_align": roi_align_fwd,
             "xcorr_masked": xcorr_depthwise_masked, "xcorr": xcorr_depthwise,
             "emm_predictor": emm_predictor,
             "emm_predictor_blocked": emm_predictor_blocked,
@@ -850,6 +934,7 @@ def kernel_capture():
     convs."""
     import siammot_tpu_torch.models.dla as dla_mod
     import siammot_tpu_torch.models.emm as emm_mod
+    import siammot_tpu_torch.ops.roi_align as ra_mod
     import siammot_tpu_torch.ops.roi_align_windowed as rw_mod
 
     captured, launches = {}, {}
@@ -862,7 +947,10 @@ def kernel_capture():
 
     # each patched name is a module's import of a wrapper defined
     # elsewhere, so the wrapper's own count is untouched
+    # the gather pool's inputs where its sites call it (the wrapper and
+    # its count sit one call below)
     patches = [(rw_mod, "window_pool", "window_pool", 3),
+               (ra_mod, "roi_align_rows", "roi_align", 3),
                (emm_mod, "xcorr_depthwise_masked", "xcorr_masked", 1),
                (emm_mod, "xcorr_depthwise_auto", "xcorr", 1),
                (emm_mod, "emm_predictor", "emm_predictor", 1),
@@ -933,8 +1021,10 @@ def check_decode_any(args, what):
                                               pick_stripe)
     x4, wh, u, window, valid, sigma, use_c = args[:7]
     s_hi = u.shape[0]
+    if (len(args) > 8 and args[8]) or s_hi > STRIPED_MAX:
+        compare_xla_decode(args[:7], what)
+        return None, 0.0
     if s_hi > WHOLE_MAP_MAX:
-        assert s_hi <= STRIPED_MAX
         st = pick_stripe(s_hi)
         name = "emm_decode_striped"
         kernel = lambda: emm_decode_striped(*args[:7], st)  # noqa: E731
@@ -950,6 +1040,21 @@ def check_decode_any(args, what):
         plain = lambda: emm_decode_plain(*args[:7])  # noqa: E731
     err = compare_decode(kernel(), plain(), args[:7], what)
     return name, err
+
+
+def compare_xla_decode(args, what):
+    """The XLA-form decode (no kernel: the JAX package's XLA decode in
+    torch ops, ``ops/decode.py:decode_xla``) on the card against its CPU
+    form on the same inputs: indices equal unless p_conf ties within
+    DECODE_TIE (f32 products on the card and the CPU sum in other
+    orders), scores to DECODE_SCORE_ATOL."""
+    from siammot_tpu_torch.ops.decode import decode_xla
+    x4, wh, u, window, _, sigma, use_c = args
+    got = decode_xla(x4, wh, u, window, sigma, use_c)
+    cpu = [t.cpu() for t in (x4, wh, u, window)]
+    want = [t.to(x4.device) for t in decode_xla(*cpu, sigma, use_c)]
+    return compare_decode(got, want, (x4, wh, u, window, None, sigma,
+                                      use_c), what)
 
 
 def compare_decode(got, want, args, what):
@@ -1015,8 +1120,11 @@ def check_captured(captured, report, what):
                                           err)
 
     for site, args in zip(("sr_pool", "box_pool", "template_pool"),
-                          captured["window_pool"]):
+                          captured.get("window_pool", [])):
         note("window_pool", check_pool(args, f"{what} {site}")[0])
+    for site, args in zip(("sr_pool", "box_pool", "template_pool"),
+                          captured.get("roi_align", [])):
+        note("roi_align", check_roi_align(args, f"{what} gather {site}"))
     if "xcorr_masked" in captured:
         note("xcorr_masked",
              check_xcorr(captured["xcorr_masked"][0], f"{what} xcorr")[0])
@@ -1034,7 +1142,8 @@ def check_captured(captured, report, what):
              check_blocked(captured["emm_predictor_blocked"][0],
                            f"{what} emm_predictor_blocked"))
     name, err = check_decode_any(captured["decode"][0], f"{what} decode")
-    note(name, err)
+    if name is not None:
+        note(name, err)
 
 
 def end_to_end_phase(dev, report):
@@ -1373,11 +1482,13 @@ def train_kernel_capture(steps):
     last step (and the bits of the last step's three table gradients),
     ``launches`` is filled with each wrapper's count on exit; the counts
     are set to 0 on entry."""
+    import siammot_tpu_torch.ops.roi_align as ra_mod
     import siammot_tpu_torch.ops.window_pool as wp_mod
     import siammot_tpu_torch.ops.xcorr as xc_mod
 
     captured = {"pool": [], "bwd": [], "forward": [], "grad_template": [],
-                "grad_search": [], "bwd_bits": []}
+                "grad_search": [], "bwd_bits": [], "roi_align": [],
+                "roi_align_bwd": []}
 
     def capture(name, fn, keep):
         def wrapped(*args):
@@ -1394,7 +1505,11 @@ def train_kernel_capture(steps):
     patches = [(wp_mod, "window_pool",
                 capture("pool", wp_mod.window_pool, 3)),
                (wp_mod, "window_pool_bwd",
-                capture("bwd", wp_mod.window_pool_bwd, 3))]
+                capture("bwd", wp_mod.window_pool_bwd, 3)),
+               (ra_mod, "roi_align_fwd",
+                capture("roi_align", ra_mod.roi_align_fwd, 3)),
+               (ra_mod, "roi_align_bwd",
+                capture("roi_align_bwd", ra_mod.roi_align_bwd, 3))]
     patches += [(xc_mod, fn.__name__, capture(name, fn, 1))
                 for name, fn, _ in passes]
     originals = [(m, n, getattr(m, n)) for m, n, _ in patches]
@@ -1405,6 +1520,8 @@ def train_kernel_capture(steps):
     # name, the count lands on the wrapper, so read it there
     counters = {"window_pool": wp_mod.window_pool,
                 "window_pool_bwd": wp_mod.window_pool_bwd,
+                "roi_align": ra_mod.roi_align_fwd,
+                "roi_align_bwd": ra_mod.roi_align_bwd,
                 **{name: getattr(xc_mod, fn.__name__)
                    for name, fn, _ in passes}}
     launches = {}
@@ -1426,21 +1543,32 @@ def tensor_bits(t):
 
 
 TRAIN_PER_STEP = {"window_pool": 3, "window_pool_bwd": 3, "forward": 1,
-                  "grad_template": 1, "grad_search": 1}
+                  "grad_template": 1, "grad_search": 1, "roi_align": 0,
+                  "roi_align_bwd": 0}
+# the gather pooler's step (TPU.TRAIN_POOLER_WINDOWED False): its forward
+# and backward at the three sites in place of kernels 1 and 7
+GATHER_PER_STEP = TRAIN_PER_STEP | {"window_pool": 0, "window_pool_bwd": 0,
+                                    "roi_align": 3, "roi_align_bwd": 3}
 
 
-def count_train_launches(launches, steps, report, path):
+def count_train_launches(launches, steps, report, path,
+                         per_step=TRAIN_PER_STEP):
     """Each training kernel must have launched exactly its per-step count
-    in ``steps`` steps; adds the counts to ``report`` under ``path``."""
+    (``per_step``) in ``steps`` steps; adds the counts to ``report`` under
+    ``path``."""
     passes = xcorr_passes()
     for name, count in launches.items():
-        if count != TRAIN_PER_STEP[name] * steps:
+        if count != per_step[name] * steps:
             raise AssertionError(f"{path} {name}: {count} launches in "
                                  f"{steps} training steps, expected "
-                                 f"{TRAIN_PER_STEP[name] * steps}")
+                                 f"{per_step[name] * steps}")
     for name, count in (("window_pool", launches["window_pool"]),
                         ("window_pool_bwd", launches["window_pool_bwd"]),
+                        ("roi_align", launches["roi_align"]),
+                        ("roi_align_bwd", launches["roi_align_bwd"]),
                         ("xcorr", sum(launches[n] for n, _, _ in passes))):
+        if not count:
+            continue
         by_path = report[name].setdefault("launches_by_path", {})
         by_path[path] = by_path.get(path, 0) + count
         report[name]["launches"] += count
@@ -1490,6 +1618,16 @@ def check_train_kernels(captured, report, path):
             f"these inputs, ROIs a table tile max {int(per_tile.max())}")
         report["window_pool_bwd"]["max_abs_err"] = max(
             report["window_pool_bwd"]["max_abs_err"], err)
+    for site, args in zip(("box", "template", "sr"), captured["roi_align"]):
+        err = check_roi_align(args, f"{path} gather {site}")
+        report["roi_align"]["max_abs_err"] = max(
+            report["roi_align"]["max_abs_err"], err)
+    for args in captured["roi_align_bwd"]:
+        err = check_roi_align_bwd(args, f"{path} gather backward, "
+                                        f"{args[0].shape[1]}x"
+                                        f"{args[0].shape[2]} outputs")
+        report["roi_align_bwd"]["max_abs_err"] = max(
+            report["roi_align_bwd"]["max_abs_err"], err)
     for name, fn, plain in passes:
         args = captured[name][0]
         k = fn(*args)
@@ -2085,8 +2223,9 @@ def wide_sr_kernel_checks(dev, report, g):
 
 
 def golden_toggles_phase(dev):
-    """The three cuts of ``tests/fixtures/torch_golden_toggles.npz`` (given
-    detections, unmasked EMM route, SEARCH_REGION 5) on the card in f32:
+    """The five cuts of ``tests/fixtures/torch_golden_toggles.npz`` (given
+    detections, unmasked EMM route, SEARCH_REGION 5, the gather pooler,
+    the XLA forms) on the card in f32:
     each must match the JAX rows, the given cut also with
     ``SIAMMOT_PREDICTOR_BLOCK=8`` (kernel 8, which computes kernel 3's
     function, held to the same rows and tolerances); the bf16 gap of each
@@ -3050,10 +3189,11 @@ R50_TRAIN_ITERS = 5                       # 10b: 1 warm-up + 4 timed
 DCN_TRAIN_WARMUP, DCN_TRAIN_TIMED = 1, 2  # 10c
 # the deformable conv's bf16 gradients against the same VJP in f64 (the
 # coordinates rounded as bf16 rounds them, the rest exact): bf16 rounds
-# the upstream gradient, the samples' gradients and the corner weights,
-# and the f32 sums land in bf16 once: of each gradient's largest
-# magnitude at most 2^-5 an element (a CPU run of stage-shaped layers:
-# 6e-3) and 2^-9 on average (4.5e-4)
+# the upstream gradient, the samples' gradients and the corner weights
+# (their derivatives are f32: rounded, the offsets' gradient reached
+# 3.3e-2 on the card), and the f32 sums land in bf16 once: of each
+# gradient's largest magnitude at most 2^-5 an element (a CPU run of
+# stage-shaped layers: 6e-3) and 2^-9 on average (4.5e-4)
 DCN_GRAD_MAX, DCN_GRAD_MEAN = 2.0 ** -5, 2.0 ** -9
 # 10d where two plain steps are not bitwise alike (PyTorch's gather and
 # index backward add with atomics on the card): REMAT's gap to the plain
@@ -3641,6 +3781,438 @@ def backbones_phase(dev, report, card):
                 others=others)
 
 
+# -- phase 11: the exact gather pooler and the XLA-form toggles --------------
+
+AOT_RECIPE = os.path.join(REPO, "configs", "dla", "DLA_34_FPN_EMM_AOT.yaml")
+AOT_FRAME = (2448, 2048)          # AOT's frames (w, h); the recipe keeps them
+AOT_WP = 2464                     # padded width (SIZE_DIVISIBILITY 32)
+AOT_HW = [(512, 616), (256, 308), (128, 154), (64, 77)]
+AOT_FRAMES = 8                    # frames of the rendered AOT sequence
+AOT_TRAIN_ITERS = 4               # train_net steps of 11b
+AOT_DATASET = "SYNMOT_AOT_TRAIN"  # its key (the MOT filter's rules)
+GATHER_PATH = {"roi_align": 3, "xcorr_masked": 1, "emm_predictor": 1,
+               "emm_decode": 1}
+
+
+def touched_rows(args):
+    """Table rows the live ROIs' non-zero taps read (``roi_align_fwd``'s
+    arguments), each counted once."""
+    from siammot_tpu_torch.ops.roi_align import _corners
+    table, rois, geom, scale, o, r, valid = args
+    live = torch.arange(rois.shape[0], device=rois.device) if valid is None \
+        else valid.nonzero()[:, 0]
+    seen = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
+    for i in range(0, len(live), 64):
+        k = live[i:i + 64]
+        for idx, w in _corners(rois[k], geom[k], scale[k], o, r):
+            seen[idx[w != 0]] = True
+    return int(seen.sum())
+
+
+def roi_bound(args):
+    """The gather forward's least time: the table rows its live ROIs'
+    taps read, once, the output written once and the ROIs' geometry,
+    against 8 r^2 + 1 operations an output element (r^2 samples of four
+    products and four sums, one division) on the CUDA cores."""
+    table, rois, geom, scale, o, r, valid = args
+    n, c, elt = rois.shape[0], table.shape[1], table.element_size()
+    live = n if valid is None else int(valid.sum())
+    nbytes = (touched_rows(args) * c * elt + n * o * o * c * elt
+              + n * (16 + 16 + 4 + (valid is not None)))
+    return bound(nbytes, live * o * o * c * (8 * r * r + 1), F32_FLOPS)
+
+
+def roi_bwd_bound(args):
+    """The gather backward's least time: the upstream gradient read once,
+    the whole f32 table gradient written once, the geometry, against
+    8 r^2 + 1 operations a gradient element."""
+    grad, rois, geom, scale, shape, o, r = args
+    n, c = rois.shape[0], shape[1]
+    nbytes = (grad.numel() * grad.element_size() + shape[0] * c * 4
+              + n * (16 + 16 + 4))
+    return bound(nbytes, n * o * o * c * (8 * r * r + 1), F32_FLOPS)
+
+
+def boxes_in(n, lo, hi, wh, g):
+    sz = lo + (hi - lo) * torch.rand(n, 2, generator=g)
+    xy = torch.rand(n, 2, generator=g) * (torch.tensor(wh) - sz)
+    return torch.cat([xy, xy + sz], -1)
+
+
+def roi_training_sites(g, gc, dev, dtype):
+    """11a's training sites on the FPN levels of four 2464x2048 frames
+    (``dtype``): the box head's 4 x 256 sampled ROIs (7x7), 1024 track
+    pairs' templates (7x7) and search regions (35x35, 256 px pad, from the
+    paired frame, the level by the template box), as the AOT recipe's step
+    pools them -> {site: ``roi_align_fwd``'s arguments}."""
+    from siammot_tpu_torch.core.boxes import map_rois_to_levels
+    from siammot_tpu_torch.models.emm import EMMConfig, make_search_region
+    from siammot_tpu_torch.ops.roi_align import level_table
+    table = level_table([torch.randn(4, h, w, C, generator=gc, device=dev,
+                                     dtype=torch.float32).to(dtype)
+                         for h, w in AOT_HW], SCALES)
+    ecfg = EMMConfig(7, SCALES, 2, 5.0, 0, 256, False, 0.1, False)
+    img = torch.arange(4, dtype=torch.int32).repeat_interleave(N_TRAIN // 4)
+    props = boxes_in(N_TRAIN, 8, 600, AOT_FRAME, g)
+    src = boxes_in(N_TRAIN, 12, 300, AOT_FRAME, g)
+    src_lv = map_rois_to_levels(src, 2, 5)
+    sites = {"box": (props, img, map_rois_to_levels(props, 2, 5), 7, 0),
+             "template": (src, img, src_lv, 7, 0),
+             "sr": (make_search_region(src, ecfg), img ^ 1, src_lv, 35,
+                    256)}
+    out = {}
+    for site, (rois, ii, lv, o, pad) in sites.items():
+        geom, scale = table.geometry(ii.to(dev), lv.to(dev), pad)
+        out[site] = (table.table, rois.to(dev).contiguous(), geom, scale, o,
+                     2, None)
+    return out
+
+
+def roi_inference_sites(g, dev):
+    """11a's inference sites at the 720p main path's shapes (bf16, one
+    image): 128 track slots with 37 live at the search region (30x30, 512
+    px pad) and template (15x15), and the box head's 300 proposals + 128
+    track rows (7x7) -> {site: ``roi_align_fwd``'s arguments}."""
+    from siammot_tpu_torch.core.boxes import map_rois_to_levels
+    from siammot_tpu_torch.models.emm import EMMConfig, make_search_region
+    from siammot_tpu_torch.ops.roi_align import level_table
+    table = level_table([torch.randn(1, h, w, C, generator=g).to(
+        dev, torch.bfloat16) for h, w in FPN_HW], SCALES)
+    ecfg = EMMConfig(15, SCALES, 2, 2.0, 0, 512, True, 0.4, False)
+    tb = track_boxes(K, g)
+    tlev = map_rois_to_levels(tb, 2, 5)
+    props = boxes_in(N_PROP, 16, 396, (W, H), g)
+    rois = torch.cat([props, tb])
+    bvalid = torch.cat([torch.ones(N_PROP, dtype=torch.bool),
+                        live_mask(K, LIVE, g, "cpu")])
+    sites = {"sr_pool": (make_search_region(tb, ecfg), tlev, 30, 512,
+                         live_mask(K, LIVE, g, "cpu")),
+             "template_pool": (tb, tlev, 15, 0, live_mask(K, LIVE, g, "cpu")),
+             "box_pool": (rois, map_rois_to_levels(rois, 2, 5), 7, 0,
+                          bvalid)}
+    out = {}
+    for site, (r_, lv, o, pad, valid) in sites.items():
+        geom, scale = table.geometry(None, lv.to(dev), pad)
+        out[site] = (table.table, r_.to(dev).contiguous(), geom, scale, o, 2,
+                     valid.to(dev))
+    return out
+
+
+def roi_align_kernel_phase(dev, report):
+    """11a: the gather pooler's kernels against their plain versions on
+    the card.  The row numbers of the ``kernels`` line are the AOT step's
+    three training sites in bf16 (its main path, 11b), summed; every site
+    and dtype is kept under ``sites``."""
+    from siammot_tpu_torch.ops.roi_align import (roi_align_bwd,
+                                                 roi_align_bwd_plain,
+                                                 roi_align_fwd,
+                                                 roi_align_plain)
+    g = torch.Generator().manual_seed(11)
+    gc = torch.Generator(device=dev).manual_seed(11)
+    fwd, bwd = report["roi_align"], report["roi_align_bwd"]
+    for row in (fwd, bwd):
+        row.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
+                   sites={})
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for site, args in roi_training_sites(g, gc, dev, dtype).items():
+            what = f"training {site} {dname}"
+            n, o = args[1].shape[0], args[4]
+            err = check_roi_align(args, what)
+            ms = device_ms(lambda: roi_align_fwd(*args), iters=5)
+            pms = timed_ms(lambda: roi_align_plain(*args), iters=1,
+                           warmup=1)
+            bms, by = roi_bound(args)
+            out = roi_align_fwd(*args)
+            grad = torch.randn(out.shape, generator=gc, device=dev,
+                               dtype=torch.float32).to(dtype)
+            del out
+            bargs = (grad, args[1], args[2], args[3], tuple(args[0].shape),
+                     o, 2)
+            berr = check_roi_align_bwd(bargs, f"{what} backward")
+            bms_k = device_ms(lambda: roi_align_bwd(*bargs), iters=3)
+            bpms = timed_ms(lambda: roi_align_bwd_plain(*bargs), iters=1,
+                            warmup=1)
+            bbms, bby = roi_bwd_bound(bargs)
+            log(f"  roi_align {what}: N={n} {o}x{o} over a "
+                f"{tuple(args[0].shape)} table: forward {ms:.4f} ms device, "
+                f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+                f"{err:.3g}; backward {bms_k:.4f} ms device, plain "
+                f"{bpms:.4f} ms, bound {bbms:.4f} ms ({bby}), max abs err "
+                f"{berr:.3g} (tol {ROI_BWD_REL} of the scale)")
+            fwd["sites"][what] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                      bound_by=by, max_abs_err=err)
+            bwd["sites"][what] = dict(ms=bms_k, plain_ms=bpms,
+                                      bound_ms=bbms, bound_by=bby,
+                                      max_abs_err=berr)
+            for row, e in ((fwd, err), (bwd, berr)):
+                row["max_abs_err"] = max(row["max_abs_err"], e)
+            if dtype == torch.bfloat16:
+                for row, vals in ((fwd, (ms, pms, bms)),
+                                  (bwd, (bms_k, bpms, bbms))):
+                    for key, v in zip(("ms", "plain_ms", "bound_ms"), vals):
+                        row[key] += v
+            del grad, bargs
+        torch.cuda.empty_cache()
+    for row in (fwd, bwd):
+        row["bound_by"] = max(
+            (v for k, v in row["sites"].items() if "bfloat16" in k),
+            key=lambda v: v["bound_ms"])["bound_by"]
+    for site, args in roi_inference_sites(g, dev).items():
+        what = f"inference {site} bfloat16"
+        err = check_roi_align(args, what)
+        ms = device_ms(lambda: roi_align_fwd(*args))
+        pms = timed_ms(lambda: roi_align_plain(*args), iters=3, warmup=1)
+        bms, by = roi_bound(args)
+        log(f"  roi_align {what}: N={args[1].shape[0]} live="
+            f"{int(args[6].sum())} {args[4]}x{args[4]}: {ms:.4f} ms device, "
+            f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+            f"{err:.3g}, dead rows zero")
+        fwd["sites"][what] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                  bound_by=by, max_abs_err=err)
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+    log(f"  tolerances: forward f32 {ROI_F32_REL}, bf16 {ROI_BF16_REL:.4g} "
+        f"of the plain output's scale; backward {ROI_BWD_REL}")
+
+
+def aot_dataset(dev, root):
+    """The AOT recipe's training data, rendered: ``AOT_FRAMES`` frames of
+    the sprite scene at 2448x2048 written as JPEG by nvJPEG (quality 95)
+    in the MOT layout under ``root/train``, ingested by the port's
+    ``ingest_mot`` and registered as ``AOT_DATASET``."""
+    from siammot_tpu_torch.data import dataset_info
+    from siammot_tpu_torch.data.ingestion.ingest_mot import ingest_mot
+    from siammot_tpu_torch.data.native import NvJpegDecoder
+    from siammot_tpu_torch.utils.synth import render_scene
+    w, h = AOT_FRAME
+    frames, boxes, ids = render_scene(AOT_FRAMES, h, 17, h, w)
+    seq = os.path.join(root, "train", "AOT-SYN-01")
+    for d in ("img1", "gt"):
+        os.makedirs(os.path.join(seq, d))
+    enc = NvJpegDecoder(dev)
+    rows = []
+    for f, (frame, b, i) in enumerate(zip(frames, boxes, ids), 1):
+        with open(os.path.join(seq, "img1", f"{f:06d}.jpg"), "wb") as fh:
+            fh.write(enc.encode(frame[0], 95))
+        rows += [f"{f},{sid},{x1:g},{y1:g},{x2 - x1 + 1:g},{y2 - y1 + 1:g},"
+                 f"1,1,1.0" for (x1, y1, x2, y2), sid in zip(b, i)]
+    enc.close()
+    with open(os.path.join(seq, "gt", "gt.txt"), "w") as fh:
+        fh.write("\n".join(rows))
+    with open(os.path.join(seq, "seqinfo.ini"), "w") as fh:
+        fh.write(f"[Sequence]\nname = AOT-SYN-01\nimdir = img1\n"
+                 f"framerate = 10\nseqlength = {AOT_FRAMES}\nimwidth = {w}\n"
+                 f"imheight = {h}\nimext = .jpg\n")
+    with contextlib.redirect_stdout(sys.stderr):
+        ingest_mot(root)
+    dataset_info.dataset_maps[AOT_DATASET] = [
+        os.path.basename(root), "anno.json", "splits.json", "video"]
+    return len(rows)
+
+
+def template_grad_route(args):
+    """Which kernel computes kernel 6's template gradient on ``args`` (the
+    search and ``g``): the banded fallback (``xcorr_band_kernel``) or
+    ``xcorr6_kernel``, by the kernel's own launch rule
+    (``siammot_xcorr_takes_band``), with its device ms."""
+    from siammot_tpu_torch.ops import cuda as cuda_lib
+    from siammot_tpu_torch.ops.xcorr import xcorr_grad_template
+    rule = cuda_lib.function("siammot_xcorr_takes_band", (cuda_lib.I,) * 8)
+    s_, g_ = args
+    dtypes = (int(s_.dtype == torch.bfloat16),
+              int(g_.dtype == torch.bfloat16))
+    band = rule(*dtypes, s_.shape[0], *s_.shape[1:3], *g_.shape[1:3],
+                s_.shape[3])
+    # the rule's yardstick: SEARCH_REGION 5's 75x75 search with a 61x61 g
+    # is the shape known to take the fallback (phase 4b)
+    wide = rule(*dtypes, s_.shape[0], 75, 75, 61, 61, s_.shape[3])
+    if band < 0 or wide != 1:
+        raise AssertionError(f"11b: the launch rule gives {band} here, "
+                             f"{wide} at 75x75 with 61x61 taps")
+    ms = device_ms(lambda: xcorr_grad_template(*args), iters=3)
+    return ("banded fallback" if band else "xcorr6_kernel"), ms
+
+
+def aot_train_net_phase(dev, report, card):
+    """11b: ``tools/train_net`` on the AOT recipe as shipped (DLA-34-FPN,
+    TRAIN_POOLER_WINDOWED False, SEARCH_REGION 5, template 7, bf16
+    compute, f32 masters) at 2 clips a batch over the rendered 2448x2048
+    sequence from the bench weights, ``AOT_TRAIN_ITERS`` steps: every
+    step's losses finite, every trained weight moved, per step exactly 3
+    gather forward and 3 backward launches and one of each xcorr pass
+    (kernels 1 and 7: none), each kernel checked on the last step; s/it,
+    peak memory, and the route of kernel 6's template gradient."""
+    from siammot_tpu_torch.engine.tensorboard_writer import read_events
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.tools import train_net
+    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        n_gt = aot_dataset(dev, os.path.join(tmp, "aot_synth"))
+        log(f"  11b: {AOT_FRAMES} frames at {AOT_FRAME[0]}x{AOT_FRAME[1]} "
+            f"({n_gt} gt boxes) rendered, written by nvJPEG and ingested in "
+            f"{time.perf_counter() - t0:.1f} s")
+        args = ["--config-file", AOT_RECIPE, "--train-dir",
+                os.path.join(tmp, "run"), "--device", str(dev),
+                "DATASETS.ROOT_DIR", tmp,
+                "DATASETS.TRAIN", repr((AOT_DATASET,)),
+                "MODEL.WEIGHT", FIXTURE,
+                "SOLVER.VIDEO_CLIPS_PER_BATCH", "2",
+                "SOLVER.MAX_ITER", str(AOT_TRAIN_ITERS),
+                "SOLVER.CHECKPOINT_PERIOD", str(AOT_TRAIN_ITERS)]
+        t0 = time.perf_counter()
+        with quiet_console(), every_step_logged(), \
+                train_kernel_capture(AOT_TRAIN_ITERS) as (captured,
+                                                          launches):
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, tlog = train_net.main(args)
+            torch.cuda.synchronize(dev)
+            peak = torch.cuda.max_memory_allocated(dev)
+        wall = time.perf_counter() - t0
+        if tlog.iteration != AOT_TRAIN_ITERS:
+            raise AssertionError(f"11b ran to iteration {tlog.iteration}")
+        count_train_launches(launches, AOT_TRAIN_ITERS, report,
+                             "aot_train_net", GATHER_PER_STEP)
+        steps = {}
+        for f in os.listdir(os.path.join(out, "tb")):
+            for ev in read_events(os.path.join(out, "tb", f)):
+                if ev["scalars"]:
+                    steps.setdefault(ev["step"], {}).update(ev["scalars"])
+        if sorted(steps) != list(range(1, AOT_TRAIN_ITERS + 1)) or not all(
+                len(m) == 8 and all(np.isfinite(v) for v in m.values())
+                for m in steps.values()):
+            raise AssertionError(f"11b: the event file's losses {steps}")
+        final = torch.load(os.path.join(out, "model_final.pth"),
+                           map_location="cpu", weights_only=True)["model"]
+    cfg = get_cfg()
+    cfg.merge_from_file(AOT_RECIPE)
+    model = SiamMOT(cfg, device=str(dev))
+    if model.train_windowed or model.ecfg.response_size != 29:
+        raise AssertionError("11b: the recipe is not the gather-pooled "
+                             "SEARCH_REGION 5 recipe")
+    init = jax_to_torch(load_npz(FIXTURE))
+    names = [n for n, _ in model.build_net().named_parameters()]
+    still = [n for n in names if torch.equal(final[n], init[n])]
+    if any(not n.endswith("bias") for n in still):
+        raise AssertionError(f"11b: weights that did not move: {still}")
+    route, route_ms = template_grad_route(captured["grad_template"][0])
+    sec = np.array(tlog.step_seconds[1:])
+    log(f"  11b: {AOT_TRAIN_ITERS} steps in {wall:.1f} s wall: "
+        f"{sec.mean():.4f} s/it over the last {len(sec)} (median "
+        f"{np.median(sec):.4f}; first {tlog.step_seconds[0]:.3f} s), loader "
+        f"wait a step median {1e3 * np.median(tlog.data_seconds):.3f} ms; "
+        f"peak device memory {peak / 2 ** 30:.3f} GiB ({card}); launches "
+        f"{launches}")
+    log(f"  11b: {len(names) - len(still)} of {len(names)} parameters moved "
+        f"(unmoved biases: {still}); losses step 1 -> {AOT_TRAIN_ITERS}: "
+        + ", ".join(f"{k} {steps[1][k]:.4f} -> "
+                    f"{steps[AOT_TRAIN_ITERS][k]:.4f}"
+                    for k in sorted(steps[1])))
+    s_, g_ = captured["grad_template"][0]
+    log(f"  11b: kernel 6's template gradient (search {tuple(s_.shape)}, "
+        f"g {tuple(g_.shape)}) takes {route}: {route_ms:.4f} ms device")
+    check_train_kernels(captured, report, "aot_train_net")
+    return dict(s_it=float(sec.mean()), peak=peak, route=route,
+                route_ms=route_ms)
+
+
+def gather_inference_phase(dev, report, card, frames):
+    """11c: ``TPU.POOLER_WINDOWED`` False at inference on the bench
+    weights in bf16: 720p frames beside the windowed route in the same
+    run, then the AOT recipe (gather pooler, SEARCH_REGION 5, template 7)
+    on 2448x2048 frames (1 + 2); every kernel checked on the last frame.
+    (3c held the f32 ``gather`` cut to the JAX rows.)"""
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils.synth import render_scene
+    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
+    out = {}
+    out["windowed"] = toggle_run(dev, report, card, "windowed", get_cfg(),
+                                 MAIN_PATH, frames, (W, H))
+    cfg = get_cfg()
+    cfg.merge_from_list(["TPU.POOLER_WINDOWED", False])
+    out["gather"] = toggle_run(dev, report, card, "gather", cfg,
+                               GATHER_PATH, frames, (W, H))
+    acfg = get_cfg()
+    acfg.merge_from_file(AOT_RECIPE)
+    acfg.merge_from_list(["TPU.POOLER_WINDOWED", False])
+    w, h = AOT_FRAME
+    aframes = [np.pad(f, ((0, 0), (0, 0), (0, AOT_WP - w), (0, 0)))
+               for f in render_scene(3, h, 17, h, w)[0]]
+    model = SiamMOT(acfg, device=str(dev))
+    result, launches, captured = drive_frames(
+        model, jax_to_torch(load_npz(FIXTURE)), aframes, AOT_FRAME,
+        GATHER_PATH)
+    for name, count in launches.items():
+        report[name].setdefault("launches_by_path", {})["aot_gather"] = count
+        report[name]["launches"] += count
+    sec = result.frame_seconds
+    occupied = int(result.state.occupied.sum())
+    log(f"  aot_gather: 3 frames at {AOT_WP}x{h} (content {w}x{h}), "
+        f"AOT recipe with the gather pooler: {1e3 * sec[-1]:.3f} ms the "
+        f"last frame ({1e3 * sec[1]:.3f} the second, "
+        f"{1e3 * sec[0]:.1f} the first); live slots {occupied} of "
+        f"{K}; launches {launches} ({card})")
+    check_captured(captured, report, "aot_gather")
+    out["aot_frame"] = (1e3 * float(sec[-1]), occupied)
+    return out
+
+
+def xla_toggles_phase(dev, report, card, frames):
+    """11d: ``TPU.USE_PALLAS`` and ``DECODE_PALLAS`` False at 720p (the
+    EMM head over every slot: kernel 6's forward and kernel 3; the XLA
+    decode in torch ops, held to its CPU form on the last frame; 3c held
+    the f32 ``xla`` cut to the JAX rows).  11e: ``SEARCH_REGION`` 5.5 at
+    720p (an 82x82 search region, kernel 2 at 82 -> 68, kernel 3 at 68x68,
+    the XLA decode at s_hi 1088), then the golden frames' closest argmax
+    races there in f32."""
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.utils import golden
+    out = {}
+    cfg = get_cfg()
+    cfg.merge_from_list(["TPU.USE_PALLAS", False, "TPU.DECODE_PALLAS",
+                         False])
+    out["xla"] = toggle_run(dev, report, card, "xla", cfg,
+                            {"window_pool": 3, "xcorr": 1,
+                             "emm_predictor": 1}, frames, (W, H))
+    cfg = get_cfg()
+    cfg.merge_from_list(["MODEL.TRACK_HEAD.SEARCH_REGION", 5.5])
+    out["search_region_5_5"] = toggle_run(
+        dev, report, card, "search_region_5_5", cfg,
+        MAIN_PATH | {"emm_decode": 0}, frames, (W, H))
+    races = golden.decode_races(str(dev), "float32", None, n=3,
+                                extra=["MODEL.TRACK_HEAD.SEARCH_REGION",
+                                       5.5])
+    log("  11e: closest decode races of the golden frames at "
+        "SEARCH_REGION 5.5 (f32, XLA decode at s_hi 1088): "
+        + "; ".join(f"frame {r['frame']} slot {r['slot']} cells "
+                    f"{r['cells']} p_conf {r['p_conf'][0]!r} vs "
+                    f"{r['p_conf'][1]!r} ({r['ulps']:g} ulps)"
+                    for r in races))
+    return out
+
+
+def gather_phase(dev, report, card):
+    """Phase 11: 11a, 11b, 11c, 11d and 11e."""
+    from siammot_tpu_torch.utils.synth import render_scene
+    t0 = time.perf_counter()
+    roi_align_kernel_phase(dev, report)
+    log(f"[11a] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    aot = aot_train_net_phase(dev, report, card)
+    log(f"[11b] done in {time.perf_counter() - t0:.1f} s")
+    frames = render_scene(16, HP)[0]
+    t0 = time.perf_counter()
+    inf = gather_inference_phase(dev, report, card, frames)
+    log(f"[11c] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    xla = xla_toggles_phase(dev, report, card, frames)
+    log(f"[11d-e] done in {time.perf_counter() - t0:.1f} s")
+    return dict(aot=aot, **inf, **xla)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3708,8 +4280,8 @@ def main():
     log(f"[3b] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[3c] the given, unmasked and SEARCH_REGION 5 cuts against the JAX "
-        "step's rows (f32 on the card; bf16 gap):")
+    log("[3c] the given, unmasked, SEARCH_REGION 5, gather and XLA-form "
+        "cuts against the JAX step's rows (f32 on the card; bf16 gap):")
     golden_toggles_phase(dev)
     log(f"[3c] done in {time.perf_counter() - t0:.1f} s")
 
@@ -3764,6 +4336,14 @@ def main():
     bodies = backbones_phase(dev, report, card)
     log(f"[10] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[11] the exact gather pooler (11a kernels, 11b the AOT recipe "
+        f"through tools/train_net, 11c POOLER_WINDOWED False) and the XLA "
+        f"forms (11d USE_PALLAS and DECODE_PALLAS False, 11e SEARCH_REGION "
+        f"5.5) ({card}):")
+    gather = gather_phase(dev, report, card)
+    log(f"[11] done in {time.perf_counter() - t0:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
@@ -3803,7 +4383,14 @@ def main():
         f"{bodies['remat']['peak_remat'] / 2 ** 30:.3f} GiB), plain-stem "
         f"DLA-34 {bodies['others']['dla34_plain_stem'][0]:.3f} ms/frame, "
         f"DLA-60-RES2NET {bodies['others']['dla60_res2net'][0]:.3f} ms/frame"
-        f"; card {card}")
+        f"; AOT train_net {gather['aot']['s_it']:.4f} s/it (peak "
+        f"{gather['aot']['peak'] / 2 ** 30:.3f} GiB, kernel 6's template "
+        f"gradient: {gather['aot']['route']}, "
+        f"{gather['aot']['route_ms']:.4f} ms), 720p windowed "
+        f"{gather['windowed'][0]:.3f} / gather {gather['gather'][0]:.3f} "
+        f"ms/frame, AOT gather frame {gather['aot_frame'][0]:.3f} ms, "
+        f"xla {gather['xla'][0]:.3f} ms/frame, SEARCH_REGION 5.5 "
+        f"{gather['search_region_5_5'][0]:.3f} ms/frame; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

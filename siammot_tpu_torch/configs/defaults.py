@@ -195,10 +195,16 @@ _C.TPU.WINDOW_SR = 128
 # space-to-depth DLA stem; False runs the plain stem (base 7x7, level0,
 # level1), the reference .pth's layout, which exports exactly
 _C.TPU.S2D_STEM = True
-# kernel toggles of the JAX package; the port rejects USE_PALLAS,
-# POOLER_WINDOWED and DECODE_PALLAS False (the JAX package's XLA forms),
-# runs MASKED_TRACK_KERNELS False (the unmasked EMM route) and
-# TRAIN_POOLER_WINDOWED False outside training
+# the JAX package's im2col matmul form of these DLA/ResNet stages' 3x3
+# convolutions, exact on the same parameters; the port runs the same
+# convolutions either way (models/siammot.py)
+_C.TPU.CONV_MATMUL_STAGES = ()
+# kernel toggles of the JAX package, all accepted: USE_PALLAS False runs
+# the EMM head over every slot and the XLA decode (torch ops), as does
+# DECODE_PALLAS False for the decode; POOLER_WINDOWED and
+# TRAIN_POOLER_WINDOWED False pool with the exact gather pooler
+# (ops/roi_align.py) at inference and in training; MASKED_TRACK_KERNELS
+# False runs the unmasked EMM route
 _C.TPU.USE_PALLAS = True
 _C.TPU.POOLER_WINDOWED = True
 _C.TPU.DECODE_PALLAS = True

@@ -1,6 +1,8 @@
 """Detection box head (port of ``siammot_tpu.models.box_head``).
 
-maskrcnn FPN2MLPFeatureExtractor (7x7 windowed pool -> fc6 -> fc7) and
+maskrcnn FPN2MLPFeatureExtractor (7x7 pool -> fc6 -> fc7; the windowed
+pool over a ``LevelPack``, or the exact gather pooler over a
+``LevelTable`` of the per-level maps when there is no pack) and
 FPNPredictor, then SiamMOT's track-aware post-processing: rows carrying
 a track id get +1 at their own label and zero elsewhere, so NMS never
 suppresses a propagated track; per-class threshold + NMS for detections
@@ -20,7 +22,7 @@ from ..core import boxes as box_ops
 from ..core.matcher import balanced_sample, match_targets
 from ..core.nms import nms_mask
 from ..core.structures import Boxes, take_rows
-from ..ops.roi_align_windowed import windowed_pool
+from ..ops.roi_align import pool_rois
 from .rpn import smooth_l1
 
 
@@ -35,12 +37,15 @@ class BoxHeadFeatureExtractor(nn.Module):
         self.fc7 = nn.Linear(mlp_dim, mlp_dim)
 
     def forward(self, pack, rois, levels, valid, img_idx=None):
-        """rois [R, 4], levels [R], valid [R] (None: the differentiable
-        training pool), img_idx [R] (None: a one-image pack)."""
-        pool = windowed_pool(pack, rois, img_idx, levels, self.resolution,
-                             self.sampling_ratio, self.window, valid=valid)
-        # the pool stays f32; the MLP runs in the trunk dtype.  fc6 reads
-        # the (h, w, c) flatten of the NHWC pool, as flax's Dense does
+        """pack: a ``LevelPack`` (windowed) or ``LevelTable`` (gather);
+        rois [R, 4], levels [R], valid [R] (None: the differentiable
+        training pool; dead rows pool to zeros), img_idx [R] (None: a
+        one-image pack)."""
+        pool = pool_rois(pack, rois, img_idx, levels, self.resolution,
+                         self.sampling_ratio, self.window, valid=valid)
+        # the windowed pool is f32, the gather pool in the maps' dtype; the
+        # MLP runs in the trunk dtype.  fc6 reads the (h, w, c) flatten of
+        # the NHWC pool, as flax's Dense does
         x = pool.reshape(pool.shape[0], -1).to(self.fc6.weight.dtype)
         return F.relu(self.fc7(F.relu(self.fc6(x))))
 

@@ -11,6 +11,13 @@ per-channel affine ``x * scale + bias`` (maskrcnn FrozenBatchNorm2d with
 the statistics folded in).  The stem is the space-to-depth form the JAX
 package trains (``S2DStem``) or, with ``s2d_stem`` False, the plain one
 (``base_conv`` 7x7, ``level0``, ``level1``), the reference ``.pth``'s.
+
+``TPU.CONV_MATMUL_STAGES`` names the stages whose 3x3 convolutions the
+JAX package computes as an explicit im2col matmul
+(``siammot_tpu/models/dla.py:conv3x3_matmul``): the same taps on the same
+parameters, an exact rewrite of the convolution for the TPU's matrix
+unit.  The port computes those stages with the convolution it already
+runs (cuDNN on the card), so the key takes no route of its own here.
 """
 
 from __future__ import annotations

@@ -2,22 +2,26 @@
 (port of ``siammot_tpu.models.emm``).
 
 Inference, over K padded track slots: 15x15 template crops and 30x30
-search-region crops from the windowed pool (kernel 1), masked depthwise
-xcorr (kernel 2), the masked predictor towers (kernel 3, or kernel 8 with
-``SIAMMOT_PREDICTOR_BLOCK``), and the fused response decode (kernel 4, or
-kernel 5 past s_hi 512) whose box epilogue stays in plain torch.  Dead
-slots ride along as masked lanes.  With ``TPU.MASKED_TRACK_KERNELS``
-False (``valid`` None) the head runs the JAX package's unmasked route:
-the unmasked xcorr (kernel 6's forward), the predictor over every slot
-and the ungated decode (kernel 10, or kernel 5 ungated); dead slots then
-carry the bias-derived maps of a zero response, and every consumer masks
-them on occupancy.
+search-region crops from the windowed pool (kernel 1) or, with
+``TPU.POOLER_WINDOWED`` False, the exact gather pooler
+(``ops/roi_align.py``), masked depthwise xcorr (kernel 2), the masked
+predictor towers (kernel 3, or kernel 8 with ``SIAMMOT_PREDICTOR_BLOCK``),
+and the fused response decode (kernel 4, or kernel 5 past s_hi 512, or
+the JAX package's XLA decode past s_hi 1024 or with ``TPU.USE_PALLAS`` or
+``DECODE_PALLAS`` False) whose box epilogue stays in plain torch.  Dead
+slots ride along as masked lanes.  With ``TPU.MASKED_TRACK_KERNELS`` or
+``USE_PALLAS`` False (``valid`` None) the head runs the JAX package's
+unmasked route: the unmasked xcorr (kernel 6's forward), the predictor
+over every slot and the ungated decode (kernel 10, or kernel 5 ungated);
+dead slots then carry the bias-derived maps of a zero response, and
+every consumer masks them on occupancy.
 
 Training, over sampled track pairs: the differentiable pool (kernels 1
-and 7), the unmasked xcorr with its gradient kernels (kernel 6), the
-predictor towers as ``F.conv2d`` + GroupNorm + ReLU with gradients (the
-JAX training step runs flax convolutions there, not a Pallas kernel),
-and the FCOS-style EMM loss (``siammot_tpu/models/emm.py:475-552``).
+and 7, or the gather pooler's forward and backward kernels), the
+unmasked xcorr with its gradient kernels (kernel 6), the predictor
+towers as ``F.conv2d`` + GroupNorm + ReLU with gradients (the JAX
+training step runs flax convolutions there, not a Pallas kernel), and
+the FCOS-style EMM loss (``siammot_tpu/models/emm.py:475-552``).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from ..core import boxes as box_ops
 from ..ops.decode import decode_argmax
 from ..ops.predictor import emm_predictor, emm_predictor_blocked
-from ..ops.roi_align_windowed import windowed_pool
+from ..ops.roi_align import pool_rois
 from ..ops.upsample import bicubic_matrix
 from ..ops.xcorr import xcorr_depthwise_auto, xcorr_depthwise_masked
 
@@ -188,23 +192,25 @@ class EMMHead(nn.Module):
 def pool_template(pack, boxes, ecfg: EMMConfig, window: int, valid,
                   img_idx=None):
     """15x15 template crops at track boxes (unpadded coords) of images
-    ``img_idx`` (None: a one-image pack); dead rows pool to zeros, and
+    ``img_idx`` (None: a one-image pack), from a ``LevelPack`` (the
+    windowed pool) or a ``LevelTable`` (the exact gather pooler,
+    ``siammot_tpu/models/emm.py:226-246``); dead rows pool to zeros, and
     ``valid=None`` is the differentiable training pool."""
     levels = box_ops.map_rois_to_levels(boxes, 2, 2 + len(ecfg.scales) - 1)
-    return windowed_pool(pack, boxes, img_idx, levels, ecfg.resolution,
-                         ecfg.sampling_ratio, window, valid=valid)
+    return pool_rois(pack, boxes, img_idx, levels, ecfg.resolution,
+                     ecfg.sampling_ratio, window, valid=valid)
 
 
 def pool_search_region(pack, template_boxes, sr_boxes, ecfg: EMMConfig,
                        window: int, valid, img_idx=None):
     """30x30 SR crops: level from the template box, crop from the SR box
-    in padded coords (reference sr_pool.py:64-74); ``img_idx`` as in
-    :func:`pool_template`."""
+    in padded coords (reference sr_pool.py:64-74); ``pack`` and
+    ``img_idx`` as in :func:`pool_template`."""
     levels = box_ops.map_rois_to_levels(template_boxes, 2,
                                         2 + len(ecfg.scales) - 1)
-    return windowed_pool(pack, sr_boxes, img_idx, levels, ecfg.sr_size,
-                         ecfg.sampling_ratio, window,
-                         pad_pixels=ecfg.pad_pixels, valid=valid)
+    return pool_rois(pack, sr_boxes, img_idx, levels, ecfg.sr_size,
+                     ecfg.sampling_ratio, window,
+                     pad_pixels=ecfg.pad_pixels, valid=valid)
 
 
 def make_search_region(boxes: torch.Tensor, ecfg: EMMConfig) -> torch.Tensor:
@@ -231,13 +237,15 @@ def _decode_constants(s_lo: int, up_scale: int, device: str):
 
 def decode_response_fused(cls_logits, center_logits, reg_logits, sr_boxes,
                           template_boxes, ecfg: EMMConfig, up_scale: int,
-                          valid):
+                          valid, xla: bool = False):
     """Upsample + decode, materialising only what the argmax needs.
 
     Bicubic upsampling is linear, so the 2-class softmax becomes a
     sigmoid of the logit difference and the scale penalty needs only
     l+r and t+b: the decode kernel (4, 10 with ``valid`` None, 5 past
-    s_hi 512) upsamples those 4 channels, penalises and arg-maxes.  The
+    s_hi 512) upsamples those 4 channels, penalises and arg-maxes; with
+    ``xla`` (``TPU.USE_PALLAS`` or ``DECODE_PALLAS`` False) or past s_hi
+    1024 the JAX package's XLA decode does, over every slot.  The
     regression vector and the image-space location are then evaluated at
     the argmax only.  Returns (boxes [K, 4], scores [K]).
     """
@@ -255,7 +263,7 @@ def decode_response_fused(cls_logits, center_logits, reg_logits, sr_boxes,
                      dim=-1).contiguous()
     idx, score = decode_argmax(x4, wh, u, window, valid,
                                float(ecfg.cosine_window_weight),
-                               bool(ecfg.use_centerness))
+                               bool(ecfg.use_centerness), None, xla)
     idx = idx.long()
     iy = torch.div(idx, s_hi, rounding_mode="floor")
     ix = idx % s_hi

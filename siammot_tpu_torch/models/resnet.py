@@ -16,7 +16,9 @@ Module names follow the flax tree (``stem_conv1``, ``stem_bn1``,
 ``layer{s}_{b}`` with ``conv{1,2,3}``, ``bn{1,2,3}``,
 ``downsample_conv``, ``downsample_bn``), so ``utils/weights.py`` maps
 every key by its path.  The convolutions are ``F.conv2d`` (cuDNN on the
-card), as in the DLA port.
+card), as in the DLA port; the stages ``TPU.CONV_MATMUL_STAGES`` names
+(the JAX package's im2col matmul form of each bottleneck's 3x3, exact on
+the same parameters) run that same convolution.
 """
 
 from __future__ import annotations

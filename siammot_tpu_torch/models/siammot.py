@@ -10,11 +10,16 @@ xcorr, masked or slot-blocked predictor, decode whole-map or striped; or,
 with ``TPU.MASKED_TRACK_KERNELS`` False, the unmasked xcorr and decode)
 are CUDA kernels on the card, and so is the deformable conv of a DCN
 body (kernel 9, whose backward is the plain VJP of the JAX package's
-exact patch form, ``ops/deform_conv.py``).
+exact patch form, ``ops/deform_conv.py``).  ``TPU.POOLER_WINDOWED``
+False pools every site with the exact gather pooler (its own CUDA
+kernels, ``ops/roi_align.py``) from the per-level maps; ``TPU.USE_PALLAS``
+or ``DECODE_PALLAS`` False take the JAX package's XLA routes (the EMM
+head over every slot, the XLA decode in torch ops).
 
 Training: ``forward_train`` returns the seven reference losses of a batch
-of frame pairs (RPN, box head, EMM), with the pool's backward (kernel 7)
-and the unmasked xcorr and its gradients (kernel 6) as CUDA kernels.
+of frame pairs (RPN, box head, EMM), with the pool's backward (kernel 7,
+or with ``TPU.TRAIN_POOLER_WINDOWED`` False the gather pooler's) and the
+unmasked xcorr and its gradients (kernel 6) as CUDA kernels.
 The convolutions and matrix products around the kernels stay
 ``F.conv2d`` / ``torch.matmul``, as the JAX package leaves them to XLA.
 With ``TPU.REMAT`` the trunk (body + FPN) is recomputed in the backward
@@ -47,6 +52,7 @@ from .rpn import (RPNConfig, RPNHead, base_anchors, grid_anchors, rpn_loss,
                   select_proposals, topk)
 from .track_solver import SolverConfig, solve
 from .track_state import TrackState, rebuild_state
+from ..ops.roi_align import level_table
 from ..ops.roi_align_windowed import pack_levels
 
 UPSCALE = 16  # the reference upsamples response maps x16
@@ -128,14 +134,22 @@ class SiamMOT:
             raise RuntimeError("SiamMOT: no CUDA device (pass device='cpu' "
                                "for the plain CPU path)")
         tpu = cfg.TPU
-        off = [k for k in ("USE_PALLAS", "POOLER_WINDOWED", "DECODE_PALLAS")
-               if not tpu[k]]
-        if off:
-            raise ValueError(f"the port implements only the Pallas kernel "
-                             f"paths; TPU.{off} must stay True")
-        # False: the unmasked EMM route (xcorr kernel 6, the predictor over
-        # every slot, decode kernel 10), siammot_tpu/models/siammot.py:355
-        self.masked_kernels = bool(tpu.MASKED_TRACK_KERNELS)
+        # MASKED_TRACK_KERNELS or USE_PALLAS False: the unmasked EMM route
+        # (xcorr kernel 6, the predictor over every slot), as JAX's XLA
+        # forms run over every slot (siammot_tpu/models/emm.py:206-219)
+        self.masked_kernels = bool(tpu.MASKED_TRACK_KERNELS
+                                   and tpu.USE_PALLAS)
+        # USE_PALLAS or DECODE_PALLAS False: the XLA decode
+        # (siammot_tpu/models/emm.py:417), in torch ops
+        self.decode_xla = not (tpu.USE_PALLAS and tpu.DECODE_PALLAS)
+        # False: the exact gather pooler (ops/roi_align.py) at every pool
+        # site, in the features' dtype, as JAX's gather route
+        self.windowed = bool(tpu.POOLER_WINDOWED)
+        self.train_windowed = bool(tpu.TRAIN_POOLER_WINDOWED)
+        # TPU.CONV_MATMUL_STAGES selects JAX's im2col matmul form of the
+        # same 3x3 convolutions (siammot_tpu/models/dla.py:conv3x3_matmul,
+        # exact on the same parameters); the port runs them as the
+        # convolution it already runs, so the key changes nothing here
         self.remat = bool(tpu.REMAT)
         body = cfg.MODEL.BACKBONE.CONV_BODY
         if body.startswith("R-"):
@@ -214,22 +228,26 @@ class SiamMOT:
         _channels_last(net)
         return net
 
-    def _check_train(self) -> None:
-        """Training-only keys (``TPU.TRAIN_POOLER_WINDOWED`` only matters
-        to the training step, ``siammot_tpu/configs/defaults.py:228``)."""
-        if not self.cfg.TPU.TRAIN_POOLER_WINDOWED:
-            raise ValueError("TPU.TRAIN_POOLER_WINDOWED False (the exact "
-                             "gather pooler in training) is not ported")
-
     def build_master(self, params: dict) -> SiamMOTNet:
         """The network for training: f32 master parameters on the device,
         loaded from a state dict (every key must match), with gradients.
         FrozenBN statistics stay buffers, so nothing moves them."""
-        self._check_train()
         net = self.build_net().to(device=self.device, dtype=torch.float32)
         net.load_state_dict(params, strict=True)
         _channels_last(net)
         return net.train().requires_grad_(True)
+
+    def _pool_source(self, feats, windowed: bool, pack_dtype):
+        """What every pool site of a step reads: with ``windowed`` the
+        stacked ``LevelPack`` of the FPN maps in ``pack_dtype``
+        (``siammot_tpu/models/siammot.py:304``, ``:489``), else the exact
+        gather pooler's ``LevelTable`` of the per-level NHWC maps in their
+        own dtype (the trunk's compute dtype, as JAX's gather route)."""
+        maps = [f.permute(0, 2, 3, 1) for f in feats[:len(self.box_scales)]]
+        if windowed:
+            return pack_levels([f.float() for f in maps], self.box_scales,
+                               dtype=pack_dtype)
+        return level_table(maps, self.box_scales)
 
     def empty_state(self) -> TrackState:
         return TrackState.empty(self.max_tracks, self.ecfg.resolution,
@@ -300,9 +318,7 @@ class SiamMOT:
             frame_sizes=torch.tensor([image_size] * s, dtype=torch.int32))
 
         feats = net.fpn(net.body(x.to(dt)))                  # NCHW, dt
-        feats_nhwc = [f.permute(0, 2, 3, 1).float() for f in feats]
-        pack = pack_levels(feats_nhwc[:len(self.box_scales)],
-                           self.box_scales, dtype=self.pooler_dtype)
+        pack = self._pool_source(feats, self.windowed, self.pooler_dtype)
         lanes = torch.arange(s, dtype=torch.int32, device=self.device)
 
         # ---- proposals: each stream's RPN (its own top-n: the batch-joint
@@ -338,7 +354,7 @@ class SiamMOT:
                                       flat(states.template).to(dt), occ_k)
         tboxes, tconf = decode_response_fused(
             cls_l, ctr_l, reg_l, flat(states.sr), flat(states.boxes), ecfg,
-            UPSCALE, occ_k)
+            UPSCALE, occ_k, self.decode_xla)
         tboxes, tconf = tboxes.reshape(s, k, 4), tconf.reshape(s, k)
         tvalid = states.occupied
         if not ecfg.amodal:
@@ -392,7 +408,7 @@ class SiamMOT:
                            ids=torch.where(upd["expired"],
                                            torch.full_like(states.ids, -1),
                                            states.ids)),
-            act, act.valid, fresh_template.reshape(
+            act, act.valid, fresh_template.float().reshape(
                 s, k, *fresh_template.shape[1:]),
             fresh_sr, upd["keep_dormant"], upd["next_id"], states.frame_idx)
         return out, new_states
@@ -415,7 +431,6 @@ class SiamMOT:
         gradients reach the f32 masters, as the JAX step's ``cast_params``
         inside the grad does.
         """
-        self._check_train()
         b = images.shape[0]
         if b % 2:
             raise ValueError(f"training batch must be frame pairs, got {b}")
@@ -483,11 +498,11 @@ class SiamMOT:
                                device=self.device),
             valid=torch.cat([pv, gt.valid], 1))
 
-        # every training pool reads one f32 table (its gradient accumulates
-        # there, then flows back to the FPN maps)
-        feats_nhwc = [f.permute(0, 2, 3, 1).float() for f in feats]
-        pack = pack_levels(feats_nhwc[:len(self.box_scales)],
-                           self.box_scales, dtype=torch.float32)
+        # every training pool reads one table (the windowed route's in f32,
+        # where its gradient accumulates; the gather route's in the
+        # features' dtype, its gradient summed in f32), and the gradient
+        # flows on to the FPN maps
+        pack = self._pool_source(feats, self.train_windowed, torch.float32)
 
         # ---- box head: balanced subsample -> pooled MLP -> loss
         sampled, labels, regs = subsample_proposals(

@@ -490,11 +490,14 @@ static int launch(const void* a, const void* b, const uint8_t* valid,
 // template gradient), valid null or [K] (kernel 2); mode FULL: the search
 // gradient, a = g, b the template, valid null, in bands of `band_rows`
 // output rows (all of them: one band) and `segments` column segments.
+// With `takes_band`, nothing is launched: it is set to 1 where the taps
+// would take the banded fallback, else 0.
 template <typename TA, typename TB>
 static int launch6(int mode, const void* a, const void* b,
                    const uint8_t* valid, float* out, int K, int ha, int wa,
                    int hb, int wb, int C, cudaStream_t stream,
-                   int band_rows = 0, int segments = 1) {
+                   int band_rows = 0, int segments = 1,
+                   int* takes_band = nullptr) {
   constexpr int TILE = sizeof(TA) == 2 && sizeof(TB) == 2 ? 16 : 8;
   constexpr int CAP = MAX_THREADS / TILE;  // row threads a block at most
   Shape sh{};
@@ -502,16 +505,17 @@ static int launch6(int mode, const void* a, const void* b,
   sh.ho = mode == XCORR ? ha - hb + 1 : ha + hb - 1;
   sh.wo = mode == XCORR ? wa - wb + 1 : wa + wb - 1;
   const bool one_band = band_rows == sh.ho && segments == 1;
+  // the xcorr's segment width: 16 for a 15-wide template, 15 for a
+  // 16-wide one, 0 (one generic segment, at most W_GEN wide) otherwise;
+  // compile-time segments take any output width
+  const int seg = mode == XCORR ? (wb == 15 ? 16 : wb == 16 ? 15 : 0) : 0;
   if (sh.ho < 1 || sh.wo < 1 || hb < 1 || wb < 1 ||
-      (mode == XCORR && sh.wo > W_GEN) ||
+      (mode == XCORR && seg == 0 && sh.wo > W_GEN) ||
       (mode == FULL &&
        (valid != nullptr || band_rows < 1 || band_rows > sh.ho ||
         segments < 1 || (sh.wo + segments - 1) / segments > W_GEN ||
         (one_band && sh.ho > 2 * CAP))))
     return (int)cudaErrorInvalidValue;
-  // the xcorr's segment width: 16 for a 15-wide template, 15 for a
-  // 16-wide one, 0 (one generic segment) otherwise
-  const int seg = mode == XCORR ? (wb == 15 ? 16 : wb == 16 ? 15 : 0) : 0;
   int a_cols = wa;
   if (mode == XCORR) {
     sh.nseg = seg > 0 ? (sh.wo + seg - 1) / seg : 1;
@@ -556,8 +560,16 @@ static int launch6(int mode, const void* a, const void* b,
     // taps too large for two stages: the banded fallback (the full
     // convolution's plan keeps its bands inside the limit)
     if (mode == FULL) return (int)cudaErrorInvalidValue;
+    if (takes_band) {
+      *takes_band = 1;
+      return 0;
+    }
     return launch_band<TA, TB>(a, b, valid, out, K, ha, wa, hb, wb, C,
                                stream);
+  }
+  if (takes_band) {
+    *takes_band = 0;
+    return 0;
   }
   if (mode == XCORR) {
     if (seg == 16)  // a 15-wide template: the forward, kernel 2
@@ -627,6 +639,20 @@ SIAMMOT_API int siammot_xcorr_grad_search(const void* grad, int grad_dtype,
   return SIAMMOT_DISPATCH2(grad_dtype, tmpl_dtype, k6::launch6, k6::FULL,
                            grad, tmpl, nullptr, out, K, hg, wg, ht, wt, C,
                            (cudaStream_t)stream, band_rows, segments);
+}
+
+// Whether the unmasked xcorr of [K, hs, ws, C] with [K, ht, wt, C] taps
+// (the template gradient: the search with g) takes the banded fallback
+// kernel: 1, or xcorr6_kernel: 0; a negative CUDA error for shapes the
+// kernel refuses.  Launches nothing.
+SIAMMOT_API int siammot_xcorr_takes_band(int search_dtype, int tmpl_dtype,
+                                         int K, int hs, int ws, int ht,
+                                         int wt, int C) {
+  int band = 0;
+  const int err = SIAMMOT_DISPATCH2(
+      search_dtype, tmpl_dtype, k6::launch6, k6::XCORR, nullptr, nullptr,
+      nullptr, nullptr, K, hs, ws, ht, wt, C, (cudaStream_t)0, 0, 1, &band);
+  return err ? -err : band;
 }
 
 // Shared memory a block of the current device may opt in to, bytes.

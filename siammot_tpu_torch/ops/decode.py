@@ -25,7 +25,10 @@ reduces each slot's band bests.  Every cell is computed with one
 contraction order and the (value, index) bests reduce with ties toward
 the lower flat index, so the kernel's (idx, score) are bitwise those of
 the earlier whole-map and striped kernels, and the same for any stripe.
-Responses up to s = 64 (the striped form's limit, s_hi 1024).
+Responses up to s = 64 (the striped form's limit, s_hi 1024).  Past
+s_hi 1024, or with ``TPU.USE_PALLAS`` or ``DECODE_PALLAS`` False, the
+port runs the JAX package's XLA decode in torch ops (:func:`decode_xla`),
+as JAX does there.
 """
 
 from __future__ import annotations
@@ -172,17 +175,17 @@ def _check_stripe(s_hi: int, stripe: int) -> None:
 
 
 def decode_argmax(x4, wh, u, window, valid, sigma, use_centerness,
-                  stripe=None):
-    """The decode the JAX package dispatches to
-    (``decode.py:emm_decode_pallas``, ``models/emm.py:417``): the striped
-    kernel past s_hi 512 or with ``stripe`` given, else the whole-map
-    kernel, gated (kernel 4) or not (kernel 10, ``valid`` None).  JAX
-    takes its XLA decode past s_hi 1024; the port raises there."""
+                  stripe=None, xla=False):
+    """The decode the JAX package dispatches to (``models/emm.py:417``):
+    its XLA decode (:func:`decode_xla`, every slot, ``valid`` unread) with
+    ``xla`` (``TPU.USE_PALLAS`` or ``DECODE_PALLAS`` False) or past s_hi
+    1024; else the striped kernel past s_hi 512 or with ``stripe`` given,
+    else the whole-map kernel, gated (kernel 4) or not (kernel 10,
+    ``valid`` None)."""
     s_hi = u.shape[0]
+    if xla or (stripe is None and s_hi > STRIPED_MAX):
+        return decode_xla(x4, wh, u, window, sigma, use_centerness)
     if stripe is None and s_hi > WHOLE_MAP_MAX:
-        if s_hi > STRIPED_MAX:
-            raise ValueError(f"decode: s_hi {s_hi} > {STRIPED_MAX} is not "
-                             f"ported (the JAX package's XLA decode)")
         stripe = pick_stripe(s_hi)
     if stripe is not None:
         return emm_decode_striped(x4, wh, u, window, valid, sigma,
@@ -241,6 +244,36 @@ def emm_decode_plain(x4, wh, u, window, valid, sigma, use_centerness):
     idx = torch.argmax(p_conf.reshape(k, -1), dim=1)
     score = torch.gather(cls_prob.reshape(k, -1), 1, idx[:, None])[:, 0]
     return _gate(idx, score, valid)
+
+
+# slots a chunk of the XLA decode (4 maps of [s_hi, s_hi] f32 each and
+# their per-cell temporaries: about 0.3 GB a chunk at s_hi 1088)
+XLA_CHUNK = 16
+
+
+def decode_xla(x4, wh, u, window, sigma, use_centerness):
+    """The JAX package's XLA decode (``siammot_tpu/models/emm.py:424-444``)
+    in torch ops, over every slot: the two upsampling products (f32
+    ``torch.matmul``/``einsum``; the port turns TF32 off), the cls and
+    centerness sigmoids, the scale penalty with raw IEEE divisions, the Hann
+    blend, the first maximal index and the cls probability there, a chunk
+    of slots at a time.  Returns (idx [K] int32, score [K] f32); JAX's XLA
+    form reads no ``valid``, so no slot is gated."""
+    k = x4.shape[0]
+    idx, score = [], []
+    for i in range(0, k, XLA_CHUNK):
+        p_conf, cls_prob = penalized_confidence(
+            x4[i:i + XLA_CHUNK], wh[i:i + XLA_CHUNK], u, window, sigma,
+            use_centerness)
+        m = p_conf.shape[0]
+        j = torch.argmax(p_conf.reshape(m, -1), dim=1)
+        idx.append(j)
+        score.append(torch.gather(cls_prob.reshape(m, -1), 1,
+                                  j[:, None])[:, 0])
+    if not idx:
+        return (torch.zeros((0,), dtype=torch.int32, device=x4.device),
+                torch.zeros((0,), dtype=torch.float32, device=x4.device))
+    return torch.cat(idx).to(torch.int32), torch.cat(score)
 
 
 def emm_decode_striped_plain(x4, wh, u, window, valid, sigma,

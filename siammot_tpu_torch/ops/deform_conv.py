@@ -48,11 +48,14 @@ implicit GEMM.
 The backward (:class:`DeformConv2dFn`) is what the JAX package's
 ``_pallas_guarded_bwd`` computes: the VJP of the exact patch form (route
 B) whichever route the forward took, recomputed from the saved inputs in
-their dtype's arithmetic.  JAX leaves it to XLA, so here it is plain
-PyTorch (a gather, and a scatter-add for the input's gradient, whose
-atomics sum in no fixed order on the card: that gradient is not bitwise
-from run to run there).  Only x, the offsets and the kernel are saved;
-the four corner tensors of the samples are rebuilt in the backward.
+their dtype's arithmetic, except that the corner weights' derivatives
+are the f32 products' (in bf16 the offsets' gradient is otherwise a
+difference of bf16-rounded terms that cancel).  JAX leaves it to XLA,
+so here it is plain PyTorch (a gather, and a scatter-add for the input's
+gradient, whose atomics sum in no fixed order on the card: that gradient
+is not bitwise from run to run there).  Only x, the offsets and the
+kernel are saved; the four corner tensors of the samples are rebuilt in
+the backward.
 """
 
 from __future__ import annotations
@@ -206,9 +209,9 @@ def deform_conv2d_vjp(x, offsets, kernel, grad, stride: int = 1,
                       dilation: int = 1, need=(True, True, True)):
     """The gradients of (x, offsets, kernel) under the upstream ``grad``:
     the VJP of route B (``sample_plain(..., route_a=False)`` and the
-    product), recomputed from the inputs in their dtype's arithmetic, as
-    the JAX package differentiates its exact patch form for either
-    forward route.  An input that ``need`` leaves out gets None."""
+    product), recomputed from the inputs in their dtype's arithmetic
+    (the corner weights' derivatives in f32), as the JAX package
+    differentiates its exact patch form for either forward route.  An input that ``need`` leaves out gets None."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(bool(n))
                   for t, n in zip((x, offsets, kernel), need)]
@@ -269,10 +272,18 @@ def sample_plain(x, offsets, stride, dilation, route_a: bool):
                 + cx[1][..., None] * corner(r, 1) for r in (0, 1)]
         s = cy[0][..., None] * part[0] + cy[1][..., None] * part[1]
     else:
+        # the weights' values are the input dtype's products, their
+        # derivatives those of the f32 products: in bf16 the offsets'
+        # gradient is a difference of the corners' terms, which rounded
+        # each to bf16 cancel to errors of several percent of its scale
+        # where the features share a large positive mean (post-ReLU)
+        fy32, fx32 = fy.float(), fx.float()   # one cast: f32 sums
+        wy32, wx32 = (1 - fy32, fy32), (1 - fx32, fx32)
         s = 0
         for dy in (0, 1):
             for dx in (0, 1):
-                wgt = (wy[dy] * wx[dx]).float()
+                w32 = wy32[dy] * wx32[dx]
+                wgt = w32 + ((wy[dy] * wx[dx]).float() - w32).detach()
                 s = s + wgt[..., None] * corner(dy, dx)
     return s.to(dt)
 

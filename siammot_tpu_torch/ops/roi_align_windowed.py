@@ -11,6 +11,8 @@ bin average folded into the weights); the pool itself is kernel 1
 ``valid`` (the training sites) the pool is differentiable in the table,
 with kernel 7 as its backward; the gradient flows on through
 ``stack_levels``' pads and concatenation to the per-level maps.
+:func:`window_clamp_mask` flags the ROIs whose windowed result differs
+from the exact gather pooler's (``ops/roi_align.py``).
 """
 
 from __future__ import annotations
@@ -82,6 +84,68 @@ def _sample_positions(start, roi_extent, out_size: int, sampling_ratio: int):
     return start[..., None] + frac * bin_size[..., None]
 
 
+def _window_origin(pos, pad, size, window: int):
+    """A window's origin along one axis: centre the sample span, clamped
+    into the level (``roi_align_windowed``'s prologue)."""
+    first = torch.floor(pos[:, 0]).to(torch.int32) - pad
+    last = torch.floor(pos[:, -1]).to(torch.int32) + 1 - pad
+    o = first - torch.div(window - (last - first + 1), 2,
+                          rounding_mode="floor").clamp(min=0)
+    return torch.minimum(o.clamp(min=0), (size - window).clamp(min=0))
+
+
+def window_clamp_mask(rois, scales, heights, widths, levels,
+                      output_size: int, sampling_ratio: int, window: int,
+                      pad_pixels: int = 0):
+    """Per-ROI deviation detector of the windowed pooler (PARITY.md #5/#9;
+    ``siammot_tpu/ops/roi_align_windowed.py:window_clamp_mask``): [N] bool,
+    True iff some bilinear tap that the exact gather pooler weighs with a
+    real feature value (inside the unpadded level) falls outside the ROI's
+    window, i.e. exactly the ROIs whose windowed result differs from
+    ``ops/roi_align.multilevel_roi_align``.  Taps in the virtual pad are
+    zeros on both routes and never count.  The window origins are the
+    pool's own, tap for tap (the 8-aligned column origin included).
+
+    rois [N, 4]; scales [N] (each ROI's level scale); heights, widths [L]
+    per level; levels [N]."""
+    rois = torch.as_tensor(rois, dtype=torch.float32)
+    dev = rois.device
+    scales = torch.as_tensor(scales, dtype=torch.float32, device=dev)
+    levels = torch.as_tensor(levels, device=dev).long()
+    h_arr = torch.as_tensor(np.asarray(heights, np.int32), device=dev)[levels]
+    w_arr = torch.as_tensor(np.asarray(widths, np.int32), device=dev)[levels]
+    pads = torch.round(pad_pixels * scales).to(torch.int32)
+
+    start = rois[:, :2] * scales[:, None]
+    end = rois[:, 2:] * scales[:, None]
+    extent = (end - start).clamp(min=1.0)
+    xs = _sample_positions(start[:, 0], extent[:, 0], output_size,
+                           sampling_ratio)
+    ys = _sample_positions(start[:, 1], extent[:, 1], output_size,
+                           sampling_ratio)
+
+    def clamped(pos, pad, size, o):
+        padded = (size + 2 * pad)[:, None]
+        sp = padded.to(pos.dtype)
+        p = torch.minimum(pos.clamp(min=0.0), sp - 1)
+        lo = torch.minimum(torch.floor(p).to(torch.int32), padded - 1)
+        hi = torch.minimum(lo + 1, padded - 1)
+        # the taps the exact path weighs with real feature values
+        inside = (pos >= -1.0) & (pos <= sp)
+        out = torch.zeros(pos.shape[0], dtype=torch.bool, device=pos.device)
+        for idx in (lo, hi):
+            real = idx - pad[:, None]
+            ok = inside & (real >= 0) & (real < size[:, None])
+            out |= (ok & ((real < o[:, None])
+                          | (real >= o[:, None] + window))).any(-1)
+        return out
+
+    oy = _window_origin(ys, pads, h_arr, window)
+    ox = torch.div(_window_origin(xs, pads, w_arr, window), 8,
+                   rounding_mode="floor") * 8
+    return clamped(ys, pads, h_arr, oy) | clamped(xs, pads, w_arr, ox)
+
+
 def _axis_weights(pos, size_real, pad, origin, window: int):
     """Dense per-ROI interpolation weights along one axis, [N, S, window],
     with maskrcnn's boundary rules and the virtual pad baked in."""
@@ -127,18 +191,11 @@ def window_geometry(heights, widths, row_offsets, rois, block_idx, scales,
     ys = _sample_positions(start[:, 1], extent[:, 1], output_size,
                            sampling_ratio)
 
-    # window origin: centre the sample span, clamped into the level
-    def origin(pos, pad, size):
-        first = torch.floor(pos[:, 0]).to(torch.int32) - pad
-        last = torch.floor(pos[:, -1]).to(torch.int32) + 1 - pad
-        o = first - torch.div(window - (last - first + 1), 2,
-                              rounding_mode="floor").clamp(min=0)
-        return torch.minimum(o.clamp(min=0), (size - window).clamp(min=0))
-
-    oy = origin(ys, pads, h_arr)
+    oy = _window_origin(ys, pads, h_arr, window)
     # 8-aligned column origins, as the TPU kernel needs and the JAX
     # prologue computes; kept so both packages pool the same windows
-    ox = torch.div(origin(xs, pads, w_arr), 8, rounding_mode="floor") * 8
+    ox = torch.div(_window_origin(xs, pads, w_arr, window), 8,
+                   rounding_mode="floor") * 8
 
     wy = _axis_weights(ys, h_arr, pads, oy, window)
     wx = _axis_weights(xs, w_arr, pads, ox, window)

@@ -70,13 +70,23 @@ def _check(what, a, b, valid=None):
 
 
 def _out_fits(what, ho, wo, w_max=32):
-    """Kernels 2 and 6's xcorr take outputs up to 64 wide of any height
-    (``w_max`` 64); the template gradient is held to 32x32."""
+    """Kernels 2 and 6's xcorr take outputs of any height, up to 64 wide
+    (``w_max`` 64) or of any width for a 15- or 16-wide template, whose
+    rows run in compile-time segments (``w_max`` None: SEARCH_REGION 5.5's
+    68-wide response); the template gradient is held to 32x32."""
+    if w_max is None:
+        w_max = wo
     if not (1 <= ho and 1 <= wo <= w_max) or (w_max == 32 and ho > 32):
         limit = f"up to {w_max} wide" + (" and 32 high" if w_max == 32
                                           else "")
         raise ValueError(f"{what} kernel takes outputs {limit}, got "
                          f"{ho}x{wo}")
+
+
+def _xcorr_width(template) -> int | None:
+    """The widest xcorr output the kernel takes for ``template``: any for
+    a 15- or 16-wide one (segments of 16 or 15 outputs), else 64."""
+    return None if template.shape[2] in (15, 16) else 64
 
 
 def _row_stride(nbytes: int, groups: int, width: int) -> int:
@@ -146,7 +156,7 @@ def xcorr_depthwise_masked(search: torch.Tensor, template: torch.Tensor,
     ho = search.shape[1] - template.shape[1] + 1
     wo = search.shape[2] - template.shape[2] + 1
     cuda.check_extent("xcorr", search, template, (k, ho, wo, c))
-    _out_fits("xcorr", ho, wo, 64)
+    _out_fits("xcorr", ho, wo, _xcorr_width(template))
     out = torch.empty((k, ho, wo, c), dtype=torch.float32,
                       device=search.device)
     fn = cuda.function("siammot_xcorr_masked", _ARGS_MASKED)
@@ -184,7 +194,7 @@ def xcorr_depthwise(search: torch.Tensor,
     _check("xcorr", search, template)
     ho = search.shape[1] - template.shape[1] + 1
     wo = search.shape[2] - template.shape[2] + 1
-    _out_fits("xcorr", ho, wo, 64)
+    _out_fits("xcorr", ho, wo, _xcorr_width(template))
     out = _launch("siammot_xcorr", search, template, (ho, wo))
     xcorr_depthwise.launches += 1
     return out

@@ -14,12 +14,15 @@ per frame) are kept as per-slot sums, sums of squares and sums of
 magnitudes, to hold the fixture under 1 MB.
 
 ``tests/fixtures/torch_golden_toggles.npz`` holds the same frames under
-three cuts of the configuration (:data:`CUTS`), each a path that selects
+five cuts of the configuration (:data:`CUTS`), each a path that selects
 other kernels: ``given``, the MOT17 recipe's overrides with the scene's
 public detections (:func:`given_detections`) replacing the RPN;
 ``unmasked``, ``TPU.MASKED_TRACK_KERNELS`` False (kernels 6 and 10);
 ``wide_sr``, ``SEARCH_REGION`` 5 (a 75x75 search region, a 61x61
-response, the striped decode at s_hi 976).  Its keys carry the cut's name
+response, the striped decode at s_hi 976); ``gather``,
+``TPU.POOLER_WINDOWED`` False (the exact gather pooler at the three pool
+sites); ``xla``, ``TPU.USE_PALLAS`` and ``DECODE_PALLAS`` False (the EMM
+head over every slot, the XLA decode).  Its keys carry the cut's name
 in front (``given/f0/rows/boxes``); :func:`cut` selects one.
 
 ``tests/fixtures/torch_golden_dla34_bf16.npz`` holds the default
@@ -62,6 +65,8 @@ CUTS = {
               30, "INFERENCE.USE_GIVEN_DETECTIONS", True],
     "unmasked": ["TPU.MASKED_TRACK_KERNELS", False],
     "wide_sr": ["MODEL.TRACK_HEAD.SEARCH_REGION", 5.0],
+    "gather": ["TPU.POOLER_WINDOWED", False],
+    "xla": ["TPU.USE_PALLAS", False, "TPU.DECODE_PALLAS", False],
 }
 
 
@@ -105,9 +110,10 @@ def pack(outputs, states) -> dict:
 
 
 def run(device: str = "cuda", dtype: str = "float32",
-        cut_name: str = None) -> dict:
+        cut_name: str = None, extra=()) -> dict:
     """The port over the golden frames (under the cut ``cut_name`` of
-    :data:`CUTS`, if given): :func:`pack` of its rows and states."""
+    :data:`CUTS`, if given, and the ``extra`` options after it):
+    :func:`pack` of its rows and states."""
     import torch
 
     from ..configs.defaults import get_cfg
@@ -117,7 +123,7 @@ def run(device: str = "cuda", dtype: str = "float32",
     from .weights import jax_to_torch, load_npz
 
     cfg = get_cfg()
-    cfg.merge_from_list(overrides(dtype, cut_name))
+    cfg.merge_from_list(overrides(dtype, cut_name) + list(extra))
     model = SiamMOT(cfg, device=device)
     net = model.cast_params(jax_to_torch(load_npz(WEIGHTS)))
     state = model.empty_state()
@@ -135,9 +141,10 @@ def run(device: str = "cuda", dtype: str = "float32",
 
 
 def decode_races(device: str = "cuda", dtype: str = "float32",
-                 cut_name: str = None, n: int = 3) -> list:
+                 cut_name: str = None, n: int = 3, extra=()) -> list:
     """The ``n`` closest races of the decode's argmax over the golden
-    frames (under the cut ``cut_name``), closest first: for each frame and
+    frames (under the cut ``cut_name`` and the ``extra`` options, as
+    :func:`run`), closest first: for each frame and
     decoded slot, p_conf's best and second-best cells
     (``ops/decode.py:penalized_confidence`` over the decode's own inputs)
     and their gap in ulps of the best.  A gap of 0 is an exact tie, which
@@ -146,13 +153,17 @@ def decode_races(device: str = "cuda", dtype: str = "float32",
     import torch
 
     from ..models import emm as emm_mod
-    from ..ops.decode import penalized_confidence
+    from ..ops.decode import STRIPED_MAX, penalized_confidence
 
     races, calls = [], []
     inner = emm_mod.decode_argmax
 
     def wrapped(x4, wh, u, window, valid, sigma, use_c, *rest):
-        slots = (valid.nonzero()[:, 0] if valid is not None
+        # the XLA decode (rest: stripe, xla) and the decode past s_hi
+        # 1024 read every slot
+        every = valid is None or (len(rest) > 1 and rest[1]) \
+            or u.shape[0] > STRIPED_MAX
+        slots = (valid.nonzero()[:, 0] if not every
                  else torch.arange(x4.shape[0], device=x4.device))
         frame = len(calls)
         calls.append(len(slots))
@@ -173,7 +184,7 @@ def decode_races(device: str = "cuda", dtype: str = "float32",
 
     emm_mod.decode_argmax = wrapped
     try:
-        run(device, dtype, cut_name)
+        run(device, dtype, cut_name, extra)
     finally:
         emm_mod.decode_argmax = inner
     return sorted(races, key=lambda r: r["ulps"])[:n]

@@ -890,3 +890,101 @@ def test_window_pool_bwd_kernel_unstaged_rois(dev):
         got, window_pool_bwd_plain(up, origins, wy, wx, shape), atol=1e-4,
         rtol=1e-3)
     assert torch.equal(got, window_pool_bwd(up, origins, wy, wx, shape))
+
+
+@pytest.mark.parametrize("live", [0, 1, 37, 128])
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_xcorr_past_64_wide(dev, live, dtype):
+    """Kernels 2 and 6 at SEARCH_REGION 5.5's 82x82 x 15x15 -> 68x68 (five
+    16-wide segments a row, the last one past the output): against the
+    plain version, dead slots zero, live slots bitwise kernel 6's."""
+    g = torch.Generator().manual_seed(68 + live)
+    k = 128
+    search = torch.randn(k, 82, 82, 128, generator=g).to(dev, dtype)
+    tmpl = (0.1 * torch.randn(k, 15, 15, 128, generator=g)).to(dev, dtype)
+    valid = torch.zeros(k, dtype=torch.bool)
+    valid[torch.randperm(k, generator=g)[:live]] = True
+    valid = valid.to(dev)
+    got = xcorr_depthwise_masked(search, tmpl, valid)
+    assert got.shape == (k, 68, 68, 128) and (got[~valid] == 0).all()
+    torch.testing.assert_close(got, xcorr_depthwise_plain(search, tmpl, valid),
+                               atol=1e-4, rtol=1e-3)
+    assert torch.equal(got[valid], xcorr_depthwise(search, tmpl)[valid])
+
+
+def _roi_table(g, dev, dtype, c, images=2):
+    from siammot_tpu_torch.ops.roi_align import level_table
+    return level_table([torch.randn(images, 48 // 2 ** i, 80 // 2 ** i, c,
+                                    generator=g).to(dev, dtype)
+                        for i in range(4)], SCALES)
+
+
+def _roi_args(g, table, n, o, pad, valid):
+    """``roi_align_fwd``'s arguments for n ROIs over a 320x192 frame
+    (padded coordinates where ``pad``), some past the map's edges."""
+    dev = table.table.device
+    sz = 4 + 150 * torch.rand(n, 2, generator=g)
+    xy = torch.rand(n, 2, generator=g) * 340 - 10 + pad
+    rois = torch.cat([xy, xy + sz], 1)
+    img = torch.randint(0, table.images, (n,), generator=g)
+    levels = map_rois_to_levels(rois - pad, 2, 5)
+    geom, scale = table.geometry(img.to(dev), levels.to(dev), pad)
+    return (table.table, rois.to(dev), geom, scale, o, 2,
+            None if valid is None else valid.to(dev))
+
+
+_ROI_ATOL = {_F32: 1e-5, _BF16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("o,pad", [(7, 0), (15, 0), (30, 512), (35, 256)])
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("live", ["some", "none", "null"])
+@pytest.mark.parametrize("c", [128, 20])
+def test_roi_align_kernel_sites(dev, o, pad, dtype, live, c):
+    """The gather pooler's forward at each site's size and pad: against
+    the plain version within 1e-5 (f32) or one bf16 ulp (2^-7) of the
+    output's scale; rows not ``valid`` exactly zero."""
+    from siammot_tpu_torch.ops.roi_align import roi_align_fwd, roi_align_plain
+    g = torch.Generator().manual_seed(o * 7 + pad + c)
+    n = 48
+    valid = {"some": torch.rand(n, generator=g) < 0.6,
+             "none": torch.zeros(n, dtype=torch.bool), "null": None}[live]
+    args = _roi_args(g, _roi_table(g, dev, dtype, c), n, o, pad, valid)
+    got = roi_align_fwd(*args)
+    want = roi_align_plain(*args)
+    assert got.dtype == dtype and got.shape == (n, o, o, c)
+    if valid is not None:
+        assert (got[~args[6]] == 0).all()
+    scale = float(want.float().abs().max()) if live != "none" else 1.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_ROI_ATOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("o,pad", [(7, 0), (35, 256)])
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_roi_align_bwd_kernel(dev, o, pad, dtype):
+    """The gather pooler's backward (atomic f32 adds) against its plain
+    version within 1e-4 of the gradient's scale, and the autograd
+    Function's gradient in the maps against autograd through the plain
+    forward in f32."""
+    from siammot_tpu_torch.ops.roi_align import (roi_align_bwd,
+                                                 roi_align_bwd_plain,
+                                                 roi_align_plain,
+                                                 roi_align_rows)
+    g = torch.Generator().manual_seed(o + pad)
+    n = 64
+    table = _roi_table(g, dev, dtype, 128)
+    args = _roi_args(g, table, n, o, pad, None)
+    up = torch.randn(n, o, o, 128, generator=g).to(dev, dtype)
+    bargs = (up, *args[1:4], tuple(table.table.shape), o, 2)
+    got = roi_align_bwd(*bargs)
+    want = roi_align_bwd_plain(*bargs)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    if dtype == _F32:
+        t = table.table.clone().requires_grad_(True)
+        roi_align_rows(t, *args[1:6]).backward(up)
+        t2 = table.table.clone().requires_grad_(True)
+        roi_align_plain(t2, *args[1:6]).backward(up)
+        torch.testing.assert_close(t.grad, t2.grad, rtol=0,
+                                   atol=1e-4 * float(t2.grad.abs().max()))

@@ -119,11 +119,19 @@ def test_striped_plain_ties_and_nan_keep_the_first():
 
 
 def test_stripe_must_divide_the_map():
+    """A stripe must divide s_hi.  Past s_hi 1024 (s 65 -> 1040) the
+    dispatch takes the XLA decode over every slot, as JAX does, where it
+    raised before the XLA form was ported; a stripe given there must
+    still divide the map."""
     x4, wh, u, window, valid = _inputs(1, 16, 4)
     with pytest.raises(ValueError):
         emm_decode_striped(*_t(x4, wh, u, window, valid), 0.4, True, 48)
+    args = _t(*_inputs(2, 65, 5)[:4], None)
+    got = decode_argmax(*args, 0.4, True)
+    want = emm_decode_plain(*args, 0.4, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError):
-        decode_argmax(*_t(*_inputs(1, 65, 5)[:4], None), 0.4, True)
+        decode_argmax(*args, 0.4, True, 48)
 
 
 def test_decode_bands_cover_the_map():

@@ -45,9 +45,10 @@ from siammot_tpu.ops.deform_conv import deform_conv2d as jax_deform_conv2d
 from siammot_tpu_torch.configs.defaults import dla_dcn_overrides, get_cfg
 from siammot_tpu_torch.core.structures import Boxes
 from siammot_tpu_torch.models.siammot import SiamMOT
-from siammot_tpu_torch.ops.deform_conv import (deform_conv2d,
+from siammot_tpu_torch.ops.deform_conv import (_taps, deform_conv2d,
                                                deform_conv2d_plain,
                                                deform_conv2d_vjp, in_window,
+                                               sample_plain,
                                                window_route_possible)
 from siammot_tpu_torch.utils.weights import jax_to_torch
 from torch_port_util import (MINI, flatten_params, random_flax_params,
@@ -56,6 +57,10 @@ from torch_port_util import (MINI, flatten_params, random_flax_params,
 F32_TOL = 1e-5
 BF16_TOL = {"x": 2.0 ** -5, "offsets": 2.0 ** -5, "kernel": 2.0 ** -9}
 BF16_MEAN_TOL = 2.0 ** -9
+# the bf16 offsets' gradient against the exact VJP, of its scale: one
+# rounding of the result and of the upstream gradient (measured 3.0e-3;
+# 9.7e-3 while the corner weights' derivatives were bf16)
+EXACT_OFFSETS_TOL = 5e-3
 LOSS_RTOL, GRAD_REL, GRAD_FLOOR = 1e-4, 1e-3, 1e-8
 
 # (H, W, C, Co, stride, offset scale, forward route), as
@@ -144,6 +149,48 @@ def test_deform_vjp_matches_jax(case, dtype):
                 (name, err.max() / scale)
             assert err.mean() <= BF16_MEAN_TOL * scale, \
                 (name, err.mean() / scale)
+
+
+def _vjp_f64(x, off, k, g, stride):
+    """Route B's VJP in f64 at the coordinates bf16 rounds to."""
+    b, ho, wo = off.shape[:3]
+    c, co = k.shape[2:]
+    gy, gx = _taps(b, ho, wo, stride, 1, x.device)
+    o = off.reshape(b, ho, wo, 9, 2)
+    oy = (gy.to(off.dtype) + o[..., 0]).double() - gy.double()
+    ox = (gx.to(off.dtype) + o[..., 1]).double() - gx.double()
+    leaves = [x.double().requires_grad_(),
+              torch.stack([oy, ox], -1).reshape(b, ho, wo,
+                                                18).requires_grad_(),
+              k.double().requires_grad_()]
+    s = sample_plain(leaves[0], leaves[1], stride, 1, False)
+    out = s.reshape(-1, 9 * c) @ leaves[2].reshape(9 * c, co)
+    return torch.autograd.grad(out, leaves, g.double().reshape(-1, co))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_offset_gradient_on_positive_features_is_near_exact(stride):
+    """Post-ReLU features share a large positive mean, so the offsets'
+    gradient is a small difference of the four corners' large terms.
+    Rounding each term to bf16 left errors near 1e-2 of its scale here
+    (3.3e-2 on a DLA-102 training step on the card); the weights'
+    derivatives in f32 leave one rounding."""
+    rng = np.random.RandomState(3)
+    h, w, c, co = 24, 40, 128, 64
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.from_numpy(np.maximum(rng.randn(2, h, w, c) + 6.0, 0)
+                         .astype(np.float32)).bfloat16()
+    off = torch.from_numpy((rng.randn(2, ho, wo, 18) * 1.5)
+                           .astype(np.float32)).bfloat16()
+    k = torch.from_numpy((rng.randn(3, 3, c, co) / np.sqrt(9 * c))
+                         .astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.randn(2, ho, wo, co)
+                         .astype(np.float32)).bfloat16()
+    got = deform_conv2d_vjp(x, off, k, g, stride)
+    want = _vjp_f64(x, off, k, g, stride)
+    scale = float(want[1].abs().max())
+    err = float((got[1].double() - want[1]).abs().max())
+    assert err <= EXACT_OFFSETS_TOL * scale, err / scale
 
 
 def test_vjp_skips_inputs_not_asked_for():

@@ -16,9 +16,11 @@ box errors within 8 px and scores within 5e-2 (measured on the CPU: 4.6
 px and 1.1e-2).
 
 ``tests/fixtures/torch_golden_toggles.npz`` holds the JAX step's rows for
-the same frames under three cuts of the configuration (``golden.CUTS``:
+the same frames under five cuts of the configuration (``golden.CUTS``:
 given public detections with the MOT17 recipe's overrides,
-``TPU.MASKED_TRACK_KERNELS`` False, ``SEARCH_REGION`` 5), written by
+``TPU.MASKED_TRACK_KERNELS`` False, ``SEARCH_REGION`` 5,
+``TPU.POOLER_WINDOWED`` False, ``TPU.USE_PALLAS`` and ``DECODE_PALLAS``
+False), written by
 ``tests/torch_port_golden.py --toggles``.  The port's f32 CPU path must
 match each with the tolerances above; every state lane is compared over
 all K slots, dead ones included (the unmasked route's dead slots feed
@@ -47,6 +49,19 @@ from siammot_tpu_torch.utils import golden
 
 BF16_BOX = 8.0
 BF16_SCORE = 5e-2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two CPU threads for the port's f32 and bf16 DLA-34 runs here, as
+    ``tests/test_torch_dataset.py`` pins them: the suite runs several
+    files at once on one machine, where a thread a core in every process
+    oversubscribes it."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

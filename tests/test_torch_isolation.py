@@ -11,8 +11,10 @@ batch (``utils/synth.train_batches``), the samplers (``core/matcher``,
 iterations of ``engine/trainer.do_train``, then a frame and a training
 step (stem and layer1 frozen, the trunk recomputed in the backward) of a
 narrow ResNet-50 body; the MOT17 public-detection
-recipe is read without ``yaml`` and tracks a given-detection frame, and
-a ``TPU.MASKED_TRACK_KERNELS`` False frame runs; and the dataset path: a
+recipe is read without ``yaml`` and tracks a given-detection frame, a
+``TPU.MASKED_TRACK_KERNELS`` False frame runs, and so do two frames and
+a training step with the exact gather pooler (``TPU.POOLER_WINDOWED``
+and ``TRAIN_POOLER_WINDOWED`` False); and the dataset path: a
 tiny MOT-layout sequence (rendered with ``cv2`` before the block) is
 ingested, tracked by ``DatasetInference`` and evaluated, then run again
 through ``tools/test_net``'s main function in public-detection mode from
@@ -146,6 +148,13 @@ SCRIPT = textwrap.dedent("""
                         (128, 96))
     assert all(o["valid"].any() for o in ures.outputs)
     assert np.isfinite(ures.outputs[1]["boxes"]).all()
+    # the exact gather pooler at inference (TPU.POOLER_WINDOWED False)
+    wcfg = cfg.clone()
+    wcfg.merge_from_list(["TPU.POOLER_WINDOWED", False])
+    wres = track_frames(SiamMOT(wcfg, device="cpu"), params, frames,
+                        (128, 96))
+    assert all(o["valid"].any() for o in wres.outputs)
+    assert np.isfinite(wres.outputs[1]["boxes"]).all()
 
     # the dataset path over the sequence rendered before the block:
     # ingestion, DatasetInference with CLEAR-MOT, then test_net's main
@@ -228,6 +237,20 @@ SCRIPT = textwrap.dedent("""
                    tensorboard_writer=lambda it, m: seen.append(m))
     assert log.iteration == 2 and opt.count == 2 and len(seen) == 2
     assert all(np.isfinite(v) for m in seen for v in m.values()), seen
+    # one training step with the exact gather pooler
+    # (TPU.TRAIN_POOLER_WINDOWED False)
+    gcfg = cfg.clone()
+    gcfg.merge_from_list(["TPU.TRAIN_POOLER_WINDOWED", False])
+    gmodel = SiamMOT(gcfg, device="cpu")
+    gnet = gmodel.build_master(params)
+    gopt = make_optimizer(gcfg, gnet)
+    gseen = []
+    glog = do_train(gmodel, build_train_step(gmodel, gopt), gnet, gopt,
+                    iter([(small, sgt, torch.tensor([[96, 64]] * 2))]),
+                    None, max_iter=1, checkpoint_period=10, log_period=1,
+                    tensorboard_writer=lambda it, m: gseen.append(m))
+    assert glog.iteration == 1 and len(gseen) == 1
+    assert all(np.isfinite(v) for v in gseen[0].values()), gseen
 
     # a narrow ResNet-50 body: a frame, then a training step with the stem
     # and layer1 frozen (FREEZE_CONV_BODY_AT 2) and the trunk recomputed

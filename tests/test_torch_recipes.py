@@ -7,8 +7,9 @@
   seeded entities, exactly; ``resize_dims`` against the JAX package's.
 - The AOT recipe builds, tracks two frames of a DLA-MINI body like the
   JAX step (rows exactly as ``test_torch_slice.py`` holds them: masks,
-  ids and labels exact, boxes to 1e-3 px, scores to 1e-4), and its
-  training step still raises for ``TRAIN_POOLER_WINDOWED`` False.
+  ids and labels exact, boxes to 1e-3 px, scores to 1e-4), and takes a
+  training step with ``TRAIN_POOLER_WINDOWED`` False (the exact gather
+  pooler) with finite losses and gradients.
 - ``track_frames`` raises when the recipe asks for given detections and
   none are passed; ``utils/golden.run`` defaults to the card.
 """
@@ -32,6 +33,8 @@ from siammot_tpu.utils import entities as jax_entities
 from siammot_tpu.core.structures import Boxes as JaxBoxes
 from siammot_tpu_torch.configs.defaults import get_cfg, resize_dims
 from siammot_tpu_torch.configs.node import YamlSubsetError, read_yaml
+from siammot_tpu_torch.core.matcher import uniform_draws
+from siammot_tpu_torch.core.structures import Boxes
 from siammot_tpu_torch.engine.inferencer import track_frames
 from siammot_tpu_torch.models.siammot import SiamMOT
 from siammot_tpu_torch.utils import entities, golden
@@ -167,12 +170,27 @@ def test_aot_recipe_tracks_like_the_jax_step():
                                    rtol=0, atol=1e-3)
         np.testing.assert_allclose(g["scores"][v], np.asarray(w.scores)[v],
                                    rtol=0, atol=1e-4)
-    with pytest.raises(ValueError, match="TRAIN_POOLER_WINDOWED"):
-        model.build_master(params)
-    with pytest.raises(ValueError, match="TRAIN_POOLER_WINDOWED"):
-        model.forward_train(None, None, torch.zeros(2, H, W, 3,
-                                                    dtype=torch.uint8),
-                            None)
+    # and it trains with the exact gather pooler: one step of the recipe
+    # (16 box-head samples and 8 track pairs an image, to stay small)
+    cfg.merge_from_list(["MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 16,
+                         "MODEL.TRACK_HEAD.PROPOSAL_PER_IMAGE", 8])
+    model = SiamMOT(cfg, device="cpu")
+    net = model.build_master(params)
+    boxes = torch.tensor([[20.0, 30.0, 60.0, 90.0], [80.0, 20.0, 120.0,
+                                                      60.0]])
+    gt = Boxes(boxes=torch.stack([boxes, boxes + 3.0]),
+               scores=torch.ones(2, 2),
+               ids=torch.tensor([[0, 1], [0, 1]], dtype=torch.int32),
+               labels=torch.ones(2, 2, dtype=torch.int32),
+               valid=torch.ones(2, 2, dtype=torch.bool))
+    losses = model.forward_train(net, uniform_draws("cpu", 0),
+                                 torch.from_numpy(np.concatenate(frames)),
+                                 gt, (W, H))
+    assert len(losses) == 7
+    assert all(np.isfinite(v.item()) for v in losses.values()), losses
+    sum(losses.values()).backward()
+    assert all(p.grad is None or torch.isfinite(p.grad).all()
+               for p in net.parameters())
 
 
 def test_given_recipe_needs_detections():

@@ -13,7 +13,8 @@ first frames at 320x576.  Takes a few minutes.  ``--toggles`` writes
 ``tests/fixtures/torch_golden_toggles.npz`` instead: the same frames
 under each cut of ``golden.CUTS`` (given public detections with the
 MOT17 recipe's overrides, ``TPU.MASKED_TRACK_KERNELS`` False,
-``SEARCH_REGION`` 5), each cut's keys prefixed with its name.
+``SEARCH_REGION`` 5, ``TPU.POOLER_WINDOWED`` False, ``TPU.USE_PALLAS``
+and ``DECODE_PALLAS`` False), each cut's keys prefixed with its name.
 ``--bf16`` writes ``tests/fixtures/torch_golden_dla34_bf16.npz``: the
 default configuration's frames with ``TPU.COMPUTE_DTYPE`` and
 ``TPU.POOLER_DTYPE`` bfloat16, the yardstick of the port's bf16 frame.
