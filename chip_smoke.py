@@ -218,6 +218,33 @@ Phases, each printed as it finishes:
      frames' closest argmax races there.  The f32 gather and XLA-form
      cuts are held to the JAX rows in 3c.
 
+  12. several devices and the DCN forms: (12a) ``tools/train_net``
+     under ``torch.distributed.run --standalone --nproc-per-node 2``,
+     both ranks on the one card over gloo (NCCL refuses two ranks on one
+     GPU; each rank is this script's ``--ddp-rank`` mode around
+     ``train_net``'s main function): the SYNMOT_HARD recipe from the bench
+     weights over the training fixture, 1 clip a rank, 6 iterations with a
+     checkpoint at 3: the ranks' parameter fingerprints equal after every
+     step, losses finite and equal, rank 0 alone saving, kernels 1, 7 and
+     6 launched per step a rank as in phase 9, s/it beside 9a's (not a
+     speed-up: one card); then a resume from 3 whose loader batches hash
+     to the first call's; (12b) one rank over NCCL for 4 iterations, its
+     first iteration's losses within 1e-3 of two runs without a group
+     (one in a process of its own), the later ones printed beside
+     theirs; (12c) the
+     multi-stream step with ``devices=["cuda:0", "cuda:0"]``, four 720p
+     streams on the bench weights in f32, every lane against the
+     single-device step at ``utils/golden.py``'s tolerances, kernels 1-4
+     counted (once a device) on the last step and checked on the last
+     step of the same run in bf16, as 8a checks them; (12d)
+     DLA-102-DCN-FPN at 720p on phase 5's seeded weights under each
+     ``SIAMMOT_DCN_IMPL`` form (``pallas``, ``gather4``, ``patch``,
+     ``shiftwin``): 4 f32 frames against the ``pallas`` frames at the
+     golden tolerances, one deformable layer of each kind of the last f32
+     frame against the same form on the CPU, bf16 ms/frame, and one
+     training step at 4 x 736x1280 under ``gather4`` and under
+     ``shiftwin`` with its peak memory.
+
 Each end-to-end phase sets every kernel's launch count to 0 just before
 it drives its path and reads the counts just after.
 
@@ -3142,7 +3169,7 @@ def train_net_phase(dev, report, card):
     with tempfile.TemporaryDirectory() as tmp:
         log(f"[9a] train_net: {TRAIN_NET_ITERS} iterations, checkpoints every "
             f"{TRAIN_NET_PERIOD}:")
-        out, _, digests, losses, captured, peak = train_net_run(
+        out, tlog9, digests, losses, captured, peak = train_net_run(
             dev, report, card, tmp, TRAIN_NET_ITERS, "9a")
         log("  kernels against their plain versions on the last step's "
             "inputs:")
@@ -3177,7 +3204,8 @@ def train_net_phase(dev, report, card):
             f"differ, mean {a:.4f} (mean from the crop: nvJPEG {nl:.4f}, "
             f"libjpeg {ll:.4f})" for q, (m, f, a, (nl, ll)) in gap.items()))
     log(f"  phase 9 wall time {time.perf_counter() - t0:.1f} s")
-    return dict(loader=loader, gap=gap, peak=peak)
+    return dict(loader=loader, gap=gap, peak=peak,
+                s_it=float(np.mean(tlog9.step_seconds[2:])))
 
 
 # -- phase 10: the other backbones ------------------------------------------
@@ -4213,6 +4241,780 @@ def gather_phase(dev, report, card):
     return dict(aot=aot, **inf, **xla)
 
 
+# -- phase 12: several devices and the DCN forms ----------------------------
+
+DDP_ITERS, DDP_PERIOD = 6, 3      # 12a: two ranks, a checkpoint at 3
+NCCL_ITERS = 4                    # 12b: a world of one over NCCL
+DDP_TIMEOUT = 300                 # seconds a launcher call may take
+DCN_FORMS = ("pallas", "gather4", "patch", "shiftwin")
+DCN_FORM_WARMUP, DCN_FORM_TIMED = 2, 4    # 12d: bf16 frames a form
+SHIFTWIN_WARMUP, SHIFTWIN_TIMED = 1, 2    # 12d: shiftwin's, ~1.3 s each
+DCN_FORM_F32 = 4                          # 12d: f32 frames a form
+# 12d: a form's f32 frames against pallas's, rows matched by IoU (as
+# golden.matched_gap matches them): at most 1% of the rows without a match
+# (beyond pallas's rows of zero area, which match nothing),
+# boxes and scores within utils/golden.py's tolerances.  Ids are printed,
+# not gated: with all 128 slots of the crowded scene live, last-bit
+# differences between the forms reorder near-tied new tracks (a CPU run at
+# 256x384: 2 ids swapped under patch, boxes 3.7e-4 px apart).  Each form
+# is held to kernel 9 on the same 26 layer inputs (2e-5 of the scale).
+# 12b: the first iteration's losses of the NCCL run against the run
+# without a group, relative.  The later iterations' losses are printed,
+# not gated: card training is not bitwise repeatable (atomics), and after
+# the first update a last-bit difference flips the samplers' discrete
+# choices (one card run: NCCL 2e-3 from the ungrouped run at iteration 2,
+# the two ungrouped runs 3e-4 apart; another: 1.5e-2 and 2e-4)
+NCCL_RTOL = 1e-3
+# 12a and 12b: the first step's gradients as its update applied them (each
+# trainable leaf's ``.grad`` after the all-reduce) against the same step's
+# in this process without a group, on the same batches and draws.  Leaf by
+# leaf, max |a - b| may reach UPDATE_SPREAD times the same gap between two
+# such runs (card training is not bitwise: atomics) plus UPDATE_FLOOR of
+# the leaf's largest gradient.  A wrong divide, or a gradient slice that
+# the flat buffer drops, zeroes or misplaces, moves a leaf by its whole
+# size.  (Parameter updates are no measure: after - before rounds to the
+# parameter's last bit, far above a nearly cancelling leaf's update.)  One
+# card run: gaps up to 6.5e-3 of a leaf's largest, 0.40 of the bound (12a),
+# 7.3e-3 and 0.47 (12b).
+UPDATE_SPREAD, UPDATE_FLOOR = 4.0, 1e-3
+TRAIN_KERNEL_ROWS = ("window_pool", "window_pool_bwd", "roi_align",
+                     "roi_align_bwd", "xcorr")
+
+
+def ddp_rank(argv):
+    """One rank of phase 12's ``torch.distributed.run`` (``python3
+    chip_smoke.py --ddp-rank OUT STEPS -- <train_net arguments>``):
+    ``tools/train_net``'s main function with every training kernel
+    counted, the loader's batches digested (sha256), checkpoint saves
+    counted, and after each step the losses and a fingerprint of every
+    trainable parameter (:func:`recorded_steps`); then each training
+    kernel held to its plain version on the last step's inputs
+    (:func:`check_train_kernels`, which raises past its bound), and, for
+    a run from iteration 1, rank 0's first gradients held to the same
+    step's without a group in this process (:func:`reference_check`).
+    Written to ``OUT/rank<r>.json``."""
+    t_entry = time.time()
+    out_dir, steps = argv[0], int(argv[1])
+    args = argv[argv.index("--") + 1:]
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    with open(os.path.join(out_dir, f"rank{rank}.pid"), "w") as f:
+        f.write(str(os.getpid()))
+    from siammot_tpu_torch.tools import train_net
+    from siammot_tpu_torch.utils.checkpoint import Checkpointer
+
+    losses, fingerprints, saves, digests, first = [], [], [], {}, {}
+    orig_save = Checkpointer.save
+
+    def save(self, iteration, *a, **kw):
+        saves.append([iteration, kw.get("tag")])
+        return orig_save(self, iteration, *a, **kw)
+
+    Checkpointer.save = save
+    try:
+        with quiet_console(), digesting_loader(digests), \
+                recorded_steps(losses, fingerprints, first), \
+                train_kernel_capture(steps) as (captured, launches):
+            torch.cuda.reset_peak_memory_stats()
+            t_main = time.time()
+            run_dir, tlog = train_net.main(args)
+            torch.cuda.synchronize()
+            t_done = time.time()
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        Checkpointer.save = orig_save
+    from_start = 1 in digests
+    if from_start:     # rank 0's reference needs every rank's first batch
+        path = os.path.join(out_dir, f"rank{rank}_first.pt")
+        torch.save(first["inputs"], path + ".tmp")
+        os.replace(path + ".tmp", path)
+    rows = {n: {"max_abs_err": 0.0} for n in TRAIN_KERNEL_ROWS}
+    check_train_kernels(captured, rows, f"ddp rank {rank}")
+    t_checked = time.time()
+    grads = reference_check(out_dir, world, args, first["grads"]) \
+        if from_start and rank == 0 else None
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(
+            rank=rank, world=world, run_dir=run_dir,
+            device=str(torch.cuda.current_device()),
+            iteration=tlog.iteration, step_seconds=tlog.step_seconds,
+            fingerprints=[hashlib.sha256(t.cpu().numpy().tobytes())
+                          .hexdigest() for t in fingerprints],
+            losses=[{k: float(v) for k, v in m.items()} for m in losses],
+            digests=digests, saves=saves, launches=launches, peak=peak,
+            kernel_errs={n: r["max_abs_err"] for n, r in rows.items()},
+            grads=grads, times=dict(entry=t_entry, main=t_main, done=t_done,
+                                    checked=t_checked,
+                                    referenced=time.time())), f)
+
+
+def start_launcher(nproc, steps, args, what):
+    """Start ``torch.distributed.run --standalone --nproc-per-node nproc``
+    of :func:`ddp_rank` in a session of its own, its output to a file;
+    returns the handle :func:`finish_launcher` reads.  Two launchers may
+    run at once (each rendezvous takes a free port)."""
+    out_dir = tempfile.mkdtemp(prefix="ddp-")
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--standalone", "--nproc-per-node", str(nproc),
+           os.path.abspath(__file__), "--ddp-rank", out_dir, str(steps),
+           "--"] + list(args)
+    t0 = time.time()
+    with open(os.path.join(out_dir, "launcher.log"), "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                cwd=REPO, start_new_session=True)
+    return dict(proc=proc, out_dir=out_dir, nproc=nproc, what=what, t0=t0)
+
+
+def kill_launcher(run):
+    """The launcher and its ranks stopped, if still running (the launcher
+    starts each rank in a session of its own, so each rank's pid file
+    names it); its files removed."""
+    import glob
+    import shutil
+    import signal
+    proc = run["proc"]
+    if proc.poll() is None:
+        proc.terminate()            # the launcher stops its ranks
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    for path in glob.glob(os.path.join(run["out_dir"], "rank*.pid")):
+        with open(path) as f:
+            pid = int(f.read())
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    shutil.rmtree(run["out_dir"], ignore_errors=True)
+
+
+def finish_launcher(run):
+    """Wait for a launcher (stopped with its ranks past ``DDP_TIMEOUT``
+    from its start) and return its ranks' records."""
+    proc, what = run["proc"], run["what"]
+    try:
+        try:
+            proc.wait(timeout=max(1.0, DDP_TIMEOUT
+                                  - (time.time() - run["t0"])))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{what}: the launcher ran past "
+                                 f"{DDP_TIMEOUT} s and was stopped with its "
+                                 f"ranks")
+        if proc.returncode != 0:
+            with open(os.path.join(run["out_dir"], "launcher.log")) as f:
+                out = f.read()
+            raise AssertionError(f"{what}: torch.distributed.run exited "
+                                 f"{proc.returncode}:\n{out[-6000:]}")
+        records = []
+        for r in range(run["nproc"]):
+            with open(os.path.join(run["out_dir"], f"rank{r}.json")) as f:
+                records.append(json.load(f))
+    finally:
+        kill_launcher(run)
+    t = {k: v - run["t0"] for k, v in records[0]["times"].items()}
+    log(f"  {what}: {run['nproc']} rank(s); rank 0, seconds from the "
+        f"launcher's start: in chip_smoke {t['entry']:.1f}, in "
+        f"train_net.main {t['main']:.1f}, out of it {t['done']:.1f} (its "
+        f"{len(records[0]['step_seconds'])} steps "
+        f"{sum(records[0]['step_seconds']):.1f} s), kernels checked "
+        f"{t['checked']:.1f}, reference done {t['referenced']:.1f}")
+    return records
+
+
+def ddp_args(train_dir, iters, period, backend=None):
+    """12a and 12b's ``train_net`` command line: phase 9a's (the
+    SYNMOT_HARD recipe from the bench weights over the training fixture,
+    2 clips a batch) on the rank's card, ``iters`` iterations; a
+    ``backend`` other than the card's default NCCL named."""
+    args = train_net_args(train_dir, torch.device("cuda"))
+    for key, value in (("SOLVER.MAX_ITER", iters),
+                       ("SOLVER.CHECKPOINT_PERIOD", period)):
+        args[args.index(key) + 1] = str(value)
+    return (["--dist-backend", backend] if backend else []) + args
+
+
+def merge_rank_checks(records, steps, report, path):
+    """Each rank launched kernels 1, 7 and 6's passes exactly as a step
+    of phase 9 does, ``steps`` times, and held them to their plain
+    versions; the counts and errors go to ``report``."""
+    for rec in records:
+        count_train_launches(rec["launches"], steps, report, path)
+        for name, err in rec["kernel_errs"].items():
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                              err)
+
+
+def reference_grads(args, batches, dev):
+    """The first step's gradients of ``train_net`` ``args`` without a
+    group and without ``engine/solver.py``'s step: the parameters
+    ``train_net`` starts from (``MODEL.WEIGHT``), batch r of ``batches``
+    (rank r's) run with rank r's iteration-1 draws
+    (``core/matcher.py:draw_seed``), the totals averaged over the batches;
+    what the all-reduced step computes, without the flat buffer, the
+    collective or its divide.  A leaf no batch reached counts zero, as the
+    optimizer counts it."""
+    import logging
+
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.core.matcher import draw_seed, uniform_draws
+    from siammot_tpu_torch.engine.solver import make_optimizer
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.tools import train_net
+
+    a = train_net.parse_args(args)
+    cfg = get_cfg()
+    cfg.merge_from_file(a.config_file)
+    cfg.merge_from_list(a.opts)
+    model = SiamMOT(cfg, device=str(dev))
+    net = model.build_master(train_net.initial_params(
+        cfg, model, logging.getLogger("chip_smoke")))
+    optimizer = make_optimizer(cfg, net)
+    static = (cfg.TPU.INPUT_WIDTH, cfg.TPU.INPUT_HEIGHT) \
+        if cfg.TPU.INPUT_HEIGHT and cfg.TPU.INPUT_WIDTH else None
+    for r, (images, gt, sizes) in enumerate(batches):
+        losses = model.forward_train(
+            net, uniform_draws(dev, draw_seed(0, 1, r)), images.to(dev),
+            gt.map(lambda v: v.to(dev)), static,
+            None if sizes is None else sizes.to(dev))
+        (sum(losses.values()) / len(batches)).backward()
+    return [torch.zeros_like(p).cpu() if p.grad is None else p.grad.cpu()
+            for g in optimizer.sgd.param_groups for p in g["params"]]
+
+
+def check_grads(what, got, refs):
+    """``got`` (a first step's gradients) against ``refs[0]``, leaf by
+    leaf: max |got - ref| within UPDATE_SPREAD x max |refs[1] - refs[0]|
+    + UPDATE_FLOOR x max |ref|.  Returns the largest share of its bound a
+    leaf used, and the largest gap and spread as shares of their leaf's
+    largest gradient."""
+    if not len(got) == len(refs[0]) == len(refs[1]):
+        raise AssertionError(f"{what}: {len(got)} gradient leaves against "
+                             f"{len(refs[0])}")
+    used, gap, spread = 0.0, 0.0, 0.0
+    for i, (a, r0, r1) in enumerate(zip(got, *refs)):
+        err, noise = float((a - r0).abs().max()), float((r1 - r0).abs().max())
+        scale = float(r0.abs().max())
+        bound = UPDATE_SPREAD * noise + UPDATE_FLOOR * scale
+        if not err <= bound:
+            raise AssertionError(
+                f"{what}: the first step's gradient leaf {i} "
+                f"{tuple(a.shape)} is {err:.3g} from the reference's "
+                f"(largest {scale:.3g}; two reference runs {noise:.3g} "
+                f"apart; bound {bound:.3g})")
+        used = max(used, err / bound if bound else 0.0)
+        if scale:
+            gap, spread = max(gap, err / scale), max(spread, noise / scale)
+    return used, gap, spread
+
+
+def reference_check(out_dir, world, args, grads):
+    """Rank 0, after a run from iteration 1: its first all-reduced
+    gradients against :func:`reference_grads` on every rank's first batch
+    (waiting for the other ranks' files), run twice in this process, so
+    that both sides take the same convolution algorithms; raises past
+    :func:`check_grads`'s bound, else returns its numbers."""
+    from siammot_tpu_torch.parallel.mesh import rank_device
+    from siammot_tpu_torch.tools import train_net
+    paths = [os.path.join(out_dir, f"rank{r}_first.pt")
+             for r in range(world)]
+    t0 = time.time()
+    while not all(os.path.exists(p) for p in paths):
+        if time.time() - t0 > 120:
+            raise AssertionError("rank 0: the other ranks' first batches "
+                                 "did not arrive")
+        time.sleep(0.2)
+    batches = [torch.load(p, weights_only=False) for p in paths]
+    dev = rank_device(train_net.parse_args(args).device,
+                      int(os.environ.get("LOCAL_RANK", 0)))
+    refs = [reference_grads(args, batches, dev) for _ in range(2)]
+    used, gap, spread = check_grads(f"rank 0 of {world}", grads, refs)
+    return dict(used=used, gap=gap, spread=spread)
+
+
+def grads_line(rec):
+    g = rec["grads"]
+    return (f"at most {g['gap']:.3g} of a leaf's largest (two runs without "
+            f"a group up to {g['spread']:.3g} apart), {g['used']:.3g} of "
+            f"the bound at most")
+
+
+def ddp_first_call(report, card, s_it_9a, args):
+    """12a's first call: two ranks of ``tools/train_net`` on the one card
+    over gloo (NCCL refuses two ranks on one GPU), 6 iterations with a
+    checkpoint at 3, alone on the card (its s/it is printed)."""
+    first = finish_launcher(start_launcher(2, DDP_ITERS, args,
+                                           "12a first call"))
+    r0, r1 = first
+    for rec in first:
+        if rec["iteration"] != DDP_ITERS or len(rec["losses"]) != DDP_ITERS:
+            raise AssertionError(f"12a rank {rec['rank']}: ran to "
+                                 f"{rec['iteration']}")
+        if not all(np.isfinite(v) for m in rec["losses"]
+                   for v in m.values()):
+            raise AssertionError(f"12a rank {rec['rank']}: losses "
+                                 f"{rec['losses']}")
+    if r0["fingerprints"] != r1["fingerprints"]:
+        bad = [i + 1 for i, (a, b) in enumerate(zip(
+            r0["fingerprints"], r1["fingerprints"])) if a != b]
+        raise AssertionError(f"12a: the ranks' parameters differ after "
+                             f"steps {bad}")
+    if r0["losses"] != r1["losses"]:
+        raise AssertionError("12a: the ranks' averaged losses differ")
+    want = [[DDP_PERIOD, None], [DDP_ITERS, None], [DDP_ITERS, None],
+            [DDP_ITERS, "model_final"]]
+    if r0["saves"] != want or r1["saves"]:
+        raise AssertionError(f"12a: saves rank 0 {r0['saves']}, rank 1 "
+                             f"{r1['saves']}")
+    tb = os.listdir(os.path.join(r0["run_dir"], "tb"))
+    if len(tb) != 1:
+        raise AssertionError(f"12a: event files {tb}")
+    if r0["grads"] is None:
+        raise AssertionError("12a: rank 0 checked no first gradients")
+    merge_rank_checks(first, DDP_ITERS, report, "ddp")
+    sec = np.array(r0["step_seconds"][2:])
+    log(f"  12a: 2 ranks x {DDP_ITERS} steps, 1 clip a rank: the ranks' "
+        f"parameter fingerprints equal after each of the {DDP_ITERS} "
+        f"steps, losses finite and equal; rank 0 alone saved "
+        f"{len(r0['saves'])} times, one event file; launches a rank "
+        f"{r0['launches']}, each kernel within its bound of its plain "
+        f"version on each rank's last step ({r0['kernel_errs']}, "
+        f"{r1['kernel_errs']}); peak memory a rank "
+        f"{r0['peak'] / 2 ** 30:.3f} / {r1['peak'] / 2 ** 30:.3f} GiB")
+    log(f"  12a: the first all-reduced gradients against one process's on "
+        f"the same two clips and rank draws: {grads_line(r0)}")
+    log(f"  12a: {sec.mean():.4f} s/it (median {np.median(sec):.4f}, "
+        f"after 2) against phase 9a's one process {s_it_9a:.4f} s/it: "
+        f"both ranks share one card, so this is not a speed-up ({card})")
+    return first, dict(s_it=float(sec.mean()), s_it_9a=s_it_9a,
+                       peak=max(r0["peak"], r1["peak"]))
+
+
+def ddp_resume_check(first, resumed, report):
+    """12a's resume from 3: the loader's batches hash to the first call's,
+    the ranks' parameters stay equal."""
+    for old, new in zip(first, resumed):
+        its = [str(i) for i in range(DDP_PERIOD + 1, DDP_ITERS + 1)]
+        if sorted(new["digests"]) != its or any(
+                new["digests"][i] != old["digests"][i] for i in its):
+            raise AssertionError(f"12a resume rank {new['rank']}: loader "
+                                 f"batches {sorted(new['digests'])} do not "
+                                 f"hash to the first call's")
+    if resumed[0]["fingerprints"] != resumed[1]["fingerprints"]:
+        raise AssertionError("12a resume: the ranks' parameters differ")
+    merge_rank_checks(resumed, DDP_ITERS - DDP_PERIOD, report, "ddp")
+    log(f"  12a resume: iterations {DDP_PERIOD + 1}-{DDP_ITERS} on both "
+        f"ranks, loader batches hash to the first call's, parameter "
+        f"fingerprints equal, kernels within their bounds "
+        f"({resumed[0]['kernel_errs']}); losses at {DDP_ITERS}: first "
+        f"{first[0]['losses'][-1]['loss']:.4f}, resumed "
+        f"{resumed[0]['losses'][-1]['loss']:.4f} (not gated: card "
+        f"training is not bitwise)")
+
+
+@contextlib.contextmanager
+def recorded_steps(losses, fingerprints=None, first=None):
+    """After each step of ``engine/solver.py``'s step (``train_net``
+    builds it, alone or inside ``parallel/mesh.py``'s), its metrics
+    appended to ``losses`` and, with ``fingerprints``, the int64 sum of
+    every trainable parameter's bits, on the device; with ``first``, the
+    first step's batch (``inputs``: images, gt, sizes) and the gradients
+    its update applied (``grads``: each trainable leaf's, all-reduced
+    under a group), on the host."""
+    import siammot_tpu_torch.engine.solver as solver_mod
+    orig = solver_mod.build_train_step
+
+    def build(model, optimizer, *a, **kw):
+        step = orig(model, optimizer, *a, **kw)
+        params = [p for g in optimizer.sgd.param_groups for p in g["params"]]
+
+        def recorded(*b):
+            metrics = step(*b)
+            if first is not None and not losses:
+                _, images, gt, sizes, _ = b
+                first.update(
+                    inputs=(images.cpu(), gt.map(lambda v: v.cpu()),
+                            None if sizes is None else sizes.cpu()),
+                    grads=[p.grad.cpu() for p in params])
+            losses.append(dict(metrics))
+            if fingerprints is not None:
+                fingerprints.append(torch.stack([
+                    p.detach().view(torch.int32).sum(dtype=torch.int64)
+                    for p in params]))
+            return metrics
+        return recorded
+
+    solver_mod.build_train_step = build
+    try:
+        yield
+    finally:
+        solver_mod.build_train_step = orig
+
+
+def nccl_check(rec, here, report, card):
+    """12b: one rank over NCCL (the card's default backend; the launcher's
+    ``WORLD_SIZE`` sets the group up, a world of one) for 4 iterations,
+    against the same iterations in this process without a group (``here``:
+    their losses).  The first iteration's losses (the same weights, batch
+    and draws: what the group could get wrong, its shard, its seed or its
+    state) must agree to ``NCCL_RTOL``, and the rank's first gradients,
+    through NCCL's all-reduce of the flat buffer and its divide, were held
+    in the rank to the same step's without a group
+    (:func:`reference_check`); the later losses are printed (see
+    ``NCCL_RTOL``)."""
+    if rec["grads"] is None:
+        raise AssertionError("12b: the rank checked no first gradients")
+    merge_rank_checks([rec], NCCL_ITERS, report, "ddp")
+    runs = dict(nccl=rec["losses"], here=here)
+    for name, losses in runs.items():
+        if len(losses) != NCCL_ITERS or not all(
+                np.isfinite(v) for m in losses for v in m.values()):
+            raise AssertionError(f"12b {name}: losses {losses}")
+    base = here[0]
+    first = {k: abs(rec["losses"][0][k] - base[k]) / abs(base[k])
+             for k in base if base[k]}
+    if max(first.values()) > NCCL_RTOL:
+        raise AssertionError(f"12b: the first iteration's losses differ: "
+                             f"{rec['losses'][0]} against {base}")
+    gaps = [max(abs(g[k] - a[k]) / max(abs(a[k]), 1e-30) for k in a)
+            for g, a in zip(rec["losses"], here)]
+    log(f"  12b: NCCL world of 1, {NCCL_ITERS} iterations: iteration 1's "
+        f"losses within {max(first.values()):.3g} (relative) of the "
+        f"ungrouped run's; the first all-reduced gradients against the "
+        f"same step's in the rank without a group: {grads_line(rec)}; the "
+        f"largest relative loss gap by iteration, NCCL against the "
+        f"ungrouped run: " + ", ".join(f"{g:.3g}" for g in gaps)
+        + "; total by iteration, NCCL / ungrouped: " + "; ".join(
+            f"{g['loss']:.5f} / {a['loss']:.5f}"
+            for g, a in zip(rec["losses"], here))
+        + f"; launches {rec['launches']} ({card})")
+
+
+def ddp_phase(dev, report, card, s_it_9a):
+    """12a and 12b.  The first 12a call runs alone on the card; then 12a's
+    resume and 12b's NCCL rank run as two launchers at once while this
+    process runs 12b's ungrouped reference, so their start-ups overlap."""
+    from siammot_tpu_torch.tools import train_net
+    runs = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            args = ddp_args(tmp, DDP_ITERS, DDP_PERIOD, "gloo")
+            first, ddp = ddp_first_call(report, card, s_it_9a, args)
+            t0 = time.perf_counter()
+            run_dir = first[0]["run_dir"]
+            for f in (f"model_{DDP_ITERS:07d}.pth", "model_final.pth"):
+                os.remove(os.path.join(run_dir, f))
+            runs = [start_launcher(2, DDP_ITERS - DDP_PERIOD, args,
+                                   "12a resume from 3"),
+                    start_launcher(1, NCCL_ITERS, ddp_args(
+                        os.path.join(tmp, "nccl"), NCCL_ITERS, 100),
+                        "12b NCCL, a world of 1")]
+            here = []
+            with quiet_console(), recorded_steps(here):
+                train_net.main(ddp_args(os.path.join(tmp, "here"),
+                                        NCCL_ITERS, 100))
+            here = [{k: float(v) for k, v in m.items()} for m in here]
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            resumed = finish_launcher(runs[0])
+            ddp_resume_check(first, resumed, report)
+            [rec] = finish_launcher(runs[1])
+            nccl_check(rec, here, report, card)
+            log(f"  12a resume, 12b and its ungrouped run at once: "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        for run in runs:
+            kill_launcher(run)
+    return ddp
+
+
+def sharded_streams_phase(dev, report, card):
+    """12c: the multi-stream step with ``devices=["cuda:0", "cuda:0"]``:
+    MS_LANES 720p streams of the bench weights in f32 for MS_FRAMES
+    frames, two lanes a device, against the single-device step at
+    ``utils/golden.py``'s tolerances; kernels 1-4 counted on the last
+    step (once a device), and checked against their plain versions on the
+    last step of the same run in bf16 (8a's check)."""
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.parallel.multistream import (Sharded,
+                                                        build_multistream_step,
+                                                        empty_states)
+    from siammot_tpu_torch.utils import golden
+    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
+    scenes = ms_scenes()
+    cfg = get_cfg()
+    cfg.merge_from_list(golden.overrides("float32"))
+    model = SiamMOT(cfg, device=str(dev))
+    net = model.cast_params(jax_to_torch(load_npz(FIXTURE)))
+    devices = [str(dev), str(dev)]
+    one = build_multistream_step(model, (W, H))
+    two = build_multistream_step(model, (W, H), devices=devices)
+    s1 = empty_states(model, MS_LANES)
+    s2 = empty_states(model, MS_LANES)
+    seq, sharded, ms_step = [[] for _ in range(MS_LANES)], [], []
+    for t in range(MS_FRAMES):
+        images = torch.as_tensor(ms_batch(scenes, MS_LANES, t)).to(dev)
+        o1, s1 = one(net, images, s1)
+        o1, st1 = o1.numpy(), s1.numpy()
+        for i in range(MS_LANES):
+            seq[i].append(({k: v[i] for k, v in o1.items()},
+                           {k: v[i] for k, v in st1.items()}))
+        last = t == MS_FRAMES - 1
+        with (kernel_capture() if last else contextlib.nullcontext(
+                (None, None))) as (captured, launches):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            o2, s2 = two(net, images, s2)
+            torch.cuda.synchronize(dev)
+            ms_step.append(1e3 * (time.perf_counter() - t0))
+        sharded.append((o2.numpy(), s2.numpy()))
+    if not isinstance(s2, Sharded) or [sh.ids.device for sh in s2.shards] \
+            != [dev, dev]:
+        raise AssertionError("12c: the states are not kept as shards")
+    check_launches(launches, {k: 2 * v for k, v in MAIN_PATH.items()}, 1)
+    for name in MAIN_PATH:
+        by = report[name].setdefault("launches_by_path", {})
+        by["multistream_sharded"] = launches[name]
+        report[name]["launches"] += launches[name]
+    gap = ms_lane_gap(seq, sharded)
+    live = int((sharded[-1][1]["ids"] >= 0).sum())
+    log(f"  12c: {MS_LANES} streams over {devices}, {MS_FRAMES} f32 frames, "
+        f"{live} live slots of {MS_LANES * K}; each lane against the "
+        f"single-device step: {gap}")
+    if not gap["ok"]:
+        raise AssertionError(f"12c: sharded lanes differ from the "
+                             f"single-device step: {gap}")
+    # the kernels against their plain versions on a bf16 run's last step,
+    # as 8a checks them (the main path's dtype, whose tolerances these are)
+    cfg16 = get_cfg()
+    cfg16.merge_from_list(golden.overrides("bfloat16"))
+    model16 = SiamMOT(cfg16, device=str(dev))
+    net16 = model16.cast_params(jax_to_torch(load_npz(FIXTURE)))
+    two16 = build_multistream_step(model16, (W, H), devices=devices)
+    s16 = empty_states(model16, MS_LANES)
+    for t in range(MS_FRAMES):
+        images = torch.as_tensor(ms_batch(scenes, MS_LANES, t)).to(dev)
+        last = t == MS_FRAMES - 1
+        with (kernel_capture() if last else contextlib.nullcontext(
+                (None, None))) as (captured16, launches16):
+            _, s16 = two16(net16, images, s16)
+    check_launches(launches16, {k: 2 * v for k, v in MAIN_PATH.items()}, 1)
+    check_captured(captured16, report, "12c sharded bf16, last device's "
+                                       "shard")
+    log(f"  12c: last f32 step's launches {launches} (each kernel once a "
+        f"device); kernels 1-4 agree with their plain versions on the last "
+        f"shard's inputs of a bf16 run's last step "
+        f"({int(captured16['xcorr_masked'][0][2].sum())} live of "
+        f"{captured16['xcorr_masked'][0][2].numel()} slots); sharded f32 "
+        f"step {np.median(ms_step[1:]):.3f} ms (median after the first, "
+        f"both shards on one card: not a speed-up; {card})")
+    return dict(ms_step=float(np.median(ms_step[1:])), live=live)
+
+
+def dcn_form_frames(model, net, frames, dev, form):
+    """Frames under ``SIAMMOT_DCN_IMPL=form`` with every kernel counted:
+    (per-frame rows and state lanes as numpy, frame seconds, the launches,
+    the last frame's deformable-layer inputs)."""
+    os.environ["SIAMMOT_DCN_IMPL"] = form
+    outs, states, sec = [], [], []
+    try:
+        with kernel_capture() as (captured, launches):
+            state = model.empty_state()
+            for f in frames:
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                out, state = model.forward_inference(
+                    net, torch.as_tensor(f).to(dev), state, (W, H))
+                o, s = out.numpy(), state.numpy()
+                sec.append(time.perf_counter() - t0)
+                outs.append(o)
+                states.append(s)
+    finally:
+        del os.environ["SIAMMOT_DCN_IMPL"]
+    return outs, states, sec, launches, captured.get("deform_conv", [])
+
+
+def dcn_forms_phase(dev, report, card):
+    """12d: DLA-102-DCN-FPN at 720p on phase 5's seeded weights under each
+    ``SIAMMOT_DCN_IMPL`` form: the f32 frames against the ``pallas``
+    frames (``utils/golden.py``'s tolerances), one deformable layer of
+    each kind on the last f32 frame against the same form on the CPU,
+    bf16 ms/frame, then one DLA-102-DCN training step under ``gather4``
+    and one under ``shiftwin`` at phase 10c's size (4 x 736x1280)."""
+    from siammot_tpu_torch.configs.defaults import dla_dcn_overrides, get_cfg
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.ops.deform_conv import deform_conv2d
+    from siammot_tpu_torch.utils import golden
+    from siammot_tpu_torch.utils.synth import render_scene
+    from siammot_tpu_torch.utils.weights import seeded_params
+
+    frames = render_scene(16, HP)[0]
+    cfgs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_cfg()
+        cfg.merge_from_list(dla_dcn_overrides("DLA-102-FPN")
+                            + golden.overrides(dtype))
+        cfgs[dtype] = cfg
+    model32 = SiamMOT(cfgs["float32"], device=str(dev))
+    params, _ = seeded_params(model32, frames[0])
+    net32 = model32.cast_params(params)
+    model16 = SiamMOT(cfgs["bfloat16"], device=str(dev))
+    net16 = model16.cast_params(params)
+    packs, out = {}, {}
+    for form in DCN_FORMS:
+        outs, states, _, launches, layers = dcn_form_frames(
+            model32, net32, frames[:DCN_FORM_F32], dev, form)
+        packs[form] = golden.pack(outs, states)
+        per_frame = MAIN_PATH | ({"deform_conv": 26} if form == "pallas"
+                                 else {})
+        check_launches(launches, per_frame, DCN_FORM_F32)
+        if form == "pallas":
+            report["deform_conv"]["launches"] += launches["deform_conv"]
+            report["deform_conv"].setdefault("launches_by_path", {})[
+                "dcn_forms"] = launches["deform_conv"]
+        # one layer of each kind against the same form on the CPU
+        kinds = {}
+        for a in layers:
+            kinds.setdefault(deform_layer_kind(*a), a)
+        errs = {}
+        for kind, a in kinds.items():
+            with torch.no_grad():
+                got = deform_conv2d(*a, impl=form).float()
+                want = deform_conv2d(*[t.cpu() if torch.is_tensor(t) else t
+                                       for t in a], impl=form).float()
+            scale = float(want.abs().max())
+            err = float((got.cpu() - want).abs().max())
+            errs[kind] = err / scale
+            if err > DCN_F32_ATOL * scale:
+                raise AssertionError(f"12d {form} {kind} layer "
+                                     f"{tuple(a[0].shape)}: card against "
+                                     f"CPU {err / scale:.3g} of the scale")
+        if form == "pallas":
+            pallas_layers = layers
+        # the same 26 inputs (pallas's last f32 frame) through this form
+        layer_err = 0.0
+        with torch.no_grad():
+            for a in pallas_layers:
+                got = deform_conv2d(*a, impl=form).float()
+                want = deform_conv2d(*a, impl="pallas").float()
+                scale = float(want.abs().max())
+                layer_err = max(layer_err, float((got - want).abs().max())
+                                / scale)
+        if layer_err > DCN_F32_ATOL:
+            raise AssertionError(f"12d {form}: a deformable layer is "
+                                 f"{layer_err:.3g} of its scale from kernel "
+                                 f"9 on the same inputs")
+        warmup, timed = (SHIFTWIN_WARMUP, SHIFTWIN_TIMED) \
+            if form == "shiftwin" else (DCN_FORM_WARMUP, DCN_FORM_TIMED)
+        _, _, sec, _, _ = dcn_form_frames(
+            model16, net16, frames[:warmup + timed], dev, form)
+        sec = np.array(sec[warmup:])
+        gap = golden.compare(packs[form], packs["pallas"])
+        matched = golden.matched_gap(packs[form], packs["pallas"])
+        out[form] = dict(ms=1e3 * float(sec.mean()),
+                         ms_median=1e3 * float(np.median(sec)), gap=gap,
+                         matched=matched, layer_err=layer_err, cpu_err=errs)
+        log(f"  12d {form}: bf16 {1e3 * sec.mean():.3f} ms/frame (median "
+            f"{1e3 * np.median(sec):.3f}, {timed} after {warmup}; "
+            f"{card}); kernel-9 launches a frame "
+            f"{per_frame.get('deform_conv', 0)}; pallas's 26 layer inputs "
+            f"through this form: {layer_err:.3g} of the scale from kernel "
+            f"9; f32 frames against pallas: {gap}, rows matched by IoU: "
+            f"{matched}; last f32 frame's layers against the CPU (of the "
+            f"scale): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        # rows of zero area match nothing, not even themselves
+        lost = matched["unmatched"] + matched["extra"] - golden.matched_gap(
+            packs["pallas"], packs["pallas"])["unmatched"]
+        if lost > 0.01 * matched["rows"] \
+                or matched["box_err"] > golden.BOX_ATOL \
+                or matched["score_err"] > golden.SCORE_ATOL:
+            raise AssertionError(f"12d {form}: f32 frames differ from the "
+                                 f"pallas frames: {matched}")
+    del net32, net16
+    for form in ("gather4", "shiftwin"):
+        out[f"train_{form}"] = dcn_form_train_step(dev, form, card)
+    return out
+
+
+def dcn_form_train_step(dev, form, card):
+    """One DLA-102-DCN-FPN training step under ``form`` at 4 x 736x1280
+    (phase 10c's batch and weights, bf16 compute): every loss and every
+    gradient finite; the step's time and peak memory."""
+    import itertools
+
+    from siammot_tpu_torch.configs.defaults import dla_dcn_overrides, get_cfg
+    from siammot_tpu_torch.core.matcher import uniform_draws
+    from siammot_tpu_torch.engine.solver import (build_train_step,
+                                                 make_optimizer)
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils.synth import train_batches
+    from siammot_tpu_torch.utils.weights import seeded_params
+
+    cfg = get_cfg()
+    cfg.merge_from_list(dla_dcn_overrides("DLA-102-FPN"))
+    model = SiamMOT(cfg, device=str(dev))
+    images, gt, sizes = next(itertools.islice(
+        train_batches(7, HP, cfg.TPU.MAX_GT), 1))
+    params, _ = seeded_params(model, images[:1].numpy())
+    net = model.build_master(params)
+    optimizer = make_optimizer(cfg, net)
+    step = build_train_step(model, optimizer)
+    os.environ["SIAMMOT_DCN_IMPL"] = form
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        metrics = step(net, images.to(dev), gt.map(lambda v: v.to(dev)),
+                       sizes.to(dev), uniform_draws(dev, 1))
+        torch.cuda.synchronize(dev)
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        del os.environ["SIAMMOT_DCN_IMPL"]
+    losses = {k: float(v) for k, v in metrics.items()}
+    grads = [p.grad for p in net.parameters() if p.grad is not None]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    dcn = [p.grad for n, p in net.named_parameters()
+           if n.endswith(("conv2.kernel", "conv2.offset.weight"))]
+    if not all(np.isfinite(v) for v in losses.values()) or not finite \
+            or len(dcn) != 52 or not all(g is not None and bool(g.any())
+                                         for g in dcn):
+        raise AssertionError(f"12d {form} training step: losses {losses}, "
+                             f"gradients finite {finite}, deformable "
+                             f"gradients {len(dcn)}")
+    log(f"  12d {form} training step (4 x 736x1280, bf16 compute, the "
+        f"backward autograd through the form, recomputed a layer at a "
+        f"time): {1e3 * sec:.1f} ms including its first-call costs, peak "
+        f"{peak / 2 ** 30:.3f} GiB ({card}); losses and all {len(grads)} "
+        f"gradients finite, the 52 deformable leaves' nonzero; loss "
+        f"{losses['loss']:.4f}")
+    del net, optimizer
+    return dict(ms=1e3 * sec, peak=peak, loss=losses["loss"])
+
+
+def several_devices_phase(dev, report, card, s_it_9a):
+    """Phase 12: 12a, 12b, 12c and 12d."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    log("[12a-b] tools/train_net under torch.distributed.run: 2 ranks on "
+        "one card over gloo (12a), NCCL in a world of 1 (12b):")
+    ddp = ddp_phase(dev, report, card, s_it_9a)
+    log(f"[12a-b] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("[12c] the multi-stream step sharded over devices=[cuda:0, cuda:0]:")
+    sharded = sharded_streams_phase(dev, report, card)
+    log(f"[12c] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("[12d] SIAMMOT_DCN_IMPL: DLA-102-DCN-FPN at 720p under "
+        f"{', '.join(DCN_FORMS)}:")
+    forms = dcn_forms_phase(dev, report, card)
+    log(f"[12d] done in {time.perf_counter() - t0:.1f} s")
+    return dict(ddp=ddp, sharded=sharded, forms=forms)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4344,6 +5146,13 @@ def main():
     gather = gather_phase(dev, report, card)
     log(f"[11] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[12] several devices (12a data-parallel train_net, 12b NCCL, 12c "
+        f"the sharded multi-stream step) and the SIAMMOT_DCN_IMPL forms "
+        f"(12d) ({card}):")
+    multi = several_devices_phase(dev, report, card, trained["s_it"])
+    log(f"[12] done in {time.perf_counter() - t0:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
@@ -4390,7 +5199,15 @@ def main():
         f"{gather['windowed'][0]:.3f} / gather {gather['gather'][0]:.3f} "
         f"ms/frame, AOT gather frame {gather['aot_frame'][0]:.3f} ms, "
         f"xla {gather['xla'][0]:.3f} ms/frame, SEARCH_REGION 5.5 "
-        f"{gather['search_region_5_5'][0]:.3f} ms/frame; card {card}")
+        f"{gather['search_region_5_5'][0]:.3f} ms/frame; 2-rank train_net "
+        f"{multi['ddp']['s_it']:.4f} s/it on one card (9a "
+        f"{multi['ddp']['s_it_9a']:.4f}), sharded 4-stream f32 step "
+        f"{multi['sharded']['ms_step']:.3f} ms; DLA-102-DCN bf16 ms/frame "
+        + ", ".join(f"{f} {multi['forms'][f]['ms']:.3f}" for f in DCN_FORMS)
+        + f", gather4/shiftwin training step peak "
+        f"{multi['forms']['train_gather4']['peak'] / 2 ** 30:.3f}/"
+        f"{multi['forms']['train_shiftwin']['peak'] / 2 ** 30:.3f} GiB; "
+        f"card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4398,4 +5215,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        ddp_rank(sys.argv[2:])      # a rank of phase 12's launcher
+    else:
+        main()

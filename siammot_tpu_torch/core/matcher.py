@@ -20,6 +20,16 @@ BELOW_LOW_QUALITY = -1
 BETWEEN_THRESHOLDS = -2
 
 
+def draw_seed(seed: int, iteration: int, rank: int = 0) -> int:
+    """The seed of an iteration's sampler draws on a data-parallel rank:
+    rank 0 keeps ``seed * 1_000_003 + iteration`` (one process draws as it
+    always has), rank r adds ``r * 2**48``, so no two (iteration, rank)
+    pairs of a run share a seed while iterations stay below 2**48.  The
+    JAX step folds the device index into its key instead
+    (``siammot_tpu/parallel/mesh.py:197``)."""
+    return seed * 1_000_003 + iteration + rank * (1 << 48)
+
+
 def uniform_draws(device, seed: int):
     """``draw(shape)`` -> U[0, 1) float32 priorities on ``device`` from a
     generator seeded with ``seed``."""

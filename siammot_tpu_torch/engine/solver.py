@@ -110,7 +110,7 @@ def make_optimizer(cfg, net: torch.nn.Module) -> ScheduledSGD:
 
 
 def build_train_step(model, optimizer: ScheduledSGD, accum_steps: int = 1,
-                     image_size=None):
+                     image_size=None, reduce=None):
     """One optimizer step per batch.
 
     Returns ``step(net, images, gt, frame_sizes, draws) -> metrics``: the
@@ -120,7 +120,9 @@ def build_train_step(model, optimizer: ScheduledSGD, accum_steps: int = 1,
     (``TPU.INPUT_WIDTH``, ``TPU.INPUT_HEIGHT``), as the JAX step takes it;
     None takes the padded batch's own.  ``metrics`` holds each loss
     averaged over the microbatches and their sum as ``loss`` (device
-    scalars).
+    scalars).  ``reduce(metrics) -> metrics``, called after the
+    microbatches and before the update, averages the gradients and the
+    metrics over data-parallel ranks (``parallel/mesh.py``).
     """
 
     def step(net, images, gt, frame_sizes, draws) -> dict:
@@ -140,6 +142,8 @@ def build_train_step(model, optimizer: ScheduledSGD, accum_steps: int = 1,
             (total / (b // mb)).backward()
             for k, v in dict(losses, loss=total).items():
                 metrics[k] = metrics.get(k, 0.0) + v.detach() / (b // mb)
+        if reduce is not None:
+            metrics = reduce(metrics)
         optimizer.step()
         return metrics
 

@@ -5,11 +5,18 @@ Iteration-based, with periodic smoothed-loss logging and optional
 periodic checkpoints (``utils.checkpoint.Checkpointer``; ``utils.
 checkpoint.resume`` loads the latest into the net and the optimizer and
 gives ``start_iter``).  Each iteration's sampler draws come from a
-generator seeded by (seed, iteration), as the JAX loop folds the
-iteration into its key, so a run resumed at iteration k draws what the
+generator seeded by (seed, iteration, rank) (``core/matcher.py:
+draw_seed``), as the JAX loop folds the iteration and its step the
+device into its key, so a run resumed at iteration k draws what the
 uninterrupted run drew.  SIGTERM, or a stop file at a step boundary,
 ends the loop cleanly after the current step (with a final checkpoint
 when there is a checkpointer).
+
+Under data parallelism (a ``parallel/mesh.py:Group``) only rank 0
+writes checkpoints and events, each save followed by a barrier
+(``torch.save`` is not collective, as orbax's save is), and the stop
+request is all-reduced at each step boundary, so every rank stops at
+the same step and none waits in a collective for one that left.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from collections import deque
 
 import numpy as np
 
-from ..core.matcher import uniform_draws
+from ..core.matcher import draw_seed, uniform_draws
 
 logger = logging.getLogger(__name__)
 
@@ -56,12 +63,14 @@ class TrainLog:
     step_seconds: list    # host seconds per step, logged steps synchronised
     # host seconds per step spent waiting for the loader's batch
     data_seconds: list = dataclasses.field(default_factory=list)
+    # (iteration, metrics read to the host) at each logged step
+    logged: list = dataclasses.field(default_factory=list)
 
 
 def do_train(model, train_step, net, optimizer, data_loader, checkpointer,
              max_iter: int, checkpoint_period: int, start_iter: int = 0,
              log_period: int = 20, tensorboard_writer=None, seed: int = 0,
-             stop_file: str | None = None) -> TrainLog:
+             stop_file: str | None = None, group=None) -> TrainLog:
     """Run ``train_step`` over ``data_loader`` batches (uint8 images,
     gt Boxes, frame sizes) until ``max_iter``; ``net`` and ``optimizer``
     are updated in place.
@@ -70,8 +79,19 @@ def do_train(model, train_step, net, optimizer, data_loader, checkpointer,
     are read to the host, which waits for the device, and passed to
     ``tensorboard_writer(iteration, metrics)``.  ``stop_file`` (or the
     SIAMMOT_STOP_FILE environment variable): if that path exists at a step
-    boundary, stop there.
+    boundary, stop there.  ``group``: this rank's data-parallel group
+    (None: one process); ranks other than 0 save nothing (their
+    ``checkpointer`` may be None) but meet rank 0 at each save.
     """
+    rank = group.rank if group is not None else 0
+    many = group is not None and group.world > 1
+
+    def save(iteration, tag=None):
+        if checkpointer is not None and rank == 0:
+            checkpointer.save(iteration, net, optimizer, tag=tag)
+        if many:
+            group.barrier()
+
     stop_file = stop_file or os.environ.get("SIAMMOT_STOP_FILE")
     stop_requested = []
 
@@ -96,12 +116,15 @@ def do_train(model, train_step, net, optimizer, data_loader, checkpointer,
                 logger.warning("stop file %s present: stopping at iter %d",
                                stop_file, iteration)
                 stop_requested.append(True)
+            if many and group.all_reduce_max(bool(stop_requested)):
+                stop_requested.append(True)
             if iteration >= max_iter or stop_requested:
                 break
             iteration += 1
             log.data_seconds.append(time.time() - end)
             meters["data"].update(log.data_seconds[-1])
-            draws = uniform_draws(model.device, seed * 1_000_003 + iteration)
+            draws = uniform_draws(model.device,
+                                  draw_seed(seed, iteration, rank))
             dev = model.device
             metrics = train_step(net, images.to(dev),
                                  gt.map(lambda v: v.to(dev)),
@@ -109,6 +132,7 @@ def do_train(model, train_step, net, optimizer, data_loader, checkpointer,
 
             if iteration % log_period == 0 or iteration == max_iter:
                 host = {k: float(v) for k, v in metrics.items()}
+                log.logged.append((iteration, host))
                 meters["loss"].update(host["loss"])
                 eta = (time.time() - start) \
                     / max(iteration - start_iter, 1) * (max_iter - iteration)
@@ -121,9 +145,8 @@ def do_train(model, train_step, net, optimizer, data_loader, checkpointer,
                 if tensorboard_writer is not None:
                     tensorboard_writer(iteration, host)
 
-            if checkpointer is not None \
-                    and iteration % checkpoint_period == 0:
-                checkpointer.save(iteration, net, optimizer)
+            if iteration % checkpoint_period == 0:
+                save(iteration)
 
             log.step_seconds.append(time.time() - end)
             meters["time"].update(log.step_seconds[-1])
@@ -132,9 +155,8 @@ def do_train(model, train_step, net, optimizer, data_loader, checkpointer,
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
 
-    if checkpointer is not None:
-        checkpointer.save(iteration, net, optimizer)
-        checkpointer.save(iteration, net, optimizer, tag="model_final")
+    save(iteration)
+    save(iteration, tag="model_final")
     total = time.time() - start
     logger.info("Total training time: %.0fs (%.4f s/it)", total,
                 total / max(iteration - start_iter, 1))

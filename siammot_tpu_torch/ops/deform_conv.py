@@ -56,11 +56,32 @@ gradient, whose atomics sum in no fixed order on the card: that gradient
 is not bitwise from run to run there).  Only x, the offsets and the
 kernel are saved; the four corner tensors of the samples are rebuilt in
 the backward.
+
+**The forms ``SIAMMOT_DCN_IMPL`` selects** (``impl``, as
+``siammot_tpu/ops/deform_conv.py:deform_conv2d`` takes it): ``pallas``
+(the default: kernel 9 on the card, route A or B as above), ``patch``
+(route B), ``gather4`` (``deform_sample``: four corner gathers whose
+products and sums round in the input dtype) and ``shiftwin``
+(``_shiftwin_sampled``: the bilinear weights of each integer shift in
+[-r, r + 1]^2 times a static strided view of the zero-padded input,
+summed in f32; the patch form where an offset's floor leaves [-r, r]).
+The JAX package writes the last three in XLA, not Pallas, so here they
+are plain PyTorch on the card as on the CPU; only ``pallas`` launches
+kernel 9.  ``"auto"`` reads the environment variable at each call.
+Each form's gradient is autograd through its own plain form (the JAX
+package differentiates its own forms), recomputed in the backward from
+the saved inputs (:class:`DeformConv2dFn`): under autograd ``gather4``
+would keep its corner tensors, 9 C values a pixel each, and
+``shiftwin`` (2r+2)^2 weight maps a tap, for every layer of the trunk
+until the backward; recomputed, one layer's graph lives at a time.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.nn.functional as F
 
 from . import cuda
 
@@ -69,6 +90,20 @@ HALO = R + 2    # the Pallas kernel's row/column halo (for its VMEM gate)
 _ARGS = (cuda.P,) * 4 + (cuda.I,) + (cuda.P,) * 2 + (cuda.I,) * 11 \
     + (cuda.P,)
 SMS = 132       # the H100's streaming multiprocessors
+IMPLS = ("gather4", "patch", "shiftwin", "pallas")
+
+
+def resolve_impl(impl: str = "auto") -> str:
+    """The DCN form a call takes: ``impl``, or for ``"auto"`` the
+    environment variable ``SIAMMOT_DCN_IMPL`` (default ``"pallas"``), read
+    now; an unknown name raises the JAX package's message."""
+    if impl == "auto":
+        impl = os.environ.get("SIAMMOT_DCN_IMPL", "pallas")
+    if impl not in IMPLS:
+        raise ValueError(
+            f"unknown DCN impl {impl!r} (from SIAMMOT_DCN_IMPL?); "
+            "expected one of 'gather4', 'patch', 'shiftwin', 'pallas'")
+    return impl
 
 
 def window_route_possible(x_shape, kernel_shape, stride: int,
@@ -111,25 +146,33 @@ def in_window(offsets: torch.Tensor) -> torch.Tensor:
 
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,
                   kernel: torch.Tensor, stride: int = 1,
-                  dilation: int = 1) -> torch.Tensor:
+                  dilation: int = 1, impl: str = "auto") -> torch.Tensor:
     """DCNv1, NHWC.
 
     x [B, H, W, C]; offsets [B, Ho, Wo, 18] tap-major (dy, dx) pairs in
     x's dtype; kernel [3, 3, C, Co] HWIO in x's dtype; padding = dilation.
-    Returns [B, Ho, Wo, Co] in x's dtype.  CUDA tensors launch the kernel
-    (f32 or bf16); CPU tensors take :func:`deform_conv2d_plain`.  Where a
-    gradient is asked for, the forward is the same and the backward is
-    :func:`deform_conv2d_vjp` (:class:`DeformConv2dFn`).
+    Returns [B, Ho, Wo, Co] in x's dtype.  ``impl`` (:func:`resolve_impl`)
+    picks the form (``shiftwin`` at radius ``R``).  Under
+    ``pallas`` CUDA tensors launch the kernel (f32 or bf16) and CPU
+    tensors take :func:`deform_conv2d_plain`; the other forms are
+    :func:`deform_conv2d_form` on either.  Where a gradient is asked for,
+    the forward is the same and the backward is :func:`deform_conv2d_vjp`
+    (:class:`DeformConv2dFn`).
     """
+    impl = resolve_impl(impl)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, offsets, kernel)):
-        return DeformConv2dFn.apply(x, offsets, kernel, stride, dilation)
-    return _forward(x, offsets, kernel, stride, dilation)
+        return DeformConv2dFn.apply(x, offsets, kernel, stride, dilation,
+                                    impl)
+    return _forward(x, offsets, kernel, stride, dilation, impl)
 
 
-def _forward(x, offsets, kernel, stride, dilation):
-    """The forward: kernel 9 on CUDA tensors, the plain version on CPU
-    ones."""
+def _forward(x, offsets, kernel, stride, dilation, impl="pallas"):
+    """The forward: under ``pallas`` kernel 9 on CUDA tensors and the
+    plain version on CPU ones, else the selected plain form."""
+    if impl != "pallas":
+        return deform_conv2d_form(x, offsets, kernel, stride, dilation,
+                                  impl)
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offsets, kernel, stride, dilation)
     b, h, w, c = x.shape
@@ -186,36 +229,46 @@ deform_conv2d.launches = 0
 
 
 class DeformConv2dFn(torch.autograd.Function):
-    """Kernel 9 (or the plain version on the CPU) forward, the route-B
-    VJP backward (``siammot_tpu/ops/deform_conv.py:_pallas_guarded_bwd``).
-    Saves only the inputs."""
+    """The form's forward (kernel 9, or the plain version on the CPU, under
+    ``pallas``); the backward recomputes the form's VJP from the saved
+    inputs: route B's under ``pallas`` and ``patch``
+    (``siammot_tpu/ops/deform_conv.py:_pallas_guarded_bwd``), each other
+    form's own.  Saves only the inputs."""
 
     @staticmethod
-    def forward(ctx, x, offsets, kernel, stride, dilation):
+    def forward(ctx, x, offsets, kernel, stride, dilation, impl="pallas"):
         ctx.save_for_backward(x, offsets, kernel)
         ctx.geometry = (stride, dilation)
-        return _forward(x, offsets, kernel, stride, dilation)
+        ctx.impl = impl
+        return _forward(x, offsets, kernel, stride, dilation, impl)
 
     @staticmethod
     def backward(ctx, grad):
         x, offsets, kernel = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         grads = deform_conv2d_vjp(x, offsets, kernel, grad, *ctx.geometry,
-                                  need=need)
-        return (*grads, None, None)
+                                  need=need, impl=ctx.impl)
+        return (*grads, None, None, None)
 
 
 def deform_conv2d_vjp(x, offsets, kernel, grad, stride: int = 1,
-                      dilation: int = 1, need=(True, True, True)):
+                      dilation: int = 1, need=(True, True, True),
+                      impl: str = "patch"):
     """The gradients of (x, offsets, kernel) under the upstream ``grad``:
-    the VJP of route B (``sample_plain(..., route_a=False)`` and the
-    product), recomputed from the inputs in their dtype's arithmetic
-    (the corner weights' derivatives in f32), as the JAX package
-    differentiates its exact patch form for either forward route.  An input that ``need`` leaves out gets None."""
+    autograd through the form's plain version, recomputed from the inputs
+    in their dtype's arithmetic.  Under ``pallas`` and ``patch`` that is
+    route B (``sample_plain(..., route_a=False)`` and the product, the
+    corner weights' derivatives in f32), as the JAX package
+    differentiates its exact patch form for either forward route; under
+    ``gather4`` and ``shiftwin`` the form itself (``shiftwin``'s patch
+    fallback where the forward took it).  An input that ``need`` leaves
+    out gets None."""
+    if impl == "pallas":
+        impl = "patch"
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(bool(n))
                   for t, n in zip((x, offsets, kernel), need)]
-        out = _route(*leaves, stride, dilation, route_a=False)
+        out = deform_conv2d_form(*leaves, stride, dilation, impl)
         wanted = [t for t in leaves if t.requires_grad]
         got = iter(torch.autograd.grad(out, wanted, grad))
     return tuple(next(got) if t.requires_grad else None for t in leaves)
@@ -230,6 +283,22 @@ def _taps(b, ho, wo, stride, dilation, device):
     gx = (torch.arange(wo, device=device)[:, None] * stride - dilation
           + (t % 3)[None] * dilation)
     return gy[None, :, None, :], gx[None, None, :, :]
+
+
+def _corners(flat, y0, x0, h: int, w: int):
+    """``corner(dy, dx)``: the rows of ``flat`` [B, H*W, C] at (y0 + dy,
+    x0 + dx) for integer coordinates [B, Ho, Wo, 9], as [B, Ho, Wo, 9, C]
+    in ``flat``'s dtype, corners outside the map zero."""
+    b, _, c = flat.shape
+
+    def corner(dy, dx):
+        yi, xi = y0 + dy, x0 + dx
+        ok = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, -1)
+        v = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
+        return v.reshape(*y0.shape, c) * ok[..., None]
+
+    return corner
 
 
 def sample_plain(x, offsets, stride, dilation, route_a: bool):
@@ -258,15 +327,7 @@ def sample_plain(x, offsets, stride, dilation, route_a: bool):
         fy, fx = (cy_abs - fly).to(dt), (cx_abs - flx).to(dt)
         y0, x0 = fly.long(), flx.long()
         wy, wx = (1 - fy, fy), (1 - fx, fx)
-    flat = x.reshape(b, h * w, c).float()
-
-    def corner(dy, dx):
-        yi, xi = y0 + dy, x0 + dx
-        ok = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, -1)
-        v = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
-        return v.reshape(b, ho, wo, 9, c) * ok[..., None]
-
+    corner = _corners(x.reshape(b, h * w, c).float(), y0, x0, h, w)
     if route_a:
         part = [cx[0][..., None] * corner(r, 0)
                 + cx[1][..., None] * corner(r, 1) for r in (0, 1)]
@@ -308,3 +369,96 @@ def deform_conv2d_plain(x, offsets, kernel, stride: int = 1,
                                     x.element_size()) \
         and bool(in_window(offsets))
     return _route(x, offsets, kernel, stride, dilation, route_a)
+
+
+def deform_conv2d_form(x, offsets, kernel, stride: int = 1,
+                       dilation: int = 1, impl: str = "patch",
+                       shift_r: int = R) -> torch.Tensor:
+    """The plain PyTorch form of ``impl`` (``"patch"``, ``"gather4"`` or
+    ``"shiftwin"`` of radius ``shift_r``): its samples and one [N, 9C] @ [9C, Co] product with
+    f32 sums, rounded once to x's dtype, as the JAX forms' ``matmul``."""
+    if impl == "patch":
+        return _route(x, offsets, kernel, stride, dilation, route_a=False)
+    if impl == "gather4":
+        s = sample_gather4(x, offsets, stride, dilation)
+    elif impl == "shiftwin":
+        fl = torch.floor(offsets)
+        # the lax.cond's predicate, read on the host
+        if not bool((fl.amin() >= -shift_r) & (fl.amax() <= shift_r)):
+            return _route(x, offsets, kernel, stride, dilation,
+                          route_a=False)
+        s = sample_shiftwin(x, offsets, stride, dilation, shift_r)
+    else:
+        raise ValueError(f"deform_conv2d_form: no plain form {impl!r}")
+    b, ho, wo = s.shape[:3]
+    c, co = kernel.shape[2], kernel.shape[3]
+    out = s.reshape(-1, 9 * c).float() @ kernel.reshape(9 * c, co).float()
+    return out.to(x.dtype).reshape(b, ho, wo, co)
+
+
+def sample_gather4(x, offsets, stride, dilation):
+    """``deform_sample``: the absolute coordinate in the offsets' dtype (as
+    route B), four corner gathers of x in its dtype, out-of-range corners
+    zero, and ``v00 (1-wy)(1-wx) + v01 (1-wy) wx + v10 wy (1-wx) + v11 wy
+    wx`` with every product and sum rounded to x's dtype, left to right.
+    Returns [B, Ho, Wo, 9, C]."""
+    b, h, w, c = x.shape
+    _, ho, wo, _ = offsets.shape
+    dt = x.dtype
+    off = offsets.reshape(b, ho, wo, 9, 2)
+    gy, gx = _taps(b, ho, wo, stride, dilation, x.device)
+    cy = gy.to(off.dtype) + off[..., 0]
+    cx = gx.to(off.dtype) + off[..., 1]
+    fly, flx = torch.floor(cy), torch.floor(cx)
+    wy = (cy - fly).to(dt)[..., None]
+    wx = (cx - flx).to(dt)[..., None]
+    corner = _corners(x.reshape(b, h * w, c), fly.long(), flx.long(), h, w)
+    return (corner(0, 0) * (1 - wy) * (1 - wx)
+            + corner(0, 1) * (1 - wy) * wx
+            + corner(1, 0) * wy * (1 - wx)
+            + corner(1, 1) * wy * wx)
+
+
+def sample_shiftwin(x, offsets, stride, dilation, r):
+    """``_shiftwin_sampled``: for each tap, the sum over the integer shifts
+    (sy, sx) in [-r, r + 1]^2 of the separable weight ``wy * wx`` (x's
+    dtype: each is ``(1 - f) * [floor == s] + f * [floor == s - 1]`` of
+    the *relative* offset) times the static strided view of the
+    zero-padded input at the tap's position plus (sy, sx), summed in f32
+    and rounded once.  The weight times the view is an f32 product: JAX
+    writes it in x's dtype and converts it to f32, and XLA, which allows
+    excess precision, drops that product's rounding (in bf16, rounding
+    it moves 30% of the samples, by up to 0.7% of their scale).  Exact
+    where every offset's floor lies in [-r, r]; the caller takes the
+    patch form elsewhere.  Returns [B, Ho, Wo, 9, C]."""
+    b, h, w, c = x.shape
+    _, ho, wo, _ = offsets.shape
+    dt = x.dtype
+    pad = dilation
+    off = offsets.reshape(b, ho, wo, 9, 2)
+    fly, flx = torch.floor(off[..., 0]), torch.floor(off[..., 1])
+    fy, fx = (off[..., 0] - fly).to(dt), (off[..., 1] - flx).to(dt)
+    iy, ix = fly.long(), flx.long()
+    lo = pad + r
+    xp = F.pad(x, (0, 0, lo, lo + 1, lo, lo + 1))
+    ey, ex = (ho - 1) * stride + 1, (wo - 1) * stride + 1
+
+    def view(ay, ax):
+        return xp[:, ay + lo:ay + lo + ey:stride, ax + lo:ax + lo + ex:stride]
+
+    sampled = []
+    for t in range(9):
+        dy, dx = (t // 3) * dilation - pad, (t % 3) * dilation - pad
+        iy_t, ix_t, fy_t, fx_t = iy[..., t], ix[..., t], fy[..., t], fx[..., t]
+        acc = torch.zeros((b, ho, wo, c), dtype=torch.float32,
+                          device=x.device)
+        for sy in range(-r, r + 2):
+            wy = (1 - fy_t) * (iy_t == sy) + fy_t * (iy_t == sy - 1)
+            for sx in range(-r, r + 2):
+                wx = (1 - fx_t) * (ix_t == sx) + fx_t * (ix_t == sx - 1)
+                # f32 weight times x's view: PyTorch promotes the view
+                # to f32, and autograd keeps the view, not a copy
+                acc = acc + (wy * wx).float()[..., None] * view(dy + sy,
+                                                                dx + sx)
+        sampled.append(acc.to(dt))
+    return torch.stack(sampled, dim=3)

@@ -19,10 +19,24 @@ raises), else the network's seeded initialisation.  The loop is
 ``SOLVER.MAX_ITER``, ``CHECKPOINT_PERIOD`` and ``ACCUMULATION_STEPS``.
 
 The model and the JPEG decoder run on the card unless ``--device cpu``
-asks for the CPU.  The JAX tool's multi-host lines (``jax.distributed``,
-the device mesh, replicating the state onto it and syncing a restored
-state across processes) have no counterpart here: the port trains on one
-card, process 0 of 1.
+asks for the CPU.
+
+Several devices: one process a device under ``torch.distributed.run``
+(``parallel/mesh.py``), where the JAX tool runs one controller over a
+device mesh (``jax.distributed.initialize`` for several hosts)::
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m siammot_tpu_torch.tools.train_net --config-file ... [KEY VALUE]
+
+NCCL on the cards (rank r on ``cuda:{LOCAL_RANK % count}``), gloo with
+``--device cpu`` or ``--dist-backend gloo``.  The group is set up
+whenever the launcher's ``WORLD_SIZE`` is present, a world of one
+included.  ``SOLVER.VIDEO_CLIPS_PER_BATCH``
+is the global batch: each rank loads its contiguous share;
+``TPU.DATA_PARALLEL`` 0 takes the world size, another value must equal
+it.  Only rank 0 reads the checkpoint or ``MODEL.WEIGHT`` (the state is
+broadcast to the others, :func:`parallel.mesh.sync_restored_state`) and
+writes the run directory's files.
 """
 
 from __future__ import annotations
@@ -40,7 +54,14 @@ def parse_args(argv=None):
     parser.add_argument("--model-suffix", default="")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the model and the decoder "
-                             "(default: the card)")
+                             "(default: the card; under a launcher, the "
+                             "rank's card)")
+    parser.add_argument("--dist-backend", default=None,
+                        help="torch.distributed backend under a launcher "
+                             "(default: nccl on the card, gloo on the CPU)")
+    parser.add_argument("--dist-url", default="env://",
+                        help="torch.distributed init method (default: the "
+                             "launcher's MASTER_ADDR/MASTER_PORT)")
     parser.add_argument("opts", nargs=argparse.REMAINDER,
                         help="config overrides: KEY VALUE ...")
     return parser.parse_args(argv)
@@ -70,43 +91,58 @@ def initial_params(cfg, model, logger) -> dict:
     return params
 
 
-def train(cfg, output_dir: str, logger, device: str):
+def train(cfg, output_dir: str, logger, device, group=None):
     """Build the model, its optimizer, the loader and the writer, resume
-    or initialise, and run ``do_train``; returns its ``TrainLog``."""
+    or initialise, and run ``do_train``; returns its ``TrainLog``.
+    ``group``: the data-parallel group (``parallel/mesh.py``) or None."""
     from ..data.build import build_train_data_loader
-    from ..engine.solver import build_train_step, make_optimizer
+    from ..engine import solver
     from ..engine.tensorboard_writer import TensorboardWriter
     from ..engine.trainer import do_train
     from ..models.siammot import SiamMOT
+    from ..parallel import mesh
     from ..utils.checkpoint import Checkpointer, resume
 
+    rank, world = (group.rank, group.world) if group else (0, 1)
     model = SiamMOT(cfg, device=device)
-    checkpointer = Checkpointer(output_dir)
+    checkpointer = Checkpointer(output_dir) if rank == 0 else None
     start_iter = 0
-    if checkpointer.latest() is not None:
+    if rank != 0:       # rank 0's state arrives below
         net = model.build_master(model.build_net().state_dict())
-        optimizer = make_optimizer(cfg, net)
+        optimizer = solver.make_optimizer(cfg, net)
+    elif checkpointer.latest() is not None:
+        net = model.build_master(model.build_net().state_dict())
+        optimizer = solver.make_optimizer(cfg, net)
         start_iter = resume(checkpointer, net, optimizer)
     else:
         net = model.build_master(initial_params(cfg, model, logger))
-        optimizer = make_optimizer(cfg, net)
+        optimizer = solver.make_optimizer(cfg, net)
+    if group is not None:
+        start_iter = mesh.sync_restored_state(group, net, optimizer,
+                                              start_iter)
 
     static = None
     if cfg.TPU.INPUT_HEIGHT and cfg.TPU.INPUT_WIDTH:
         static = (cfg.TPU.INPUT_WIDTH, cfg.TPU.INPUT_HEIGHT)
-    step = build_train_step(model, optimizer,
-                            accum_steps=cfg.SOLVER.ACCUMULATION_STEPS,
-                            image_size=static)
+    accum = cfg.SOLVER.ACCUMULATION_STEPS
+    step = solver.build_train_step(model, optimizer, accum_steps=accum,
+                                   image_size=static) if group is None \
+        else mesh.build_train_step(model, optimizer, group,
+                                   accum_steps=accum, image_size=static)
     loader = build_train_data_loader(cfg, start_iter=start_iter,
-                                     device=device)
-    tb = TensorboardWriter(cfg, os.path.join(output_dir, "tb"))
+                                     device=device, process_index=rank,
+                                     process_count=world)
+    tb = TensorboardWriter(cfg, os.path.join(output_dir, "tb")) \
+        if rank == 0 else None
     try:
         return do_train(model, step, net, optimizer, loader, checkpointer,
                         max_iter=cfg.SOLVER.MAX_ITER,
                         checkpoint_period=cfg.SOLVER.CHECKPOINT_PERIOD,
-                        start_iter=start_iter, tensorboard_writer=tb)
+                        start_iter=start_iter, tensorboard_writer=tb,
+                        group=group)
     finally:
-        tb.close()
+        if tb is not None:
+            tb.close()
 
 
 def main(argv=None):
@@ -115,38 +151,51 @@ def main(argv=None):
     args = parse_args(argv)
 
     from ..configs.defaults import get_cfg
+    from ..parallel import mesh
     from ..utils.model_name import get_model_name
 
     cfg = get_cfg()
     cfg.merge_from_file(args.config_file)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    if cfg.TPU.DATA_PARALLEL > 1:
-        raise ValueError("TPU.DATA_PARALLEL > 1: the port trains on one "
-                         "card")
-
+    rank, world, local = mesh.launcher_env()
+    mesh.data_parallel_size(cfg, world)
     output_dir = os.path.join(args.train_dir,
                               get_model_name(cfg, args.model_suffix))
-    os.makedirs(output_dir, exist_ok=True)
+    group = None
+    if "WORLD_SIZE" in os.environ:
+        group = mesh.init_process_group(args.device, args.dist_backend,
+                                        args.dist_url)
+    device = group.device if group else mesh.rank_device(args.device, local)
     logger = logging.getLogger("siammot_tpu_torch")
     logger.setLevel(logging.INFO)
     fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: "
                             "%(message)s")
-    handlers = [logging.FileHandler(os.path.join(output_dir, "log.txt"))]
-    if not logging.getLogger().handlers and not logger.handlers:
-        handlers.append(logging.StreamHandler())
+    handlers = []
+    if rank == 0:
+        os.makedirs(output_dir, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(output_dir,
+                                                         "log.txt")))
+        if not logging.getLogger().handlers and not logger.handlers:
+            handlers.append(logging.StreamHandler())
     for h in handlers:
         h.setFormatter(fmt)
         logger.addHandler(h)
     try:
-        logger.info("config:\n%s", cfg.dump())
-        with open(os.path.join(output_dir, "config.yaml"), "w") as f:
-            f.write(cfg.dump())
-        return output_dir, train(cfg, output_dir, logger, args.device)
+        if rank == 0:
+            logger.info("config:\n%s", cfg.dump())
+            with open(os.path.join(output_dir, "config.yaml"), "w") as f:
+                f.write(cfg.dump())
+        if group is not None:
+            logger.info("data parallel: rank 0 of %d on %s", group.world,
+                        group.device)
+        return output_dir, train(cfg, output_dir, logger, device, group)
     finally:
         for h in handlers:
             logger.removeHandler(h)
             h.close()
+        if group is not None:
+            mesh.destroy_process_group()
 
 
 if __name__ == "__main__":

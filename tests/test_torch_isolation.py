@@ -21,7 +21,12 @@ through ``tools/test_net``'s main function in public-detection mode from
 a port checkpoint, once with one stream and once with two; and the
 training CLI: two iterations of ``tools/train_net`` on DLA-MINI over the
 committed training fixture (its loader, augmentation and event file),
-the event file read back by the port's own reader.  Also: no CUDA source
+the event file read back by the port's own reader; the several-device
+layer: each ``SIAMMOT_DCN_IMPL`` form of the deformable conv forward and
+backward, the multi-stream step with ``devices=["cpu", "cpu"]``,
+``parallel/mesh.py``'s group of one, and ``tools/train_net`` under two
+gloo ranks of ``torch.distributed.run``, whose processes block the same
+imports (a ``sitecustomize`` on their path).  Also: no CUDA source
 includes PyTorch's headers (they make the build take minutes instead of
 seconds)."""
 
@@ -34,22 +39,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
-    BLOCKED = ("jax", "flax", "yaml", "cv2", "PIL", "tensorboard",
-               "siammot_tpu", "tests", "tools")
-
-    def blocked(name):
-        return name.split(".")[0] in BLOCKED
-
-    for name in [m for m in sys.modules if blocked(m)]:
-        del sys.modules[name]
-
-    class Block:
-        def find_spec(self, name, path=None, target=None):
-            if blocked(name):
-                raise ImportError(f"blocked import: {name}")
-            return None
-
-    sys.meta_path.insert(0, Block())
+    exec(BLOCK_SOURCE)
     sys.path.insert(0, REPO)
 
     import numpy as np
@@ -317,9 +307,99 @@ SCRIPT = textwrap.dedent("""
     events = read_events(glob.glob(os.path.join(run_dir, "tb",
                                                 "events.out.tfevents.*"))[0])
     assert [e["step"] for e in events if "loss/total" in e["scalars"]] == [2]
+
+    # the deformable conv's SIAMMOT_DCN_IMPL forms, forward and backward
+    from siammot_tpu_torch.ops.deform_conv import deform_conv2d
+    gen = torch.Generator().manual_seed(0)
+    dx = torch.randn(1, 9, 13, 8, generator=gen)
+    doff = 0.3 * torch.randn(1, 9, 13, 18, generator=gen)
+    dk = torch.randn(3, 3, 8, 4, generator=gen)
+    for impl in ("gather4", "patch", "shiftwin", "pallas"):
+        os.environ["SIAMMOT_DCN_IMPL"] = impl
+        leaves = [t.clone().requires_grad_() for t in (dx, doff, dk)]
+        deform_conv2d(*leaves).sum().backward()
+        assert all(torch.isfinite(t.grad).all() for t in leaves), impl
+    del os.environ["SIAMMOT_DCN_IMPL"]
+
+    # the multi-stream step sharded over two devices (the CPU twice)
+    from siammot_tpu_torch.parallel.multistream import (
+        Sharded, build_multistream_step, empty_states)
+    smodel = SiamMOT(cfg.clone(), device="cpu")
+    snet = smodel.cast_params(params)
+    sstep = build_multistream_step(smodel, (128, 96), devices=["cpu", "cpu"])
+    sstates = empty_states(smodel, 2)
+    for f in frames:
+        sout, sstates = sstep(snet, torch.as_tensor(np.stack([f, f])),
+                              sstates)
+    assert isinstance(sstates, Sharded) and sout.valid.shape[0] == 2
+
+    # parallel/mesh.py in a group of one (gloo, a file store)
+    from siammot_tpu_torch.parallel import mesh
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    group = mesh.init_process_group("cpu", None, "file://" + os.path.join(
+        tempfile.mkdtemp(), "store"))
+    assert group.world == 1 and not group.all_reduce_max(False)
+    mesh.destroy_process_group()
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        del os.environ[k]
+
+    # train_net under two gloo ranks of torch.distributed.run, every
+    # process with the same imports blocked (``sitecustomize`` below)
+    import subprocess
+    block = tempfile.mkdtemp()
+    with open(os.path.join(block, "sitecustomize.py"), "w") as fh:
+        fh.write(BLOCK_SOURCE)
+    env = dict(os.environ, PYTHONPATH=block + os.pathsep + REPO,
+               OMP_NUM_THREADS="1")
+    ddp_dir = tempfile.mkdtemp()
+    res = subprocess.run([
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc-per-node", "2", "-m", "siammot_tpu_torch.tools.train_net",
+        "--config-file", os.path.join(REPO, "configs", "dla",
+                                      "DLA_34_FPN_EMM_SYNMOT_HARD.yaml"),
+        "--train-dir", ddp_dir, "--device", "cpu"]
+        + [str(v) for v in mini] + [
+        "DATASETS.ROOT_DIR", os.path.join(REPO, "tests", "fixtures"),
+        "DATASETS.TRAIN", "('SYNMOT_MULTI_TRAIN', "
+                          "'SYNCROWD_MINI_train_fbox')",
+        "INPUT.MIN_SIZE_TRAIN", "(96,)", "INPUT.MAX_SIZE_TRAIN", "160",
+        "TPU.INPUT_HEIGHT", "96", "TPU.INPUT_WIDTH", "160",
+        "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", "32",
+        "MODEL.RPN.POST_NMS_TOP_N_TRAIN", "16",
+        "MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", "16",
+        "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16",
+        "MODEL.TRACK_HEAD.PROPOSAL_PER_IMAGE", "8",
+        "SOLVER.MAX_ITER", "2", "SOLVER.CHECKPOINT_PERIOD", "1",
+        "DATALOADER.NUM_WORKERS", "1"], capture_output=True, text=True,
+        env=env, timeout=300, cwd=block)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    [ddp_run] = os.listdir(ddp_dir)
+    ddp_files = os.listdir(os.path.join(ddp_dir, ddp_run))
+    assert {"model_0000001.pth", "model_final.pth"} <= set(ddp_files)
     assert not any(blocked(m) for m in sys.modules), sorted(
         m for m in sys.modules if blocked(m))
     print("ISOLATED", len(names), int((result.state.ids >= 0).sum()))
+""")
+
+# what every process of the check runs first: the imports blocked
+BLOCK = textwrap.dedent("""
+    import sys
+    BLOCKED = ("jax", "flax", "yaml", "cv2", "PIL", "tensorboard",
+               "siammot_tpu", "tests", "tools")
+
+    def blocked(name):
+        return name.split(".")[0] in BLOCKED
+
+    for name in [m for m in sys.modules if blocked(m)]:
+        del sys.modules[name]
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
 """)
 
 
@@ -352,7 +432,8 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     env.pop("PYTHONPATH", None)
     res = subprocess.run(
         [sys.executable, "-c",
-         f"REPO = {REPO!r}\nDATA = {str(tmp_path)!r}\n" + SCRIPT],
+         f"REPO = {REPO!r}\nDATA = {str(tmp_path)!r}\n"
+         f"BLOCK_SOURCE = {BLOCK!r}\n" + SCRIPT],
         capture_output=True, text=True, timeout=600, cwd="/", env=env)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "ISOLATED" in res.stdout
