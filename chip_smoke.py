@@ -243,7 +243,23 @@ Phases, each printed as it finishes:
      golden tolerances, one deformable layer of each kind of the last f32
      frame against the same form on the CPU, bf16 ms/frame, and one
      training step at 4 x 736x1280 under ``gather4`` and under
-     ``shiftwin`` with its peak memory.
+     ``shiftwin`` with its peak memory;
+  13. the readers and the demo: (13a) four 720p frames of the sprite
+     scene written here as a PNG folder (every row filter) and a BMP
+     folder, read back bitwise; the same frames encoded by nvJPEG into an
+     MJPEG AVI (with ``idx1``) and an MP4 (the port's ``Mp4Writer``), every
+     frame bitwise nvJPEG's decode of its packet; an EXIF Orientation 6
+     JPEG read upright (``np.rot90`` of the untagged decode); whether
+     ``libnvcuvid.so.1`` loads (printed only); (13b)
+     ``siammot_tpu_torch.demos.demo``'s main function over a 16-frame 720p
+     MJPEG mp4 of the scene on the bench weights with the person config
+     as shipped (bf16): kernels 1-4 launched on every frame and held to
+     their plain versions on the last frame's inputs, the output mp4's
+     16 frames each the nvJPEG round trip of the overlays drawn on its
+     rows, the end-to-end fps (decode, step, draw, encode) and the step's
+     share; then in f32 with ``--dump-video False``: 16 JPEGs, and the
+     rows equal to ``track_frames``' on the same decoded frames at
+     ``utils/golden.py``'s tolerances.
 
 Each end-to-end phase sets every kernel's launch count to 0 just before
 it drives its path and reads the counts just after.
@@ -5015,6 +5031,306 @@ def several_devices_phase(dev, report, card, s_it_9a):
     return dict(ddp=ddp, sharded=sharded, forms=forms)
 
 
+# -- phase 13: the readers and the demo -------------------------------------
+
+DEMO_FRAMES = 16                  # 13b: 720p frames of the sprite scene
+
+
+def png_bytes(rgb):
+    """A PNG of uint8 RGB ``rgb`` (no cv2 here): each row under the filter
+    type of its index mod 5, so the reader undoes all five."""
+    import struct
+    import zlib
+
+    raw = rgb.reshape(rgb.shape[0], -1).astype(np.int16)
+    up = np.zeros_like(raw)
+    up[1:] = raw[:-1]
+    left = np.zeros_like(raw)
+    left[:, 3:] = raw[:, :-3]
+    upleft = np.zeros_like(raw)
+    upleft[1:, 3:] = raw[:-1, :-3]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = [np.zeros_like(raw), left, up, (left + up) // 2, paeth]
+    kind = np.arange(len(raw)) % 5
+    pred = np.choose(kind[:, None], preds)
+    rows = np.concatenate([kind[:, None], (raw - pred) % 256], axis=1)
+
+    def chunk(tag, body):
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(
+            ">I", zlib.crc32(tag + body))
+
+    h, w = rgb.shape[:2]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes(),
+                                           1))
+            + chunk(b"IEND", b""))
+
+
+def bmp_bytes(rgb):
+    """A bottom-up 24-bit BMP of uint8 RGB ``rgb``."""
+    import struct
+    h, w = rgb.shape[:2]
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = rgb[::-1, :, ::-1].reshape(h, -1)
+    return (b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 0,
+                          0, 0, 0) + rows.tobytes())
+
+
+def avi_bytes(packets, w, h, fps):
+    """An MJPEG AVI of JPEG ``packets`` with an ``idx1`` index."""
+    import struct
+
+    def chunk(cc, body):
+        return cc + struct.pack("<I", len(body)) + body + b"\0" * (
+            len(body) & 1)
+
+    avih = struct.pack("<14I", 1000000 // fps, 0, 0, 0x10, len(packets), 0,
+                       1, 0, w, h, 0, 0, 0, 0)
+    strh = b"vidsMJPG" + struct.pack("<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, fps,
+                                     0, len(packets), 0, 0xFFFFFFFF, 0, 0, 0,
+                                     w, h)
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3,
+                       0, 0, 0, 0)
+    hdrl = chunk(b"LIST", b"hdrl" + chunk(b"avih", avih) + chunk(
+        b"LIST", b"strl" + chunk(b"strh", strh) + chunk(b"strf", strf)))
+    body, index, pos = b"", b"", 4
+    for p in packets:
+        c = chunk(b"00dc", p)
+        index += b"00dc" + struct.pack("<III", 0x10, pos, len(p))
+        body += c
+        pos += len(c)
+    movi = chunk(b"LIST", b"movi" + body)
+    return chunk(b"RIFF", b"AVI " + hdrl + movi + chunk(b"idx1", index))
+
+
+def exif6(jpeg):
+    """``jpeg`` with an APP1 Exif segment holding Orientation 6."""
+    import struct
+    tiff = b"MM" + struct.pack(">HIH", 42, 8, 1) + struct.pack(
+        ">HHIHH", 0x0112, 3, 1, 6, 0) + struct.pack(">I", 0)
+    app1 = b"Exif\0\0" + tiff
+    return jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(app1) + 2) + app1 \
+        + jpeg[2:]
+
+
+def readers_phase(dev, tmp):
+    """13a: the stills and the containers through the port's readers on
+    the card's route, against what was written and nvJPEG's decode."""
+    import ctypes
+
+    from siammot_tpu_torch.data import container, imageio, native
+    from siammot_tpu_torch.data.video_loader import (folder_frames,
+                                                     video_frames,
+                                                     video_metadata)
+    from siammot_tpu_torch.utils.synth import render_scene
+
+    t0 = time.perf_counter()
+    frames = [f[0, :H] for f in render_scene(4, HP, seed=13)[0]]
+    t1 = time.perf_counter()
+    native.png_library()
+    log(f"  png.cpp built and loaded in {time.perf_counter() - t1:.1f} s")
+    for kind, write in (("png", png_bytes), ("bmp", bmp_bytes)):
+        folder = os.path.join(tmp, kind)
+        os.makedirs(folder)
+        for i, f in enumerate(frames):
+            with open(os.path.join(folder, f"{i:06d}.{kind}"), "wb") as fh:
+                fh.write(write(f))
+        t1 = time.perf_counter()
+        got = list(folder_frames(folder, dev))
+        sec = time.perf_counter() - t1
+        if len(got) != len(frames) or not all(
+                np.array_equal(a, b) for a, b in zip(got, frames)):
+            raise AssertionError(f"13a: the {kind} folder does not read "
+                                 f"back bitwise")
+        log(f"  {kind} folder: {len(got)} frames of {W}x{H} bitwise the "
+            f"arrays written ({1e3 * sec / len(got):.2f} ms a frame on the "
+            f"host)")
+    nv = native.thread_decoder(dev)
+    packets = [native.encode_jpeg(f, 95, dev) for f in frames]
+    paths = {"avi": os.path.join(tmp, "clip.avi"),
+             "mp4": os.path.join(tmp, "clip.mp4")}
+    with open(paths["avi"], "wb") as fh:
+        fh.write(avi_bytes(packets, W, H, 25))
+    with container.Mp4Writer(paths["mp4"], 25.0, W, H) as wr:
+        for p in packets:
+            wr.write(p)
+    for kind, path in paths.items():
+        meta = video_metadata(path)
+        if meta != dict(fps=25.0, number_of_frames=len(frames),
+                        resolution={"width": W, "height": H}):
+            raise AssertionError(f"13a {kind}: metadata {meta}")
+        got = list(video_frames(path, dev))
+        want = [nv.decode_bytes(p, "packet") for p in packets]
+        gap = max(int(np.abs(a.astype(int) - f.astype(int)).max())
+                  for a, f in zip(got, frames))
+        if len(got) != len(want) or not all(
+                np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"13a {kind}: frames are not nvJPEG's "
+                                 f"decode of their packets")
+        log(f"  MJPEG {kind}: {len(got)} frames bitwise nvJPEG's decode of "
+            f"their packets (quality 95: {gap} byte values from the frames "
+            f"encoded)")
+    plain = os.path.join(tmp, "plain.jpg")
+    tagged = os.path.join(tmp, "exif6.jpg")
+    with open(plain, "wb") as fh:
+        fh.write(packets[0])
+    with open(tagged, "wb") as fh:
+        fh.write(exif6(packets[0]))
+    up = imageio.imread(tagged, dev)
+    want = np.rot90(imageio.imread(plain, dev), k=-1)
+    if up.shape != (W, H, 3) or not np.array_equal(up, want) \
+            or imageio.image_size(tagged) != (H, W):
+        raise AssertionError(f"13a: the EXIF-6 JPEG reads as {up.shape}, "
+                             f"not np.rot90 of the untagged decode")
+    log(f"  EXIF Orientation 6 JPEG: {up.shape[1]}x{up.shape[0]}, bitwise "
+        f"np.rot90(untagged, -1)")
+    try:
+        ctypes.CDLL("libnvcuvid.so.1")
+        cuvid = "loads"
+    except OSError as e:
+        cuvid = f"does not load ({e})"
+    log(f"  libnvcuvid.so.1 (NVIDIA's video decoder, for H.264 and MPEG-4 "
+        f"Part 2): {cuvid}")
+    log(f"  13a wall time {time.perf_counter() - t0:.1f} s")
+    return cuvid
+
+
+def demo_phase(dev, report, card):
+    """Phase 13: 13a the readers, 13b ``siammot_tpu_torch.demos.demo``
+    over a 16-frame 720p MJPEG mp4 on the bench weights with the person
+    config: the kernels' launches and checks, the output video, the rows
+    against ``track_frames`` in f32, the end-to-end fps."""
+    from siammot_tpu_torch.configs.defaults import get_cfg
+    from siammot_tpu_torch.data import container, native
+    from siammot_tpu_torch.data.transforms import EvalTransform
+    from siammot_tpu_torch.demos import demo
+    from siammot_tpu_torch.demos.demo_inference import CONFIG_DIR
+    from siammot_tpu_torch.demos.utils.vis_generator import VisGenerator
+    from siammot_tpu_torch.engine.inferencer import track_frames
+    from siammot_tpu_torch.models.siammot import SiamMOT
+    from siammot_tpu_torch.utils import golden
+    from siammot_tpu_torch.utils.synth import render_scene
+    from siammot_tpu_torch.utils.weights import jax_to_torch, load_npz
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log("[13a] the readers on the card's route:")
+        cuvid = readers_phase(dev, tmp)
+        log("[13b] siammot_tpu_torch.demos.demo, 720p MJPEG mp4, bench "
+            "weights, person config:")
+        t0 = time.perf_counter()
+        frames = [f[0, :H] for f in render_scene(DEMO_FRAMES, HP)[0]]
+        clip = os.path.join(tmp, "crowd.mp4")
+        with container.Mp4Writer(clip, 30.0, W, H) as wr:
+            for f in frames:
+                wr.write(native.encode_jpeg(f, 95, dev))
+        person = os.path.join(CONFIG_DIR, "DLA34_emm_person.yaml")
+        argv = ["--demo-video", clip, "--track-class", "person",
+                "--model-file", FIXTURE, "--device", str(dev)]
+        with kernel_capture() as (captured, launches):
+            run = demo.main(argv + ["--output-path",
+                                    os.path.join(tmp, "out")])
+        counts = check_launches(launches, MAIN_PATH, DEMO_FRAMES)
+        for name, count in counts.items():
+            report[name].setdefault("launches_by_path", {})["demo"] = count
+            report[name]["launches"] += count
+        check_captured(captured, report, "demo")
+        n = len(run.rows)
+        live = sum(int((ids >= 0).sum()) for _, (_, ids, _, _) in run.rows)
+        log(f"  {n} frames, {len(run.tracks)} tracks, {live} live rows; "
+            f"launches {counts}; kernels agree with their plain versions on "
+            f"the last frame's inputs")
+        # the end-to-end rate past the first frame (its cuDNN plans and
+        # library loads); the step's share over the same frames
+        steady = sum(run.frame_seconds[1:])
+        fps = (n - 1) / steady
+        share = sum(run.frame_step_seconds[1:]) / steady
+        log(f"  demo end to end (decode, step, draw, encode; bf16) over "
+            f"frames 2-{n}: {fps:.3f} fps, {1e3 / fps:.3f} ms a frame, "
+            f"{100 * share:.1f}% in the step; first frame "
+            f"{1e3 * run.frame_seconds[0]:.1f} ms; all {n}: "
+            f"{n / run.seconds:.3f} fps, "
+            f"{100 * run.draw_seconds / run.seconds:.1f}% drawing and "
+            f"encoding ({card})")
+        video = container.open_video(run.output)
+        out = list(video.frames(dev))
+        decoded = list(container.open_video(clip).frames(dev))
+        vis = VisGenerator()
+        drawn = 0
+        for o, f, (_, (xywh, ids, labels, _)) in zip(out, decoded, run.rows):
+            xyxy = xywh.copy()
+            xyxy[:, 2:] += xyxy[:, :2] - 1
+            want = native.decode_jpeg_bytes(native.encode_jpeg(
+                vis.frame_vis_generator(f, xyxy, ids, labels), 95, dev), dev)
+            if not np.array_equal(o, want):
+                raise AssertionError("13b: a written frame is not the "
+                                     "overlays drawn on the demo's rows")
+            drawn += int((ids >= 0).any())
+        if (video.frame_count, video.width, video.height) != \
+                (DEMO_FRAMES, W, H) or drawn == 0 or live == 0:
+            raise AssertionError(f"13b: the output video has "
+                                 f"{video.frame_count} frames of "
+                                 f"{video.width}x{video.height}, {drawn} "
+                                 f"drawn, {live} live rows")
+        log(f"  output {os.path.basename(run.output)}: {video.frame_count} "
+            f"frames of {video.width}x{video.height}, tracks drawn on "
+            f"{drawn}, each frame the nvJPEG round trip of the overlays "
+            f"drawn on its rows")
+        # f32: the rows against track_frames on the same decoded frames,
+        # and the JPEG frames of --dump-video False
+        f32 = os.path.join(tmp, "person_f32.yaml")
+        with open(person) as fh, open(f32, "w") as out_f:
+            out_f.write(fh.read() + '\nTPU:\n  COMPUTE_DTYPE: "float32"\n'
+                        '  POOLER_DTYPE: "float32"\n')
+        with kernel_capture() as (_, launches):
+            run32 = demo.main(argv + ["--config-file", f32, "--dump-video",
+                                      "False", "--output-path",
+                                      os.path.join(tmp, "out32")])
+        counts = check_launches(launches, MAIN_PATH, DEMO_FRAMES)
+        for name, count in counts.items():
+            report[name]["launches_by_path"]["demo_f32"] = count
+            report[name]["launches"] += count
+        jpegs = sorted(os.listdir(run32.output))
+        if len(jpegs) != DEMO_FRAMES:
+            raise AssertionError(f"13b: --dump-video False wrote "
+                                 f"{len(jpegs)} JPEGs")
+        cfg = get_cfg()
+        cfg.merge_from_file(f32)
+        model = SiamMOT(cfg, device=str(dev))
+        tf = EvalTransform(cfg)
+        ref = track_frames(model, jax_to_torch(load_npz(FIXTURE)),
+                           [tf(f)[0] for f in decoded], (W, H))
+        box_err = score_err = 0.0
+        for (_, (xywh, ids, labels, scores)), o in zip(run32.rows,
+                                                       ref.outputs):
+            v = o["valid"]
+            b = o["boxes"][v]
+            wxy = np.stack([b[:, 0], b[:, 1], b[:, 2] - b[:, 0] + 1,
+                            b[:, 3] - b[:, 1] + 1], axis=-1)
+            if not (np.array_equal(ids, o["ids"][v])
+                    and np.array_equal(labels, o["labels"][v])):
+                raise AssertionError("13b: the demo's f32 ids or labels "
+                                     "differ from track_frames'")
+            if len(ids):
+                box_err = max(box_err, float(np.abs(xywh - wxy).max()))
+                score_err = max(score_err, float(np.abs(
+                    scores - o["scores"][v]).max()))
+        if box_err > golden.BOX_ATOL or score_err > golden.SCORE_ATOL:
+            raise AssertionError(f"13b: f32 rows {box_err:.3g} px, scores "
+                                 f"{score_err:.3g} from track_frames'")
+        log(f"  f32 (--dump-video False): {len(jpegs)} JPEGs written; rows "
+            f"against track_frames on the same decoded frames: ids and "
+            f"labels exact, boxes {box_err:.3g} px, scores {score_err:.3g}; "
+            f"launches {counts}")
+        log(f"  13b wall time {time.perf_counter() - t0:.1f} s")
+    return dict(fps=fps, ms=1e3 / fps, step_share=share, cuvid=cuvid)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5153,6 +5469,12 @@ def main():
     multi = several_devices_phase(dev, report, card, trained["s_it"])
     log(f"[12] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[13] the readers (13a PNG, BMP, MJPEG AVI and MP4, EXIF) and the "
+        f"demo (13b) ({card}):")
+    shown = demo_phase(dev, report, card)
+    log(f"[13] done in {time.perf_counter() - t0:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
@@ -5207,6 +5529,8 @@ def main():
         + f", gather4/shiftwin training step peak "
         f"{multi['forms']['train_gather4']['peak'] / 2 ** 30:.3f}/"
         f"{multi['forms']['train_shiftwin']['peak'] / 2 ** 30:.3f} GiB; "
+        f"demo {shown['fps']:.3f} fps end to end ({shown['ms']:.3f} ms a "
+        f"frame, {100 * shown['step_share']:.1f}% in the step); "
         f"card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -15,11 +15,13 @@ static (or batch-max, divisible) shape, gt to ``max_gt`` slots with a
 validity mask, instance ids remapped to batch-unique uids, as the JAX
 collator does.
 
-Frames are JPEG files decoded at their own size on ``device``'s route
-(``data/native.py:read_jpeg``: libjpeg on the CPU, whose bytes are
-``cv2.imread``'s, or the calling thread's own nvJPEG decoder on the card);
-video files and other image formats have no reader in the port and
-raise ``NotImplementedError``.
+Frames are read at their own size as the JAX package's ``cv2.imread``
+reads them: stills through ``data/imageio.py`` (JPEG on ``device``'s
+route: libjpeg on the CPU, whose bytes are ``cv2.imread``'s, or the
+calling thread's own nvJPEG decoder on the card; PNG; BMP; EXIF
+orientation applied), and a video sample's frames by index from an MJPEG
+AVI, MP4 or MOV (``data/container.py``; other codecs raise
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -32,28 +34,36 @@ import random
 import numpy as np
 
 from ..core.structures import Boxes
-from . import native
+from . import imageio
 from .coco import CocoDataset
+from .container import apply_rotation, open_video
 from .motion_dataset import MotionDataset
 from .target import FrameTarget
-from .video_loader import JPEG_EXTS, _no_reader, jpeg_files, resolve_data_path
+from .video_loader import image_files, resolve_data_path
 
 logger = logging.getLogger(__name__)
 
 
 class FrameReader:
-    """Random access to a video sample's frames: a folder of JPEG frames,
-    decoded on ``device``'s route."""
+    """Random access to a video sample's frames (image folder or video
+    file), decoded on ``device``'s route."""
 
     def __init__(self, path: str, device="cpu"):
         self.path = path
         self.device = device
-        if not os.path.isdir(path):
-            raise _no_reader(path)
-        self.files = jpeg_files(path)
+        self.is_dir = os.path.isdir(path)
+        if self.is_dir:
+            self.files = image_files(path)
+        else:
+            self.video = open_video(path)
 
     def __getitem__(self, idx: int) -> np.ndarray:
-        return native.read_jpeg(self.files[idx], self.device)
+        if self.is_dir:
+            return imageio.imread(self.files[idx], self.device)
+        if not 0 <= idx < self.video.frame_count:
+            raise IOError(f"cannot seek frame {idx} of {self.path}")
+        return apply_rotation(self.video.frame(idx, self.device),
+                              self.video.rotation)
 
 
 class VideoDataset:
@@ -221,10 +231,8 @@ class ImageDataset:
             random.Random(item[1])
         idx = item if not isinstance(item, tuple) else item[0]
         file_name, size = self._items[idx]
-        path = os.path.join(self.image_dir, file_name)
-        if not path.lower().endswith(JPEG_EXTS):
-            raise _no_reader(path)
-        img = native.read_jpeg(path, self.device)
+        img = imageio.imread(os.path.join(self.image_dir, file_name),
+                             self.device)
 
         rows = np.asarray(self._labels[idx], np.float32).reshape(-1, 6)
         target = FrameTarget(boxes=rows[:, :4].astype(np.float32),

@@ -17,6 +17,13 @@
 //     (the augmentation's JPEG compression: encode in memory at `quality`
 //     with libjpeg's defaults, as cv2.imencode does -- 4:2:0 chroma,
 //     baseline tables, the islow DCT -- then decode as above)
+//   fio_mem_size(data, len, &w, &h)                             -> 0/err
+//   fio_decode_mem_u8(data, len, w, h, out_u8)                  -> 0/err
+//     (a JPEG held in memory, such as a video packet, at its own size)
+//   fio_encode_u8(rgb, w, h, quality, &buf, &len)               -> 0/err
+//   fio_free(buf)
+//     (encode as the round trip does, as cv2.imencode / cv2.imwrite do;
+//     the caller copies the stream out and frees it)
 
 #include <cstddef>
 #include <cstdio>
@@ -234,70 +241,113 @@ class Pool {
 
 Pool* g_pool = nullptr;
 
+// Decode a JPEG held in memory into rgb (w x h x 3). Returns 0 on success,
+// -5 if its size is not w x h.
+int decode_jpeg_mem(const uint8_t* data, size_t len, int w, int h,
+                    uint8_t* out) {
+  jpeg_decompress_struct cinfo;
+  JpegError jerr;
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_error_exit;
+  if (setjmp(jerr.jump)) {
+    jpeg_destroy_decompress(&cinfo);
+    return -2;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<uint8_t*>(data), (unsigned long)len);
+  jpeg_read_header(&cinfo, TRUE);
+  cinfo.out_color_space = JCS_RGB;
+  jpeg_start_decompress(&cinfo);
+  if (int(cinfo.output_width) != w || int(cinfo.output_height) != h) {
+    jpeg_destroy_decompress(&cinfo);
+    return -5;
+  }
+  while (cinfo.output_scanline < cinfo.output_height) {
+    JSAMPROW row = out + size_t(cinfo.output_scanline) * w * 3;
+    jpeg_read_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  return 0;
+}
+
+int encode_jpeg(const uint8_t* rgb, int w, int h, int quality,
+                unsigned char** buf, unsigned long* size) {
+  jpeg_compress_struct cinfo;
+  JpegError jerr;
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_error_exit;
+  if (setjmp(jerr.jump)) {
+    jpeg_destroy_compress(&cinfo);
+    free(*buf);
+    *buf = nullptr;
+    return -3;
+  }
+  jpeg_create_compress(&cinfo);
+  jpeg_mem_dest(&cinfo, buf, size);
+  cinfo.image_width = w;
+  cinfo.image_height = h;
+  cinfo.input_components = 3;
+  cinfo.in_color_space = JCS_RGB;
+  jpeg_set_defaults(&cinfo);
+  jpeg_set_quality(&cinfo, quality, TRUE);
+  jpeg_start_compress(&cinfo, TRUE);
+  while (cinfo.next_scanline < cinfo.image_height) {
+    JSAMPROW row = const_cast<uint8_t*>(rgb) +
+                   size_t(cinfo.next_scanline) * w * 3;
+    jpeg_write_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_compress(&cinfo);
+  jpeg_destroy_compress(&cinfo);
+  return 0;
+}
+
 int jpeg_roundtrip(const uint8_t* rgb, int w, int h, int quality,
                    uint8_t* out) {
   unsigned char* buf = nullptr;
   unsigned long size = 0;
-  {
-    jpeg_compress_struct cinfo;
-    JpegError jerr;
-    cinfo.err = jpeg_std_error(&jerr.mgr);
-    jerr.mgr.error_exit = jpeg_error_exit;
-    if (setjmp(jerr.jump)) {
-      jpeg_destroy_compress(&cinfo);
-      free(buf);
-      return -3;
-    }
-    jpeg_create_compress(&cinfo);
-    jpeg_mem_dest(&cinfo, &buf, &size);
-    cinfo.image_width = w;
-    cinfo.image_height = h;
-    cinfo.input_components = 3;
-    cinfo.in_color_space = JCS_RGB;
-    jpeg_set_defaults(&cinfo);
-    jpeg_set_quality(&cinfo, quality, TRUE);
-    jpeg_start_compress(&cinfo, TRUE);
-    while (cinfo.next_scanline < cinfo.image_height) {
-      JSAMPROW row = const_cast<uint8_t*>(rgb) +
-                     size_t(cinfo.next_scanline) * w * 3;
-      jpeg_write_scanlines(&cinfo, &row, 1);
-    }
-    jpeg_finish_compress(&cinfo);
-    jpeg_destroy_compress(&cinfo);
-  }
-  jpeg_decompress_struct dinfo;
-  JpegError jerr;
-  dinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = jpeg_error_exit;
-  if (setjmp(jerr.jump)) {
-    jpeg_destroy_decompress(&dinfo);
-    free(buf);
-    return -4;
-  }
-  jpeg_create_decompress(&dinfo);
-  jpeg_mem_src(&dinfo, buf, size);
-  jpeg_read_header(&dinfo, TRUE);
-  dinfo.out_color_space = JCS_RGB;
-  jpeg_start_decompress(&dinfo);
-  if (int(dinfo.output_width) != w || int(dinfo.output_height) != h) {
-    jpeg_destroy_decompress(&dinfo);
-    free(buf);
-    return -5;
-  }
-  while (dinfo.output_scanline < dinfo.output_height) {
-    JSAMPROW row = out + size_t(dinfo.output_scanline) * w * 3;
-    jpeg_read_scanlines(&dinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&dinfo);
-  jpeg_destroy_decompress(&dinfo);
+  int rc = encode_jpeg(rgb, w, h, quality, &buf, &size);
+  if (rc != 0) return rc;
+  rc = decode_jpeg_mem(buf, size, w, h, out);
   free(buf);
-  return 0;
+  return rc == -2 ? -4 : rc;
 }
-
 
 }  // namespace
 
 extern "C" {
+
+int fio_mem_size(const uint8_t* data, size_t len, int* w, int* h) {
+  jpeg_decompress_struct cinfo;
+  JpegError jerr;
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_error_exit;
+  if (setjmp(jerr.jump)) {
+    jpeg_destroy_decompress(&cinfo);
+    return -2;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<uint8_t*>(data), (unsigned long)len);
+  jpeg_read_header(&cinfo, TRUE);
+  *w = cinfo.image_width;
+  *h = cinfo.image_height;
+  jpeg_destroy_decompress(&cinfo);
+  return 0;
+}
+
+int fio_decode_mem_u8(const uint8_t* data, size_t len, int w, int h,
+                      uint8_t* out) {
+  return decode_jpeg_mem(data, len, w, h, out);
+}
+
+int fio_encode_u8(const uint8_t* rgb, int w, int h, int quality,
+                  unsigned char** buf, unsigned long* len) {
+  *buf = nullptr;
+  *len = 0;
+  return encode_jpeg(rgb, w, h, quality, buf, len);
+}
+
+void fio_free(unsigned char* buf) { free(buf); }
 
 int fio_pool_create(int n_threads) {
   if (g_pool) return -1;

@@ -17,7 +17,7 @@ import csv
 import glob
 import os
 
-from .. import native
+from .. import imageio
 from ..motion_dataset import AnnoEntity, DataSample, MotionDataset
 
 MOT_LABEL_MAP = {
@@ -34,7 +34,9 @@ def read_seqinfo(seq_dir: str) -> dict:
     MOT15-style sequences ship no ``seqinfo.ini``; the reference's
     non-MOT17 branch (``ingest_mot.py:137-146``) assumes 30 fps, counts
     the jpgs for the frame total, and reads width/height off the first
-    frame.  Same here, with the port's JPEG reader (``data/native.py``).
+    frame.  Same here, through the port's still reader
+    (``data/imageio.py``: the size ``cv2.imread`` gives, turned by the
+    EXIF orientation).
     """
     ini = os.path.join(seq_dir, "seqinfo.ini")
     if os.path.exists(ini):
@@ -53,7 +55,7 @@ def read_seqinfo(seq_dir: str) -> dict:
     im_paths = sorted(glob.glob(os.path.join(seq_dir, "img1", "*.jpg")))
     width = height = 0
     if im_paths:
-        width, height = native.image_size(im_paths[0])
+        width, height = imageio.image_size(im_paths[0])
     return dict(
         name=os.path.basename(seq_dir),
         fps=30.0,

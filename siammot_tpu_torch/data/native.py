@@ -21,9 +21,11 @@ on both routes: ``augment.cpp`` reproduces OpenCV's 8-bit resize, HSV
 conversions, ``filter2D``, ``GaussianBlur`` and the float ``warpAffine``
 of the motion-blur kernel bit for bit, and the JPEG
 round trip follows the route (libjpeg's encoder in ``frameio.cpp`` on the
-CPU, nvJPEG's in ``nvjpeg.cpp`` on the card).  :func:`read_jpeg` and
-:func:`thread_decoder` give each thread its own nvJPEG decoder on the
-card, so a pool of loader threads decodes at once.
+CPU, nvJPEG's in ``nvjpeg.cpp`` on the card).  :func:`decode_jpeg_bytes`
+(a file's or a video packet's bytes) and :func:`encode_jpeg` follow the
+route too, and on the card :func:`thread_decoder` gives each thread its
+own nvJPEG decoder, so a pool of loader threads decodes at once.  The PNG
+unfilter of ``data/png.py`` is built here as well (``png.cpp``).
 Each library is built at first use with ``g++`` into
 ``siammot_tpu_torch/_build/``, beside the CUDA kernels, named by a hash of
 its sources, its flags and the host's CPU, so a fresh checkout builds it
@@ -122,7 +124,15 @@ def libjpeg_library() -> ctypes.CDLL:
          _c_int),
         ("fio_decode_file_u8", [_c_char_p, _c_int, _c_int, _u8p], _c_int),
         ("fio_jpeg_roundtrip_u8", [_u8p, _c_int, _c_int, _c_int, _u8p],
-         _c_int)])
+         _c_int),
+        ("fio_mem_size", [_c_char_p, _size_t, ctypes.POINTER(_c_int),
+                          ctypes.POINTER(_c_int)], _c_int),
+        ("fio_decode_mem_u8", [_c_char_p, _size_t, _c_int, _c_int, _u8p],
+         _c_int),
+        ("fio_encode_u8", [_u8p, _c_int, _c_int, _c_int,
+                           ctypes.POINTER(ctypes.c_void_p),
+                           ctypes.POINTER(ctypes.c_ulong)], _c_int),
+        ("fio_free", [ctypes.c_void_p], None)])
 
 
 @functools.cache
@@ -133,6 +143,13 @@ def bilinear_library() -> ctypes.CDLL:
          None),
         ("fio_resize_normalize", [_u8p, _c_int, _c_int, _f32p, _c_int, _c_int,
                                   _f32p, _f32p], None)])
+
+
+@functools.cache
+def png_library() -> ctypes.CDLL:
+    """``png.cpp``: the PNG scanline unfilter (``data/png.py``)."""
+    return _declare(_load("png", "png.cpp", [], "a C++ compiler"), [
+        ("png_unfilter", [_c_char_p, _c_int, _c_int, _c_int, _u8p], _c_int)])
 
 
 @functools.cache
@@ -361,6 +378,37 @@ def libjpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
     return out
 
 
+def libjpeg_decode_bytes(data: bytes, what) -> np.ndarray:
+    """A JPEG held in memory (a video packet) to uint8 [h, w, 3] RGB at its
+    own size, with libjpeg (``jpeg_mem_src``): the bytes of
+    ``cv2.imdecode``."""
+    lib = libjpeg_library()
+    w, h = _c_int(), _c_int()
+    _check(lib.fio_mem_size(data, len(data), ctypes.byref(w),
+                            ctypes.byref(h)), "libjpeg", what)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    _check(lib.fio_decode_mem_u8(data, len(data), w.value, h.value,
+                                 _ptr(out, _u8p)), "libjpeg", what)
+    return out
+
+
+def libjpeg_encode(img: np.ndarray, quality: int) -> bytes:
+    """uint8 [h, w, 3] RGB -> a JPEG stream at ``quality`` with libjpeg's
+    defaults (4:2:0 chroma, the standard Huffman tables), as
+    ``cv2.imencode(".jpg", bgr)`` and ``cv2.imwrite`` encode."""
+    src = _rgb8(img)
+    lib = libjpeg_library()
+    buf, n = ctypes.c_void_p(), ctypes.c_ulong()
+    _check(lib.fio_encode_u8(_ptr(src, _u8p), src.shape[1], src.shape[0],
+                             int(quality), ctypes.byref(buf),
+                             ctypes.byref(n)),
+           "libjpeg", f"(encoding at quality {quality})")
+    try:
+        return ctypes.string_at(buf.value, n.value)
+    finally:
+        lib.fio_free(buf)
+
+
 # -- the card's route: nvJPEG ------------------------------------------------
 
 class NvJpegDecoder:
@@ -442,13 +490,25 @@ def thread_decoder(device) -> NvJpegDecoder:
     return decoders[device]
 
 
-def read_jpeg(path: str, device="cpu") -> np.ndarray:
-    """One JPEG at its own size as uint8 [h, w, 3] RGB, on ``device``'s
-    route: libjpeg on the CPU, this thread's nvJPEG decoder on the card."""
+def decode_jpeg_bytes(data: bytes, device="cpu", what="(a JPEG in memory)"
+                      ) -> np.ndarray:
+    """A JPEG held in memory at its own size as uint8 [h, w, 3] RGB, on
+    ``device``'s route: libjpeg on the CPU, this thread's nvJPEG decoder on
+    the card."""
     device = torch.device(device)
     if device.type == "cuda":
-        return thread_decoder(device).decode(path)
-    return decode_resize(path, *image_size(path))
+        return thread_decoder(device).decode_bytes(data, what)
+    return libjpeg_decode_bytes(data, what)
+
+
+def encode_jpeg(img: np.ndarray, quality: int, device="cpu") -> bytes:
+    """uint8 [h, w, 3] RGB -> a JPEG stream at ``quality``, 4:2:0, on
+    ``device``'s route: libjpeg on the CPU, this thread's nvJPEG encoder on
+    the card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return thread_decoder(device).encode(img, quality)
+    return libjpeg_encode(img, quality)
 
 
 def jpeg_roundtrip(img: np.ndarray, quality: int, device="cpu") -> np.ndarray:

@@ -1,15 +1,23 @@
-"""Frame sources for dataset inference (own copy of
+"""Frame sources for dataset inference and the demo (own copy of
 ``siammot_tpu.data.video_loader``, without ``cv2``).
 
-Image folders of JPEG frames, the layout of MOT17, SYNMOT and the
-ingested datasets, decode with the port's frame reader
-(``data/native.py``: libjpeg on the CPU, nvJPEG on the card) on a
-background prefetch thread that overlaps decoding with the device's step.
-Each source owns its reader (on the card an nvJPEG handle and a CUDA
-stream of its own), so the multi-stream engine's S sources decode at once.
-Video files and other image formats have no reader in the port: the JAX
-package reads them with ``cv2``, which the port does not use, so they
-raise.
+  * Image folders: every still in ``IMAGE_EXTS`` in name order, read by
+    ``data/imageio.py`` (JPEG on ``device``'s route, PNG, BMP; EXIF
+    orientation applied, as ``cv2.imread`` applies it).
+  * Video files: Motion JPEG in AVI, MP4 or MOV, demuxed by
+    ``data/container.py`` and decoded on ``device``'s route, turned upright
+    by the container's rotation as OpenCV turns them by default.  Other
+    codecs raise ``NotImplementedError`` naming the codec: the card's
+    machine has no decoder for them.
+
+:func:`normalized_frame_source` takes the JAX package's fast path over a
+folder holding JPEGs: the port's frame reader (``data/native.py``: libjpeg
+on the CPU, nvJPEG on the card) over its JPEG files only, raw (no EXIF
+orientation, as the JAX package's native reader), on a background prefetch
+thread that overlaps decoding with the device's step; each source owns its
+reader (on the card an nvJPEG handle and a CUDA stream of its own), so the
+multi-stream engine's S sources decode at once.  Every other source
+decodes on the prefetch thread and runs ``transform`` on each frame.
 """
 
 from __future__ import annotations
@@ -22,46 +30,52 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from . import native
+from . import imageio, native
+from .container import open_video
 
 JPEG_EXTS = (".jpg", ".jpeg")
 IMAGE_EXTS = JPEG_EXTS + (".png", ".bmp")
 
 
-def _no_reader(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: the port reads folders of JPEG frames only (libjpeg on "
-        f"the CPU, nvJPEG on the card); "
-        f"video files and other image formats need a reader it does not "
-        f"have yet (the JAX package uses cv2 for them)")
+def image_files(path: str) -> list:
+    """The stills of an image folder (``IMAGE_EXTS``), in name order."""
+    return sorted(f for f in glob.glob(os.path.join(path, "*"))
+                  if f.lower().endswith(IMAGE_EXTS))
 
 
 def jpeg_files(path: str) -> list:
-    """The frames of an image folder, in name order; raises if the folder
-    holds other images or no JPEG."""
-    files = sorted(f for f in glob.glob(os.path.join(path, "*"))
-                   if f.lower().endswith(IMAGE_EXTS))
-    if not files or not all(f.lower().endswith(JPEG_EXTS) for f in files):
-        raise _no_reader(path)
-    return files
+    """The JPEG files of an image folder, in name order (the JAX package's
+    fast path reads these and ignores the folder's other images)."""
+    return [f for f in image_files(path) if f.lower().endswith(JPEG_EXTS)]
+
+
+def video_frames(path: str, device="cpu") -> Iterator[np.ndarray]:
+    """Yield upright RGB uint8 frames from a video file."""
+    return open_video(path).frames(device)
 
 
 def folder_frames(path: str, device="cpu") -> Iterator[np.ndarray]:
-    """Yield RGB uint8 frames from a directory of numbered JPEGs, decoded
-    on ``device``'s route (``native.FrameReader``)."""
-    reader = native.FrameReader(device)
-    for f in jpeg_files(path):
-        yield reader.decode(f, *native.image_size(f))
+    """Yield RGB uint8 frames from a directory of numbered images."""
+    for f in image_files(path):
+        yield imageio.imread(f, device)
+
+
+def build_frame_iterator(path: str, device="cpu") -> Iterator[np.ndarray]:
+    if os.path.isdir(path):
+        return folder_frames(path, device)
+    return video_frames(path, device)
 
 
 def video_metadata(path: str) -> dict:
-    """(fps, frame count, width, height) of an image folder."""
-    if not os.path.isdir(path):
-        raise _no_reader(path)
-    files = jpeg_files(path)
-    w, h = native.image_size(files[0])
-    return dict(fps=30.0, number_of_frames=len(files),
-                resolution={"width": w, "height": h})
+    """(fps, frame count, width, height) for a file or image folder."""
+    if os.path.isdir(path):
+        files = image_files(path)
+        if not files:
+            return dict(fps=30.0, number_of_frames=0)
+        w, h = imageio.image_size(files[0])
+        return dict(fps=30.0, number_of_frames=len(files),
+                    resolution={"width": w, "height": h})
+    return open_video(path).metadata()
 
 
 class PrefetchIterator:
@@ -100,13 +114,18 @@ class PrefetchIterator:
 
 def normalized_frame_source(path: str, transform, depth: int = 4,
                             device="cpu"):
-    """Prefetched stream of ``(padded [1, H, W, 3], (w, h))`` for a JPEG
-    folder, decoded on ``device``'s route (``native.FrameReader``): uint8
-    with ``transform.device_normalize``, else normalised float32 (resize
-    and normalisation as the JAX package's native path does them)."""
-    if not os.path.isdir(path):
-        raise _no_reader(path)
-    files = jpeg_files(path)
+    """Prefetched stream of ``(padded [1, H, W, 3], (w, h))``: uint8 with
+    ``transform.device_normalize``, else normalised float32.
+
+    A folder holding JPEGs takes the native route over its JPEG files
+    (``native.FrameReader`` on ``device``'s route; resize and
+    normalisation as the JAX package's native path does them); everything
+    else decodes on the prefetch thread and runs ``transform`` per frame.
+    """
+    files = jpeg_files(path) if os.path.isdir(path) else []
+    if not files:
+        return PrefetchIterator(build_frame_iterator(path, device),
+                                transform, depth)
     nw, nh = transform.input_size(*native.image_size(files[0]))
     if not transform.device_normalize and transform.to_bgr255:
         raise ValueError("INPUT.TO_BGR255 with TPU.DEVICE_NORMALIZE False: "

@@ -133,6 +133,11 @@ class SiamMOT:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SiamMOT: no CUDA device (pass device='cpu' "
                                "for the plain CPU path)")
+        # the pluggable motion model: the JAX package's registry lookup
+        # (siammot_tpu/models/siammot.py:198-202), where only EMM ships
+        if cfg.MODEL.TRACK_HEAD.MODEL != "EMM":
+            raise KeyError(f"{cfg.MODEL.TRACK_HEAD.MODEL!r} is not "
+                           f"registered; available: ['EMM']")
         tpu = cfg.TPU
         # MASKED_TRACK_KERNELS or USE_PALLAS False: the unmasked EMM route
         # (xcorr kernel 6, the predictor over every slot), as JAX's XLA

@@ -43,12 +43,18 @@ from siammot_tpu.data.filters import build_data_filter_fn as jax_filter
 from siammot_tpu.data.ingestion.ingest_mot import ingest_mot as jax_ingest
 from siammot_tpu.data.motion_dataset import MotionDataset as JaxDataset
 from siammot_tpu.data.transforms import EvalTransform as JaxTransform
+from siammot_tpu.data.datasets import FrameReader as JaxFrameReader
+from siammot_tpu.data.datasets import VideoDataset as JaxVideoDataset
+from siammot_tpu.data.motion_dataset import DataSample as JaxSample
+from siammot_tpu.data.video_loader import \
+    video_metadata as jax_video_metadata
 from siammot_tpu.data.video_loader import \
     normalized_frame_source as jax_source
 from siammot_tpu.engine.inferencer import DatasetInference as JaxInference
 from siammot_tpu.models.siammot import SiamMOT as JaxSiamMOT
 from siammot_tpu_torch.configs.defaults import get_cfg
-from siammot_tpu_torch.data import native
+from siammot_tpu_torch.data import container, native
+from siammot_tpu_torch.data.datasets import VideoDataset
 from siammot_tpu_torch.data.filters import build_data_filter_fn
 from siammot_tpu_torch.data.ingestion.ingest_mot import ingest_mot
 from siammot_tpu_torch.data.motion_dataset import DataSample, MotionDataset
@@ -165,14 +171,17 @@ def test_eval_transform_and_frame_source_match_jax(tmp_path):
 
 
 def test_non_jpeg_sources_raise(tmp_path):
+    """What the port cannot read raises, naming it; a PNG folder, which it
+    now reads, gives the JAX package's metadata."""
     cfg = get_cfg()
     video = tmp_path / "clip.mp4"
     video.write_bytes(b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(NotImplementedError, match="MJPEG"):
         normalized_frame_source(str(video), EvalTransform(cfg))
     cv2.imwrite(str(tmp_path / "a.png"), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        video_metadata(str(tmp_path))
+    assert video_metadata(str(tmp_path)) == jax_video_metadata(
+        str(tmp_path)) == dict(fps=30.0, number_of_frames=1,
+                               resolution={"width": 8, "height": 8})
     bad = tmp_path / "bad"
     bad.mkdir()
     (bad / "000001.jpg").write_bytes(b"not a jpeg")
@@ -184,6 +193,54 @@ def test_non_jpeg_sources_raise(tmp_path):
     (bad / "000001.jpg").write_bytes(whole.read_bytes()[:400])
     with pytest.raises(IOError, match="libjpeg"):
         list(normalized_frame_source(str(bad), EvalTransform(cfg)))
+
+
+def test_video_dataset_on_png_folders_and_mjpeg_avi_matches_jax(
+        tmp_path, monkeypatch):
+    """The training clips of a committed sequence stored as a PNG folder
+    and as an MJPEG AVI: the port's ``VideoDataset`` items (frames, gt
+    boxes, ids, labels) equal the JAX package's byte for byte.  The JAX
+    reader takes AVI frames from ``cv2.VideoCapture`` (FFmpeg's MJPEG
+    decoder, a few byte values from libjpeg's, ``tests/
+    test_torch_container.py``), so on that side each frame is
+    ``cv2.imdecode`` of the same packet."""
+    anno = os.path.join(REPO, "tests", "fixtures", "synmot_multi")
+    with open(os.path.join(anno, "annotation", "anno.json")) as f:
+        samples = json.load(f)["samples"]
+    sid = "SYN-TE-01"
+    src = os.path.join(anno, samples[sid]["metadata"]["data_path"])
+    frames = [cv2.imread(os.path.join(src, n))
+              for n in sorted(os.listdir(src))]
+    png = tmp_path / "png"
+    png.mkdir()
+    for i, f in enumerate(frames):
+        cv2.imwrite(str(png / f"{i + 1:06d}.png"), f)
+    avi = str(tmp_path / "clip.avi")
+    wr = cv2.VideoWriter(avi, cv2.VideoWriter_fourcc(*"MJPG"), 30.0,
+                         (f.shape[1], f.shape[0]))
+    for f in frames:
+        wr.write(f)
+    wr.release()
+    video = container.open_video(avi)
+    monkeypatch.setattr(
+        JaxFrameReader, "__getitem__", lambda self, i: cv2.imdecode(
+            np.frombuffer(video.packet(i), np.uint8),
+            cv2.IMREAD_COLOR)[..., ::-1] if not self.is_dir
+        else cv2.imread(self.files[i])[..., ::-1])
+    for path in (str(png), avi):
+        d = dict(samples[sid])
+        d["metadata"] = dict(d["metadata"], data_path=path)
+        port = VideoDataset([(sid, DataSample.from_dict(sid, d))])
+        jax_ds = JaxVideoDataset([(sid, JaxSample.from_dict(sid, d))])
+        assert len(port) == len(jax_ds) > 1
+        for i in range(len(port)):
+            (pf, pt, pid), (jf, jt, jid) = port[(i, i)], jax_ds[(i, i)]
+            assert pid == jid == sid and len(pf) == len(jf) == 2
+            for a, b, ta, tb in zip(pf, jf, pt, jt):
+                np.testing.assert_array_equal(a, b)
+                for field in ("boxes", "ids", "labels"):
+                    np.testing.assert_array_equal(getattr(ta, field),
+                                                  getattr(tb, field))
 
 
 def test_committed_frames_decode_to_the_jax_bytes():

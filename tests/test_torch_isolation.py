@@ -1,7 +1,7 @@
 """The port stands alone: with ``jax``, ``flax``, ``yaml``, ``cv2``,
-``PIL``, ``tensorboard``, ``siammot_tpu``, ``tests`` and ``tools``
-unimportable (as on the machine with the card, which has none of the
-first six), every module of
+``PIL``, ``tensorboard``, ``matplotlib``, ``siammot_tpu``, ``demos``,
+``tests`` and ``tools`` unimportable (as on the machine with the card,
+which has none of the first seven), every module of
 ``siammot_tpu_torch`` and ``chip_smoke`` imports, two frames of
 ``track_frames`` run on the
 CPU (and one frame of a DLA-46-C-FPN body with deformable stages), and
@@ -26,7 +26,9 @@ layer: each ``SIAMMOT_DCN_IMPL`` form of the deformable conv forward and
 backward, the multi-stream step with ``devices=["cpu", "cpu"]``,
 ``parallel/mesh.py``'s group of one, and ``tools/train_net`` under two
 gloo ranks of ``torch.distributed.run``, whose processes block the same
-imports (a ``sitecustomize`` on their path).  Also: no CUDA source
+imports (a ``sitecustomize`` on their path); the demo's CLI
+(``siammot_tpu_torch.demos.demo``) over a JPEG folder and over an MJPEG
+mp4 the port writes itself.  Also: no CUDA source
 includes PyTorch's headers (they make the build take minutes instead of
 seconds)."""
 
@@ -378,6 +380,32 @@ SCRIPT = textwrap.dedent("""
     assert {"model_0000001.pth", "model_final.pth"} <= set(ddp_files)
     assert not any(blocked(m) for m in sys.modules), sorted(
         m for m in sys.modules if blocked(m))
+
+    # the demo's CLI on the card's machine: the sequence's JPEG folder to
+    # an mp4, then an MJPEG mp4 the port writes itself to JPEG frames
+    import tempfile
+    from siammot_tpu_torch.data.container import Mp4Writer
+    from siammot_tpu_torch.demos import demo
+    seq = os.path.join(DATA, "synmot_mini", "test", "SEQ-01", "img1")
+    with tempfile.TemporaryDirectory() as tmp:
+        tiny = os.path.join(tmp, "tiny.yaml")
+        with open(tiny, "w") as f:
+            f.write("INPUT:\\n  MIN_SIZE_TEST: 64\\n  MAX_SIZE_TEST: 96\\n"
+                    "TPU:\\n  MAX_TRACKS: 4\\n")
+        run = demo.main(["--demo-video", seq, "--config-file", tiny,
+                         "--device", "cpu", "--output-path", tmp])
+        assert len(run.rows) == 3 and os.path.isfile(run.output)
+        mp4 = os.path.join(tmp, "clip.mp4")
+        with Mp4Writer(mp4, 10.0, 128, 96) as wr:
+            for name in sorted(os.listdir(seq)):
+                with open(os.path.join(seq, name), "rb") as f:
+                    wr.write(f.read())
+        run = demo.main(["--demo-video", mp4, "--config-file", tiny,
+                         "--device", "cpu", "--dump-video", "False",
+                         "--output-path", tmp])
+        assert len(os.listdir(run.output)) == 3
+    assert not any(blocked(m) for m in sys.modules), sorted(
+        m for m in sys.modules if blocked(m))
     print("ISOLATED", len(names), int((result.state.ids >= 0).sum()))
 """)
 
@@ -385,7 +413,7 @@ SCRIPT = textwrap.dedent("""
 BLOCK = textwrap.dedent("""
     import sys
     BLOCKED = ("jax", "flax", "yaml", "cv2", "PIL", "tensorboard",
-               "siammot_tpu", "tests", "tools")
+               "matplotlib", "siammot_tpu", "demos", "tests", "tools")
 
     def blocked(name):
         return name.split(".")[0] in BLOCKED

@@ -212,3 +212,18 @@ def test_entry_points_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             golden.run()
+
+
+def test_an_unregistered_motion_model_raises_as_jax_does():
+    """``MODEL.TRACK_HEAD.MODEL`` other than EMM: the JAX package's
+    registry lookup raises, and so does the port, with its message."""
+    msgs = []
+    for make, build in ((jax_get_cfg, JaxSiamMOT),
+                        (get_cfg, lambda c: SiamMOT(c, device="cpu"))):
+        cfg = make()
+        cfg.merge_from_list(["MODEL.TRACK_HEAD.MODEL", "IMM"])
+        with pytest.raises(KeyError) as err:
+            build(cfg)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1] == "\"'IMM' is not registered; available: " \
+                                 "['EMM']\""

@@ -172,18 +172,19 @@ def test_process_sharding_matches_jax():
 
 
 def test_no_route_falls_back(tmp_path):
-    """A video file, a folder or still that is not JPEG, and a broken JPEG
-    raise, naming the cause; nothing decodes them another way."""
+    """A file that is no video the port demuxes, a still format it does not
+    decode and broken stills raise, naming the cause; nothing decodes them
+    another way."""
     from siammot_tpu_torch.data.datasets import FrameReader, ImageDataset
     from siammot_tpu_torch.data.coco import CocoDataset
     video = tmp_path / "clip.mp4"
     video.write_bytes(b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(NotImplementedError, match="MJPEG"):
         FrameReader(str(video))
     (tmp_path / "png").mkdir()
-    (tmp_path / "png" / "000001.png").write_bytes(b"\x89PNG")
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        FrameReader(str(tmp_path / "png"))
+    (tmp_path / "png" / "000001.png").write_bytes(b"\x89PNG\r\n\x1a\n")
+    with pytest.raises(IOError, match="ends before IEND"):
+        FrameReader(str(tmp_path / "png"))[0]
     (tmp_path / "bad").mkdir()
     (tmp_path / "bad" / "000001.jpg").write_bytes(b"\xff\xd8\xff\xd9")
     with pytest.raises(IOError):
@@ -193,8 +194,9 @@ def test_no_route_falls_back(tmp_path):
                     '"height": 8}], "annotations": [{"id": 1, "image_id": 1, '
                     '"bbox": [1, 1, 4, 4], "category_id": 1}], '
                     '"categories": [{"id": 1, "name": "person"}]}')
+    (tmp_path / "a.png").write_bytes(b"GIF89a" + b"\0" * 32)
     ds = ImageDataset(CocoDataset(str(anno)), str(tmp_path))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(NotImplementedError, match="GIF"):
         ds[0]
 
 
