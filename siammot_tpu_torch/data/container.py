@@ -1,51 +1,89 @@
 """Video files for the port, without ``cv2`` or FFmpeg: a demuxer for AVI
-and ISO BMFF (MP4, MOV) that hands each frame's packet to the port's JPEG
-decoder (``data/native.py``: libjpeg on the CPU, nvJPEG on the card).
+and ISO BMFF (MP4, MOV) that hands each frame's packet to a decoder on the
+route of the device:
 
-The card's machine has no video decoder library, so the port decodes
-Motion JPEG only, where every packet is a JPEG image:
+  * Motion JPEG, where every packet is a JPEG image: the port's JPEG
+    decoder (``data/native.py``: libjpeg on the CPU, nvJPEG on the card).
+  * H.264 and MPEG-4 Part 2 (Visual): NVIDIA's hardware decoder on the
+    card (``data/nvdec.py``), fed the elementary stream this module makes
+    from the samples.  The port has no CPU decoder for them: a decode on
+    the CPU raises ``NotImplementedError`` naming the codec and NVDEC.
+
+The containers:
 
   * AVI (RIFF ``AVI ``): ``avih`` and the video stream's ``strh`` and
     ``strf`` give the rate, frame count and size; the packets are the
     stream's ``##dc``/``##db`` chunks of ``movi``, in ``idx1`` order where
     that index is there (and the file holds one RIFF), else in file order
-    over every ``movi`` list.  Codec: ``MJPG`` and the other fourccs
-    FFmpeg maps to its MJPEG decoder.
+    over every ``movi`` list; the keyframes are ``idx1``'s
+    ``AVIIF_KEYFRAME`` entries (without ``idx1``: the packets that hold an
+    IDR slice or an I-VOP).  Codec: ``strf``'s ``biCompression`` against
+    the fourccs FFmpeg's ``riff.c`` maps to its MJPEG, H.264 and MPEG-4
+    decoders.  H.264 comes as Annex B with its parameter sets in band;
+    an MPEG-4 ``strf`` may carry the VOL header after its 40 bytes.
   * MP4 and MOV: the first video track's ``stsd``, ``stsz``, ``stsc``,
     ``stco``/``co64`` and ``stts`` give the packets and their durations,
     ``mdhd`` the timescale, ``tkhd``'s display matrix the rotation (0, 90,
-    180 or 270, as FFmpeg's ``av_display_rotation_get`` reads it).
-    Codec: the ``jpeg``, ``mjpa`` and ``mjpb`` sample entries (a Motion
+    180 or 270, as FFmpeg's ``av_display_rotation_get`` reads it),
+    ``stss`` the sync samples, ``ctts`` the display order and ``elst``'s
+    first edit which frames show (composition times in [media time,
+    media time + duration), as FFmpeg's mov demuxer drops the rest).
+    Codecs: the ``jpeg``, ``mjpa`` and ``mjpb`` sample entries (a Motion
     JPEG format B field, whose segments carry no markers and whose scan
     no stuffed bytes, is rebuilt as a JPEG stream first:
-    :func:`mjpeg_b_to_jpeg`), and ``mp4v`` whose ``esds`` object type is
-    0x6C (JPEG), which is how FFmpeg, and so ``cv2.VideoWriter``, stores
-    MJPEG in an MP4.
+    :func:`mjpeg_b_to_jpeg`), ``mp4v`` whose ``esds`` object type is
+    0x6C (JPEG, how FFmpeg, and so ``cv2.VideoWriter``, stores MJPEG in an
+    MP4) or 0x20 (MPEG-4 Part 2: the DecoderSpecificInfo holds the VOL
+    header), and ``avc1``/``avc3`` (H.264: ``avcC`` gives the parameter
+    sets and the NAL length size; each sample's length-prefixed NAL units
+    become Annex B, and each sync sample is prefixed with the parameter
+    sets).
 
-Any other codec (H.264, MPEG-4 Part 2, ...) raises
-``NotImplementedError`` naming it.  Some MJPEG packets leave out
-their Huffman tables (DHT) and rely on the standard ones (JPEG Annex K.3,
-which libjpeg would also assume); :func:`with_huffman_tables` inserts them
-before decoding, so nvJPEG reads such packets too.
+Frames come in display order and seek by :func:`seek_plan`: decoding
+starts at the sync sample at or before the frame wanted and runs forward
+until it comes out.  Any other codec (HEVC, VP9, AV1, MPEG-4 Part 2 with
+DivX packed B-frames, ...) raises ``NotImplementedError`` naming it.  Some
+MJPEG packets leave out their Huffman tables (DHT) and rely on the
+standard ones (JPEG Annex K.3, which libjpeg would also assume);
+:func:`with_huffman_tables` inserts them before decoding, so nvJPEG reads
+such packets too.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import mmap
+import re
 import struct
+import threading
 
 import numpy as np
+import torch
 
-from . import native
+from . import native, nvdec
 
 # fourccs FFmpeg's AVI demuxer maps to its MJPEG decoder (libavformat
 # riff.c), upper-cased
 AVI_MJPEG = {"MJPG", "AVRN", "ACDV", "QIVG", "SLMJ", "CJPG", "IJPG", "AVMJ",
              "AVI1", "AVI2", "MTSJ", "ZJPG", "MMJP", "DMB1", "MJPA", "JPEG"}
+# fourccs FFmpeg's AVI demuxer maps to its H.264 and MPEG-4 Part 2
+# decoders (riff.c), upper-cased
+AVI_H264 = {"H264", "X264", "AVC1", "DAVC", "SMV2", "VSSH", "Q264", "V264",
+            "GAVC", "UMSV", "TSHD", "INMC"}
+AVI_MPEG4 = {"FMP4", "DIVX", "DX50", "XVID", "MP4S", "M4S2", "ZMP4", "DIV1",
+             "BLZ0", "MP4V", "UMP4", "WV1F", "SEDG", "RMP4",
+             "3IV2", "WAWV", "FFDS", "FVFW", "DCOD", "MVXM", "PM4V", "SMP4",
+             "DXGM", "VIDM", "M4T3", "GEOX", "G264", "HDX4", "DM4V", "DMK2",
+             "DIGI", "EPHV", "EM4A", "M4CC", "SN40", "VSPX", "ULDX", "GEOV",
+             "SIPP", "SM4V", "XVIX", "DREX", "QMP4", "PLV1", "GLV4", "GMP4",
+             "MNM4", "GTM4"}
 MP4_MJPEG = {"jpeg", "mjpa", "mjpb"}
+MP4_H264 = {"avc1", "avc3"}
 OBJECT_JPEG = 0x6C
+OBJECT_MPEG4 = 0x20
+MJPEG, H264, MPEG4 = "MJPEG", "H.264", "MPEG-4 Part 2"
 OBJECT_TYPES = {0x20: "MPEG-4 Part 2 (Visual)", 0x21: "H.264", 0x23: "HEVC",
                 0x60: "MPEG-2 Video", 0x61: "MPEG-2 Video",
                 0x6A: "MPEG-1 Video", 0x6C: "JPEG", 0x6D: "PNG",
@@ -61,9 +99,16 @@ def no_decoder(path: str, codec: str) -> NotImplementedError:
     name = CODEC_NAMES.get(codec.strip(), "")
     return NotImplementedError(
         f"{path}: codec {codec!r}{' (' + name + ')' if name else ''}: the "
-        f"port decodes Motion JPEG only (every packet a JPEG image, through "
-        f"libjpeg on the CPU or nvJPEG on the card); the card's machine has "
-        f"no decoder for other codecs")
+        f"port decodes Motion JPEG (libjpeg on the CPU, nvJPEG on the card), "
+        f"H.264 and MPEG-4 Part 2 (NVDEC on the card); the card's machine "
+        f"has no decoder for other codecs")
+
+
+def no_cpu_decoder(path: str, fmt: str, codec: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{path}: {fmt} ({codec!r}) decodes on the card only, through "
+        f"NVIDIA's video decoder (NVDEC); the port has no CPU decoder for "
+        f"it: pass a CUDA device")
 
 
 # -- the standard Huffman tables (JPEG Annex K.3) -------------------------
@@ -140,15 +185,81 @@ def mjpeg_b_to_jpeg(field: bytes) -> bytes:
     return b"".join(out)
 
 
+# -- elementary streams and the seek plan ---------------------------------
+
+def annexb(sample: bytes, nal_length: int) -> bytes:
+    """A sample of length-prefixed NAL units (``nal_length`` bytes each
+    length, as ``avcC`` says) as an Annex B byte stream."""
+    out, pos, n = [], 0, len(sample)
+    while pos + nal_length <= n:
+        size = int.from_bytes(sample[pos:pos + nal_length], "big")
+        pos += nal_length
+        if pos + size > n:
+            raise IOError("a NAL unit runs past its sample")
+        out.append(b"\0\0\0\1" + sample[pos:pos + size])
+        pos += size
+    return b"".join(out)
+
+
+def seek_plan(sync, rank, target: int) -> tuple:
+    """Where decoding starts to give the frame of display rank ``target``:
+    ``(start, skip)``, the sync sample (a decode index of ``sync``) of the
+    highest display rank at or before ``target`` (``rank[i]``: sample i's
+    display rank), and how many frames come out before the one wanted.  A
+    decoder fed the samples from ``start`` on gives the frames of display
+    rank ``rank[start]``, ``rank[start] + 1``, ... (the GOPs are closed)."""
+    best = None
+    for s in sync:
+        if rank[s] <= target and (best is None or rank[s] >= rank[best]):
+            best = s
+    if best is None:
+        raise IOError(f"no sync sample at or before display rank {target}")
+    return best, target - rank[best]
+
+
+def _is_keyframe(fmt: str, packet: bytes) -> bool:
+    """Whether an elementary-stream packet holds an IDR slice (H.264, Annex
+    B) or an I-VOP (MPEG-4 Part 2)."""
+    if fmt == H264:
+        return any(m.end() < len(packet) and packet[m.end()] & 0x1F == 5
+                   for m in re.finditer(b"\0\0\1", packet))
+    i = packet.find(b"\0\0\1\xb6")
+    return i >= 0 and i + 4 < len(packet) and packet[i + 4] >> 6 == 0
+
+
+_DIVX = re.compile(rb"DivX(\d+)(?:Build|b)(\d+)(p?)")
+
+
+class _Seek:
+    """A session of :meth:`Video.frame`: where it stands in the stream."""
+
+    def __init__(self, session, device, start, rank):
+        self.session, self.device = session, device
+        self.first = self.next_packet = start
+        self.next_rank = rank           # of the next frame out
+        self.last = rank - 1            # the rank of the last frame given
+        self.pending = []               # frames out, not yet given
+        self.ended = False
+
+
 # -- the container -----------------------------------------------------------
 
 class Video:
-    """A demuxed MJPEG video: ``fps``, ``frame_count``, ``width``,
-    ``height``, ``rotation`` (degrees, 0/90/180/270) and ``codec``; the
-    packets by index (random access) as (file offset, size)."""
+    """A demuxed video: ``fps``, ``frame_count``, ``width``, ``height``,
+    ``rotation`` (degrees, 0/90/180/270), ``codec`` (the fourcc or sample
+    entry) and ``format`` (``MJPEG``, ``H.264`` or ``MPEG-4 Part 2``); the
+    packets in decode order (random access) as (file offset, size);
+    ``sync``, the decode indices of the sync samples; ``order``, the decode
+    indices in display order (None: the decode order); ``shown``, the
+    display ranks of the frames the video shows (None: all); ``header``,
+    the parameter sets (H.264, Annex B) or the VOL header (MPEG-4) that
+    start a stream; ``nal_length``, the NAL length size of length-prefixed
+    H.264 samples (0: Annex B)."""
 
     def __init__(self, path: str, fps: float, width: int, height: int,
-                 rotation: int, codec: str, spans: list):
+                 rotation: int, codec: str, spans: list, fmt: str = MJPEG,
+                 sync=None, order=None, shown=None, header: bytes = b"",
+                 nal_length: int = 0):
         self.path = path
         self.fps = fps
         self.width = width
@@ -156,10 +267,39 @@ class Video:
         self.rotation = rotation
         self.codec = codec
         self.spans = spans
+        self.format = fmt
+        self.sync = list(range(len(spans))) if sync is None else list(sync)
+        self.order = order
+        self.shown = shown
+        self.header = header
+        self.nal_length = nal_length
+        self._sync_set = set(self.sync)
+        self._rank = None
+        self._seek = None               # frame()'s session, one at a time
+        self._seek_lock = threading.Lock()
 
     @property
     def frame_count(self) -> int:
-        return len(self.spans)
+        return len(self.spans) if self.shown is None else len(self.shown)
+
+    def rank(self) -> list:
+        """Each decode index's display rank."""
+        if self._rank is None:
+            self._rank = list(range(len(self.spans)))
+            for r, i in enumerate(self.order or ()):
+                self._rank[i] = r
+        return self._rank
+
+    def shown_rank(self, idx: int) -> int:
+        """The display rank of frame ``idx`` (among the frames shown)."""
+        return idx if self.shown is None else self.shown[idx]
+
+    def plan(self, idx: int) -> tuple:
+        """:func:`seek_plan` of frame ``idx``: ``(start, skip)``."""
+        if not 0 <= idx < self.frame_count:
+            raise IOError(f"{self.path}: no frame {idx} of "
+                          f"{self.frame_count}")
+        return seek_plan(self.sync, self.rank(), self.shown_rank(idx))
 
     def _read(self, f, idx: int) -> bytes:
         offset, size = self.spans[idx]
@@ -173,14 +313,38 @@ class Video:
         with open(self.path, "rb") as f:
             return self._read(f, idx)
 
-    def packets(self):
+    def packets(self, start: int = 0):
         with open(self.path, "rb") as f:
-            for idx in range(len(self.spans)):
+            for idx in range(start, len(self.spans)):
                 yield self._read(f, idx)
 
+    def stream_packet(self, data: bytes, idx: int, first: bool) -> bytes:
+        """Packet ``idx`` as the elementary stream carries it: H.264 as
+        Annex B, a sync sample (or the ``first`` packet fed) prefixed with
+        the parameter sets; the ``first`` MPEG-4 packet prefixed with the
+        VOL header."""
+        if self.format == H264:
+            if self.nal_length:
+                data = annexb(data, self.nal_length)
+            if first or idx in self._sync_set:
+                data = self.header + data
+        elif self.format == MPEG4 and first:
+            data = self.header + data
+        return data
+
+    def elementary_stream(self, start: int = 0) -> bytes:
+        """The elementary stream from packet ``start`` on (a ``.h264`` or
+        ``.m4v`` file's bytes)."""
+        return b"".join(self.stream_packet(d, i, i == start)
+                        for i, d in enumerate(self.packets(start), start))
+
     def decode(self, packet: bytes, device="cpu", what=None) -> np.ndarray:
-        """One packet -> uint8 [h, w, 3] RGB as stored (no rotation)."""
+        """One MJPEG packet -> uint8 [h, w, 3] RGB as stored (no
+        rotation)."""
         what = what or self.path
+        if self.format != MJPEG:
+            raise ValueError(f"{what}: {self.format} decodes as a stream "
+                             f"(frames(), frame()), not a packet at a time")
         if self.codec == "mjpb":
             packet = mjpeg_b_to_jpeg(packet)
         img = native.decode_jpeg_bytes(with_huffman_tables(packet), device,
@@ -191,23 +355,101 @@ class Video:
                           f"two interlaced fields?)")
         return img
 
+    def session(self, device) -> nvdec.Session:
+        """A new NVDEC session for this stream on ``device`` (a CUDA
+        device; the CPU raises)."""
+        if torch.device(device).type != "cuda":
+            raise no_cpu_decoder(self.path, self.format, self.codec)
+        return nvdec.Session(self.format, device, self.path)
+
+    def _check_size(self, img: np.ndarray, what: str) -> np.ndarray:
+        if img.shape[:2] != (self.height, self.width):
+            raise IOError(f"{what}: NVDEC gives {img.shape[1]}x"
+                          f"{img.shape[0]} frames in a {self.width}x"
+                          f"{self.height} stream")
+        return img
+
     def frame(self, idx: int, device="cpu") -> np.ndarray:
-        return self.decode(self.packet(idx), device,
-                           f"{self.path} frame {idx}")
+        """Frame ``idx`` (display order) as stored (no rotation).  A stream
+        codec keeps one session a video and decodes forward when ``idx``
+        comes after the last frame it gave and its sync sample has been
+        fed; otherwise it starts again at :meth:`plan`'s sync sample."""
+        if self.format == MJPEG:
+            return self.decode(self.packet(idx), device,
+                               f"{self.path} frame {idx}")
+        with self._seek_lock:           # the loader's threads share a video
+            return self._frame(idx, torch.device(device))
+
+    def _frame(self, idx: int, device: torch.device) -> np.ndarray:
+        start, _ = self.plan(idx)
+        target = self.shown_rank(idx)
+        st = self._seek
+        if st is None or st.device != device or target <= st.last \
+                or start >= st.next_packet:
+            if st is not None:
+                st.session.close()
+            st = self._seek = _Seek(self.session(device), device, start,
+                                    self.rank()[start])
+        with open(self.path, "rb") as f:
+            while True:
+                while not st.pending:
+                    if st.next_packet < len(self.spans):
+                        i = st.next_packet
+                        packet = self.stream_packet(self._read(f, i), i,
+                                                    i == st.first)
+                        st.next_packet += 1
+                    elif not st.ended:
+                        packet, st.ended = None, True
+                    else:
+                        raise IOError(f"{self.path}: the stream ended before "
+                                      f"frame {idx}")
+                    for img in st.session.feed(packet):
+                        st.pending.append((st.next_rank, img))
+                        st.next_rank += 1
+                rank, img = st.pending.pop(0)
+                if rank == target:
+                    st.last = rank
+                    return self._check_size(img, f"{self.path} frame {idx}")
 
     def frames(self, device="cpu"):
-        """Yield every frame in order, turned upright by the container's
-        rotation (as OpenCV's FFmpeg backend turns them by default)."""
-        for i, data in enumerate(self.packets()):
-            yield apply_rotation(
-                self.decode(data, device, f"{self.path} frame {i}"),
-                self.rotation)
+        """Yield every frame in display order, turned upright by the
+        container's rotation (as OpenCV's FFmpeg backend turns them by
+        default)."""
+        if self.format == MJPEG:
+            for i, data in enumerate(self.packets()):
+                yield apply_rotation(
+                    self.decode(data, device, f"{self.path} frame {i}"),
+                    self.rotation)
+            return
+        session = self.session(device)
+        shown = set(range(len(self.spans)) if self.shown is None
+                    else self.shown)
+        rank = count = 0
+        try:
+            stream = (self.stream_packet(d, i, i == 0)
+                      for i, d in enumerate(self.packets()))
+            for packet in itertools.chain(stream, [None]):
+                for img in session.feed(packet):
+                    if rank in shown:
+                        yield apply_rotation(self._check_size(
+                            img, f"{self.path} frame {count}"),
+                            self.rotation)
+                        count += 1
+                    rank += 1
+        finally:
+            session.close()
+        if count != self.frame_count:
+            raise IOError(f"{self.path}: NVDEC gave {count} frames of the "
+                          f"{self.frame_count} the container holds")
 
     def metadata(self) -> dict:
-        """The JAX package's ``video_metadata`` keys; the size upright."""
+        """The JAX package's ``video_metadata`` keys; the size upright.
+        The frame count is ``CAP_PROP_FRAME_COUNT``'s: every sample, also
+        those an edit list hides (which ``frames`` does not give, as
+        ``cap.read()`` does not)."""
         w, h = (self.height, self.width) if self.rotation % 180 \
             else (self.width, self.height)
-        return dict(fps=self.fps, number_of_frames=self.frame_count,
+        return dict(fps=self.fps, number_of_frames=len(self.spans),
                     resolution={"width": w, "height": h})
 
 
@@ -234,8 +476,8 @@ def open_video(path: str) -> Video:
         else:
             raise NotImplementedError(
                 f"{path}: not an AVI, MP4 or MOV file (first bytes "
-                f"{head.hex()}); the port reads MJPEG in those containers "
-                f"only")
+                f"{head.hex()}); the port reads MJPEG, H.264 and MPEG-4 "
+                f"Part 2 in those containers")
         with contextlib.closing(mmap.mmap(f.fileno(), 0,
                                           access=mmap.ACCESS_READ)) as data:
             return demux(path, data)
@@ -294,7 +536,9 @@ def _open_avi(path: str, data) -> Video:
     # the codec: strf's biCompression, as FFmpeg reads it
     codec = (strf[16:20] if strf and len(strf) >= 20 else strh[4:8]) \
         .decode("latin-1")
-    if codec.upper() not in AVI_MJPEG:
+    fmt = {**dict.fromkeys(AVI_MJPEG, MJPEG), **dict.fromkeys(AVI_H264, H264),
+           **dict.fromkeys(AVI_MPEG4, MPEG4)}.get(codec.upper())
+    if fmt is None:
         raise no_decoder(path, codec)
     scale, rate = struct.unpack("<II", strh[20:28])
     if strf and len(strf) >= 12:
@@ -302,9 +546,9 @@ def _open_avi(path: str, data) -> Video:
     else:
         width, height = avih[8], avih[9]
     ids = (f"{index:02d}dc".encode(), f"{index:02d}db".encode())
-    spans = None
+    spans = keys = None
     if idx1 is not None and len(riffs) == 1:
-        spans = _avi_index(data, idx1, movi[0][0] - 4, ids)
+        spans, keys = _avi_index(data, idx1, movi[0][0] - 4, ids)
     if spans is None:
         spans = []
         for s, e in movi:
@@ -313,24 +557,50 @@ def _open_avi(path: str, data) -> Video:
         fps = rate / scale
     else:
         fps = 1e6 / avih[0] if avih and avih[0] else 30.0
+    if fmt == MJPEG:
+        return Video(path, float(fps), int(width), abs(int(height)), 0,
+                     codec, spans)
+    if keys is None:
+        keys = [_is_keyframe(fmt, bytes(data[o:o + n])) for o, n in spans]
+    head = [bytes(data[o:o + n]) for o, n in spans[:4]]
+    if fmt == MPEG4:
+        _refuse_packed(path, codec, head)
+    # an MPEG-4 strf may hold the VOL header (FFmpeg's extradata) past its
+    # BITMAPINFOHEADER; H.264 in AVI carries its parameter sets in band
+    header = strf[40:] if fmt == MPEG4 and strf and len(strf) > 40 else b""
     return Video(path, float(fps), int(width), abs(int(height)), 0, codec,
-                 spans)
+                 spans, fmt, sync=[i for i, k in enumerate(keys) if k],
+                 header=header)
+
+
+def _refuse_packed(path, codec, packets) -> None:
+    """MPEG-4 Part 2 whose DivX user data says its B-frames are packed two
+    to a packet (FFmpeg's ``divx_packed``): NVDEC's parser does not unpack
+    them."""
+    for p in packets:
+        m = _DIVX.search(p)
+        if m and m.group(3):
+            raise no_decoder(path, f"{codec}, DivX {m.group(1)} build "
+                                   f"{m.group(2)} with packed B-frames")
 
 
 def _avi_index(data, idx1, movi_fourcc, ids):
-    """Packets from ``idx1``, whose offsets count from the ``movi`` fourcc
-    or from the start of the file; None if neither fits."""
+    """Packets and their ``AVIIF_KEYFRAME`` flags from ``idx1``, whose
+    offsets count from the ``movi`` fourcc or from the start of the file;
+    (None, None) if neither fits."""
     s, e = idx1
     entries = [struct.unpack("<4sIII", data[p:p + 16])
                for p in range(s, e - 15, 16)]
-    video = [(off, size) for cc, _, off, size in entries if cc in ids]
+    video = [(off, size, bool(flags & 0x10))
+             for cc, flags, off, size in entries if cc in ids and size]
     if not video:
-        return None
+        return None, None
     for base in (movi_fourcc, 0):
-        off, _ = video[0]
+        off = video[0][0]
         if data[base + off:base + off + 4] in ids:
-            return [(base + off + 8, size) for off, size in video if size]
-    return None
+            return ([(base + off + 8, size) for off, size, _ in video],
+                    [key for _, _, key in video])
+    return None, None
 
 
 def _scan_movi(data, s, e, ids, spans):
@@ -419,6 +689,10 @@ def _open_mp4(path: str, data) -> Video:
     moov = _child(data, 0, len(data), b"moov")
     if moov is None:
         raise IOError(f"{path}: an MP4/MOV file without moov")
+    mvhd = _child(data, *moov, b"mvhd")
+    movie_scale, = struct.unpack_from(
+        ">I", data, mvhd[0] + (20 if data[mvhd[0]] == 1 else 12)) \
+        if mvhd else (0,)
     for kind, s, e in _boxes(data, *moov):
         if kind != b"trak":
             continue
@@ -426,11 +700,85 @@ def _open_mp4(path: str, data) -> Video:
         hdlr = mdia and _child(data, *mdia, b"hdlr")
         if not hdlr or data[hdlr[0] + 8:hdlr[0] + 12] != b"vide":
             continue
-        return _mp4_track(path, data, (s, e), mdia)
+        return _mp4_track(path, data, (s, e), mdia, movie_scale)
     raise IOError(f"{path}: an MP4/MOV file without a video track")
 
 
-def _mp4_track(path, data, trak, mdia) -> Video:
+def _full_table(data, box, fmt: str) -> list:
+    """The entries of a full box's table: version and flags, a 32-bit
+    count, then ``count`` records of ``fmt``."""
+    s, _ = box
+    n, = struct.unpack(">I", data[s + 4:s + 8])
+    size = struct.calcsize(fmt)
+    return [struct.unpack(fmt, data[s + 8 + size * i:s + 8 + size * (i + 1)])
+            for i in range(n)]
+
+
+def _avcc(data, s, e):
+    """(parameter sets as Annex B, NAL length size) of an ``avcC`` body."""
+    length = (data[s + 4] & 3) + 1
+    pos, units = s + 5, []
+    for mask in (0x1F, 0xFF):           # the SPS, then the PPS
+        count = data[pos] & mask
+        pos += 1
+        for _ in range(count):
+            n, = struct.unpack(">H", data[pos:pos + 2])
+            units.append(b"\0\0\0\1" + bytes(data[pos + 2:pos + 2 + n]))
+            pos += 2 + n
+    return b"".join(units), length
+
+
+def _decoder_info(data, s, e):
+    """The DecoderSpecificInfo (tag 0x05) of an ``esds`` box's decoder
+    config, or b""."""
+    tag, p, _ = _descriptor(data, s + 4)
+    flags = data[p + 2]
+    p += 3
+    if flags & 0x80:
+        p += 2
+    if flags & 0x40:
+        p += 1 + data[p]
+    if flags & 0x20:
+        p += 2
+    tag, p, end = _descriptor(data, p)
+    if tag != 0x04 or p + 13 >= end:
+        return b""
+    tag, p, end = _descriptor(data, p + 13)
+    return bytes(data[p:end]) if tag == 0x05 else b""
+
+
+def _mp4_order(data, box, elst, n, timescale, movie_scale):
+    """(display order, ranks shown) from ``stts``, ``ctts`` and the first
+    edit of ``elst`` with media (None where the file has neither)."""
+    if box[b"ctts"] is None and elst is None:
+        return None, None
+    dts, t = [], 0
+    for count, delta in _full_table(data, box[b"stts"], ">II"):
+        for _ in range(count):
+            dts.append(t)
+            t += delta
+    offsets = []
+    if box[b"ctts"] is not None:
+        for count, off in _full_table(data, box[b"ctts"], ">Ii"):
+            offsets += [off] * count
+    offsets += [0] * (n - len(offsets))
+    cts = [d + o for d, o in zip(dts, offsets[:n])]
+    order = sorted(range(n), key=lambda i: (cts[i], i))
+    shown = None
+    if elst is not None:
+        version = data[elst[0]]
+        fmt = ">QqI" if version == 1 else ">IiI"
+        edits = [e for e in _full_table(data, (elst[0], elst[1]), fmt)
+                 if e[1] != -1]         # empty edits only delay the start
+        if edits:
+            duration, start, _ = edits[0]
+            end = start + duration * timescale / movie_scale \
+                if duration and movie_scale else math.inf
+            shown = [r for r, i in enumerate(order) if start <= cts[i] < end]
+    return order, shown
+
+
+def _mp4_track(path, data, trak, mdia, movie_scale=0) -> Video:
     tkhd = _child(data, *trak, b"tkhd")
     version = data[tkhd[0]]
     mat_at = tkhd[0] + (52 if version == 1 else 40)
@@ -440,33 +788,57 @@ def _mp4_track(path, data, trak, mdia) -> Video:
         ">I", data, mdhd[0] + (20 if data[mdhd[0]] == 1 else 12))
     minf = _child(data, *mdia, b"minf")
     stbl = _child(data, *minf, b"stbl")
-    box = {k: _child(data, *stbl, k) for k in (b"stsd", b"stts", b"stsc",
-                                              b"stsz", b"stco", b"co64")}
+    box = {k: _child(data, *stbl, k) for k in (
+        b"stsd", b"stts", b"stsc", b"stsz", b"stco", b"co64", b"stss",
+        b"ctts")}
     s, _ = box[b"stsd"]
     entry = s + 8                                   # version, flags, count
     size, fmt = struct.unpack(">I4s", data[entry:entry + 8])
     codec = fmt.decode("latin-1")
     width, height = struct.unpack(">HH", data[entry + 32:entry + 36])
+    header, nal_length = b"", 0
     if codec == "mp4v":
         esds = _child(data, entry + 86, entry + size, b"esds")
         oti = object_type(data, *esds) if esds else None
-        if oti != OBJECT_JPEG:
+        if oti not in (OBJECT_JPEG, OBJECT_MPEG4):
             name = OBJECT_TYPES.get(oti, "unknown")
             raise no_decoder(path, f"mp4v, object type "
                                    f"{'none' if oti is None else hex(oti)} "
                                    f"({name})")
-    elif codec not in MP4_MJPEG:
+        kind = MJPEG if oti == OBJECT_JPEG else MPEG4
+        if kind == MPEG4:
+            header = _decoder_info(data, *esds)
+    elif codec in MP4_H264:
+        kind = H264
+        avcc = _child(data, entry + 86, entry + size, b"avcC")
+        if avcc is None:
+            raise IOError(f"{path}: an {codec} sample entry without avcC")
+        header, nal_length = _avcc(data, *avcc)
+    elif codec in MP4_MJPEG:
+        kind = MJPEG
+    else:
         raise no_decoder(path, codec)
     spans = _mp4_samples(data, box)
-    s, _ = box[b"stts"]
-    n, = struct.unpack(">I", data[s + 4:s + 8])
-    runs = [struct.unpack(">II", data[s + 8 + 8 * i:s + 16 + 8 * i])
-            for i in range(n)]
+    runs = _full_table(data, box[b"stts"], ">II")
     total = sum(count * delta for count, delta in runs)
     count = sum(c for c, _ in runs)
     fps = timescale * count / total if total else 30.0
+    if kind == MJPEG:
+        return Video(path, float(fps), int(width), int(height),
+                     display_rotation(matrix), codec, spans)
+    edts = _child(data, *trak, b"edts")
+    elst = edts and _child(data, *edts, b"elst")
+    order, shown = _mp4_order(data, box, elst, len(spans), timescale,
+                              movie_scale)
+    sync = None if box[b"stss"] is None else \
+        [i - 1 for i, in _full_table(data, box[b"stss"], ">I")]
+    if kind == MPEG4:
+        _refuse_packed(path, codec, [bytes(data[o:o + n])
+                                     for o, n in spans[:4]])
     return Video(path, float(fps), int(width), int(height),
-                 display_rotation(matrix), codec, spans)
+                 display_rotation(matrix), codec, spans, kind, sync=sync,
+                 order=order, shown=shown, header=header,
+                 nal_length=nal_length)
 
 
 def _mp4_samples(data, box) -> list:

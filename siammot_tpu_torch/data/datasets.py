@@ -19,9 +19,10 @@ Frames are read at their own size as the JAX package's ``cv2.imread``
 reads them: stills through ``data/imageio.py`` (JPEG on ``device``'s
 route: libjpeg on the CPU, whose bytes are ``cv2.imread``'s, or the
 calling thread's own nvJPEG decoder on the card; PNG; BMP; EXIF
-orientation applied), and a video sample's frames by index from an MJPEG
-AVI, MP4 or MOV (``data/container.py``; other codecs raise
-``NotImplementedError``).
+orientation applied), and a video sample's frames by index from an AVI,
+MP4 or MOV file (MJPEG; H.264 and MPEG-4 Part 2 through NVDEC on the
+card, seeking from the sync sample before the frame;
+``data/container.py``; other codecs raise ``NotImplementedError``).
 """
 
 from __future__ import annotations

@@ -53,6 +53,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 # the flags of the JAX package's csrc/Makefile, so that both builds of the
 # same source on one host give the same bytes
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-march=native"]
+# nvcc's flags for a ``.cu`` source here (``nvdec.cu``), built as the
+# kernel library is (``ops/cuda``: nvcc picks its own host compiler)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xcompiler", "-fPIC,-Wall"]
 DECODERS = {"cpu": "libjpeg", "cuda": "nvJPEG"}
 
 
@@ -74,17 +78,24 @@ def _cuda_home() -> str:
 def _load(name: str, src: str, link: list, needs: str,
           include: tuple = (), extra: tuple = ()) -> ctypes.CDLL:
     """Build ``src`` into ``_build/{name}-{hash}.so`` unless it is there,
-    then load it.  ``needs`` names what a failed build lacks; ``extra``
+    then load it: a ``.cu`` source with ``nvcc`` for ``sm_90a``, any other
+    with ``g++``.  ``needs`` names what a failed build lacks; ``extra``
     are flags of this library alone."""
     with open(os.path.join(_DIR, src), "rb") as f:
         h = hashlib.sha256(f.read())
-    flags = CXX_FLAGS + list(extra) + [f"-I{d}" for d in include]
+    cuda = src.endswith(".cu")
+    flags = (NVCC_FLAGS if cuda else CXX_FLAGS) + list(extra) \
+        + [f"-I{d}" for d in include]
     h.update(" ".join(flags + link).encode())
     h.update(_host_cpu().encode())
     path = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        cxx = os.environ.get("CXX") or shutil.which("g++")
+        if cuda:
+            from ..ops.cuda import _nvcc
+            cxx = _nvcc()
+        else:
+            cxx = os.environ.get("CXX") or shutil.which("g++")
         if cxx is None:
             raise RuntimeError(f"the port's {needs} reader needs a C++ "
                                f"compiler (g++) to build {src}")

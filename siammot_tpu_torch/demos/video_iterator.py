@@ -5,15 +5,16 @@ has ``fps`` and ``frame_count``.
   * An image folder: every still in ``IMAGE_EXTS`` in name order, read by
     ``data/imageio.py`` (EXIF orientation applied, as ``cv2.imread``
     applies it); 30 fps.
-  * A video file: Motion JPEG in AVI, MP4 or MOV (``data/container.py``),
-    each frame turned upright by the container's rotation with
-    :func:`apply_rotation`, the JAX demo's ``np.rot90`` rule; the rotation
-    is read from ``tkhd``'s display matrix where the JAX demo asks
-    OpenCV's FFmpeg backend for it.  Other codecs raise
-    ``NotImplementedError`` naming the codec.
+  * A video file: Motion JPEG, H.264 or MPEG-4 Part 2 in AVI, MP4 or
+    MOV (``data/container.py``), each frame turned upright by the
+    container's rotation with :func:`apply_rotation`, the JAX demo's
+    ``np.rot90`` rule; the rotation is read from ``tkhd``'s display matrix
+    where the JAX demo asks OpenCV's FFmpeg backend for it.  Other codecs
+    raise ``NotImplementedError`` naming the codec.
 
-JPEG decodes on ``device``'s route (libjpeg on the CPU, nvJPEG on the
-card).
+Frames decode on ``device``'s route: JPEG with libjpeg on the CPU and
+nvJPEG on the card, H.264 and MPEG-4 Part 2 with NVDEC on the card only
+(the CPU raises).
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ class ContainerIterator:
         self.video = open_video(path)
         self.rotation = self.video.rotation
         self.fps = self.video.fps or 30.0
-        self.frame_count = self.video.frame_count
+        # CAP_PROP_FRAME_COUNT's count, as the JAX demo reads it
+        self.frame_count = self.video.metadata()["number_of_frames"]
 
     def __iter__(self) -> Iterator[Tuple[int, np.ndarray]]:
         return enumerate(self.video.frames(self.device))

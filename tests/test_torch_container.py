@@ -14,7 +14,11 @@ cv2 (OpenCV's FFmpeg backend) and the JAX package.
   ``video_metadata`` and the frames of ``video_frames`` against the JAX
   package's, which cv2 turns upright by default; the demo's iterator.
 * MPEG-4 Part 2 (``mp4v`` in an MP4, ``XVID`` and ``FMP4`` in an AVI) and
-  H.264 raise ``NotImplementedError`` naming the codec.
+  H.264 demux, with the metadata of the JAX package's ``video_metadata``;
+  a decode on the CPU raises ``NotImplementedError`` naming the codec and
+  NVDEC (the port decodes them on the card only); HEVC, VP9 and AV1
+  sample entries raise naming the codec (``test_torch_video_codecs.py``
+  holds these codecs' streams to cv2).
 * A packet without its Huffman tables (DHT) decodes to the bytes of the
   same packet with them, from an AVI written here without ``idx1`` (the
   ``movi`` scan).
@@ -28,6 +32,7 @@ cv2 (OpenCV's FFmpeg backend) and the JAX package.
   mixes JPEG and PNG files.
 """
 
+import os
 import struct
 
 import cv2
@@ -173,22 +178,34 @@ def test_rotation_from_the_display_matrix(tmp_path):
     ("mp4", "mp4v", "MPEG-4 Part 2"), ("avi", "XVID", "XVID"),
     ("avi", "FMP4", "FMP4")])
 def test_other_codecs_raise_naming_the_codec(tmp_path, ext, fourcc, name):
+    # MPEG-4 Part 2 demuxes; a CPU decode raises naming it and NVDEC
     path = cv2_video(tmp_path / f"c.{ext}", scene(2, h=32, w=48), fourcc)
-    for fn in (container.open_video, video_metadata, build_video_iterator,
-               FrameReader):
+    video = container.open_video(path)
+    assert (video.format, video.frame_count) == ("MPEG-4 Part 2", 2)
+    assert video_metadata(path) == jax_video_metadata(path)
+    for fn in (lambda p: list(build_video_iterator(p)),
+               lambda p: FrameReader(p)[1], lambda p: list(video_frames(p))):
         with pytest.raises(NotImplementedError, match=name) as err:
             fn(path)
-        assert "Motion JPEG only" in str(err.value)
+        assert "NVDEC" in str(err.value)
 
 
 def test_h264_sample_entry_raises(tmp_path):
-    # cv2 here has no H.264 encoder: the sample entry of an mp4v file is
-    # renamed avc1, which is all the demuxer reads before it raises
-    src = cv2_video(tmp_path / "c.mp4", scene(2, h=32, w=48), "mp4v")
-    data = open(src, "rb").read().replace(b"mp4v", b"avc1", 1)
-    (tmp_path / "h264.mp4").write_bytes(data)
-    with pytest.raises(NotImplementedError, match="H.264"):
-        container.open_video(str(tmp_path / "h264.mp4"))
+    # an H.264 MP4 (avc1, from tools/make_torch_video_fixtures.py) demuxes
+    # and raises at a CPU decode; other sample entries raise at open
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures", "video", "h264_small.mp4")
+    assert container.open_video(src).format == "H.264"
+    with pytest.raises(NotImplementedError, match="H.264") as err:
+        next(iter(video_frames(src)))
+    assert "NVDEC" in str(err.value)
+    data = bytearray(open(src, "rb").read())
+    at = data.index(b"avc1", data.index(b"stsd"))
+    for entry, name in ((b"hvc1", "HEVC"), (b"vp09", "VP9")):
+        data[at:at + 4] = entry
+        (tmp_path / "other.mp4").write_bytes(bytes(data))
+        with pytest.raises(NotImplementedError, match=name):
+            container.open_video(str(tmp_path / "other.mp4"))
     (tmp_path / "junk.mp4").write_bytes(b"\0" * 64)
     with pytest.raises(NotImplementedError, match="not an AVI, MP4 or MOV"):
         container.open_video(str(tmp_path / "junk.mp4"))

@@ -28,7 +28,10 @@ backward, the multi-stream step with ``devices=["cpu", "cpu"]``,
 gloo ranks of ``torch.distributed.run``, whose processes block the same
 imports (a ``sitecustomize`` on their path); the demo's CLI
 (``siammot_tpu_torch.demos.demo``) over a JPEG folder and over an MJPEG
-mp4 the port writes itself.  Also: no CUDA source
+mp4 the port writes itself; the video readers (``data/container.py``,
+``data/nvdec.py``): every committed H.264 and MPEG-4 Part 2 clip demuxes
+and raises at a CPU decode, naming NVDEC, and the conversion of x264's
+reconstruction is cv2's frames.  Also: no CUDA source
 includes PyTorch's headers (they make the build take minutes instead of
 seconds)."""
 
@@ -406,6 +409,34 @@ SCRIPT = textwrap.dedent("""
         assert len(os.listdir(run.output)) == 3
     assert not any(blocked(m) for m in sys.modules), sorted(
         m for m in sys.modules if blocked(m))
+
+    # the video readers: every committed clip demuxes, and its H.264 or
+    # MPEG-4 Part 2 decode on the CPU raises naming NVDEC; the conversion
+    # of x264's reconstruction (on the CPU: the plain version) is cv2's
+    # frames of the MP4
+    import hashlib
+    from siammot_tpu_torch.data.nvdec import nv12_to_rgb
+    from siammot_tpu_torch.data.video_loader import video_frames
+    vid = os.path.join(REPO, "tests", "fixtures", "video")
+    clips = [n for n in sorted(os.listdir(vid)) if n.endswith((".mp4",
+                                                              ".avi"))]
+    assert len(clips) == 5, clips
+    for name in clips:
+        try:
+            next(iter(video_frames(os.path.join(vid, name))))
+        except NotImplementedError as e:
+            assert "NVDEC" in str(e), e
+        else:
+            raise AssertionError(f"{name} decoded on the CPU")
+    rec = np.load(os.path.join(vid, "h264_small_ref.npz"))
+    got = []
+    for y, u, v in zip(rec["y"], rec["u"], rec["v"]):
+        uv = np.stack([u, v], -1).reshape(len(u), -1)
+        rgb = nv12_to_rgb(torch.from_numpy(np.concatenate([y, uv])), 200, 120)
+        got.append(hashlib.sha256(rgb.numpy()).hexdigest())
+    assert got == list(rec["cv2_sha256"])
+    assert not any(blocked(m) for m in sys.modules), sorted(
+        m for m in sys.modules if blocked(m))
     print("ISOLATED", len(names), int((result.state.ids >= 0).sum()))
 """)
 
@@ -468,11 +499,13 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
 
 
 def test_no_cuda_source_includes_torch_headers():
-    src = os.path.join(REPO, "siammot_tpu_torch", "ops", "cuda")
-    files = [f for f in os.listdir(src) if f.endswith((".cu", ".cuh"))]
-    assert len(files) >= 4
+    pkg = os.path.join(REPO, "siammot_tpu_torch")
+    files = [os.path.join(d, f) for d in ("ops/cuda", "data")
+             for f in os.listdir(os.path.join(pkg, d))
+             if f.endswith((".cu", ".cuh"))]
+    assert len(files) >= 5 and "data/nvdec.cu" in files
     for f in files:
-        with open(os.path.join(src, f)) as fh:
+        with open(os.path.join(pkg, f)) as fh:
             text = fh.read()
         assert "torch/extension.h" not in text, f
         assert "#include <torch" not in text and "ATen" not in text, f
