@@ -247,8 +247,12 @@ Phases, each printed as it finishes:
   13. the readers and the demo: (13a) four 720p frames of the sprite
      scene written here as a PNG folder (every row filter) and a BMP
      folder, read back bitwise; the same frames encoded by nvJPEG into an
-     MJPEG AVI (with ``idx1``) and an MP4 (the port's ``Mp4Writer``), every
-     frame bitwise nvJPEG's decode of its packet; an EXIF Orientation 6
+     MJPEG AVI (with ``idx1``), an MP4 (the port's ``Mp4Writer``) and two
+     Matroska files (:func:`mkv_bytes`: sized Clusters with ``Cues``, and
+     an unknown-size Segment and Clusters without ``Cues`` as
+     MediaRecorder writes them), every frame bitwise nvJPEG's decode of
+     its packet, also by ``frame(i)`` in shuffled order, the metadata the
+     writer's fps, count and size; an EXIF Orientation 6
      JPEG read upright (``np.rot90`` of the untagged decode); (13b)
      ``siammot_tpu_torch.demos.demo``'s main function over a 16-frame 720p
      MJPEG mp4 of the scene on the bench weights with the person config
@@ -260,8 +264,9 @@ Phases, each printed as it finishes:
      rows equal to ``track_frames``' on the same decoded frames at
      ``utils/golden.py``'s tolerances;
   14. video: (14a) ``nvdec.cu`` (built in phase 1 beside the kernels):
-     ``libnvcuvid.so.1`` must load; ``cuvidGetDecoderCaps`` for H.264 and
-     MPEG-4 Part 2, printed; the conversion kernel ``nv12_to_rgb``
+     ``libnvcuvid.so.1`` must load; ``cuvidGetDecoderCaps`` for H.264,
+     HEVC, MPEG-4 Part 2, VP8, VP9 and AV1, printed; the conversion
+     kernel ``nv12_to_rgb``
      bitwise its plain version on each of x264's reconstructed frames of
      ``tests/fixtures/video/h264_small.mp4`` in NVDEC's NV12 layout, each
      also cv2's frame by its SHA-256, once through a surface handle whose
@@ -270,17 +275,28 @@ Phases, each printed as it finishes:
      NV12 plane of the H.264 MP4 and AVI bitwise x264's reconstruction,
      their RGB frames bitwise the plain conversion and cv2's,
      ``frame(i)`` in order and shuffled cv2's seek frames, the 720p
-     clip's plane hashes and sequential decode rate; (14b) the demo as in
+     clip's plane hashes and sequential decode rate; each fixture of
+     ``tools/make_torch_container_fixtures.py`` (HEVC, VP8, VP9 and AV1
+     in MP4, Matroska and WebM, H.264 in Matroska) by SHA-256 against
+     ``containers_ref.json`` (cv2's RGB frames; libaom's planes for AV1),
+     in order and by shuffled ``frame(i)``, or raising as the caps say;
+     (14b) the demo as in
      13b over ``h264_720p.mp4`` (the conversion kernel once a frame,
      kernels 1-4 as in 13b); (14c) MPEG-4 Part 2 raising as the caps say,
      or its gap to cv2's frames printed and the run failed, for no bound
      has been measured yet.  Where the machine withholds NVDEC (every
      caps query answers CUDA_ERROR_OUT_OF_MEMORY and
      ``NVIDIA_DRIVER_CAPABILITIES`` grants no ``video``), each reader and
-     the demo raise that error on each clip, and the NVDEC route is
-     reported unverified: no frame decoded, and no launch of the
-     conversion kernel on a main path.  Any other caps failure fails the
-     run.
+     the demo raise that error on each clip (the new fixtures too), and
+     the NVDEC route is reported unverified: no frame decoded, and no
+     launch of the conversion kernel on a main path.  Any other caps
+     failure fails the run;
+  15. the demo over Matroska: ``siammot_tpu_torch.demos.demo``'s main
+     function over 13b's 16 nvJPEG packets wrapped in a Matroska file
+     (:func:`mkv_bytes`), bf16: the rows equal 13b's exactly (the same
+     decoded bytes), kernels 1-4 launched on every frame and held to
+     their plain versions on the last frame's inputs, the output frames
+     checked as in 13b, and the fps and the step's share beside 13b's.
 
 Each end-to-end phase sets every kernel's launch count to 0 just before
 it drives its path and reads the counts just after.
@@ -5136,6 +5152,52 @@ def avi_bytes(packets, w, h, fps):
     return chunk(b"RIFF", b"AVI " + hdrl + movi + chunk(b"idx1", index))
 
 
+def mkv_bytes(packets, w, h, fps, live=False):
+    """A Motion JPEG Matroska file of JPEG ``packets`` (a test helper, not
+    a port feature): ``DefaultDuration`` and ``Duration`` from ``fps``,
+    SimpleBlocks stamped in ms, 8 to a Cluster, every size field 8 bytes
+    long.  Sized Clusters with ``Cues``, or (``live``) an unknown-size
+    Segment and unknown-size Clusters and no ``Cues``, as a browser's
+    MediaRecorder writes them (which leaves out ``Duration`` too; it stays
+    here, so the metadata's count is the writer's)."""
+    import struct
+    unknown = b"\x01\xff\xff\xff\xff\xff\xff\xff"
+
+    def el(eid, *parts, open_size=False):
+        body = b"".join(parts)
+        size = unknown if open_size else (len(body) | 1 << 56).to_bytes(
+            8, "big")
+        return eid.to_bytes((eid.bit_length() + 7) // 8, "big") + size + body
+
+    def uint(eid, v):
+        return el(eid, v.to_bytes(8, "big"))
+
+    step = 1000 / fps
+    head = el(0x1549A966, uint(0x2AD7B1, 1000000),
+              el(0x4489, struct.pack(">d", len(packets) * step))) \
+        + el(0x1654AE6B, el(0xAE, uint(0xD7, 1), uint(0x73C5, 1),
+                            uint(0x83, 1), el(0x86, b"V_MJPEG"),
+                            uint(0x23E383, int(round(1e9 / fps))),
+                            el(0xE0, uint(0xB0, w), uint(0xBA, h))))
+    clusters, cues, pos = [], [], len(head)
+    for c in range(0, len(packets), 8):
+        base = int(round(c * step))
+        blocks = [el(0xA3, b"\x81" + struct.pack(
+            ">hB", int(round(k * step)) - base, 0x80) + packets[k])
+            for k in range(c, min(c + 8, len(packets)))]
+        cluster = el(0x1F43B675, uint(0xE7, base), *blocks, open_size=live)
+        cues.append(el(0xBB, uint(0xB3, base), el(0xB7, uint(0xF7, 1),
+                                                  uint(0xF1, pos))))
+        clusters.append(cluster)
+        pos += len(cluster)
+    body = head + b"".join(clusters) + (b"" if live else el(0x1C53BB6B,
+                                                             *cues))
+    ebml = el(0x1A45DFA3, uint(0x4286, 1), uint(0x42F7, 1),
+              uint(0x42F2, 4), uint(0x42F3, 8), el(0x4282, b"matroska"),
+              uint(0x4287, 4), uint(0x4285, 2))
+    return ebml + el(0x18538067, body, open_size=live)
+
+
 def exif6(jpeg):
     """``jpeg`` with an APP1 Exif segment holding Orientation 6."""
     import struct
@@ -5179,12 +5241,17 @@ def readers_phase(dev, tmp):
     nv = native.thread_decoder(dev)
     packets = [native.encode_jpeg(f, 95, dev) for f in frames]
     paths = {"avi": os.path.join(tmp, "clip.avi"),
-             "mp4": os.path.join(tmp, "clip.mp4")}
+             "mp4": os.path.join(tmp, "clip.mp4"),
+             "mkv": os.path.join(tmp, "clip.mkv"),
+             "live mkv": os.path.join(tmp, "live.mkv")}
     with open(paths["avi"], "wb") as fh:
         fh.write(avi_bytes(packets, W, H, 25))
     with container.Mp4Writer(paths["mp4"], 25.0, W, H) as wr:
         for p in packets:
             wr.write(p)
+    for kind, live in (("mkv", False), ("live mkv", True)):
+        with open(paths[kind], "wb") as fh:
+            fh.write(mkv_bytes(packets, W, H, 25, live))
     for kind, path in paths.items():
         meta = video_metadata(path)
         if meta != dict(fps=25.0, number_of_frames=len(frames),
@@ -5198,8 +5265,17 @@ def readers_phase(dev, tmp):
                 np.array_equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"13a {kind}: frames are not nvJPEG's "
                                  f"decode of their packets")
-        log(f"  MJPEG {kind}: {len(got)} frames bitwise nvJPEG's decode of "
-            f"their packets (quality 95: {gap} byte values from the frames "
+        order = [int(i) for i in np.random.RandomState(5).permutation(
+            len(want))]
+        video = container.open_video(path)
+        if not all(np.array_equal(video.frame(i, dev), want[i])
+                   for i in order):
+            raise AssertionError(f"13a {kind}: frame(i) in shuffled order is "
+                                 f"not nvJPEG's decode of packet i")
+        log(f"  MJPEG {kind} ({video.codec}): {len(got)} frames bitwise "
+            f"nvJPEG's decode of their packets, also by frame(i) in shuffled "
+            f"order; metadata {meta['fps']} fps, {meta['number_of_frames']} "
+            f"frames (quality 95: {gap} byte values from the frames "
             f"encoded)")
     plain = os.path.join(tmp, "plain.jpg")
     tagged = os.path.join(tmp, "exif6.jpg")
@@ -5232,21 +5308,25 @@ def demo_phase(dev, report, card):
             "weights, person config:")
         frames = [f[0, :H] for f in render_scene(DEMO_FRAMES, HP)[0]]
         clip = os.path.join(tmp, "crowd.mp4")
+        packets = [native.encode_jpeg(f, 95, dev) for f in frames]
         with container.Mp4Writer(clip, 30.0, W, H) as wr:
-            for f in frames:
-                wr.write(native.encode_jpeg(f, 95, dev))
-        return demo_run(dev, report, card, tmp, clip, MAIN_PATH, "demo",
-                        "13b")
+            for p in packets:
+                wr.write(p)
+        shown = demo_run(dev, report, card, tmp, clip, MAIN_PATH, "demo",
+                         "13b")
+        return dict(shown, packets=packets)
 
 
-def demo_run(dev, report, card, tmp, clip, per_frame, path, label):
+def demo_run(dev, report, card, tmp, clip, per_frame, path, label,
+             f32=True):
     """``siammot_tpu_torch.demos.demo.main`` over ``clip`` (720p,
     ``DEMO_FRAMES`` frames) on the bench weights with the person config:
     each kernel launched ``per_frame`` times a frame and held to its plain
     version on the last frame's inputs, each output frame the nvJPEG round
     trip of the overlays drawn on its rows, the end-to-end fps and the
-    step's share; then f32 with ``--dump-video False``, rows against
-    ``track_frames`` on the same decoded frames."""
+    step's share; then (``f32``) f32 with ``--dump-video False``, rows
+    against ``track_frames`` on the same decoded frames.  Returns the fps,
+    the ms a frame, the step's share and the bf16 rows."""
     from siammot_tpu_torch.configs.defaults import get_cfg
     from siammot_tpu_torch.data import container, native
     from siammot_tpu_torch.data.transforms import EvalTransform
@@ -5311,6 +5391,10 @@ def demo_run(dev, report, card, tmp, clip, per_frame, path, label):
         f"frames of {video.width}x{video.height}, tracks drawn on "
         f"{drawn}, each frame the nvJPEG round trip of the overlays "
         f"drawn on its rows")
+    shown = dict(fps=fps, ms=1e3 / fps, step_share=share, rows=run.rows)
+    if not f32:
+        log(f"  {label} wall time {time.perf_counter() - t0:.1f} s")
+        return shown
     # f32: the rows against track_frames on the same decoded frames,
     # and the JPEG frames of --dump-video False
     f32 = os.path.join(tmp, "person_f32.yaml")
@@ -5357,7 +5441,49 @@ def demo_run(dev, report, card, tmp, clip, per_frame, path, label):
         f"labels exact, boxes {box_err:.3g} px, scores {score_err:.3g}; "
         f"launches {counts}")
     log(f"  {label} wall time {time.perf_counter() - t0:.1f} s")
-    return dict(fps=fps, ms=1e3 / fps, step_share=share)
+    return shown
+
+
+# -- phase 15: the demo over Matroska -----------------------------------------
+
+def same_rows(a, b) -> bool:
+    """Two demo runs' rows, frame by frame and array by array, equal."""
+    return len(a) == len(b) and all(
+        fa == fb and len(ra) == len(rb) and all(
+            np.array_equal(x, y) for x, y in zip(ra, rb))
+        for (fa, ra), (fb, rb) in zip(a, b))
+
+
+def matroska_demo_phase(dev, report, card, shown):
+    """15: ``siammot_tpu_torch.demos.demo`` over 13b's 16 nvJPEG packets
+    wrapped in a Matroska file: the same decoded bytes, so the bf16 rows
+    equal 13b's exactly; kernels 1-4 on every frame, held to their plain
+    versions on the last frame's inputs; the fps and the step's share
+    beside 13b's."""
+    from siammot_tpu_torch.data import container
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "crowd.mkv")
+        with open(clip, "wb") as fh:
+            fh.write(mkv_bytes(shown["packets"], W, H, 30.0))
+        video = container.open_video(clip)
+        if (video.codec, video.frame_count, video.fps) != ("V_MJPEG",
+                                                           DEMO_FRAMES, 30.0):
+            raise AssertionError(f"15: the Matroska clip reads as "
+                                 f"{video.codec}, {video.frame_count} frames "
+                                 f"at {video.fps} fps")
+        mkv = demo_run(dev, report, card, tmp, clip, MAIN_PATH, "demo_mkv",
+                       "15", f32=False)
+    if not same_rows(mkv["rows"], shown["rows"]):
+        raise AssertionError("15: the demo's bf16 rows over the Matroska "
+                             "clip differ from 13b's over the MP4 of the "
+                             "same packets")
+    log(f"  rows equal 13b's exactly ({len(mkv['rows'])} frames); demo end "
+        f"to end over the .mkv {mkv['fps']:.3f} fps "
+        f"({100 * mkv['step_share']:.1f}% in the step), over 13b's .mp4 "
+        f"{shown['fps']:.3f} fps ({100 * shown['step_share']:.1f}%): "
+        f"{100 * (mkv['fps'] / shown['fps'] - 1):+.2f}% ({card})")
+    return mkv
 
 
 # -- phase 14: H.264 and MPEG-4 Part 2 through NVDEC, the conversion kernel --
@@ -5368,6 +5494,12 @@ PITCH = 256                            # a pitch past the width, as NVDEC's
 # cuvidGetDecoderCaps' answer in a container that does not grant the
 # driver's video capability: CUDA_ERROR_OUT_OF_MEMORY
 CAPS_WITHHELD = 2
+# the stream fixtures of tools/make_torch_container_fixtures.py (cv2's
+# frames, libaom's for AV1, in containers_ref.json)
+STREAM_FIXTURES = ("h264_opengop.mkv", "mpeg4_small.mkv", "hevc_small.mp4",
+                   "hevc_hev1.mp4", "hevc_small.mkv", "vp9_small.webm",
+                   "vp8_small.webm", "vp9_small.mp4", "vp9_live.webm",
+                   "av1_small.mp4", "av1_small.mkv")
 
 
 def sha(a) -> str:
@@ -5561,13 +5693,14 @@ def nvdec_withheld_readers(dev):
     every clip, with no decode behind it."""
     from siammot_tpu_torch.data import container
     from siammot_tpu_torch.data.datasets import FrameReader
-    from siammot_tpu_torch.data.video_loader import (video_frames,
-                                                     video_metadata)
+    from siammot_tpu_torch.data.video_loader import video_frames
     from siammot_tpu_torch.demos.video_iterator import build_video_iterator
     for name in ("h264_small.mp4", "h264_small.avi", "h264_720p.mp4",
-                 "mpeg4_small.mp4", "mpeg4_small.avi"):
+                 "mpeg4_small.mp4", "mpeg4_small.avi") + STREAM_FIXTURES:
         path = os.path.join(VIDEO_DIR, name)
-        n = video_metadata(path)["number_of_frames"]
+        # the frames the file shows (a live WebM's CAP_PROP_FRAME_COUNT
+        # estimate is negative)
+        n = container.open_video(path).frame_count
         for what, fn in (
                 ("video_frames", lambda: next(iter(video_frames(path, dev)))),
                 ("FrameReader", lambda: FrameReader(path, dev)[n - 1]),
@@ -5636,15 +5769,67 @@ def nvdec_h264(dev, report):
         f"{rate:.1f} frames/s")
 
 
+def nvdec_streams(dev, state):
+    """Where NVDEC answers: each stream fixture of a codec the caps list,
+    its RGB frames in order and by ``frame(i)`` in shuffled order, by
+    SHA-256, cv2's frames (AV1: its NV12 planes, libaom's; HEVC, VP8, VP9
+    and AV1 decode bit-exactly by their specifications and the conversion
+    is swscale's); a codec the caps do not list raises, naming it.
+    MPEG-4 Part 2 in Matroska waits for 14c's bound."""
+    from siammot_tpu_torch.data import container
+    with open(os.path.join(VIDEO_DIR, "containers_ref.json")) as f:
+        ref = json.load(f)
+    for name in STREAM_FIXTURES:
+        path = os.path.join(VIDEO_DIR, name)
+        video = container.open_video(path)
+        if video.format == "MPEG-4 Part 2":
+            continue
+        if not state[video.format]["supported"]:
+            try:
+                video.frame(0, dev)
+            except NotImplementedError as e:
+                log(f"  {name}: raises as the caps say: {e}")
+                continue
+            raise AssertionError(f"14a {name} decoded though the caps say "
+                                 f"{video.format} is unsupported")
+        av1 = video.format == "AV1"
+        with nv12_capture() as planes:
+            rgb = list(video.frames(dev))
+        if av1:
+            got = [[sha(luma.cpu()), sha(chroma.cpu().numpy()[:, 0::2]),
+                    sha(chroma.cpu().numpy()[:, 1::2])]
+                   for luma, chroma in planes]
+            want = ref[name]["aom_sha256"]
+        else:
+            got, want = [sha(f) for f in rgb], ref[name]["sha256"]
+        if got != want:
+            raise AssertionError(f"14a {name}: NVDEC's frames are not the "
+                                 f"reference's ({len(got)} of {len(want)})")
+        order = [int(i) for i in np.random.RandomState(0).permutation(
+            len(want))]
+        for i in order:
+            img = video.frame(i, dev)
+            if not av1 and sha(img) != want[i]:
+                raise AssertionError(f"14a {name}: frame({i}) is not cv2's "
+                                     f"frame {i}")
+            if av1 and not np.array_equal(img, rgb[i]):
+                raise AssertionError(f"14a {name}: frame({i}) is not the "
+                                     f"sequential frame {i}")
+        log(f"  {name}: {len(rgb)} {video.format} frames bitwise the "
+            f"reference's, also by frame(i) in shuffled order")
+
+
 def nvdec_mpeg4(dev, state):
     """14c: MPEG-4 Part 2 raises as the caps say; where the caps list it,
     its gap to cv2's frames is printed and the run fails: its IDCT is
     held to IEEE 1180's tolerance only, and no bound has been measured
     on a card yet."""
     from siammot_tpu_torch.data import container
+    # the Matroska clip holds the same frames as the others (its
+    # containers_ref.json digests are these frames')
     rgb = np.load(os.path.join(VIDEO_DIR, "mpeg4_small_ref.npz"))["rgb"]
     gaps = []
-    for name in ("mpeg4_small.mp4", "mpeg4_small.avi"):
+    for name in ("mpeg4_small.mp4", "mpeg4_small.avi", "mpeg4_small.mkv"):
         path = os.path.join(VIDEO_DIR, name)
         if not state["MPEG-4 Part 2"]["supported"]:
             try:
@@ -5695,6 +5880,7 @@ def video_phase(dev, report, card):
                 f"launch on a main path")
             return None
         nvdec_h264(dev, report)
+        nvdec_streams(dev, state)
         log(f"  14a wall time {time.perf_counter() - t0:.1f} s")
         log("[14b] siammot_tpu_torch.demos.demo over h264_720p.mp4 "
             "(NVDEC), bench weights, person config:")
@@ -5851,16 +6037,23 @@ def main():
     log(f"[12] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13] the readers (13a PNG, BMP, MJPEG AVI and MP4, EXIF) and the "
-        f"demo (13b) ({card}):")
+    log(f"[13] the readers (13a PNG, BMP, MJPEG AVI, MP4 and Matroska, "
+        f"EXIF) and the demo (13b) ({card}):")
     shown = demo_phase(dev, report, card)
     log(f"[13] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14] video through NVDEC and the conversion kernel (14a), the demo "
-        f"over an H.264 clip (14b), MPEG-4 Part 2 (14c) ({card}):")
+    log(f"[14] video through NVDEC (H.264, HEVC, MPEG-4 Part 2, VP8, VP9, "
+        f"AV1) and the conversion kernel (14a), the demo over an H.264 clip "
+        f"(14b), MPEG-4 Part 2 (14c) ({card}):")
     video = video_phase(dev, report, card)
     log(f"[14] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log(f"[15] siammot_tpu_torch.demos.demo over 13b's packets in a Matroska "
+        f"file, bench weights, person config ({card}):")
+    mkv = matroska_demo_phase(dev, report, card, shown)
+    log(f"[15] done in {time.perf_counter() - t0:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5918,7 +6111,9 @@ def main():
         f"{multi['forms']['train_gather4']['peak'] / 2 ** 30:.3f}/"
         f"{multi['forms']['train_shiftwin']['peak'] / 2 ** 30:.3f} GiB; "
         f"demo {shown['fps']:.3f} fps end to end ({shown['ms']:.3f} ms a "
-        f"frame, {100 * shown['step_share']:.1f}% in the step); "
+        f"frame, {100 * shown['step_share']:.1f}% in the step), over the "
+        f"same packets in Matroska {mkv['fps']:.3f} fps "
+        f"({100 * mkv['step_share']:.1f}% in the step, rows equal); "
         + (f"NVDEC UNVERIFIED ({report['nv12_to_rgb']['nvdec']})"
            if video is None else
            f"demo over H.264 {video['fps']:.3f} fps "

@@ -1,12 +1,15 @@
 """Video files for the port, without ``cv2`` or FFmpeg: a demuxer for AVI
 and ISO BMFF (MP4, MOV) that hands each frame's packet to a decoder on the
-route of the device:
+route of the device (Matroska and WebM: ``data/matroska.py``, into the same
+:class:`Video`):
 
   * Motion JPEG, where every packet is a JPEG image: the port's JPEG
     decoder (``data/native.py``: libjpeg on the CPU, nvJPEG on the card).
-  * H.264 and MPEG-4 Part 2 (Visual): NVIDIA's hardware decoder on the
-    card (``data/nvdec.py``), fed the elementary stream this module makes
-    from the samples.  The port has no CPU decoder for them: a decode on
+  * H.264, HEVC, MPEG-4 Part 2 (Visual), VP8, VP9 and AV1: NVIDIA's
+    hardware decoder on the card (``data/nvdec.py``), fed the elementary
+    stream this module makes from the samples, 8-bit 4:2:0 only (the
+    stream's own headers say, ``data/codecs.py``; any other raises before
+    a decoder opens).  The port has no CPU decoder for them: a decode on
     the CPU raises ``NotImplementedError`` naming the codec and NVDEC.
 
 The containers:
@@ -34,14 +37,19 @@ The containers:
     :func:`mjpeg_b_to_jpeg`), ``mp4v`` whose ``esds`` object type is
     0x6C (JPEG, how FFmpeg, and so ``cv2.VideoWriter``, stores MJPEG in an
     MP4) or 0x20 (MPEG-4 Part 2: the DecoderSpecificInfo holds the VOL
-    header), and ``avc1``/``avc3`` (H.264: ``avcC`` gives the parameter
+    header), ``avc1``/``avc3`` (H.264: ``avcC`` gives the parameter
     sets and the NAL length size; each sample's length-prefixed NAL units
     become Annex B, and each sync sample is prefixed with the parameter
-    sets).
+    sets), ``hvc1``/``hev1`` (HEVC: the same from ``hvcC``'s arrays, VPS,
+    SPS and PPS), ``vp09`` (VP9: a sample a packet, a superframe whole)
+    and ``av01`` (AV1: each temporal unit gets its temporal delimiter
+    back, and ``av1C``'s sequence header OBU goes before each sync
+    sample).  For HEVC, VP9 and AV1 a sync sample must also be a keyframe
+    by its own header.
 
 Frames come in display order and seek by :func:`seek_plan`: decoding
 starts at the sync sample at or before the frame wanted and runs forward
-until it comes out.  Any other codec (HEVC, VP9, AV1, MPEG-4 Part 2 with
+until it comes out.  Any other codec (MPEG-2, ProRes, MPEG-4 Part 2 with
 DivX packed B-frames, ...) raises ``NotImplementedError`` naming it.  Some
 MJPEG packets leave out their Huffman tables (DHT) and rely on the
 standard ones (JPEG Annex K.3, which libjpeg would also assume);
@@ -62,7 +70,7 @@ import threading
 import numpy as np
 import torch
 
-from . import native, nvdec
+from . import codecs, native, nvdec
 
 # fourccs FFmpeg's AVI demuxer maps to its MJPEG decoder (libavformat
 # riff.c), upper-cased
@@ -81,18 +89,21 @@ AVI_MPEG4 = {"FMP4", "DIVX", "DX50", "XVID", "MP4S", "M4S2", "ZMP4", "DIV1",
              "MNM4", "GTM4"}
 MP4_MJPEG = {"jpeg", "mjpa", "mjpb"}
 MP4_H264 = {"avc1", "avc3"}
+MP4_HEVC = {"hvc1", "hev1"}
 OBJECT_JPEG = 0x6C
 OBJECT_MPEG4 = 0x20
-MJPEG, H264, MPEG4 = "MJPEG", "H.264", "MPEG-4 Part 2"
+MJPEG, MPEG4 = "MJPEG", "MPEG-4 Part 2"
+H264, HEVC, VP8, VP9, AV1 = (codecs.H264, codecs.HEVC, codecs.VP8,
+                             codecs.VP9, codecs.AV1)
 OBJECT_TYPES = {0x20: "MPEG-4 Part 2 (Visual)", 0x21: "H.264", 0x23: "HEVC",
                 0x60: "MPEG-2 Video", 0x61: "MPEG-2 Video",
                 0x6A: "MPEG-1 Video", 0x6C: "JPEG", 0x6D: "PNG",
                 0x6E: "JPEG 2000"}
-CODEC_NAMES = {"avc1": "H.264", "avc3": "H.264", "hvc1": "HEVC",
-               "hev1": "HEVC", "vp09": "VP9", "av01": "AV1", "mp4v":
-               "MPEG-4 Part 2", "H264": "H.264", "X264": "H.264", "XVID": "MPEG-4 Part 2",
-               "DIVX": "MPEG-4 Part 2", "FMP4": "MPEG-4 Part 2",
-               "MP4V": "MPEG-4 Part 2"}
+CODEC_NAMES = {"mp2v": "MPEG-2 Video", "apcn": "ProRes", "apch": "ProRes",
+               "V_MPEG2": "MPEG-2 Video", "V_MPEG1": "MPEG-1 Video",
+               "V_THEORA": "Theora", "V_PRORES": "ProRes", "V_FFV1": "FFV1",
+               "V_UNCOMPRESSED": "uncompressed video", "V_REAL/RV40":
+               "RealVideo 4", "HEVC": "HEVC", "H265": "HEVC"}
 
 
 def no_decoder(path: str, codec: str) -> NotImplementedError:
@@ -100,8 +111,17 @@ def no_decoder(path: str, codec: str) -> NotImplementedError:
     return NotImplementedError(
         f"{path}: codec {codec!r}{' (' + name + ')' if name else ''}: the "
         f"port decodes Motion JPEG (libjpeg on the CPU, nvJPEG on the card), "
-        f"H.264 and MPEG-4 Part 2 (NVDEC on the card); the card's machine "
-        f"has no decoder for other codecs")
+        f"H.264, HEVC, MPEG-4 Part 2, VP8, VP9 and AV1 (NVDEC on the card); "
+        f"the card's machine has no decoder for other codecs")
+
+
+def not_decodable(path: str, fmt: str, depth: int,
+                  chroma: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{path}: a {depth}-bit {chroma} {fmt} stream: the port decodes "
+        f"{fmt} through NVDEC at 8-bit 4:2:0 only (NV12 surfaces and the "
+        f"8-bit conversion to RGB); this stream is {depth}-bit and "
+        f"{chroma}")
 
 
 def no_cpu_decoder(path: str, fmt: str, codec: str) -> NotImplementedError:
@@ -217,14 +237,59 @@ def seek_plan(sync, rank, target: int) -> tuple:
     return best, target - rank[best]
 
 
-def _is_keyframe(fmt: str, packet: bytes) -> bool:
-    """Whether an elementary-stream packet holds an IDR slice (H.264, Annex
-    B) or an I-VOP (MPEG-4 Part 2)."""
-    if fmt == H264:
-        return any(m.end() < len(packet) and packet[m.end()] & 0x1F == 5
-                   for m in re.finditer(b"\0\0\1", packet))
+def _is_keyframe(fmt: str, packet: bytes, nal_length: int = 0,
+                 reduced_still: bool = False) -> bool:
+    """Whether a packet holds an IDR slice (H.264), an IRAP picture (HEVC,
+    NAL types 16-23), an I-VOP (MPEG-4 Part 2), or a shown key frame (VP8,
+    VP9, AV1) that starts it; NAL units length-prefixed (``nal_length``
+    bytes) or, with 0, Annex B."""
+    if fmt in (H264, HEVC):
+        types = {codecs.nal_type(fmt, u)
+                 for u in codecs.nal_units(packet, nal_length)}
+        return 5 in types if fmt == H264 else bool(types & set(range(16, 24)))
+    if fmt == VP8:
+        return codecs.vp8_header(packet)["key"]
+    if fmt == VP9:
+        frames = codecs.vp9_frames(packet)
+        return bool(frames) and codecs.vp9_header(frames[0])["key"]
+    if fmt == AV1:
+        h = codecs.av1_header(packet, reduced_still)
+        return h["key"] and h["show"]
     i = packet.find(b"\0\0\1\xb6")
     return i >= 0 and i + 4 < len(packet) and packet[i + 4] >> 6 == 0
+
+
+def _shows_frame(fmt: str, packet: bytes) -> bool:
+    """Whether decoding a VP8 or VP9 packet outputs a frame: a hidden frame
+    (an alt-ref stored alone) does not; every other packet does."""
+    if fmt == VP8:
+        return codecs.vp8_header(packet)["show"]
+    if fmt == VP9:
+        return any(h["show"] or h["show_existing"] for h in map(
+            codecs.vp9_header, codecs.vp9_frames(packet)))
+    return True
+
+
+def stream_keys(path: str, fmt: str, read, n: int, keys,
+                nal_length: int = 0, header: bytes = b""):
+    """The sync packets of a stream of ``n`` packets (``read(i)``: packet
+    i's bytes): those the container marks (``keys``, None: every packet)
+    that, for HEVC, VP8, VP9 and AV1, are keyframes by their own headers;
+    and the packets that output no frame (VP8 and VP9 only, whose every
+    packet is read).  The packets are read one at a time."""
+    reduced = False
+    if fmt == AV1:
+        for kind, _, payload in codecs.obus(header):
+            if kind == codecs.OBU_SEQUENCE_HEADER:
+                reduced = codecs.av1_reduced_still(payload)
+    marked = range(n) if keys is None else sorted(keys)
+    sync = [i for i in marked if fmt not in (HEVC, VP8, VP9, AV1)
+            or _is_keyframe(fmt, read(i), nal_length, reduced)]
+    hidden = {i for i in range(n) if not _shows_frame(fmt, read(i))} \
+        if fmt in (VP8, VP9) else set()
+    if not sync:
+        raise IOError(f"{path}: no keyframe in the {fmt} stream")
+    return sync, hidden
 
 
 _DIVX = re.compile(rb"DivX(\d+)(?:Build|b)(\d+)(p?)")
@@ -246,20 +311,29 @@ class _Seek:
 
 class Video:
     """A demuxed video: ``fps``, ``frame_count``, ``width``, ``height``,
-    ``rotation`` (degrees, 0/90/180/270), ``codec`` (the fourcc or sample
-    entry) and ``format`` (``MJPEG``, ``H.264`` or ``MPEG-4 Part 2``); the
-    packets in decode order (random access) as (file offset, size);
-    ``sync``, the decode indices of the sync samples; ``order``, the decode
-    indices in display order (None: the decode order); ``shown``, the
-    display ranks of the frames the video shows (None: all); ``header``,
-    the parameter sets (H.264, Annex B) or the VOL header (MPEG-4) that
-    start a stream; ``nal_length``, the NAL length size of length-prefixed
-    H.264 samples (0: Annex B)."""
+    ``rotation`` (degrees, 0/90/180/270), ``codec`` (the fourcc, sample
+    entry or Matroska CodecID) and ``format`` (``MJPEG``, ``H.264``,
+    ``HEVC``, ``MPEG-4 Part 2``, ``VP8``, ``VP9`` or ``AV1``); the packets
+    in decode order (random access) as (file offset, size); ``sync``, the
+    decode indices of the sync samples; ``order``, the decode indices in
+    display order (None: the decode order); ``shown``, the display ranks
+    of the frames the video shows (None: all); ``hidden``, the decode
+    indices of packets that output no frame (a VP8 or VP9 alt-ref stored
+    alone; they have no display rank); ``header``, the parameter sets
+    (H.264, HEVC: Annex B), the VOL header (MPEG-4) or the sequence header
+    OBU (AV1) that start a stream; ``nal_length``, the NAL length size of
+    length-prefixed samples (0: Annex B); ``stream_format``, (bit depth,
+    chroma format) where the container says (``vpcC``, ``av1C``), else
+    read from the stream by :meth:`decodable`; ``frame_total``,
+    ``CAP_PROP_FRAME_COUNT`` where it is not the packet count (Matroska's
+    estimate); ``prefix``, bytes a container strips from every packet
+    (Matroska's header stripping), put back as each packet is read."""
 
     def __init__(self, path: str, fps: float, width: int, height: int,
                  rotation: int, codec: str, spans: list, fmt: str = MJPEG,
                  sync=None, order=None, shown=None, header: bytes = b"",
-                 nal_length: int = 0):
+                 nal_length: int = 0, hidden=(), stream_format=None,
+                 frame_total=None, prefix: bytes = b""):
         self.path = path
         self.fps = fps
         self.width = width
@@ -271,8 +345,12 @@ class Video:
         self.sync = list(range(len(spans))) if sync is None else list(sync)
         self.order = order
         self.shown = shown
+        self.hidden = set(hidden)
         self.header = header
         self.nal_length = nal_length
+        self.stream_format = stream_format
+        self.frame_total = frame_total
+        self.prefix = prefix
         self._sync_set = set(self.sync)
         self._rank = None
         self._seek = None               # frame()'s session, one at a time
@@ -280,14 +358,20 @@ class Video:
 
     @property
     def frame_count(self) -> int:
-        return len(self.spans) if self.shown is None else len(self.shown)
+        return len(self.spans) - len(self.hidden) if self.shown is None \
+            else len(self.shown)
 
     def rank(self) -> list:
-        """Each decode index's display rank."""
+        """Each decode index's display rank (None: a hidden packet)."""
         if self._rank is None:
-            self._rank = list(range(len(self.spans)))
-            for r, i in enumerate(self.order or ()):
-                self._rank[i] = r
+            self._rank = [None] * len(self.spans)
+            order = range(len(self.spans)) if self.order is None \
+                else self.order
+            r = 0
+            for i in order:
+                if i not in self.hidden:
+                    self._rank[i] = r
+                    r += 1
         return self._rank
 
     def shown_rank(self, idx: int) -> int:
@@ -307,7 +391,7 @@ class Video:
         data = f.read(size)
         if len(data) != size:
             raise IOError(f"{self.path}: packet {idx} ends past the file")
-        return data
+        return self.prefix + data if self.prefix else data
 
     def packet(self, idx: int) -> bytes:
         with open(self.path, "rb") as f:
@@ -319,18 +403,58 @@ class Video:
                 yield self._read(f, idx)
 
     def stream_packet(self, data: bytes, idx: int, first: bool) -> bytes:
-        """Packet ``idx`` as the elementary stream carries it: H.264 as
-        Annex B, a sync sample (or the ``first`` packet fed) prefixed with
-        the parameter sets; the ``first`` MPEG-4 packet prefixed with the
-        VOL header."""
-        if self.format == H264:
+        """Packet ``idx`` as the elementary stream carries it: H.264 and
+        HEVC as Annex B, a sync sample (or the ``first`` packet fed)
+        prefixed with the parameter sets; the ``first`` MPEG-4 packet
+        prefixed with the VOL header; an AV1 temporal unit with its
+        temporal delimiter, and the sequence header before a sync sample
+        or the ``first`` packet; VP8 and VP9 as stored."""
+        key = first or idx in self._sync_set
+        if self.format in (H264, HEVC):
             if self.nal_length:
                 data = annexb(data, self.nal_length)
-            if first or idx in self._sync_set:
+            if key:
                 data = self.header + data
         elif self.format == MPEG4 and first:
             data = self.header + data
+        elif self.format == AV1:
+            data = codecs.av1_temporal_unit(data, self.header if key
+                                            else b"")
         return data
+
+    def decodable(self) -> tuple:
+        """(bit depth, chroma format) of the stream, from the container's
+        record or the stream's own headers; raises where the port's NVDEC
+        route cannot decode it (anything but 8-bit 4:2:0), before a
+        session opens."""
+        if self.stream_format is None:
+            self.stream_format = self._read_format()
+        depth, chroma = self.stream_format
+        if (depth, chroma) != (8, "4:2:0"):
+            raise not_decodable(self.path, self.format, depth, chroma)
+        return depth, chroma
+
+    def _read_format(self) -> tuple:
+        if self.format in (H264, HEVC):
+            sps = 7 if self.format == H264 else 33
+            read = codecs.h264_sps_format if self.format == H264 \
+                else codecs.hevc_sps_format
+            units = codecs.nal_units(self.header, 0)
+            for idx in self.sync[:1]:
+                units += codecs.nal_units(self.packet(idx), self.nal_length)
+            for u in units:
+                if codecs.nal_type(self.format, u) == sps:
+                    return read(u)
+            raise IOError(f"{self.path}: no {self.format} sequence parameter "
+                          f"set before the first keyframe")
+        if self.format == VP9:
+            for idx in self.sync[:1]:
+                h = codecs.vp9_header(codecs.vp9_frames(self.packet(idx))[0])
+                return h["depth"], h["chroma"]
+        if self.format == AV1:
+            raise IOError(f"{self.path}: an AV1 track without av1C")
+        # VP8, and MPEG-4 Part 2's Simple and Advanced Simple profiles
+        return 8, "4:2:0"
 
     def elementary_stream(self, start: int = 0) -> bytes:
         """The elementary stream from packet ``start`` on (a ``.h264`` or
@@ -358,6 +482,7 @@ class Video:
     def session(self, device) -> nvdec.Session:
         """A new NVDEC session for this stream on ``device`` (a CUDA
         device; the CPU raises)."""
+        self.decodable()
         if torch.device(device).type != "cuda":
             raise no_cpu_decoder(self.path, self.format, self.codec)
         return nvdec.Session(self.format, device, self.path)
@@ -422,7 +547,7 @@ class Video:
                     self.rotation)
             return
         session = self.session(device)
-        shown = set(range(len(self.spans)) if self.shown is None
+        shown = set(range(self.frame_count) if self.shown is None
                     else self.shown)
         rank = count = 0
         try:
@@ -449,7 +574,9 @@ class Video:
         ``cap.read()`` does not)."""
         w, h = (self.height, self.width) if self.rotation % 180 \
             else (self.width, self.height)
-        return dict(fps=self.fps, number_of_frames=len(self.spans),
+        count = len(self.spans) if self.frame_total is None \
+            else self.frame_total
+        return dict(fps=self.fps, number_of_frames=count,
                     resolution={"width": w, "height": h})
 
 
@@ -464,7 +591,8 @@ def apply_rotation(frame: np.ndarray, rotation: int) -> np.ndarray:
 
 
 def open_video(path: str) -> Video:
-    """Demux ``path`` (AVI, MP4 or MOV, chosen by its first bytes)."""
+    """Demux ``path`` (AVI, MP4, MOV, Matroska or WebM, chosen by its first
+    bytes, whatever the file's name)."""
     with open(path, "rb") as f:
         head = f.read(12)
         if len(head) == 12 and head[:4] == b"RIFF" \
@@ -473,11 +601,13 @@ def open_video(path: str) -> Video:
         elif len(head) == 12 and head[4:8] in (b"ftyp", b"moov", b"mdat",
                                                 b"free", b"wide", b"skip"):
             demux = _open_mp4
+        elif head[:4] == b"\x1a\x45\xdf\xa3":         # EBML
+            from .matroska import open_matroska as demux
         else:
             raise NotImplementedError(
-                f"{path}: not an AVI, MP4 or MOV file (first bytes "
-                f"{head.hex()}); the port reads MJPEG, H.264 and MPEG-4 "
-                f"Part 2 in those containers")
+                f"{path}: not an AVI, MP4, MOV, Matroska or WebM file (first "
+                f"bytes {head.hex()}); the port reads MJPEG, H.264, HEVC, "
+                f"MPEG-4 Part 2, VP8, VP9 and AV1 in those containers")
         with contextlib.closing(mmap.mmap(f.fileno(), 0,
                                           access=mmap.ACCESS_READ)) as data:
             return demux(path, data)
@@ -796,7 +926,8 @@ def _mp4_track(path, data, trak, mdia, movie_scale=0) -> Video:
     size, fmt = struct.unpack(">I4s", data[entry:entry + 8])
     codec = fmt.decode("latin-1")
     width, height = struct.unpack(">HH", data[entry + 32:entry + 36])
-    header, nal_length = b"", 0
+    header, nal_length, fmt_info = b"", 0, None
+    boxes = (entry + 86, entry + size)
     if codec == "mp4v":
         esds = _child(data, entry + 86, entry + size, b"esds")
         oti = object_type(data, *esds) if esds else None
@@ -814,6 +945,24 @@ def _mp4_track(path, data, trak, mdia, movie_scale=0) -> Video:
         if avcc is None:
             raise IOError(f"{path}: an {codec} sample entry without avcC")
         header, nal_length = _avcc(data, *avcc)
+    elif codec in MP4_HEVC:
+        kind = HEVC
+        hvcc = _child(data, *boxes, b"hvcC")
+        if hvcc is None:
+            raise IOError(f"{path}: an {codec} sample entry without hvcC")
+        header, nal_length = codecs.hvcc(bytes(data[hvcc[0]:hvcc[1]]))
+    elif codec == "vp09":
+        kind = VP9
+        vpcc = _child(data, *boxes, b"vpcC")
+        if vpcc is not None:
+            fmt_info = vpcc_format(bytes(data[vpcc[0]:vpcc[1]]))
+    elif codec == "av01":
+        kind = AV1
+        av1c = _child(data, *boxes, b"av1C")
+        if av1c is None:
+            raise IOError(f"{path}: an av01 sample entry without av1C")
+        config = codecs.av1c(bytes(data[av1c[0]:av1c[1]]))
+        header, fmt_info = config["obus"], (config["depth"], config["chroma"])
     elif codec in MP4_MJPEG:
         kind = MJPEG
     else:
@@ -835,10 +984,26 @@ def _mp4_track(path, data, trak, mdia, movie_scale=0) -> Video:
     if kind == MPEG4:
         _refuse_packed(path, codec, [bytes(data[o:o + n])
                                      for o, n in spans[:4]])
+    hidden = ()
+    if kind in (HEVC, VP9, AV1):
+        sync, hidden = stream_keys(
+            path, kind, lambda i: bytes(data[spans[i][0]:sum(spans[i])]),
+            len(spans), sync, nal_length, header)
     return Video(path, float(fps), int(width), int(height),
                  display_rotation(matrix), codec, spans, kind, sync=sync,
                  order=order, shown=shown, header=header,
-                 nal_length=nal_length)
+                 nal_length=nal_length, hidden=hidden,
+                 stream_format=fmt_info)
+
+
+def vpcc_format(body: bytes) -> tuple:
+    """(bit depth, chroma format) of a ``vpcC`` body (VP Codec ISO Media
+    File Format Binding 2.2, version 1)."""
+    if len(body) < 8:
+        raise IOError("a vpcC record shorter than 8 bytes")
+    depth, sub = body[6] >> 4, body[6] >> 1 & 7
+    return depth, {0: "4:2:0", 1: "4:2:0", 2: "4:2:2", 3: "4:4:4"}.get(
+        sub, str(sub))
 
 
 def _mp4_samples(data, box) -> list:

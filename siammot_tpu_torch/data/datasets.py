@@ -20,9 +20,10 @@ reads them: stills through ``data/imageio.py`` (JPEG on ``device``'s
 route: libjpeg on the CPU, whose bytes are ``cv2.imread``'s, or the
 calling thread's own nvJPEG decoder on the card; PNG; BMP; EXIF
 orientation applied), and a video sample's frames by index from an AVI,
-MP4 or MOV file (MJPEG; H.264 and MPEG-4 Part 2 through NVDEC on the
-card, seeking from the sync sample before the frame;
-``data/container.py``; other codecs raise ``NotImplementedError``).
+MP4, MOV, Matroska or WebM file (MJPEG; H.264, HEVC, MPEG-4 Part 2, VP8,
+VP9 and AV1 through NVDEC on the card, seeking from the sync sample
+before the frame; ``data/container.py``, ``data/matroska.py``; other
+codecs raise ``NotImplementedError``).
 """
 
 from __future__ import annotations

@@ -10,7 +10,12 @@
 // header says), and the library is opened with dlopen at first use.  The
 // CUDA API's libcuda.so.1 is opened the same way, for the current
 // context.  tests/test_torch_video_codecs.py holds data/nvdec.py's ctypes
-// mirrors of these structs to the sizes and offsets written there.
+// mirrors of these structs to the sizes and offsets written there.  The
+// parser takes H.264 and HEVC as Annex B, MPEG-4 Part 2, VP8 and VP9 frames
+// (a VP9 superframe whole) and AV1 temporal units of low-overhead OBUs, as
+// data/container.py makes them; a stream that is not 8-bit 4:2:0 is
+// refused there before any driver call, and again here by the sequence
+// callback.
 //
 // A session is one parser and one decoder on PyTorch's primary context of
 // the caller's device.  The parser's callbacks stay here: the sequence
@@ -40,7 +45,8 @@
 // C ABI (0 or an error code; nvd_error() holds the text of the last error
 // on the calling thread):
 //   nvd_load()                                   opens the libraries
-//   nvd_caps(device, codec, out[8])             8-bit 4:2:0; the driver's
+//   nvd_caps(device, codec, out[8])             8-bit 4:2:0 (codec: a
+//     cudaVideoCodec, the enum below); the driver's
 //     CUresult where cuvidGetDecoderCaps fails, -1 where a step before it
 //     does; out: supported, NVDECs, output format mask, max width, max
 //     height, max macroblocks, min width, min height
@@ -72,7 +78,9 @@ typedef void* CUvideoctxlock;
 typedef long long CUvideotimestamp;
 struct CUVIDPICPARAMS;                  // opaque: from the parser to the decoder
 
-enum { kCodecMPEG4 = 2, kCodecH264 = 4 };            // cudaVideoCodec
+// cudaVideoCodec: the codecs data/nvdec.py's CODEC_IDS names
+enum { kCodecMPEG4 = 2, kCodecH264 = 4, kCodecHEVC = 8, kCodecVP8 = 9,
+       kCodecVP9 = 10, kCodecAV1 = 11 };
 enum { kChroma420 = 1 };                             // cudaVideoChromaFormat
 enum { kSurfaceNV12 = 0 };                           // cudaVideoSurfaceFormat
 enum { kDeinterlaceWeave = 0 };                      // cudaVideoDeinterlaceMode

@@ -1,13 +1,15 @@
-"""H.264 and MPEG-4 Part 2 video on the card: NVIDIA's hardware decoder
-(NVDEC), bound with ctypes (``nvdec.cu``, built with ``nvcc`` at first use
-by :func:`native._load`), and the NV12-to-RGB conversion that gives the
-bytes the JAX package gets from ``cv2.VideoCapture``.
+"""H.264, HEVC, MPEG-4 Part 2, VP8, VP9 and AV1 video on the card:
+NVIDIA's hardware decoder (NVDEC), bound with ctypes (``nvdec.cu``, built
+with ``nvcc`` at first use by :func:`native._load`), and the NV12-to-RGB
+conversion that gives the bytes the JAX package gets from
+``cv2.VideoCapture``.
 
 A :class:`Session` is one NVDEC parser and decoder on PyTorch's primary
 context of a CUDA device, working on a CUDA stream of its own.  It takes
 an elementary stream a packet at a time (``data/container.py`` makes it
-from the file: Annex B H.264, MPEG-4 Part 2 with its VOL header) and gives
-back, in display order, each frame that the packet released: the
+from the file: Annex B H.264 and HEVC, MPEG-4 Part 2 with its VOL
+header, VP8 and VP9 frames, AV1 temporal units) and gives back, in
+display order, each frame that the packet released: the
 conversion kernel reads the mapped NV12 surface, the RGB frame is copied to
 the host, then the surface is unmapped.  An end of stream releases the
 frames the decoder still holds for reordering.
@@ -19,11 +21,13 @@ integer arithmetic in PyTorch (swscale's x86 route: BT.601 limited range,
 chroma shared by each 2x2 block; ``nvdec.cu`` writes it out).
 
 There is no decoder behind NVDEC: a missing ``libnvcuvid.so.1``, a codec
-the card's ``cuvidGetDecoderCaps`` does not list, or a failed build
-raises, and a CPU device raises (the port has no software decoder for
-these codecs).  The ctypes structs below mirror those ``nvdec.cu``
-declares by hand (Video Codec SDK 12.x layouts); the tests hold both to
-the sizes and offsets of that SDK.
+the card's ``cuvidGetDecoderCaps`` does not list at 8-bit 4:2:0 (raised
+naming the codec and the card), or a failed build raises, and a CPU
+device raises (the port has no software decoder for these codecs).  A
+stream that is not 8-bit 4:2:0 raises before a session opens
+(``container.Video.decodable``).  The ctypes structs below mirror those
+``nvdec.cu`` declares by hand (Video Codec SDK 12.x layouts); the tests
+hold both to the sizes and offsets of that SDK.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ import torch
 from . import native
 
 # cudaVideoCodec
-CODEC_IDS = {"MPEG-4 Part 2": 2, "H.264": 4}
+CODEC_IDS = {"MPEG-4 Part 2": 2, "H.264": 4, "HEVC": 8, "VP8": 9, "VP9": 10,
+             "AV1": 11}
 END_OF_STREAM = 1                # nvd_parse's flag: CUVID_PKT_ENDOFSTREAM
 
 
@@ -303,8 +308,9 @@ class Session:
         caps = decoder_caps(codec, self.device)
         if not caps["supported"]:
             raise NotImplementedError(
-                f"{what}: this card's NVDEC does not decode {codec} "
-                f"(cuvidGetDecoderCaps at 8-bit 4:2:0: {caps})")
+                f"{what}: the NVDEC of this card "
+                f"({torch.cuda.get_device_name(self.device)}) does not decode "
+                f"{codec} (cuvidGetDecoderCaps at 8-bit 4:2:0: {caps})")
         self.stream = torch.cuda.Stream(self.device)
         self._handle = None
         handle = ctypes.c_void_p()

@@ -4,10 +4,12 @@
   * Image folders: every still in ``IMAGE_EXTS`` in name order, read by
     ``data/imageio.py`` (JPEG on ``device``'s route, PNG, BMP; EXIF
     orientation applied, as ``cv2.imread`` applies it).
-  * Video files: Motion JPEG, H.264 or MPEG-4 Part 2 in AVI, MP4 or MOV,
-    demuxed by ``data/container.py`` and decoded on ``device``'s route (H.264 and MPEG-4 Part 2 through NVDEC, on the card
-    only), turned upright by the container's rotation as OpenCV turns them
-    by default.  Other codecs raise ``NotImplementedError`` naming the
+  * Video files: AVI, MP4, MOV, Matroska (``.mkv``) or WebM, demuxed by
+    ``data/container.py`` and ``data/matroska.py`` and decoded on
+    ``device``'s route (Motion JPEG through the JPEG route; H.264, HEVC,
+    MPEG-4 Part 2, VP8, VP9 and AV1 through NVDEC, on the card only),
+    turned upright by the container's rotation as OpenCV turns them by
+    default.  Other codecs raise ``NotImplementedError`` naming the
     codec: the card's machine has no decoder for them.
 
 :func:`normalized_frame_source` takes the JAX package's fast path over a

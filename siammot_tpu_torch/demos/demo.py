@@ -6,8 +6,10 @@ plus ``--device``).
         --track-class person --model-file fixtures/bench_weights_f16.npz \\
         --dump-video True --output-path out/ [--device cpu]
 
-Inputs: a folder of JPEG, PNG or BMP stills, or a Motion JPEG video in an
-AVI, MP4 or MOV (other codecs raise, naming the codec).  The model runs
+Inputs: a folder of JPEG, PNG or BMP stills, or a video in an AVI, MP4,
+MOV, Matroska (``.mkv``) or WebM file: Motion JPEG on the JPEG route;
+H.264, HEVC, MPEG-4 Part 2, VP8, VP9 and AV1 through NVDEC on the card
+(other codecs raise, naming the codec).  The model runs
 on the card unless ``--device cpu`` asks for the CPU; without a card the
 default raises.  Output: ``<output-path>/<name>.mp4`` (MJPEG) with
 ``--dump-video True``, else ``<output-path>/<name>_frames/%06d.jpg``.

@@ -5,16 +5,18 @@ has ``fps`` and ``frame_count``.
   * An image folder: every still in ``IMAGE_EXTS`` in name order, read by
     ``data/imageio.py`` (EXIF orientation applied, as ``cv2.imread``
     applies it); 30 fps.
-  * A video file: Motion JPEG, H.264 or MPEG-4 Part 2 in AVI, MP4 or
-    MOV (``data/container.py``), each frame turned upright by the
-    container's rotation with :func:`apply_rotation`, the JAX demo's
-    ``np.rot90`` rule; the rotation is read from ``tkhd``'s display matrix
-    where the JAX demo asks OpenCV's FFmpeg backend for it.  Other codecs
-    raise ``NotImplementedError`` naming the codec.
+  * A video file: Motion JPEG, H.264, HEVC, MPEG-4 Part 2, VP8, VP9 or
+    AV1 in AVI, MP4, MOV, Matroska or WebM (``data/container.py``,
+    ``data/matroska.py``), each frame turned upright by the container's
+    rotation with :func:`apply_rotation`, the JAX demo's ``np.rot90``
+    rule; the rotation is read from ``tkhd``'s display matrix or
+    Matroska's ``ProjectionPoseRoll`` where the JAX demo asks OpenCV's
+    FFmpeg backend for it.  Other codecs raise ``NotImplementedError``
+    naming the codec.
 
 Frames decode on ``device``'s route: JPEG with libjpeg on the CPU and
-nvJPEG on the card, H.264 and MPEG-4 Part 2 with NVDEC on the card only
-(the CPU raises).
+nvJPEG on the card, the other codecs with NVDEC on the card only (the
+CPU raises).
 """
 
 from __future__ import annotations

@@ -201,13 +201,14 @@ def test_h264_sample_entry_raises(tmp_path):
     assert "NVDEC" in str(err.value)
     data = bytearray(open(src, "rb").read())
     at = data.index(b"avc1", data.index(b"stsd"))
-    for entry, name in ((b"hvc1", "HEVC"), (b"vp09", "VP9")):
+    for entry, name in ((b"apcn", "ProRes"), (b"mp2v", "MPEG-2")):
         data[at:at + 4] = entry
         (tmp_path / "other.mp4").write_bytes(bytes(data))
         with pytest.raises(NotImplementedError, match=name):
             container.open_video(str(tmp_path / "other.mp4"))
     (tmp_path / "junk.mp4").write_bytes(b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="not an AVI, MP4 or MOV"):
+    with pytest.raises(NotImplementedError,
+                       match="not an AVI, MP4, MOV, Matroska or WebM"):
         container.open_video(str(tmp_path / "junk.mp4"))
 
 

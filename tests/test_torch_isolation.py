@@ -410,18 +410,22 @@ SCRIPT = textwrap.dedent("""
     assert not any(blocked(m) for m in sys.modules), sorted(
         m for m in sys.modules if blocked(m))
 
-    # the video readers: every committed clip demuxes, and its H.264 or
-    # MPEG-4 Part 2 decode on the CPU raises naming NVDEC; the conversion
-    # of x264's reconstruction (on the CPU: the plain version) is cv2's
-    # frames of the MP4
+    # the video readers: every committed clip demuxes (AVI, MP4, Matroska,
+    # WebM), its Motion JPEG decodes on the CPU, and its H.264, HEVC,
+    # MPEG-4 Part 2, VP8, VP9 or AV1 decode on the CPU raises naming
+    # NVDEC; the conversion of x264's reconstruction (on the CPU: the
+    # plain version) is cv2's frames of the MP4
     import hashlib
     from siammot_tpu_torch.data.nvdec import nv12_to_rgb
     from siammot_tpu_torch.data.video_loader import video_frames
     vid = os.path.join(REPO, "tests", "fixtures", "video")
-    clips = [n for n in sorted(os.listdir(vid)) if n.endswith((".mp4",
-                                                              ".avi"))]
-    assert len(clips) == 5, clips
+    clips = [n for n in sorted(os.listdir(vid)) if n.endswith((
+        ".mp4", ".avi", ".mkv", ".webm"))]
+    assert len(clips) == 18, clips
     for name in clips:
+        if name.startswith("mjpeg"):
+            next(iter(video_frames(os.path.join(vid, name))))
+            continue
         try:
             next(iter(video_frames(os.path.join(vid, name))))
         except NotImplementedError as e:

@@ -19,8 +19,8 @@ here the demuxer is held to cv2 through the elementary stream it makes:
   reconstruction is the JAX package's ``video_frames`` of the MP4, bitwise
   (swscale's x86 route);
 * a CPU decode of H.264 or MPEG-4 Part 2 raises, naming the codec and
-  NVDEC; HEVC, VP9, AV1 and DivX packed B-frames raise naming what they
-  are;
+  NVDEC; sample entries the port has no decoder for (ProRes, MPEG-2) and
+  DivX packed B-frames raise naming what they are;
 * the ctypes mirrors of the Video Codec SDK structs ``nvdec.cu`` declares
   by hand have SDK 12.x's sizes and field offsets.
 """
@@ -385,7 +385,7 @@ def test_cpu_decode_raises_naming_the_codec_and_nvdec(name, codec):
 
 
 @pytest.mark.parametrize("entry,name", [
-    (b"hvc1", "HEVC"), (b"vp09", "VP9"), (b"av01", "AV1")])
+    (b"apcn", "ProRes"), (b"mp2v", "MPEG-2"), (b"apch", "ProRes")])
 def test_other_sample_entries_raise_no_decoder(tmp_path, entry, name):
     data = bytearray(open(fixture("h264_small.mp4"), "rb").read())
     at = data.index(b"avc1", data.index(b"stsd"))   # the sample entry
@@ -393,7 +393,8 @@ def test_other_sample_entries_raise_no_decoder(tmp_path, entry, name):
     (tmp_path / "x.mp4").write_bytes(bytes(data))
     with pytest.raises(NotImplementedError, match=name) as err:
         container.open_video(str(tmp_path / "x.mp4"))
-    assert "H.264 and MPEG-4 Part 2 (NVDEC on the card)" in str(err.value)
+    assert "H.264, HEVC, MPEG-4 Part 2, VP8, VP9 and AV1 (NVDEC on the " \
+        "card)" in str(err.value)
 
 
 def test_divx_packed_b_frames_raise(tmp_path):

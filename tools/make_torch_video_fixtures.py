@@ -48,6 +48,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+from siammot_tpu_torch.data import codecs  # noqa: E402
 from siammot_tpu_torch.data.container import (IDENTITY, _box,  # noqa: E402
                                               _full)
 from siammot_tpu_torch.utils.synth import render_scene  # noqa: E402
@@ -164,24 +165,6 @@ def x264_encode(frames, w, h, dump):
     return headers, packets
 
 
-def annexb_nals(data: bytes) -> list:
-    """The NAL units of an Annex B byte stream (start codes removed)."""
-    out, pos = [], 0
-    starts = []
-    while True:
-        i = data.find(b"\x00\x00\x01", pos)
-        if i < 0:
-            break
-        starts.append(i + 3)
-        pos = i + 3
-    for k, s in enumerate(starts):
-        e = starts[k + 1] - 3 if k + 1 < len(starts) else len(data)
-        while k + 1 < len(starts) and e > s and data[e - 1] == 0:
-            e -= 1                          # a 4-byte start code's zero
-        out.append(data[s:e])
-    return out
-
-
 # -- MP4 (as FFmpeg's mov muxer writes H.264) and AVI -----------------------
 
 def avcc(sps: bytes, pps: bytes) -> bytes:
@@ -197,20 +180,34 @@ def avcc(sps: bytes, pps: bytes) -> bytes:
 
 
 def write_h264_mp4(path, headers, packets, w, h):
-    units = annexb_nals(b"".join(headers))
+    units = codecs.nal_units(b"".join(headers), 0)
     sps = next(u for u in units if u[0] & 0x1F == 7)
     pps = next(u for u in units if u[0] & 0x1F == 8)
     samples = []
     for p in packets:
-        nals = [n for n in annexb_nals(p["data"]) if n[0] & 0x1F not in (7, 8)]
-        samples.append(b"".join(struct.pack(">I", len(n)) + n for n in nals))
-    # the samples' decode times start at 0; the edit starts at the first
-    # sample's composition time, which x264 gives pts 0
+        nals = [n for n in codecs.nal_units(p["data"], 0)
+                if n[0] & 0x1F not in (7, 8)]
+        samples.append(dict(p, data=b"".join(struct.pack(">I", len(n)) + n
+                                             for n in nals)))
+    entry = _box(b"avc1", bytes(6), struct.pack(">H", 1), bytes(16),
+                 struct.pack(">HHIIIH", w, h, 0x480000, 0x480000, 0, 1),
+                 bytes(32), struct.pack(">Hh", 24, -1), avcc(sps, pps))
+    write_mp4(path, entry, samples, w, h, b"isomiso2avc1mp41")
+
+
+def write_mp4(path, entry: bytes, packets: list, w: int, h: int,
+              brands: bytes = b"isomiso2mp41"):
+    """One video track of ``packets`` (dicts: ``data``, the sample;
+    ``pts``, ``dts`` in frames; ``key``) under the sample entry ``entry``,
+    as FFmpeg's mov muxer writes one: ``stss``, ``ctts`` from pts - dts
+    (the samples' decode times start at 0) and an ``elst`` whose media
+    time is the first sample's composition offset (x264 and x265 give the
+    first frame pts 0)."""
+    samples = [p["data"] for p in packets]
     ctts = [(p["pts"] - p["dts"]) * DELTA for p in packets]
     media_time = ctts[0]
     n = len(samples)
-    ftyp = _box(b"ftyp", b"isom", struct.pack(">I", 0x200),
-                b"isomiso2avc1mp41")
+    ftyp = _box(b"ftyp", b"isom", struct.pack(">I", 0x200), brands)
     mdat_at = len(ftyp)
     offsets, pos = [], mdat_at + 8
     for s in samples:
@@ -220,9 +217,6 @@ def write_h264_mp4(path, headers, packets, w, h):
         + b"".join(samples)
     duration = n * DELTA
     movie = duration * 1000 // TIMESCALE
-    entry = _box(b"avc1", bytes(6), struct.pack(">H", 1), bytes(16),
-                 struct.pack(">HHIIIH", w, h, 0x480000, 0x480000, 0, 1),
-                 bytes(32), struct.pack(">Hh", 24, -1), avcc(sps, pps))
     runs = []
     for c in ctts:
         if runs and runs[-1][1] == c:
