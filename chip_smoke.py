@@ -49,7 +49,13 @@ Phases, each printed as it finishes:
   2d. kernel 9, the deformable conv, at DLA-102's stage shapes (stride 2
      and 1, offsets in and out of the window, bf16 and f32), with the
      plain version's time, a dense cuDNN 3x3 of the same shape for scale,
-     and the bound of a frame's 26 launches;
+     and the bound of a frame's 26 launches; and its backward
+     (``ops/cuda/deform_bwd.cu``) on the same inputs under a seeded
+     upstream gradient: the samples bitwise the plain route-B samples,
+     two calls bitwise alike, each gradient against the plain version
+     (f32 2e-5 of its scale, bf16 ``DCN_GRAD_MAX``/``DCN_GRAD_MEAN``),
+     device ms by graph replay and by kernel, the plain version's ms and
+     the bound;
   3b. the default configuration against the JAX step: four f32 DLA-34
      frames at 320x576 on the card against the rows and track-state
      lanes in ``tests/fixtures/torch_golden_dla34.npz`` (must match, see
@@ -183,15 +189,20 @@ Phases, each printed as it finishes:
      moved, kernels 1, 7 and 6 launched 3, 3 and 1 a step and checked on
      the last step, s/it and peak memory; (10c) DLA-102-DCN-FPN training
      through ``do_train`` at 736x1280 on seeded weights, 1 + 2 steps: 26
-     kernel-9 launches a step, kernel 9 against its plain version on the
-     last step's inputs, and the last step's gradients of a stride-2, an
-     in-window and an out-of-window deformable layer against the same VJP
-     in f64 on the card; (10d) ``TPU.REMAT`` on one R-50 step: losses and
-     gradients bitwise the plain step's where two plain steps are bitwise
-     alike (cuDNN deterministic), else within 4 times their own gap, both
-     peak memories; (10e) 4 + 8 frames each of DLA-34 with the plain stem on
-     the bench weights through the reference ``.pth`` layout and of
-     DLA-60-RES2NET-FPN on seeded weights, kernels 1-4 checked;
+     kernel-9 launches and 26 of its backward a step, kernel 9 against
+     its plain version on the last step's inputs, and the last step's
+     gradients of a stride-2, an in-window and an out-of-window
+     deformable layer, as the backward kernels gave them in the step,
+     against the same VJP in f64 on the card, against the backward's plain
+     version and bitwise against two more calls; the backward's device ms
+     summed over the step's 26 layers beside its bound, its plain
+     version's and the autograd VJP's; (10d) ``TPU.REMAT`` on one R-50
+     step: losses and gradients bitwise the plain step's where two plain
+     steps are bitwise alike (cuDNN deterministic), else within 4 times
+     their own gap, both peak memories; (10e) 4 + 8 frames each of
+     DLA-34 with the plain stem on the bench weights through the
+     reference ``.pth`` layout and of DLA-60-RES2NET-FPN on seeded
+     weights, kernels 1-4 checked;
   11. the exact gather pooler and the XLA forms: (11a) the gather
      pooler's forward and backward kernels (``ops/cuda/roi_align.cu``)
      against their plain versions at the AOT recipe's training sites (4
@@ -243,7 +254,8 @@ Phases, each printed as it finishes:
      golden tolerances, one deformable layer of each kind of the last f32
      frame against the same form on the CPU, bf16 ms/frame, and one
      training step at 4 x 736x1280 under ``gather4`` and under
-     ``shiftwin`` with its peak memory;
+     ``shiftwin`` with its peak memory (autograd through the form: no
+     launch of kernel 9's backward);
   13. the readers and the demo: (13a) four 720p frames of the sprite
      scene written here as a PNG folder (every row filter) and a BMP
      folder, read back bitwise; the same frames encoded by nvJPEG into an
@@ -813,6 +825,10 @@ KERNELS = {
         replaces="siammot_tpu/ops/pallas/window_pool.py:200"),
     "deform_conv": dict(source="siammot_tpu_torch/ops/cuda/deform.cu",
                         replaces="siammot_tpu/ops/pallas/deform.py:102"),
+    # kernel 9's backward: JAX's is XLA (jax.vjp of the patch form)
+    "deform_conv_bwd": dict(
+        source="siammot_tpu_torch/ops/cuda/deform_bwd.cu",
+        replaces="siammot_tpu/ops/deform_conv.py:236"),
     "emm_decode_striped": dict(source="siammot_tpu_torch/ops/cuda/decode.cu",
                                replaces="siammot_tpu/ops/pallas/decode.py:78"),
     "emm_predictor_blocked": dict(
@@ -1892,6 +1908,64 @@ def deform_bound(args):
                  BF16_TC_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS)
 
 
+def deform_bwd_bound(x, off, kern):
+    """Kernel 9's backward: (bytes, operations) it needs at least, x, the
+    offsets, the kernel and the upstream gradient read once and the three
+    gradients written once; dKernel and dS, 2 x 9 C Co multiply-adds a
+    pixel each."""
+    b, ho, wo = off.shape[:3]
+    c, co = kern.shape[2:]
+    n = b * ho * wo
+    nbytes = (2 * (x.numel() + off.numel() + kern.numel()) + n * co) \
+        * x.element_size()
+    return nbytes, 4.0 * 9 * c * co * n
+
+
+def check_deform_bwd(args, grad, what):
+    """Kernel 9's backward on ``args`` (x, offsets, kernel, stride,
+    dilation) and ``grad``: its samples bit for bit the plain route-B
+    samples, two calls bitwise alike, and each gradient within
+    ``DCN_F32_ATOL`` (f32) or ``DCN_GRAD_MAX`` and, on average,
+    ``DCN_GRAD_MEAN`` (bf16: dS rounds to bf16 after sums in another
+    order) of its scale from the plain version.  Returns (the kernel's
+    gradients, the largest abs error, {name: (max, mean) error over the
+    scale}, and the number of samples that the forward kernel's route-B
+    fractions move off the plain ones: ROADMAP section 3's gap)."""
+    from siammot_tpu_torch.ops.deform_conv import (_bwd_sample,
+                                                   deform_conv2d_bwd,
+                                                   deform_conv2d_bwd_plain,
+                                                   sample_plain)
+    x, off, kern, stride, dil = args
+    s_, _ = _bwd_sample(x, off, stride, dil)
+    plain = sample_plain(x, off, stride, dil, False).reshape(s_.shape)
+    if not torch.equal(s_, plain):
+        raise AssertionError(f"{what}: the backward's samples are not the "
+                             "plain route-B samples bit for bit")
+    s_, _ = _bwd_sample(x, off, stride, dil, round_frac=False)
+    moved = int((s_ != plain).sum())
+    del s_, plain
+    got = deform_conv2d_bwd(x, off, kern, grad, stride, dil)
+    again = deform_conv2d_bwd(x, off, kern, grad, stride, dil)
+    want = deform_conv2d_bwd_plain(x, off, kern, grad, stride, dil)
+    torch.cuda.synchronize()
+    err, rel = 0.0, {}
+    for name, a, b, v in zip(("x", "offsets", "kernel"), got, again, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: the {name} gradient is not "
+                                 "bitwise the same in a second call")
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: non-finite {name} gradient")
+        d = (a.double() - v.double()).abs()
+        scale = float(v.double().abs().max()) or 1.0
+        rel[name] = (float(d.max()) / scale, float(d.mean()) / scale)
+        if (rel[name][0] > DCN_F32_ATOL if x.dtype == torch.float32 else
+                rel[name][0] > DCN_GRAD_MAX or rel[name][1] > DCN_GRAD_MEAN):
+            raise AssertionError(f"{what}: {name} gradient off its plain "
+                                 f"version by {rel[name]} of its scale")
+        err = max(err, float(d.max()))
+    return got, err, rel, moved
+
+
 def deform_kernel_phase(dev, report):
     """Kernel 9 at DLA-102's three stage shapes, stride 2 and stride 1,
     in-window (route A) and out-of-window (route B) offsets, bf16 and f32,
@@ -1905,10 +1979,17 @@ def deform_kernel_phase(dev, report):
                                                    deform_conv2d_plain,
                                                    in_window, tap_splits,
                                                    window_route_possible)
+    from siammot_tpu_torch.ops.deform_conv import (deform_conv2d_bwd,
+                                                   deform_conv2d_bwd_plain)
     g = torch.Generator().manual_seed(5)
+    gb = torch.Generator().manual_seed(6)     # the upstream gradients
     row = report["deform_conv"]
     row.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                max_abs_err=0.0, launches=0, shapes={})
+    # the backward's row: its step numbers come from 10c
+    brow = report["deform_conv_bwd"]
+    brow.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="operations",
+                library_ms=None, shapes={})
     frame_bytes = frame_ops = 0.0
     for stage, (h, w), c, n2, n1 in DCN_STAGES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1952,6 +2033,33 @@ def deform_kernel_phase(dev, report):
                     f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), dense "
                     f"cuDNN 3x3 of the same shape {dms:.4f} ms, max abs err "
                     f"{err:.3g}")
+                # kernel 9's backward on the same inputs
+                gr = torch.randn(1, ho, wo, c, generator=gb).to(dev, dtype)
+                bargs = (xin, off, wgt, stride, 1)
+                _, berr, brel, moved = check_deform_bwd(
+                    bargs, gr, f"deform backward {key}")
+                b_ms = device_ms(lambda: deform_conv2d_bwd(*bargs[:3], gr,
+                                                          stride), iters=5)
+                bsplit = kernel_split_ms(lambda: deform_conv2d_bwd(
+                    *bargs[:3], gr, stride), iters=3)
+                b_plain = timed_ms(lambda: deform_conv2d_bwd_plain(
+                    *bargs[:3], gr, stride), iters=1, warmup=0)
+                b_bound, b_by = bound(*deform_bwd_bound(xin, off, wgt),
+                                  BF16_TC_FLOPS if dtype == torch.bfloat16
+                                  else F32_FLOPS)
+                brow["shapes"][key] = dict(ms=b_ms, kernels=bsplit,
+                                           plain_ms=b_plain, bound_ms=b_bound,
+                                           bound_by=b_by, max_abs_err=berr,
+                                           forward_fractions_moved=moved)
+                brow["max_abs_err"] = max(brow["max_abs_err"], berr)
+                log(f"    backward: kernel {b_ms:.4f} ms device (by kernel: "
+                    f"{split_text(bsplit)}), plain {b_plain:.4f} ms, bound "
+                    f"{b_bound:.4f} ms ({b_by}), (max, mean) error of the "
+                    f"scale " + ", ".join(f"{n} ({m:.3g}, {a:.3g})"
+                                          for n, (m, a) in brel.items())
+                    + f"; samples bitwise, two calls bitwise; the forward's "
+                    f"route-B fractions would move {moved} of "
+                    f"{bargs[1].numel() // 2 * xin.shape[3]} samples")
                 if dtype == torch.bfloat16 and count and stride == 1:
                     sweep = {s_: device_ms(lambda: _launch(xin, off, wgt, 1,
                                                            1, s_))
@@ -3546,8 +3654,9 @@ def deform_layer_kind(x, off, kernel, stride, dilation):
 
 @contextlib.contextmanager
 def deform_training_capture():
-    """Kernel 9's count set to 0 on entry; the last 26 forward inputs kept
-    by reference, and of each step's backward calls the first of each
+    """Kernel 9's and its backward's counts set to 0 on entry; the last 26
+    forward inputs kept by reference, and of each step's backward calls
+    the first of each
     kind of layer (:func:`deform_layer_kind`): copies of its saved
     inputs, of the upstream gradient and of the gradients returned (the
     optimizer updates an f32 kernel in place, and autograd may add later
@@ -3576,6 +3685,7 @@ def deform_training_capture():
     dla_mod.deform_conv2d = capture_fwd
     dc_mod.DeformConv2dFn.backward = staticmethod(capture_bwd)
     dc_mod.deform_conv2d.launches = 0
+    dc_mod.deform_conv2d_bwd.launches = 0
     try:
         yield fwd, bwd
     finally:
@@ -3586,39 +3696,60 @@ def deform_training_capture():
 def dcn_step_times(fwd):
     """Kernel 9's device time summed over a training step's 26 forward
     inputs (``fwd``), its plain version's, the step's bound (all 26
-    layers' bytes and operations) and the plain route-B backward's time
-    on the same inputs."""
+    layers' bytes and operations); and its backward's on the same inputs
+    under a seeded upstream gradient: the kernels' device time, their
+    bound, the plain version's time and that of the autograd VJP
+    (``deform_conv2d_vjp``, the backward on the card before the
+    kernels)."""
     from siammot_tpu_torch.ops.deform_conv import (deform_conv2d,
+                                                   deform_conv2d_bwd,
+                                                   deform_conv2d_bwd_plain,
                                                    deform_conv2d_plain,
                                                    deform_conv2d_vjp)
-    out = dict(ms=0.0, plain_ms=0.0, backward_plain_ms=0.0)
-    nbytes = ops = 0.0
+    gen = torch.Generator().manual_seed(8)
+    out = dict(ms=0.0, plain_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0,
+               backward_plain_ms=0.0)
+    nbytes = ops = b_bytes = b_ops = 0.0
     with torch.no_grad():
         for x, off, kern, stride, dil in fwd:
             a = (x.detach(), off.detach(), kern.detach(), stride, dil)
             b, ho, wo = off.shape[:3]
             c, co = kern.shape[2:]
-            g = torch.ones(b, ho, wo, co, dtype=x.dtype, device=x.device)
+            g = torch.randn(b, ho, wo, co, generator=gen).to(x.device,
+                                                             x.dtype)
             out["ms"] += device_ms(lambda: deform_conv2d(*a), iters=5)
             out["plain_ms"] += timed_ms(lambda: deform_conv2d_plain(*a),
                                         iters=2, warmup=1)
+            out["bwd_ms"] += device_ms(
+                lambda: deform_conv2d_bwd(*a[:3], g, stride, dil), iters=5)
+            out["bwd_plain_ms"] += timed_ms(
+                lambda: deform_conv2d_bwd_plain(*a[:3], g, stride, dil),
+                iters=1, warmup=1)
             out["backward_plain_ms"] += timed_ms(
                 lambda: deform_conv2d_vjp(*a[:3], g, stride, dil), iters=2,
                 warmup=1)
             nbytes += (x.numel() + off.numel() + kern.numel()
                        + b * ho * wo * co) * x.element_size()
             ops += 2.0 * 9 * c * co * b * ho * wo
+            nb, no = deform_bwd_bound(*a[:3])
+            b_bytes += nb
+            b_ops += no
     out["bound_ms"], out["bound_by"] = bound(nbytes, ops, BF16_TC_FLOPS)
+    out["bwd_bound_ms"], out["bwd_bound_by"] = bound(b_bytes, b_ops,
+                                                     BF16_TC_FLOPS)
     return out
 
 
 def dcn_train_phase(dev, report, card):
     """10c: DLA-102-DCN-FPN training through phase 4's ``do_train`` route
     at 736x1280 (2 clips x 2 frames), seeded weights, bf16 compute:
-    every loss finite, 26 kernel-9 launches a step, kernel 9 against its
-    plain version on the last step's 26 inputs, and on the last step the
-    gradients of a stride-2 (route B) layer, an in-window (route A
-    forward) layer and an out-of-window layer against the f64 VJP."""
+    every loss finite, 26 kernel-9 launches and 26 of its backward a
+    step, kernel 9 against its plain version on the last step's 26
+    inputs, and on the last step the gradients of a stride-2 (route B)
+    layer, an in-window (route A forward) layer and an out-of-window
+    layer, as the backward kernels gave them in the step, against the f64
+    VJP, against the backward's plain version (:func:`check_deform_bwd`)
+    and bitwise against two calls of the kernels on the same inputs."""
     import itertools
 
     from siammot_tpu_torch.configs.defaults import dla_dcn_overrides, get_cfg
@@ -3626,7 +3757,8 @@ def dcn_train_phase(dev, report, card):
                                                  make_optimizer)
     from siammot_tpu_torch.engine.trainer import do_train
     from siammot_tpu_torch.models.siammot import SiamMOT
-    from siammot_tpu_torch.ops.deform_conv import deform_conv2d
+    from siammot_tpu_torch.ops.deform_conv import (deform_conv2d,
+                                                   deform_conv2d_bwd)
     from siammot_tpu_torch.utils.synth import train_batches
     from siammot_tpu_torch.utils.weights import seeded_params
 
@@ -3650,22 +3782,27 @@ def dcn_train_phase(dev, report, card):
                         tensorboard_writer=lambda it, m: metrics.append(m))
         peak = torch.cuda.max_memory_allocated(dev)
         n9 = deform_conv2d.launches
+        n9b = deform_conv2d_bwd.launches
     if len(metrics) != steps or not all(
             np.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError(f"10c: losses {metrics}")
-    if n_dcn != 26 or n9 != 26 * steps:
-        raise AssertionError(f"10c: {n9} kernel-9 launches in {steps} steps "
-                             f"of {n_dcn} deformable layers")
+    if n_dcn != 26 or n9 != 26 * steps or n9b != 26 * steps:
+        raise AssertionError(f"10c: {n9} kernel-9 launches and {n9b} of its "
+                             f"backward in {steps} steps of {n_dcn} "
+                             f"deformable layers")
     count_train_launches(launches, steps, report, "dcn_training")
     row = report["deform_conv"]
     row["launches"] += n9
     row.setdefault("launches_by_path", {})["dcn_training"] = n9
+    brow = report["deform_conv_bwd"]
+    brow["launches"] += n9b
+    brow.setdefault("launches_by_path", {})["dcn_training"] = n9b
     sec = np.array(tlog.step_seconds[DCN_TRAIN_WARMUP:])
     log(f"  10c: {steps} SGD steps: {1e3 * sec.mean():.3f} ms/step over the "
         f"last {DCN_TRAIN_TIMED} (first {1e3 * tlog.step_seconds[0]:.1f} "
         f"ms), peak device memory {peak / 2 ** 30:.3f} GiB ({card}); "
-        f"kernel 9 launched {n9} times (26 a step, forward only: the "
-        f"backward is the plain route-B VJP); launches {launches}")
+        f"kernel 9 launched {n9} times and its backward {n9b} (26 a step "
+        f"each); launches {launches}")
     err = 0.0
     with torch.no_grad():
         for i, args in enumerate(fwd):
@@ -3675,10 +3812,21 @@ def dcn_train_phase(dev, report, card):
     step = dcn_step_times(fwd)
     row.setdefault("shapes", {})["training step, 26 layers, 4 x 736x1280 "
                                  "bf16"] = step
+    brow.update(ms=step["bwd_ms"], plain_ms=step["bwd_plain_ms"],
+                bound_ms=step["bwd_bound_ms"], bound_by=step["bwd_bound_by"],
+                library_ms=None)
+    brow.setdefault("shapes", {})["training step, 26 layers, 4 x 736x1280 "
+                                  "bf16"] = dict(
+        ms=step["bwd_ms"], plain_ms=step["bwd_plain_ms"],
+        autograd_vjp_ms=step["backward_plain_ms"],
+        bound_ms=step["bwd_bound_ms"], bound_by=step["bwd_bound_by"])
     log(f"  10c: kernel 9 at the step's 26 shapes: {step['ms']:.4f} ms "
         f"device, plain {step['plain_ms']:.4f} ms, bound "
-        f"{step['bound_ms']:.4f} ms ({step['bound_by']}); the plain "
-        f"route-B backward {step['backward_plain_ms']:.4f} ms ({card})")
+        f"{step['bound_ms']:.4f} ms ({step['bound_by']}); its backward "
+        f"{step['bwd_ms']:.4f} ms device, plain {step['bwd_plain_ms']:.4f} "
+        f"ms, bound {step['bwd_bound_ms']:.4f} ms ({step['bwd_bound_by']}), "
+        f"the autograd route-B VJP {step['backward_plain_ms']:.4f} ms "
+        f"({card})")
     # one layer of each kind, from the last step's backward calls
     picked = {kind: (saved, stride, dil, grad, grads)
               for kind, (saved, (stride, dil), grad, grads) in bwd.items()}
@@ -3700,9 +3848,22 @@ def dcn_train_phase(dev, report, card):
             f"(max, mean) error of the largest magnitude: " + ", ".join(
                 f"{n} ({m:.3g}, {a:.3g})" for n, (m, a) in errs.items()))
         del want
+        again, berr, brel, moved = check_deform_bwd(
+            (x, off, kern, stride, dil), grad, f"10c {kind} backward")
+        for name, a, b in zip(("x", "offsets", "kernel"), grads, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"10c {kind}: the {name} gradient of "
+                                     f"the step is not bitwise a call's")
+        brow["max_abs_err"] = max(brow["max_abs_err"], berr)
+        log(f"      against the backward's plain version: " + ", ".join(
+            f"{n} ({m:.3g}, {a:.3g})" for n, (m, a) in brel.items())
+            + f"; samples bitwise; the step's gradients bitwise two more "
+            f"calls'; the forward's route-B fractions would move {moved} of "
+            f"{off.numel() // 2 * x.shape[3]} samples")
     log(f"  10c: kernel 9 agrees with its plain version on the last step's "
-        f"26 inputs (max abs err {err:.3g}); gradients within {DCN_GRAD_MAX} "
-        f"(max) and {DCN_GRAD_MEAN} (mean) of their scale")
+        f"26 inputs (max abs err {err:.3g}); the backward's gradients within "
+        f"{DCN_GRAD_MAX} (max) and {DCN_GRAD_MEAN} (mean) of their scale "
+        f"from the f64 VJP and from its plain version, and deterministic")
     check_train_kernels(captured, report, "dcn_training")
     del fwd, bwd, picked, net, optimizer
     return 1e3 * float(sec.mean()), peak
@@ -3854,8 +4015,7 @@ def backbones_phase(dev, report, card):
     log("[10b] tools/train_net on the R-50 recipe, FREEZE_CONV_BODY_AT 2:")
     r50_train = r50_train_net_phase(dev, report, card)
     torch.cuda.empty_cache()
-    log("[10c] DLA-102-DCN-FPN training (kernel 9 forward, the plain "
-        "route-B backward):")
+    log("[10c] DLA-102-DCN-FPN training (kernel 9 and its backward):")
     dcn = dcn_train_phase(dev, report, card)
     torch.cuda.empty_cache()
     log("[10d] TPU.REMAT on the R-50 step:")
@@ -5019,7 +5179,9 @@ def dcn_form_train_step(dev, form, card):
     net = model.build_master(params)
     optimizer = make_optimizer(cfg, net)
     step = build_train_step(model, optimizer)
+    from siammot_tpu_torch.ops.deform_conv import deform_conv2d_bwd
     os.environ["SIAMMOT_DCN_IMPL"] = form
+    deform_conv2d_bwd.launches = 0
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5039,13 +5201,16 @@ def dcn_form_train_step(dev, form, card):
            if n.endswith(("conv2.kernel", "conv2.offset.weight"))]
     if not all(np.isfinite(v) for v in losses.values()) or not finite \
             or len(dcn) != 52 or not all(g is not None and bool(g.any())
-                                         for g in dcn):
+                                         for g in dcn) \
+            or deform_conv2d_bwd.launches:
         raise AssertionError(f"12d {form} training step: losses {losses}, "
                              f"gradients finite {finite}, deformable "
-                             f"gradients {len(dcn)}")
+                             f"gradients {len(dcn)}, kernel 9's backward "
+                             f"launched {deform_conv2d_bwd.launches} times")
     log(f"  12d {form} training step (4 x 736x1280, bf16 compute, the "
         f"backward autograd through the form, recomputed a layer at a "
-        f"time): {1e3 * sec:.1f} ms including its first-call costs, peak "
+        f"time, no launch of kernel 9's backward): {1e3 * sec:.1f} ms "
+        f"including its first-call costs, peak "
         f"{peak / 2 ** 30:.3f} GiB ({card}); losses and all {len(grads)} "
         f"gradients finite, the 52 deformable leaves' nonzero; loss "
         f"{losses['loss']:.4f}")
@@ -6089,7 +6254,10 @@ def main():
         f"R-50 train_net {bodies['r50_train'][0]:.4f} s/it (peak "
         f"{bodies['r50_train'][1] / 2 ** 30:.3f} GiB), DLA-102-DCN training "
         f"{bodies['dcn'][0]:.3f} ms/step (peak "
-        f"{bodies['dcn'][1] / 2 ** 30:.3f} GiB), REMAT "
+        f"{bodies['dcn'][1] / 2 ** 30:.3f} GiB; kernel 9's backward "
+        f"{report['deform_conv_bwd']['ms']:.4f} ms a step, bound "
+        f"{report['deform_conv_bwd']['bound_ms']:.4f}, plain "
+        f"{report['deform_conv_bwd']['plain_ms']:.4f}), REMAT "
         f"{'bitwise' if bodies['remat']['bitwise'] else 'within tolerance'} "
         f"(peak {bodies['remat']['peak_plain'] / 2 ** 30:.3f} -> "
         f"{bodies['remat']['peak_remat'] / 2 ** 30:.3f} GiB), plain-stem "

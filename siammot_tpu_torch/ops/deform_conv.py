@@ -50,12 +50,17 @@ The backward (:class:`DeformConv2dFn`) is what the JAX package's
 B) whichever route the forward took, recomputed from the saved inputs in
 their dtype's arithmetic, except that the corner weights' derivatives
 are the f32 products' (in bf16 the offsets' gradient is otherwise a
-difference of bf16-rounded terms that cancel).  JAX leaves it to XLA,
-so here it is plain PyTorch (a gather, and a scatter-add for the input's
-gradient, whose atomics sum in no fixed order on the card: that gradient
-is not bitwise from run to run there).  Only x, the offsets and the
-kernel are saved; the four corner tensors of the samples are rebuilt in
-the backward.
+difference of bf16-rounded terms that cancel).  JAX leaves it to XLA;
+under ``pallas`` the port runs it as hand-written CUDA
+(``cuda/deform_bwd.cu``, :func:`deform_conv2d_bwd`): route B's samples
+S, bit for bit :func:`sample_plain`'s and JAX's; dKernel = S^T G and dS
+= G W^T as two matrix products with f32 sums; the offsets' gradient
+from dS and the corners; and the input's gradient summed for each input
+pixel over its contributions in source order, with no float atomics, so
+the backward is bitwise the same from call to call.  CPU tensors take
+:func:`deform_conv2d_bwd_plain`, the same steps in plain PyTorch and in
+the same order.  Only x, the offsets and the kernel are saved; the
+samples are rebuilt in the backward.
 
 **The forms ``SIAMMOT_DCN_IMPL`` selects** (``impl``, as
 ``siammot_tpu/ops/deform_conv.py:deform_conv2d`` takes it): ``pallas``
@@ -67,17 +72,19 @@ products and sums round in the input dtype) and ``shiftwin``
 summed in f32; the patch form where an offset's floor leaves [-r, r]).
 The JAX package writes the last three in XLA, not Pallas, so here they
 are plain PyTorch on the card as on the CPU; only ``pallas`` launches
-kernel 9.  ``"auto"`` reads the environment variable at each call.
-Each form's gradient is autograd through its own plain form (the JAX
-package differentiates its own forms), recomputed in the backward from
-the saved inputs (:class:`DeformConv2dFn`): under autograd ``gather4``
-would keep its corner tensors, 9 C values a pixel each, and
-``shiftwin`` (2r+2)^2 weight maps a tap, for every layer of the trunk
-until the backward; recomputed, one layer's graph lives at a time.
+kernel 9 and its backward.  ``"auto"`` reads the environment variable at
+each call.  The other forms' gradients are autograd through their own
+plain forms (the JAX package differentiates its own forms), recomputed
+in the backward from the saved inputs (:class:`DeformConv2dFn`): under
+autograd ``gather4`` would keep its corner tensors, 9 C values a pixel
+each, and ``shiftwin`` (2r+2)^2 weight maps a tap, for every layer of
+the trunk until the backward; recomputed, one layer's graph lives at a
+time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -89,6 +96,8 @@ R = 2           # in-window radius of route A (floor of every offset)
 HALO = R + 2    # the Pallas kernel's row/column halo (for its VMEM gate)
 _ARGS = (cuda.P,) * 4 + (cuda.I,) + (cuda.P,) * 2 + (cuda.I,) * 11 \
     + (cuda.P,)
+_BWD_SAMPLE_ARGS = (cuda.P,) * 4 + (cuda.I,) * 10 + (cuda.P,)
+_BWD_SCATTER_ARGS = (cuda.P,) * 9 + (cuda.I,) * 9 + (cuda.P,)
 SMS = 132       # the H100's streaming multiprocessors
 IMPLS = ("gather4", "patch", "shiftwin", "pallas")
 
@@ -156,7 +165,8 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,
     ``pallas`` CUDA tensors launch the kernel (f32 or bf16) and CPU
     tensors take :func:`deform_conv2d_plain`; the other forms are
     :func:`deform_conv2d_form` on either.  Where a gradient is asked for,
-    the forward is the same and the backward is :func:`deform_conv2d_vjp`
+    the forward is the same and the backward is :func:`deform_conv2d_bwd`
+    under ``pallas``, else :func:`deform_conv2d_vjp`
     (:class:`DeformConv2dFn`).
     """
     impl = resolve_impl(impl)
@@ -175,28 +185,34 @@ def _forward(x, offsets, kernel, stride, dilation, impl="pallas"):
                                   impl)
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offsets, kernel, stride, dilation)
-    b, h, w, c = x.shape
-    kh, kw, cin, co = kernel.shape
-    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    if (kh, kw) != (3, 3) or cin != c or offsets.shape != (b, ho, wo, 18):
-        raise ValueError(f"deform_conv2d: x {tuple(x.shape)}, offsets "
-                         f"{tuple(offsets.shape)}, kernel "
-                         f"{tuple(kernel.shape)} do not fit a 3x3 DCN")
-    if x.dtype not in (torch.float32, torch.bfloat16) \
-            or offsets.dtype != x.dtype or kernel.dtype != x.dtype:
-        raise TypeError("deform_conv2d: x, offsets and kernel must share "
-                        "one dtype, f32 or bf16")
-    for t in (x, offsets, kernel):
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError("deform_conv2d: inputs must be contiguous, on "
-                             "one device")
-    if x.numel() >= 2 ** 31 or b * ho * wo * max(co, 18) >= 2 ** 31:
-        raise ValueError("deform_conv2d: tensors too large for int32 "
-                         "indexing")
+    _check(x, offsets, kernel, stride, "deform_conv2d")
+    b, ho, wo = offsets.shape[:3]
+    co = kernel.shape[3]
     out = _launch(x, offsets, kernel, stride, dilation,
                   tap_splits(b * ho * wo, co))
     deform_conv2d.launches += 1
     return out
+
+
+def _check(x, offsets, kernel, stride, what):
+    """Raise on inputs the CUDA kernels do not take."""
+    b, h, w, c = x.shape
+    kh, kw, cin, co = kernel.shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    if (kh, kw) != (3, 3) or cin != c or offsets.shape != (b, ho, wo, 18):
+        raise ValueError(f"{what}: x {tuple(x.shape)}, offsets "
+                         f"{tuple(offsets.shape)}, kernel "
+                         f"{tuple(kernel.shape)} do not fit a 3x3 DCN")
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or offsets.dtype != x.dtype or kernel.dtype != x.dtype:
+        raise TypeError(f"{what}: x, offsets and kernel must share one "
+                        "dtype, f32 or bf16")
+    for t in (x, offsets, kernel):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous, on one "
+                             "device")
+    if x.numel() >= 2 ** 31 or b * ho * wo * max(co, 18) >= 2 ** 31:
+        raise ValueError(f"{what}: tensors too large for int32 indexing")
 
 
 def _launch(x, offsets, kernel, stride, dilation, splits):
@@ -231,9 +247,10 @@ deform_conv2d.launches = 0
 class DeformConv2dFn(torch.autograd.Function):
     """The form's forward (kernel 9, or the plain version on the CPU, under
     ``pallas``); the backward recomputes the form's VJP from the saved
-    inputs: route B's under ``pallas`` and ``patch``
+    inputs: route B's under ``pallas`` (:func:`deform_conv2d_bwd`, its
+    kernels on the card) and ``patch``
     (``siammot_tpu/ops/deform_conv.py:_pallas_guarded_bwd``), each other
-    form's own.  Saves only the inputs."""
+    form's own (:func:`deform_conv2d_vjp`).  Saves only the inputs."""
 
     @staticmethod
     def forward(ctx, x, offsets, kernel, stride, dilation, impl="pallas"):
@@ -246,9 +263,208 @@ class DeformConv2dFn(torch.autograd.Function):
     def backward(ctx, grad):
         x, offsets, kernel = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
-        grads = deform_conv2d_vjp(x, offsets, kernel, grad, *ctx.geometry,
-                                  need=need, impl=ctx.impl)
+        if ctx.impl == "pallas":
+            grads = deform_conv2d_bwd(x, offsets, kernel, grad,
+                                      *ctx.geometry, need=need)
+        else:
+            grads = deform_conv2d_vjp(x, offsets, kernel, grad,
+                                      *ctx.geometry, need=need,
+                                      impl=ctx.impl)
         return (*grads, None, None, None)
+
+
+@contextlib.contextmanager
+def _f32_sums():
+    """cuBLAS products with f32 sums, as the plain version's: no TF32 for
+    f32 inputs, and no split-K reduction in bf16 for bf16 ones (the flags
+    set for the call, then restored)."""
+    m = torch.backends.cuda.matmul
+    saved = m.allow_tf32, m.allow_bf16_reduced_precision_reduction
+    m.allow_tf32 = m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = saved
+
+
+def _opt_ptr(t):
+    return None if t is None else cuda.ptr(t)
+
+
+def deform_conv2d_bwd(x, offsets, kernel, grad, stride: int = 1,
+                      dilation: int = 1, need=(True, True, True)):
+    """The gradients of (x, offsets, kernel) under the upstream ``grad``
+    [B, Ho, Wo, Co], by route B's VJP (``siammot_tpu/ops/deform_conv.py:
+    _pallas_guarded_bwd``).  CUDA tensors launch ``cuda/deform_bwd.cu``'s
+    kernels around two cuBLAS products (dKernel = S^T G, dS = G W^T, f32
+    sums, rounded once); CPU tensors take :func:`deform_conv2d_bwd_plain`.
+    Deterministic: the input's gradient is summed in a fixed order.  An
+    input that ``need`` leaves out gets None."""
+    if x.device.type == "cpu":
+        return deform_conv2d_bwd_plain(x, offsets, kernel, grad, stride,
+                                       dilation, need)
+    _check(x, offsets, kernel, stride, "deform_conv2d_bwd")
+    b, h, w, c = x.shape
+    ho, wo = offsets.shape[1:3]
+    co = kernel.shape[3]
+    n = b * ho * wo
+    grad = grad.contiguous()
+    if grad.shape != (b, ho, wo, co) or grad.dtype != x.dtype \
+            or grad.device != x.device:
+        raise ValueError(f"deform_conv2d_bwd: grad {tuple(grad.shape)} "
+                         f"{grad.dtype} is not the output's")
+    if 36 * n >= 2 ** 31 or 9 * c * n >= 2 ** 31:
+        raise ValueError("deform_conv2d_bwd: tensors too large for int32 "
+                         "indexing")
+    want_x, want_off, want_k = (bool(v) for v in need)
+    s, count = _bwd_sample(x, offsets, stride, dilation, want_k, want_x)
+    g2 = grad.reshape(n, co)
+    dk = ds = dx = doff = None
+    with _f32_sums():
+        if want_k:
+            dk = (s.t() @ g2).reshape(kernel.shape)
+        if want_x or want_off:
+            ds = g2 @ kernel.reshape(9 * c, co).t()
+    if ds is not None:
+        dx = torch.empty_like(x) if want_x else None
+        doff = torch.empty_like(offsets) if want_off else None
+        start = lst = coef = None
+        if want_x:
+            start = torch.empty(b * h * w + 1, dtype=torch.int32,
+                                device=x.device)
+            lst = torch.empty(36 * n, dtype=torch.int32, device=x.device)
+            coef = torch.empty(36 * n, dtype=torch.float32, device=x.device)
+        fn = cuda.function("siammot_deform_bwd_scatter", _BWD_SCATTER_ARGS)
+        cuda.check("deform_bwd_scatter", fn(
+            cuda.ptr(x), cuda.ptr(offsets), cuda.ptr(ds), _opt_ptr(doff),
+            _opt_ptr(dx), _opt_ptr(count), _opt_ptr(start), _opt_ptr(lst),
+            _opt_ptr(coef), *_bwd_geometry(x, offsets, stride, dilation),
+            cuda.stream(x.device)))
+    deform_conv2d_bwd.launches += 1
+    return dx, doff, dk
+
+
+deform_conv2d_bwd.launches = 0
+
+
+def _bwd_geometry(x, offsets, stride, dilation):
+    b, h, w, c = x.shape
+    return (b, h, w, c, *offsets.shape[1:3], stride, dilation,
+            int(x.dtype == torch.bfloat16))
+
+
+def _bwd_sample(x, offsets, stride, dilation, samples=True, counts=False,
+                round_frac=True):
+    """The backward's first launch, on checked CUDA inputs: route B's
+    samples S [N, 9C] in x's dtype (bit for bit :func:`sample_plain`'s;
+    None unless ``samples``) and, where ``counts``, each input pixel's
+    number of in-range corners, int32 [B*H*W] (else None).
+    ``round_frac`` False takes the forward kernel's route-B fractions,
+    exact where JAX rounds bf16 ones (ROADMAP section 3), to measure that
+    gap."""
+    b, h, w, c = x.shape
+    n = b * offsets.shape[1] * offsets.shape[2]
+    s = x.new_empty((n, 9 * c)) if samples else None
+    count = torch.empty(b * h * w, dtype=torch.int32, device=x.device) \
+        if counts else None
+    fn = cuda.function("siammot_deform_bwd_sample", _BWD_SAMPLE_ARGS)
+    cuda.check("deform_bwd_sample", fn(
+        cuda.ptr(x), cuda.ptr(offsets), _opt_ptr(s), _opt_ptr(count),
+        *_bwd_geometry(x, offsets, stride, dilation), int(round_frac),
+        cuda.stream(x.device)))
+    return s, count
+
+
+def deform_conv2d_bwd_plain(x, offsets, kernel, grad, stride: int = 1,
+                            dilation: int = 1, need=(True, True, True)):
+    """Plain PyTorch version of :func:`deform_conv2d_bwd`: route B's VJP
+    step by step, without autograd, in the kernels' order and rounding.
+    S = route B's samples (:func:`sample_plain`); dKernel = S^T G with f32
+    sums, rounded once; dS = G W^T likewise, rounded to x's dtype; the
+    offsets' gradient, per (pixel, tap), from the f32 sums over channels
+    of dS times each corner's values, gw00 .. gw11, as
+    ``(gw10 ax + gw11 fx) - (gw00 ax + gw01 fx)`` for dy and ``(gw01 ay +
+    gw11 fy) - (gw00 ay + gw10 fy)`` for dx (fy, fx the fractions, ay = 1
+    - fy, ax = 1 - fx, all f32), rounded once; the input's gradient, each
+    input pixel's contributions dS * w (w the corner weight in x's dtype,
+    the product in f32) summed in source order (:func:`_sum_in_order`)
+    and rounded once."""
+    b, h, w, c = x.shape
+    ho, wo = offsets.shape[1:3]
+    co = kernel.shape[3]
+    n, dt = b * ho * wo, x.dtype
+    dx = doff = dk = None
+    with torch.no_grad():
+        g32 = grad.reshape(n, co).float()
+        if need[2]:
+            s = sample_plain(x, offsets, stride, dilation, route_a=False)
+            dk = (s.reshape(n, 9 * c).float().t() @ g32).to(dt).reshape(
+                kernel.shape)
+        if not (need[0] or need[1]):
+            return dx, doff, dk
+        ds = (g32 @ kernel.reshape(9 * c, co).float().t()).to(dt).float()
+        ds = ds.reshape(b, ho, wo, 9, c)
+        off = offsets.reshape(b, ho, wo, 9, 2)
+        gy, gx = _taps(b, ho, wo, stride, dilation, x.device)
+        y0, x0, fy, fx = _route_b_point(gy, gx, off[..., 0], off[..., 1], dt)
+        if need[1]:
+            corner = _corners(x.reshape(b, h * w, c).float(), y0, x0, h, w)
+            gw = [(ds * corner(i // 2, i % 2)).sum(-1) for i in range(4)]
+            fy32, fx32 = fy.float(), fx.float()
+            ay, ax = 1 - fy32, 1 - fx32
+            d_y = (gw[2] * ax + gw[3] * fx32) - (gw[0] * ax + gw[1] * fx32)
+            d_x = (gw[1] * ay + gw[3] * fy32) - (gw[0] * ay + gw[2] * fy32)
+            doff = torch.stack([d_y, d_x], -1).reshape(offsets.shape).to(
+                offsets.dtype)
+        if need[0]:
+            dest, vals = _dx_contributions(ds, y0, x0, fy, fx, h, w)
+            key = torch.arange(len(dest), device=x.device)
+            dx = _sum_in_order(dest, key, vals, b * h * w).to(dt).reshape(
+                x.shape)
+    return dx, doff, dk
+
+
+def _dx_contributions(ds, y0, x0, fy, fx, h: int, w: int):
+    """The input gradient's contributions in source order (pixel, tap,
+    corner): the destination row of each in [B*H*W] (-1 out of range)
+    [N*36], and dS times the corner weight, an f32 product [N*36, C]."""
+    b, c = ds.shape[0], ds.shape[-1]
+    wy, wx = (1 - fy, fy), (1 - fx, fx)
+    bi = torch.arange(b, device=ds.device).view(b, 1, 1, 1)
+    dest, vals = [], []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yi, xi = y0 + dy, x0 + dx
+            ok = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            dest.append(torch.where(ok, (bi * h + yi) * w + xi, -1))
+            vals.append(ds * (wy[dy] * wx[dx]).float()[..., None])
+    return (torch.stack(dest, -1).reshape(-1),
+            torch.stack(vals, -2).reshape(-1, c))
+
+
+def _sum_in_order(dest, key, vals, size: int):
+    """out [size, C] f32: row q the sum of ``vals[i]`` over the i with
+    ``dest[i] == q`` (-1: dropped), taken from 0 in ascending ``key``
+    (unique) order, whatever order the list comes in: the kernel's fixed
+    order."""
+    keep = dest >= 0
+    dest, key, vals = dest[keep], key[keep], vals[keep]
+    order = torch.argsort(dest * (int(key.max()) + 1 if len(key) else 1)
+                          + key)
+    dest, vals = dest[order], vals[order]
+    counts = torch.bincount(dest, minlength=size)
+    rank = torch.arange(len(dest), device=dest.device) \
+        - (torch.cumsum(counts, 0) - counts)[dest]
+    out = torch.zeros(size, vals.shape[-1], dtype=torch.float32,
+                      device=vals.device)
+    # the r-th term of every row at once: each row at most once a pass
+    by_rank = torch.argsort(rank, stable=True)
+    at = 0
+    for cnt in torch.bincount(rank).tolist():
+        idx = by_rank[at:at + cnt]
+        out[dest[idx]] = out[dest[idx]] + vals[idx]
+        at += cnt
+    return out
 
 
 def deform_conv2d_vjp(x, offsets, kernel, grad, stride: int = 1,
@@ -301,6 +517,17 @@ def _corners(flat, y0, x0, h: int, w: int):
     return corner
 
 
+def _route_b_point(gy, gx, oy, ox, dt):
+    """Route B's corner (y0, x0) and fractions (fy, fx, in x's dtype
+    ``dt``) of each sample: the absolute coordinate in the offsets'
+    dtype."""
+    cy_abs = gy.to(oy.dtype) + oy
+    cx_abs = gx.to(ox.dtype) + ox
+    fly, flx = torch.floor(cy_abs), torch.floor(cx_abs)
+    return (fly.long(), flx.long(), (cy_abs - fly).to(dt),
+            (cx_abs - flx).to(dt))
+
+
 def sample_plain(x, offsets, stride, dilation, route_a: bool):
     """The bilinear samples [B, Ho, Wo, 9, C] in x's dtype, by the route's
     arithmetic (see the module docstring)."""
@@ -321,11 +548,7 @@ def sample_plain(x, offsets, stride, dilation, route_a: bool):
         cy = (1.0 - fy, fy)
         cx = ((1.0 - fx).to(dt).float(), fx.to(dt).float())
     else:
-        cy_abs = gy.to(oy.dtype) + oy
-        cx_abs = gx.to(ox.dtype) + ox
-        fly, flx = torch.floor(cy_abs), torch.floor(cx_abs)
-        fy, fx = (cy_abs - fly).to(dt), (cx_abs - flx).to(dt)
-        y0, x0 = fly.long(), flx.long()
+        y0, x0, fy, fx = _route_b_point(gy, gx, oy, ox, dt)
         wy, wx = (1 - fy, fy), (1 - fx, fx)
     corner = _corners(x.reshape(b, h * w, c).float(), y0, x0, h, w)
     if route_a:

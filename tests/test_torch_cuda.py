@@ -23,7 +23,11 @@ Tolerances as in ``chip_smoke.py``: pool/xcorr f32 sums in another order
 (1e-4 + 1e-3|x|), predictor logits 3e-2 in bf16 (tower rounding) and
 1e-4 in f32, decode idx exact and scores 1e-5, deformable conv 2e-5 of
 the output's scale in f32 and one bf16 step plus 2^-9 of the scale in
-bf16 (the same samples, f32 sums in another order).
+bf16 (the same samples, f32 sums in another order); its backward's
+samples bitwise, its gradients within 1e-5 of their scale in f32 and, in
+bf16, ``chip_smoke.DCN_GRAD_MAX``/``DCN_GRAD_MEAN`` (2^-5 and 2^-9 of the
+scale: dS rounds to bf16 after sums in another order), and bitwise the
+same from call to call.
 """
 
 import numpy as np
@@ -34,6 +38,8 @@ from siammot_tpu_torch.core.boxes import map_rois_to_levels
 from siammot_tpu_torch.models.emm import _decode_constants
 from siammot_tpu_torch.ops.decode import emm_decode, emm_decode_plain
 from siammot_tpu_torch.ops.deform_conv import (deform_conv2d,
+                                               deform_conv2d_bwd,
+                                               deform_conv2d_bwd_plain,
                                                deform_conv2d_plain)
 from siammot_tpu_torch.ops.predictor import (_NAMES, emm_predictor,
                                              emm_predictor_plain)
@@ -302,6 +308,53 @@ def test_deform_kernel_tap_split(dev, splits):
     split = _launch(x, off, k, 1, 1, splits)
     _deform_close(split, whole)
     _deform_close(split, deform_conv2d_plain(x, off, k, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,c,co,stride,scale", [
+    (23, 40, 64, 64, 1, 0.3), (23, 300, 32, 48, 1, 2.0),
+    (46, 80, 64, 64, 2, 0.8), (9, 13, 40, 8, 2, 3.0),
+    (11, 17, 13, 10, 1, 0.3), (92, 160, 128, 128, 1, 0.35),
+    (8, 8, 8, 4, 1, None)])
+def test_deform_backward_kernels(dev, dtype, h, w, c, co, stride, scale):
+    """Kernel 9's backward against its plain version: both strides,
+    coordinates past 256, ragged channels, a DLA-102 stage-3 layer, and a
+    pile (scale None: every sample at (3.25, 4.5), so four input pixels
+    take 9 x 64 terms each); the samples bit for bit; two calls bitwise
+    alike; one launch counted a call."""
+    from siammot_tpu_torch.ops.deform_conv import (_bwd_sample, _taps,
+                                                   sample_plain)
+    g = torch.Generator().manual_seed(16)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.randn(2, h, w, c, generator=g).to(dev, dtype)
+    if scale is None:
+        gy, gx = _taps(2, ho, wo, stride, 1, torch.device("cpu"))
+        off = torch.stack(torch.broadcast_tensors(3.25 - gy, 4.5 - gx), -1)
+        off = off.expand(2, ho, wo, 9, 2).reshape(2, ho, wo, 18)
+    else:
+        off = scale * torch.randn(2, ho, wo, 18, generator=g)
+    off = off.to(dev, dtype).contiguous()
+    k = (torch.randn(3, 3, c, co, generator=g) / (9 * c) ** 0.5).to(dev,
+                                                                    dtype)
+    gr = torch.randn(2, ho, wo, co, generator=g).to(dev, dtype)
+    s, _ = _bwd_sample(x, off, stride, 1)
+    assert torch.equal(s, sample_plain(x, off, stride, 1, False).reshape(
+        s.shape))
+    launches = deform_conv2d_bwd.launches
+    got = deform_conv2d_bwd(x, off, k, gr, stride)
+    again = deform_conv2d_bwd(x, off, k, gr, stride)
+    assert deform_conv2d_bwd.launches == launches + 2
+    want = deform_conv2d_bwd_plain(x, off, k, gr, stride)
+    for a, b, v in zip(got, again, want):
+        assert torch.equal(a, b)
+        a, v = a.double(), v.double()
+        scale_ = float(v.abs().max())
+        err = (a - v).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 1e-5 * scale_
+        else:
+            assert float(err.max()) <= 2 ** -5 * scale_
+            assert float(err.mean()) <= 2 ** -9 * scale_
 
 
 def test_decode_kernel(dev):

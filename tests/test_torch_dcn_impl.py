@@ -45,6 +45,7 @@ import jax.numpy as jnp
 from siammot_tpu.ops import deform_conv as jdc
 from siammot_tpu_torch.models.dla import DeformConv
 from siammot_tpu_torch.ops.deform_conv import (R, _taps, deform_conv2d,
+                                               deform_conv2d_bwd_plain,
                                                deform_conv2d_form,
                                                deform_conv2d_plain,
                                                deform_conv2d_vjp,
@@ -265,7 +266,10 @@ def test_unknown_impl_raises_the_jax_message(monkeypatch):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_pallas_is_unchanged(dtype):
     """The default form is the guarded kernel-9 route: on the CPU its plain
-    version, bit for bit, and route B's VJP backward."""
+    version, bit for bit, and route B's backward: its kernels' plain
+    version (``deform_conv2d_bwd_plain``) bit for bit, within the
+    gradient tolerances of route B's autograd VJP (the input's gradient
+    sums each pixel's terms in source order, autograd in its own)."""
     x, off, k, g = _inputs(IN[0], 2)
     args = _torch((x, off, k), dtype)
     want = deform_conv2d_plain(*args, 1)
@@ -274,5 +278,8 @@ def test_pallas_is_unchanged(dtype):
     ts = _torch((x, off, k), dtype, grad=True)
     gt = _torch((g,), dtype)[0]
     deform_conv2d(*ts, 1).backward(gt)
-    for t, v in zip(ts, deform_conv2d_vjp(*args, gt, 1)):
+    for t, v in zip(ts, deform_conv2d_bwd_plain(*args, gt, 1)):
         assert torch.equal(t.grad, v)
+    _assert_grads([t.grad.float().numpy() for t in ts],
+                  [v.float().numpy() for v in deform_conv2d_vjp(*args, gt,
+                                                                1)], dtype)
