@@ -49,13 +49,16 @@ Phases, each printed as it finishes:
   2d. kernel 9, the deformable conv, at DLA-102's stage shapes (stride 2
      and 1, offsets in and out of the window, bf16 and f32), with the
      plain version's time, a dense cuDNN 3x3 of the same shape for scale,
-     and the bound of a frame's 26 launches; and its backward
-     (``ops/cuda/deform_bwd.cu``) on the same inputs under a seeded
-     upstream gradient: the samples bitwise the plain route-B samples,
-     two calls bitwise alike, each gradient against the plain version
-     (f32 2e-5 of its scale, bf16 ``DCN_GRAD_MAX``/``DCN_GRAD_MEAN``),
-     device ms by graph replay and by kernel, the plain version's ms and
-     the bound;
+     and the bound of a frame's 26 launches; first, its forward with
+     one-hot weights bitwise ``sample_plain`` on both routes and strides
+     (coordinates in (-0.5, 0), where bf16 rounds route B's fraction);
+     and its backward (``ops/cuda/deform_bwd.cu``) on the same inputs
+     under a seeded upstream gradient: the sample entry's samples bitwise
+     the plain route-B samples, the bf16 ``wgmma`` dKernel within one
+     bf16 rounding of cuBLAS's S^T G on them, two calls bitwise alike,
+     each gradient against the plain version (f32 2e-5 of its scale,
+     bf16 ``DCN_GRAD_MAX``/``DCN_GRAD_MEAN``), device ms by graph replay,
+     by part and by kernel, the plain version's ms and the bound;
   3b. the default configuration against the JAX step: four f32 DLA-34
      frames at 320x576 on the card against the rows and track-state
      lanes in ``tests/fixtures/torch_golden_dla34.npz`` (must match, see
@@ -195,8 +198,10 @@ Phases, each printed as it finishes:
      deformable layer, as the backward kernels gave them in the step,
      against the same VJP in f64 on the card, against the backward's plain
      version and bitwise against two more calls; the backward's device ms
-     summed over the step's 26 layers beside its bound, its plain
-     version's and the autograd VJP's; (10d) ``TPU.REMAT`` on one R-50
+     summed over the step's 26 layers (by part and by kernel) beside its
+     bound, its plain version's and the autograd VJP's, and the bytes a
+     stage-3 stride-1 call allocates beyond its outputs, below an [N, 9C]
+     sample tensor's; (10d) ``TPU.REMAT`` on one R-50
      step: losses and gradients bitwise the plain step's where two plain
      steps are bitwise alike (cuDNN deterministic), else within 4 times
      their own gap, both peak memories; (10e) 4 + 8 frames each of
@@ -416,18 +421,27 @@ def device_ms(fn, iters=20, warmup=3):
 
 def kernel_split_ms(fn, iters=10):
     """Device time of one call by kernel name (torch.profiler's CUDA
-    trace; template arguments and signature dropped)."""
-    from torch.profiler import ProfilerActivity, profile
+    trace; template arguments and signature dropped).  A first call is
+    traced and dropped (the profiler's warm-up step): late in a long run
+    the trace has lost the first kernels after it started."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     out = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # the schedule's step annotation spans the step on the device too
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.name.startswith("ProfilerStep"):
             continue
         name = e.name.replace("(anonymous namespace)::", "")
         name = name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
@@ -1921,29 +1935,58 @@ def deform_bwd_bound(x, off, kern):
     return nbytes, 4.0 * 9 * c * co * n
 
 
+# the bf16 dKernel product against cuBLAS's f32-sum S^T G on the same
+# samples: one bf16 rounding of the element (2^-8; the kernel rounds its
+# f32 sums once) plus f32 sums over the pixels in another order
+DK_RTOL, DK_ATOL = 2.0 ** -8, 2.0 ** -12
+
+
+def check_dkernel(s, grad, dk, what):
+    """The bf16 ``wgmma`` product's dKernel ``dk`` [3, 3, C, Co] against
+    cuBLAS's f32-sum S^T G on the sample entry's samples ``s`` [N, 9C]:
+    within ``DK_RTOL`` of the element plus ``DK_ATOL`` of the largest.
+    Returns the largest error over the scale."""
+    from siammot_tpu_torch.ops.deform_conv import _f32_sums
+    with _f32_sums():
+        want = s.float().t() @ grad.reshape(s.shape[0], -1).float()
+    got = dk.float().reshape(want.shape)
+    scale = float(want.abs().max()) or 1.0
+    err = (got - want).abs()
+    if (err > DK_ATOL * scale + DK_RTOL * want.abs()).any():
+        raise AssertionError(f"{what}: the wgmma dKernel is off cuBLAS's "
+                             f"S^T G by {float(err.max()) / scale:.3g} of "
+                             "its scale")
+    return float(err.max()) / scale
+
+
 def check_deform_bwd(args, grad, what):
     """Kernel 9's backward on ``args`` (x, offsets, kernel, stride,
-    dilation) and ``grad``: its samples bit for bit the plain route-B
-    samples, two calls bitwise alike, and each gradient within
-    ``DCN_F32_ATOL`` (f32) or ``DCN_GRAD_MAX`` and, on average,
-    ``DCN_GRAD_MEAN`` (bf16: dS rounds to bf16 after sums in another
-    order) of its scale from the plain version.  Returns (the kernel's
-    gradients, the largest abs error, {name: (max, mean) error over the
-    scale}, and the number of samples that the forward kernel's route-B
-    fractions move off the plain ones: ROADMAP section 3's gap)."""
-    from siammot_tpu_torch.ops.deform_conv import (_bwd_sample,
+    dilation) and ``grad``: the sample entry's samples bit for bit the
+    plain route-B samples; in bf16 the ``wgmma`` dKernel against cuBLAS's
+    S^T G on them (:func:`check_dkernel`); two calls bitwise alike, and
+    each gradient within ``DCN_F32_ATOL`` (f32) or ``DCN_GRAD_MAX`` and,
+    on average, ``DCN_GRAD_MEAN`` (bf16: dS rounds to bf16 after sums in
+    another order) of its scale from the plain version.  Returns (the
+    kernel's gradients, the largest abs error, {name: (max, mean) error
+    over the scale}, the dKernel product's error over its scale or
+    None)."""
+    from siammot_tpu_torch.ops.deform_conv import (_bwd_dkernel,
+                                                   _bwd_sample,
                                                    deform_conv2d_bwd,
                                                    deform_conv2d_bwd_plain,
                                                    sample_plain)
     x, off, kern, stride, dil = args
-    s_, _ = _bwd_sample(x, off, stride, dil)
+    s_ = _bwd_sample(x, off, stride, dil)
     plain = sample_plain(x, off, stride, dil, False).reshape(s_.shape)
     if not torch.equal(s_, plain):
         raise AssertionError(f"{what}: the backward's samples are not the "
                              "plain route-B samples bit for bit")
-    s_, _ = _bwd_sample(x, off, stride, dil, round_frac=False)
-    moved = int((s_ != plain).sum())
-    del s_, plain
+    del plain
+    dk_err = None
+    if x.dtype == torch.bfloat16:
+        dk_err = check_dkernel(s_, grad, _bwd_dkernel(x, off, grad, stride,
+                                                      dil), what)
+    del s_
     got = deform_conv2d_bwd(x, off, kern, grad, stride, dil)
     again = deform_conv2d_bwd(x, off, kern, grad, stride, dil)
     want = deform_conv2d_bwd_plain(x, off, kern, grad, stride, dil)
@@ -1963,7 +2006,88 @@ def check_deform_bwd(args, grad, what):
             raise AssertionError(f"{what}: {name} gradient off its plain "
                                  f"version by {rel[name]} of its scale")
         err = max(err, float(d.max()))
-    return got, err, rel, moved
+    return got, err, rel, dk_err
+
+
+def deform_bwd_extra_bytes(x, off, kern, grad, stride):
+    """Device memory one backward call allocates at its peak beyond its
+    three outputs (after a first call, so cuBLAS's workspace is in
+    place), and the bytes of an [N, 9C] sample tensor in x's dtype."""
+    from siammot_tpu_torch.ops.deform_conv import deform_conv2d_bwd
+    deform_conv2d_bwd(x, off, kern, grad, stride)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = deform_conv2d_bwd(x, off, kern, grad, stride)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    outs = sum(t.numel() * t.element_size() for t in got)
+    n = off.shape[0] * off.shape[1] * off.shape[2]
+    return peak - outs, n * 9 * x.shape[3] * x.element_size()
+
+
+def bwd_breakdown(split):
+    """The backward's device ms by part, from a kernel-name split: the
+    dKernel product (the ``wgmma`` kernel and its reduce, or the sample
+    kernel in f32), the offsets' kernel, the lists (counts, scan, fill,
+    sort), the gather, and cuBLAS (dS; and dKernel in f32)."""
+    parts = dict(product=0.0, offsets=0.0, lists=0.0, gather=0.0, cublas=0.0)
+    for name, ms in split.items():
+        if name in ("deform_bwd_dk", "deform_bwd_reduce",
+                    "deform_bwd_sample"):
+            parts["product"] += ms
+        elif name == "deform_bwd_offsets":
+            parts["offsets"] += ms
+        elif name.startswith(("deform_bwd_corners", "deform_bwd_scan",
+                              "deform_bwd_sort")) or "emset" in name:
+            parts["lists"] += ms
+        elif name == "deform_bwd_gather":
+            parts["gather"] += ms
+        else:
+            parts["cublas"] += ms
+    return parts
+
+
+def deform_one_hot_phase(dev):
+    """Kernel 9's forward with one-hot weights (w[tap, c, tap C + c] = 1,
+    Co = 9 C) gives its samples: bit for bit ``sample_plain``'s, on both
+    routes and both strides, in bf16 and f32, with coordinates in (-0.5,
+    0) that carry bits below 2^-8 (route B's fraction rounds there in
+    bf16, as JAX's).  Returns {case: samples checked}."""
+    from siammot_tpu_torch.ops.deform_conv import (_taps, deform_conv2d,
+                                                   in_window, sample_plain,
+                                                   window_route_possible)
+    g = torch.Generator().manual_seed(21)
+    out = {}
+    b, h, w, c = 2, 24, 40, 16
+    eye = torch.eye(9 * c).reshape(3, 3, c, 9 * c)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(b, h, w, c, generator=g).to(dev, dtype)
+        for stride, where in ((1, "relative"), (1, "absolute"),
+                              (2, "relative"), (2, "absolute")):
+            ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+            # u in (-0.5, 0) with bits below 2^-8 (a bf16 value)
+            u = -(torch.randint(1, 128, (b, ho, wo, 9, 2), generator=g)
+                  + 0.5) / 256
+            off = u
+            if where == "absolute":   # the sample at u itself: floor -1
+                gy, gx = _taps(b, ho, wo, stride, 1, torch.device("cpu"))
+                off = u - torch.stack(torch.broadcast_tensors(gy, gx), -1)
+            off = off.reshape(b, ho, wo, 18).to(dev, dtype).contiguous()
+            k = eye.to(dev, dtype)
+            route_a = window_route_possible(x.shape, k.shape, stride, 1,
+                                            x.element_size()) \
+                and bool(in_window(off))
+            got = deform_conv2d(x, off, k, stride).reshape(b, ho, wo, 9, c)
+            want = sample_plain(x, off, stride, 1, route_a)
+            key = (f"{str(dtype).split('.')[-1]} stride {stride} "
+                   f"route {'A' if route_a else 'B'} ({where})")
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"one-hot forward, {key}: {int((got != want).sum())} "
+                    f"of {want.numel()} samples differ from sample_plain")
+            out[key] = want.numel()
+    return out
 
 
 def deform_kernel_phase(dev, report):
@@ -1981,9 +2105,14 @@ def deform_kernel_phase(dev, report):
                                                    window_route_possible)
     from siammot_tpu_torch.ops.deform_conv import (deform_conv2d_bwd,
                                                    deform_conv2d_bwd_plain)
+    onehot = deform_one_hot_phase(dev)
+    log("  kernel 9's forward with one-hot weights (Co = 9 C) gives "
+        "sample_plain's samples bit for bit: " + ", ".join(
+            f"{k} ({v})" for k, v in onehot.items()))
     g = torch.Generator().manual_seed(5)
     gb = torch.Generator().manual_seed(6)     # the upstream gradients
     row = report["deform_conv"]
+    row["one_hot_samples"] = onehot
     row.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                max_abs_err=0.0, launches=0, shapes={})
     # the backward's row: its step numbers come from 10c
@@ -2036,7 +2165,7 @@ def deform_kernel_phase(dev, report):
                 # kernel 9's backward on the same inputs
                 gr = torch.randn(1, ho, wo, c, generator=gb).to(dev, dtype)
                 bargs = (xin, off, wgt, stride, 1)
-                _, berr, brel, moved = check_deform_bwd(
+                _, berr, brel, dk_err = check_deform_bwd(
                     bargs, gr, f"deform backward {key}")
                 b_ms = device_ms(lambda: deform_conv2d_bwd(*bargs[:3], gr,
                                                           stride), iters=5)
@@ -2047,19 +2176,23 @@ def deform_kernel_phase(dev, report):
                 b_bound, b_by = bound(*deform_bwd_bound(xin, off, wgt),
                                   BF16_TC_FLOPS if dtype == torch.bfloat16
                                   else F32_FLOPS)
+                parts = bwd_breakdown(bsplit)
                 brow["shapes"][key] = dict(ms=b_ms, kernels=bsplit,
+                                           parts=parts,
                                            plain_ms=b_plain, bound_ms=b_bound,
                                            bound_by=b_by, max_abs_err=berr,
-                                           forward_fractions_moved=moved)
+                                           dkernel_err=dk_err)
                 brow["max_abs_err"] = max(brow["max_abs_err"], berr)
-                log(f"    backward: kernel {b_ms:.4f} ms device (by kernel: "
-                    f"{split_text(bsplit)}), plain {b_plain:.4f} ms, bound "
+                log(f"    backward: kernel {b_ms:.4f} ms device (by part: "
+                    f"{split_text(parts)}; by kernel: {split_text(bsplit)}"
+                    f"), plain {b_plain:.4f} ms, bound "
                     f"{b_bound:.4f} ms ({b_by}), (max, mean) error of the "
                     f"scale " + ", ".join(f"{n} ({m:.3g}, {a:.3g})"
                                           for n, (m, a) in brel.items())
-                    + f"; samples bitwise, two calls bitwise; the forward's "
-                    f"route-B fractions would move {moved} of "
-                    f"{bargs[1].numel() // 2 * xin.shape[3]} samples")
+                    + "; samples bitwise, two calls bitwise"
+                    + ("" if dk_err is None else
+                       f"; the wgmma dKernel {dk_err:.3g} of its scale from "
+                       "cuBLAS's S^T G on those samples"))
                 if dtype == torch.bfloat16 and count and stride == 1:
                     sweep = {s_: device_ms(lambda: _launch(xin, off, wgt, 1,
                                                            1, s_))
@@ -3708,7 +3841,7 @@ def dcn_step_times(fwd):
                                                    deform_conv2d_vjp)
     gen = torch.Generator().manual_seed(8)
     out = dict(ms=0.0, plain_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0,
-               backward_plain_ms=0.0)
+               backward_plain_ms=0.0, bwd_parts={}, bwd_kernels={})
     nbytes = ops = b_bytes = b_ops = 0.0
     with torch.no_grad():
         for x, off, kern, stride, dil in fwd:
@@ -3722,6 +3855,18 @@ def dcn_step_times(fwd):
                                         iters=2, warmup=1)
             out["bwd_ms"] += device_ms(
                 lambda: deform_conv2d_bwd(*a[:3], g, stride, dil), iters=5)
+            split = kernel_split_ms(
+                lambda: deform_conv2d_bwd(*a[:3], g, stride, dil), iters=2)
+            for into, items in ((out["bwd_kernels"], split),
+                                (out["bwd_parts"], bwd_breakdown(split))):
+                for k_, v_ in items.items():
+                    into[k_] = into.get(k_, 0.0) + v_
+            layer = f"x {tuple(x.shape)} stride {stride}"
+            if layer not in out.setdefault("bwd_by_layer", {}):
+                out["bwd_by_layer"][layer] = bwd_breakdown(split)
+            if c == 128 and stride == 1 and "extra_bytes" not in out:
+                out["extra_bytes"], out["s_bytes"] = deform_bwd_extra_bytes(
+                    *a[:3], g, stride)
             out["bwd_plain_ms"] += timed_ms(
                 lambda: deform_conv2d_bwd_plain(*a[:3], g, stride, dil),
                 iters=1, warmup=1)
@@ -3818,8 +3963,22 @@ def dcn_train_phase(dev, report, card):
     brow.setdefault("shapes", {})["training step, 26 layers, 4 x 736x1280 "
                                   "bf16"] = dict(
         ms=step["bwd_ms"], plain_ms=step["bwd_plain_ms"],
+        parts=step["bwd_parts"], kernels=step["bwd_kernels"],
+        by_layer=step["bwd_by_layer"], extra_bytes=step["extra_bytes"],
         autograd_vjp_ms=step["backward_plain_ms"],
         bound_ms=step["bwd_bound_ms"], bound_by=step["bwd_bound_by"])
+    log(f"  10c: the backward by part over the step's 26 layers: "
+        f"{split_text(step['bwd_parts'])} ms device; by kernel: "
+        f"{split_text(step['bwd_kernels'])}; a layer of each shape: "
+        + "; ".join(f"{k} {split_text(v)}"
+                    for k, v in step["bwd_by_layer"].items())
+        + f"; a stage-3 stride-1 call allocates {step['extra_bytes']} "
+        f"bytes beyond its outputs, against {step['s_bytes']} for an "
+        f"[N, 9C] sample tensor")
+    if step["extra_bytes"] >= step["s_bytes"]:
+        raise AssertionError(f"10c: the stage-3 backward allocates "
+                             f"{step['extra_bytes']} bytes beyond its "
+                             f"outputs, not below {step['s_bytes']}")
     log(f"  10c: kernel 9 at the step's 26 shapes: {step['ms']:.4f} ms "
         f"device, plain {step['plain_ms']:.4f} ms, bound "
         f"{step['bound_ms']:.4f} ms ({step['bound_by']}); its backward "
@@ -3848,7 +4007,7 @@ def dcn_train_phase(dev, report, card):
             f"(max, mean) error of the largest magnitude: " + ", ".join(
                 f"{n} ({m:.3g}, {a:.3g})" for n, (m, a) in errs.items()))
         del want
-        again, berr, brel, moved = check_deform_bwd(
+        again, berr, brel, dk_err = check_deform_bwd(
             (x, off, kern, stride, dil), grad, f"10c {kind} backward")
         for name, a, b in zip(("x", "offsets", "kernel"), grads, again):
             if not torch.equal(a, b):
@@ -3857,9 +4016,9 @@ def dcn_train_phase(dev, report, card):
         brow["max_abs_err"] = max(brow["max_abs_err"], berr)
         log(f"      against the backward's plain version: " + ", ".join(
             f"{n} ({m:.3g}, {a:.3g})" for n, (m, a) in brel.items())
-            + f"; samples bitwise; the step's gradients bitwise two more "
-            f"calls'; the forward's route-B fractions would move {moved} of "
-            f"{off.numel() // 2 * x.shape[3]} samples")
+            + f"; samples bitwise; the wgmma dKernel {dk_err:.3g} of its "
+            f"scale from cuBLAS's S^T G on them; the step's gradients "
+            f"bitwise two more calls'")
     log(f"  10c: kernel 9 agrees with its plain version on the last step's "
         f"26 inputs (max abs err {err:.3g}); the backward's gradients within "
         f"{DCN_GRAD_MAX} (max) and {DCN_GRAD_MEAN} (mean) of their scale "

@@ -22,7 +22,12 @@ and kernel 8 (B 8, 37 live slots at the front) at 16x16 bf16 and f32 and
 61x61 bf16, each also split by kernel (tower conv, head pass; profiler);
 then the bf16 DLA-34 frames' gap to the JAX step's bf16 rows
 (``tests/fixtures/torch_golden_dla34_bf16.npz`` of this checkout).
-``--only predictor`` times kernels 3 and 8 and the gap alone. Each is
+``--only predictor`` times kernels 3 and 8 and the gap alone.
+``--only deform_bwd`` times kernel 9's backward alone
+(``ops/deform_conv.py:deform_conv2d_bwd``): at phase 2d's stage shapes
+(batch 1; stride 2, stride 1 in and out of the window; bf16 and f32) and
+at the 26 deformable layers of a DLA-102-DCN training step (4 x 736x1280
+bf16, seeded inputs), each split by kernel, and the step's sum.  Each is
 checked against its plain version and timed with ``chip_smoke.py``'s two
 timers:
 ``device_ms`` (a CUDA graph of the calls, replayed between events) and
@@ -49,8 +54,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=REPO,
                     help="directory holding the siammot_tpu_torch to time")
-    ap.add_argument("--only", choices=("predictor",),
-                    help="time kernels 3 and 8 (and the bf16 gap) alone")
+    ap.add_argument("--only", choices=("predictor", "deform_bwd"),
+                    help="time kernels 3 and 8 (and the bf16 gap), or "
+                    "kernel 9's backward, alone")
     args_ = ap.parse_args()
     root = os.path.abspath(args_.root)
     sys.path.insert(0, root)
@@ -73,7 +79,10 @@ def main():
     def digest(*tensors):
         h = hashlib.sha256()
         for t in tensors:
-            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+            t = t.detach().contiguous().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            h.update(t.numpy().tobytes())
         return h.hexdigest()[:16]
 
     def record(name, fn, err, iters=20, split=False):
@@ -86,11 +95,80 @@ def main():
         cs.log(f"  {name}: {out[name][0]:.4f} ms device, {out[name][1]:.4f} "
                f"ms with the host's enqueue, max abs err {err:.3g}, digest "
                f"{bits}" + (f"; by kernel: {cs.split_text(by)}" if by else ""))
+        return out[name]
 
-    if args_.only != "predictor":
-        other_kernels(cs, dev, record)
-    predictor_kernels(cs, dev, record)
+    if args_.only == "deform_bwd":
+        deform_bwd_kernels(cs, dev, record)
+    else:
+        if args_.only != "predictor":
+            other_kernels(cs, dev, record)
+        predictor_kernels(cs, dev, record)
     print("RESULT " + json.dumps(out), flush=True)
+
+
+def deform_bwd_kernels(cs, dev, record):
+    """Kernel 9's backward at phase 2d's stage shapes and at a DLA-102-DCN
+    training step's 26 layers (offsets N(0, 0.8^2) at stride 2, N(0,
+    0.35^2) at stride 1, as 2d's), then the step's sum of device ms."""
+    import torch
+    import siammot_tpu_torch.ops.deform_conv as dc
+    from siammot_tpu_torch.ops.deform_conv import deform_conv2d_bwd
+    g = torch.Generator().manual_seed(5)
+
+    def sweep(x, off, gr, stride):
+        """The bf16 dKernel product alone over chunk counts (a tree with
+        the product), beside the planner's pick."""
+        if x.dtype != torch.bfloat16 or not hasattr(dc, "pixel_splits"):
+            return
+        n, c = off.shape[0] * off.shape[1] * off.shape[2], x.shape[3]
+        steps = -(-n // dc.DK_PIXELS)
+        times = {s_: cs.device_ms(lambda: dc._bwd_dkernel(
+            x, off, gr, stride, 1, s_), iters=5)
+            for s_ in (1, 2, 3, 5, 7, 10, 14, 20, 28) if s_ <= steps}
+        cs.log(f"    dKernel product by chunks: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in times.items()) + f" ms device; "
+            f"pixel_splits picks {dc.pixel_splits(n, c, gr.shape[-1])}")
+
+    def inputs(b, h, w, c, stride, scale, dtype):
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        x = torch.randn(b, h, w, c, generator=g).to(dev, dtype)
+        off = (scale * torch.randn(b, ho, wo, 18, generator=g)).to(dev,
+                                                                  dtype)
+        k = (torch.randn(3, 3, c, c, generator=g) / (9 * c) ** 0.5).to(
+            dev, dtype)
+        gr = torch.randn(b, ho, wo, c, generator=g).to(dev, dtype)
+        return x, off, k, gr
+
+    for stage, (h, w), c, _, _ in cs.DCN_STAGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for stride, scale, (hi, wi) in ((2, 0.8, (h, w)),
+                                            (1, 0.35, (h // 2, w // 2)),
+                                            (1, 2.0, (h // 2, w // 2))):
+                x, off, k, gr = inputs(1, hi, wi, c, stride, scale, dtype)
+                record(f"deform_bwd stage{stage} {hi}x{wi}x{c} s{stride} "
+                       f"offsets {scale} {str(dtype).split('.')[-1]}",
+                       lambda: deform_conv2d_bwd(x, off, k, gr, stride), 0.0,
+                       iters=5, split=True)
+                if scale != 2.0:
+                    sweep(x, off, gr, stride)
+                del x, off, k, gr
+    step = 0.0
+    for (h, w, c, stride), count in (((184, 320, 128, 2), 1),
+                                     ((92, 160, 128, 1), 7),
+                                     ((92, 160, 256, 2), 1),
+                                     ((46, 80, 256, 1), 15),
+                                     ((46, 80, 512, 2), 1),
+                                     ((23, 40, 512, 1), 1)):
+        x, off, k, gr = inputs(4, h, w, c, stride, 0.8 if stride == 2
+                               else 0.35, torch.bfloat16)
+        step += count * record(
+            f"deform_bwd training layer 4x{h}x{w}x{c} s{stride} (x{count})",
+            lambda: deform_conv2d_bwd(x, off, k, gr, stride), 0.0, iters=5,
+            split=True)[0]
+        sweep(x, off, gr, stride)
+        del x, off, k, gr
+    cs.log(f"  deform_bwd, the training step's 26 layers: {step:.4f} ms "
+           "device")
 
 
 def predictor_kernels(cs, dev, record):

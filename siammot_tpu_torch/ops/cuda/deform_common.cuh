@@ -32,9 +32,8 @@ struct Geometry {
 //
 // Route B's fractions: JAX takes coordinate - floor in the offsets' dtype,
 // and in bf16 that rounds where the coordinate lies in (-0.5, 0) with
-// bits below 2^-8 (-0.3379 gives 0.6621, rounded to 0.6641).  The
-// backward (round_frac) rounds them so; the forward keeps the exact f32
-// fraction, one rounding off on those border samples (ROADMAP section 3).
+// bits below 2^-8 (-0.3379 gives 0.6621, rounded to 0.6641); so do the
+// forward and the backward here, bit for bit the plain version.
 struct Corners {
   int at[4];
   float k[4];
@@ -43,8 +42,7 @@ struct Corners {
 
 template <typename T>
 __device__ Corners corners(const T* __restrict__ off, const Geometry& g,
-                           int n, int tap, bool route_a,
-                           bool round_frac = false) {
+                           int n, int tap, bool route_a) {
   const int b = n / (g.Ho * g.Wo), rem = n % (g.Ho * g.Wo);
   const int py = rem / g.Wo, px = rem % g.Wo;
   const int gy = py * g.stride - g.dil + (tap / 3) * g.dil;
@@ -71,8 +69,7 @@ __device__ Corners corners(const T* __restrict__ off, const Geometry& g,
     const float cy = rnd<T>(rnd<T>((float)gy) + oy);
     const float cx = rnd<T>(rnd<T>((float)gx) + ox);
     const float fly = floorf(cy), flx = floorf(cx);
-    const float fy = round_frac ? rnd<T>(cy - fly) : cy - fly;
-    const float fx = round_frac ? rnd<T>(cx - flx) : cx - flx;
+    const float fy = rnd<T>(cy - fly), fx = rnd<T>(cx - flx);
     y0 = (int)fly;
     x0 = (int)flx;
     const float ay = rnd<T>(1.f - fy), ax = rnd<T>(1.f - fx);

@@ -59,6 +59,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
       : "r"(addr)
       : "memory");
 }
+// the same from a tile stored [k][row] (16-byte chunks of 8 rows' values
+// at one k): lane l gives the address of k l % 8 + 8 (l / 16), rows
+// 8 (l / 8 % 2).. of the warp's 16
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
 
 // -- warpgroup MMA ------------------------------------------------------
 __device__ __forceinline__ void fence() {

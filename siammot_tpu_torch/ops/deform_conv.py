@@ -52,15 +52,18 @@ their dtype's arithmetic, except that the corner weights' derivatives
 are the f32 products' (in bf16 the offsets' gradient is otherwise a
 difference of bf16-rounded terms that cancel).  JAX leaves it to XLA;
 under ``pallas`` the port runs it as hand-written CUDA
-(``cuda/deform_bwd.cu``, :func:`deform_conv2d_bwd`): route B's samples
-S, bit for bit :func:`sample_plain`'s and JAX's; dKernel = S^T G and dS
-= G W^T as two matrix products with f32 sums; the offsets' gradient
-from dS and the corners; and the input's gradient summed for each input
-pixel over its contributions in source order, with no float atomics, so
-the backward is bitwise the same from call to call.  CPU tensors take
-:func:`deform_conv2d_bwd_plain`, the same steps in plain PyTorch and in
-the same order.  Only x, the offsets and the kernel are saved; the
-samples are rebuilt in the backward.
+(``cuda/deform_bwd.cu``, :func:`deform_conv2d_bwd`): dKernel = S^T G,
+with S route B's samples (bit for bit :func:`sample_plain`'s and JAX's),
+in bf16 a ``wgmma`` product whose producers sample S on the fly, so S is
+never written (f32 partial sums over the chunks of pixels
+:func:`pixel_splits` picks, added in order); in f32 S written and a
+cuBLAS product; dS = G W^T on cuBLAS, f32 sums, over the passes of
+:func:`ds_passes`; the offsets' gradient from dS and the corners; and the
+input's gradient summed for each input pixel over its contributions in
+source order, with no float atomics, so the backward is bitwise the same
+from call to call.  CPU tensors take :func:`deform_conv2d_bwd_plain`, the
+same steps in plain PyTorch and in the same order.  Only x, the offsets
+and the kernel are saved; the samples are rebuilt in the backward.
 
 **The forms ``SIAMMOT_DCN_IMPL`` selects** (``impl``, as
 ``siammot_tpu/ops/deform_conv.py:deform_conv2d`` takes it): ``pallas``
@@ -96,9 +99,15 @@ R = 2           # in-window radius of route A (floor of every offset)
 HALO = R + 2    # the Pallas kernel's row/column halo (for its VMEM gate)
 _ARGS = (cuda.P,) * 4 + (cuda.I,) + (cuda.P,) * 2 + (cuda.I,) * 11 \
     + (cuda.P,)
-_BWD_SAMPLE_ARGS = (cuda.P,) * 4 + (cuda.I,) * 10 + (cuda.P,)
-_BWD_SCATTER_ARGS = (cuda.P,) * 9 + (cuda.I,) * 9 + (cuda.P,)
+_BWD_SAMPLE_ARGS = (cuda.P,) * 3 + (cuda.I,) * 9 + (cuda.P,)
+_BWD_DKERNEL_ARGS = (cuda.P,) * 5 + (cuda.I,) * 10 + (cuda.P,)
+_BWD_LISTS_ARGS = (cuda.P,) * 5 + (cuda.I,) * 9 + (cuda.P,)
+_BWD_SCATTER_ARGS = (cuda.P,) * 10 + (cuda.I,) * 11 + (cuda.P,)
 SMS = 132       # the H100's streaming multiprocessors
+L2_BYTES = 50 * 10 ** 6   # the H100's L2 cache
+DK_PIXELS = 64  # pixels a step of the bf16 dKernel product (deform_bwd.cu)
+DK_MIN_STEPS = 8  # 64-pixel steps a chunk of that product at least
+SCAN_TILE = 2048  # counts a block of the lists' scan (deform_bwd.cu)
 IMPLS = ("gather4", "patch", "shiftwin", "pallas")
 
 
@@ -144,6 +153,54 @@ def tap_splits(n: int, co: int) -> int:
         if tiles * splits >= SMS // 2:
             return splits
     return 9
+
+
+def pixel_splits(n: int, c: int, co: int) -> int:
+    """Chunks the N pixels of the bf16 dKernel product are split over: the
+    fewest whose blocks (one a tap's 128 channels x 128 outputs, or 64 x
+    256 past 128 outputs, and a chunk; one block an SM) fill at least 90%
+    of their waves over the card's SMs, else the fullest; a chunk holds at
+    least ``DK_MIN_STEPS`` 64-pixel steps (fewer fill the ring only
+    briefly; ``time_kernels.py --only deform_bwd`` sweeps the counts).
+    Each chunk's f32 partial sum costs 9 C Co x 4 bytes written and read
+    again."""
+    mc, nt = (64, 256) if co > 128 else (128, 128)
+    tiles = 9 * -(-c // mc) * -(-co // nt)
+    best, best_fill = 1, 0.0
+    most = max(1, -(-n // DK_PIXELS) // DK_MIN_STEPS)
+    for splits in range(1, min(most, SMS) + 1):
+        blocks = tiles * splits
+        fill = blocks / (SMS * -(-blocks // SMS))
+        if fill >= 0.9:
+            return splits
+        if fill > best_fill:
+            best, best_fill = splits, fill
+    return best
+
+
+def pixel_chunks(n: int, splits: int) -> list:
+    """[(n0, n1)]: the pixels of each of the dKernel product's chunks, in
+    order; chunk z holds the 64-pixel steps z K / splits .. (z + 1) K /
+    splits - 1 of the K = ceil(N / 64)."""
+    k = -(-n // DK_PIXELS)
+    return [(min(n, DK_PIXELS * (z * k // splits)),
+             min(n, DK_PIXELS * ((z + 1) * k // splits)))
+            for z in range(splits)]
+
+
+def ds_passes(n: int, p: int, c: int, itemsize: int,
+              want_x: bool = True) -> list:
+    """[(n0, n1)]: the passes over the N source pixels in which the
+    backward makes dS = G W^T ([N, 9C] in x's dtype) and uses it, in
+    order: two where dS is larger than the card's L2 and half of it with,
+    for the input gradient, its f32 sums carried between the passes ([P,
+    C], P = B H W) hold fewer bytes than the whole (a large stride-1
+    layer), else one."""
+    half, whole = -(-n // 2), n * 9 * c * itemsize
+    if whole > L2_BYTES and 4 * p * c * want_x + half * 9 * c * itemsize \
+            < whole:
+        return [(0, half), (half, n)]
+    return [(0, n)]
 
 
 def in_window(offsets: torch.Tensor) -> torch.Tensor:
@@ -296,10 +353,12 @@ def deform_conv2d_bwd(x, offsets, kernel, grad, stride: int = 1,
     """The gradients of (x, offsets, kernel) under the upstream ``grad``
     [B, Ho, Wo, Co], by route B's VJP (``siammot_tpu/ops/deform_conv.py:
     _pallas_guarded_bwd``).  CUDA tensors launch ``cuda/deform_bwd.cu``'s
-    kernels around two cuBLAS products (dKernel = S^T G, dS = G W^T, f32
-    sums, rounded once); CPU tensors take :func:`deform_conv2d_bwd_plain`.
-    Deterministic: the input's gradient is summed in a fixed order.  An
-    input that ``need`` leaves out gets None."""
+    kernels: dKernel = S^T G by the ``wgmma`` product in bf16 (S sampled
+    on the fly; :func:`pixel_splits`), by the sample kernel and cuBLAS in
+    f32; dS = G W^T on cuBLAS, f32 sums, over :func:`ds_passes`; then the
+    offsets' and the input's gradients from dS.  CPU tensors take
+    :func:`deform_conv2d_bwd_plain`.  Deterministic: every sum in a fixed
+    order.  An input that ``need`` leaves out gets None."""
     if x.device.type == "cpu":
         return deform_conv2d_bwd_plain(x, offsets, kernel, grad, stride,
                                        dilation, need)
@@ -317,29 +376,41 @@ def deform_conv2d_bwd(x, offsets, kernel, grad, stride: int = 1,
         raise ValueError("deform_conv2d_bwd: tensors too large for int32 "
                          "indexing")
     want_x, want_off, want_k = (bool(v) for v in need)
-    s, count = _bwd_sample(x, offsets, stride, dilation, want_k, want_x)
+    geometry = _bwd_geometry(x, offsets, stride, dilation)
+    lists = _bwd_lists(offsets, x.shape, geometry) if want_x \
+        else (None,) * 3
     g2 = grad.reshape(n, co)
-    dk = ds = dx = doff = None
-    with _f32_sums():
-        if want_k:
-            dk = (s.t() @ g2).reshape(kernel.shape)
-        if want_x or want_off:
-            ds = g2 @ kernel.reshape(9 * c, co).t()
-    if ds is not None:
+    dk = dx = doff = None
+    if want_k:
+        if x.dtype == torch.bfloat16:
+            dk = _bwd_dkernel(x, offsets, grad, stride, dilation)
+        else:
+            s = _bwd_sample(x, offsets, stride, dilation)
+            with _f32_sums():
+                dk = (s.t() @ g2).reshape(kernel.shape)
+            del s
+    if want_x or want_off:
         dx = torch.empty_like(x) if want_x else None
         doff = torch.empty_like(offsets) if want_off else None
-        start = lst = coef = None
-        if want_x:
-            start = torch.empty(b * h * w + 1, dtype=torch.int32,
-                                device=x.device)
-            lst = torch.empty(36 * n, dtype=torch.int32, device=x.device)
-            coef = torch.empty(36 * n, dtype=torch.float32, device=x.device)
+        passes = ds_passes(n, b * h * w, c, x.element_size(), want_x)
+        acc = torch.empty((b * h * w, c), dtype=torch.float32,
+                          device=x.device) \
+            if want_x and len(passes) > 1 else None
+        ds = x.new_empty((passes[0][1] - passes[0][0], 9 * c))
+        wt = kernel.reshape(9 * c, co).t()
         fn = cuda.function("siammot_deform_bwd_scatter", _BWD_SCATTER_ARGS)
-        cuda.check("deform_bwd_scatter", fn(
-            cuda.ptr(x), cuda.ptr(offsets), cuda.ptr(ds), _opt_ptr(doff),
-            _opt_ptr(dx), _opt_ptr(count), _opt_ptr(start), _opt_ptr(lst),
-            _opt_ptr(coef), *_bwd_geometry(x, offsets, stride, dilation),
-            cuda.stream(x.device)))
+        for i, (n0, n1) in enumerate(passes):
+            part = ds[:n1 - n0]
+            with _f32_sums():
+                torch.mm(g2[n0:n1], wt, out=part)
+            last = i == len(passes) - 1
+            cuda.check("deform_bwd_scatter", fn(
+                cuda.ptr(x), cuda.ptr(offsets), cuda.ptr(part),
+                _opt_ptr(doff), *map(_opt_ptr, lists),
+                _opt_ptr(acc if i > 0 else None),
+                _opt_ptr(None if last else acc),
+                _opt_ptr(dx if last else None), n0, n1, *geometry,
+                cuda.stream(x.device)))
     deform_conv2d_bwd.launches += 1
     return dx, doff, dk
 
@@ -353,26 +424,79 @@ def _bwd_geometry(x, offsets, stride, dilation):
             int(x.dtype == torch.bfloat16))
 
 
-def _bwd_sample(x, offsets, stride, dilation, samples=True, counts=False,
-                round_frac=True):
-    """The backward's first launch, on checked CUDA inputs: route B's
-    samples S [N, 9C] in x's dtype (bit for bit :func:`sample_plain`'s;
-    None unless ``samples``) and, where ``counts``, each input pixel's
-    number of in-range corners, int32 [B*H*W] (else None).
-    ``round_frac`` False takes the forward kernel's route-B fractions,
-    exact where JAX rounds bf16 ones (ROADMAP section 3), to measure that
-    gap."""
+def _bwd_sample(x, offsets, stride, dilation):
+    """Route B's samples S [N, 9C] in x's dtype, bit for bit
+    :func:`sample_plain`'s, on checked CUDA inputs: the f32 dKernel's
+    operand, and the card checks' window onto the samples that the bf16
+    product makes on the fly."""
     b, h, w, c = x.shape
-    n = b * offsets.shape[1] * offsets.shape[2]
-    s = x.new_empty((n, 9 * c)) if samples else None
-    count = torch.empty(b * h * w, dtype=torch.int32, device=x.device) \
-        if counts else None
+    s = x.new_empty((b * offsets.shape[1] * offsets.shape[2], 9 * c))
     fn = cuda.function("siammot_deform_bwd_sample", _BWD_SAMPLE_ARGS)
     cuda.check("deform_bwd_sample", fn(
-        cuda.ptr(x), cuda.ptr(offsets), _opt_ptr(s), _opt_ptr(count),
-        *_bwd_geometry(x, offsets, stride, dilation), int(round_frac),
+        cuda.ptr(x), cuda.ptr(offsets), cuda.ptr(s),
+        *_bwd_geometry(x, offsets, stride, dilation), cuda.stream(x.device)))
+    return s
+
+
+def _bwd_dkernel(x, offsets, grad, stride, dilation, splits=None):
+    """dKernel [3, 3, C, Co] in bf16 by the ``wgmma`` product on checked
+    CUDA inputs, its pixels split over ``splits`` chunks (default
+    :func:`pixel_splits`)."""
+    b, h, w, c = x.shape
+    ho, wo = offsets.shape[1:3]
+    co = grad.shape[-1]
+    if splits is None:
+        splits = pixel_splits(b * ho * wo, c, co)
+    dk = x.new_empty((3, 3, c, co))
+    partial = torch.empty((splits, 9 * c, co), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None
+    fn = cuda.function("siammot_deform_bwd_dkernel", _BWD_DKERNEL_ARGS)
+    cuda.check("deform_bwd_dkernel", fn(
+        cuda.ptr(x), cuda.ptr(offsets), cuda.ptr(grad), cuda.ptr(dk),
+        _opt_ptr(partial), b, h, w, c, ho, wo, co, stride, dilation, splits,
         cuda.stream(x.device)))
-    return s, count
+    return dk
+
+
+def _bwd_lists(offsets, x_shape, geometry):
+    """The input gradient's lists on checked CUDA inputs: start int32 [P +
+    1] (each input pixel's first entry, then the scan's scratch), list
+    int32 [36 N] (the source ids 4 (9 n + tap) + corner of the in-range
+    corners, each pixel's sorted) and coef f32 [36 N] (the corner
+    weights)."""
+    b, h, w, _ = x_shape
+    p, n = b * h * w, b * offsets.shape[1] * offsets.shape[2]
+    i32 = dict(dtype=torch.int32, device=offsets.device)
+    count = torch.empty(p, **i32)
+    start = torch.empty(p + 1 + -(-p // SCAN_TILE), **i32)
+    lst = torch.empty(36 * n, **i32)
+    coef = torch.empty(36 * n, dtype=torch.float32, device=offsets.device)
+    fn = cuda.function("siammot_deform_bwd_lists", _BWD_LISTS_ARGS)
+    cuda.check("deform_bwd_lists", fn(
+        cuda.ptr(offsets), cuda.ptr(count), cuda.ptr(start), cuda.ptr(lst),
+        cuda.ptr(coef), *geometry, cuda.stream(offsets.device)))
+    return start, lst, coef
+
+
+def dkernel_plain(x, offsets, grad, stride: int = 1, dilation: int = 1,
+                  splits: int = 1):
+    """Plain PyTorch version of the bf16 dKernel product's arithmetic:
+    route B's samples times the upstream gradient, f32 sums over each of
+    :func:`pixel_chunks`' chunks, the chunks' sums added in order and
+    rounded once to x's dtype.  [3, 3, C, Co]."""
+    b, h, w, c = x.shape
+    ho, wo = offsets.shape[1:3]
+    co = grad.shape[-1]
+    n = b * ho * wo
+    with torch.no_grad():
+        s = sample_plain(x, offsets, stride, dilation, route_a=False)
+        s = s.reshape(n, 9 * c).float()
+        g32 = grad.reshape(n, co).float()
+        total = None
+        for n0, n1 in pixel_chunks(n, splits):
+            part = s[n0:n1].t() @ g32[n0:n1]
+            total = part if total is None else total + part
+    return total.to(x.dtype).reshape(3, 3, c, co)
 
 
 def deform_conv2d_bwd_plain(x, offsets, kernel, grad, stride: int = 1,
@@ -442,11 +566,11 @@ def _dx_contributions(ds, y0, x0, fy, fx, h: int, w: int):
             torch.stack(vals, -2).reshape(-1, c))
 
 
-def _sum_in_order(dest, key, vals, size: int):
+def _sum_in_order(dest, key, vals, size: int, init=None):
     """out [size, C] f32: row q the sum of ``vals[i]`` over the i with
-    ``dest[i] == q`` (-1: dropped), taken from 0 in ascending ``key``
-    (unique) order, whatever order the list comes in: the kernel's fixed
-    order."""
+    ``dest[i] == q`` (-1: dropped), taken from 0 (or from ``init``'s row
+    q) in ascending ``key`` (unique) order, whatever order the list comes
+    in: the kernel's fixed order."""
     keep = dest >= 0
     dest, key, vals = dest[keep], key[keep], vals[keep]
     order = torch.argsort(dest * (int(key.max()) + 1 if len(key) else 1)
@@ -456,7 +580,7 @@ def _sum_in_order(dest, key, vals, size: int):
     rank = torch.arange(len(dest), device=dest.device) \
         - (torch.cumsum(counts, 0) - counts)[dest]
     out = torch.zeros(size, vals.shape[-1], dtype=torch.float32,
-                      device=vals.device)
+                      device=vals.device) if init is None else init.clone()
     # the r-th term of every row at once: each row at most once a pass
     by_rank = torch.argsort(rank, stable=True)
     at = 0

@@ -23,9 +23,11 @@ Tolerances as in ``chip_smoke.py``: pool/xcorr f32 sums in another order
 (1e-4 + 1e-3|x|), predictor logits 3e-2 in bf16 (tower rounding) and
 1e-4 in f32, decode idx exact and scores 1e-5, deformable conv 2e-5 of
 the output's scale in f32 and one bf16 step plus 2^-9 of the scale in
-bf16 (the same samples, f32 sums in another order); its backward's
-samples bitwise, its gradients within 1e-5 of their scale in f32 and, in
-bf16, ``chip_smoke.DCN_GRAD_MAX``/``DCN_GRAD_MEAN`` (2^-5 and 2^-9 of the
+bf16 (the same samples, f32 sums in another order), and with one-hot
+weights its samples bit for bit; its backward's samples bitwise, its
+bf16 dKernel product within one bf16 rounding of cuBLAS's S^T G, its
+gradients within 1e-5 of their scale in f32 and, in bf16,
+``chip_smoke.DCN_GRAD_MAX``/``DCN_GRAD_MEAN`` (2^-5 and 2^-9 of the
 scale: dS rounds to bf16 after sums in another order), and bitwise the
 same from call to call.
 """
@@ -315,15 +317,20 @@ def test_deform_kernel_tap_split(dev, splits):
     (23, 40, 64, 64, 1, 0.3), (23, 300, 32, 48, 1, 2.0),
     (46, 80, 64, 64, 2, 0.8), (9, 13, 40, 8, 2, 3.0),
     (11, 17, 13, 10, 1, 0.3), (92, 160, 128, 128, 1, 0.35),
-    (8, 8, 8, 4, 1, None)])
+    (8, 8, 8, 4, 1, None), (23, 40, 512, 512, 1, 0.35),
+    (12, 20, 64, 200, 2, 0.8), (10, 14, 16, 24, 1, "out")])
 def test_deform_backward_kernels(dev, dtype, h, w, c, co, stride, scale):
     """Kernel 9's backward against its plain version: both strides,
-    coordinates past 256, ragged channels, a DLA-102 stage-3 layer, and a
-    pile (scale None: every sample at (3.25, 4.5), so four input pixels
-    take 9 x 64 terms each); the samples bit for bit; two calls bitwise
-    alike; one launch counted a call."""
-    from siammot_tpu_torch.ops.deform_conv import (_bwd_sample, _taps,
-                                                   sample_plain)
+    coordinates past 256, ragged channels (element loads), a DLA-102
+    stage-3 layer, C = 512, Co not a multiple of 128, a pile (scale None:
+    every sample at (3.25, 4.5), so four input pixels take 9 x 64 terms
+    each) and empty lists (every sample outside the map); the samples bit
+    for bit; in bf16 the wgmma dKernel within one bf16 rounding of
+    cuBLAS's f32-sum S^T G on them; two calls bitwise alike; one launch
+    counted a call."""
+    from siammot_tpu_torch.ops.deform_conv import (_bwd_dkernel,
+                                                   _bwd_sample, _f32_sums,
+                                                   _taps, sample_plain)
     g = torch.Generator().manual_seed(16)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     x = torch.randn(2, h, w, c, generator=g).to(dev, dtype)
@@ -331,15 +338,24 @@ def test_deform_backward_kernels(dev, dtype, h, w, c, co, stride, scale):
         gy, gx = _taps(2, ho, wo, stride, 1, torch.device("cpu"))
         off = torch.stack(torch.broadcast_tensors(3.25 - gy, 4.5 - gx), -1)
         off = off.expand(2, ho, wo, 9, 2).reshape(2, ho, wo, 18)
+    elif scale == "out":
+        off = torch.full((2, ho, wo, 18), 100.0)
     else:
         off = scale * torch.randn(2, ho, wo, 18, generator=g)
     off = off.to(dev, dtype).contiguous()
     k = (torch.randn(3, 3, c, co, generator=g) / (9 * c) ** 0.5).to(dev,
                                                                     dtype)
     gr = torch.randn(2, ho, wo, co, generator=g).to(dev, dtype)
-    s, _ = _bwd_sample(x, off, stride, 1)
+    s = _bwd_sample(x, off, stride, 1)
     assert torch.equal(s, sample_plain(x, off, stride, 1, False).reshape(
         s.shape))
+    if dtype == torch.bfloat16:
+        with _f32_sums():
+            ref = s.float().t() @ gr.reshape(s.shape[0], co).float()
+        dk = _bwd_dkernel(x, off, gr, stride, 1).float().reshape(ref.shape)
+        scale_ = float(ref.abs().max())
+        assert ((dk - ref).abs() <= 2 ** -12 * scale_
+                + 2 ** -8 * ref.abs()).all()
     launches = deform_conv2d_bwd.launches
     got = deform_conv2d_bwd(x, off, k, gr, stride)
     again = deform_conv2d_bwd(x, off, k, gr, stride)
@@ -350,11 +366,117 @@ def test_deform_backward_kernels(dev, dtype, h, w, c, co, stride, scale):
         a, v = a.double(), v.double()
         scale_ = float(v.abs().max())
         err = (a - v).abs()
-        if dtype == torch.float32:
+        if scale == "out":
+            assert torch.equal(a, v)    # nothing lands: all zero
+        elif dtype == torch.float32:
             assert float(err.max()) <= 1e-5 * scale_
         else:
             assert float(err.max()) <= 2 ** -5 * scale_
             assert float(err.mean()) <= 2 ** -9 * scale_
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,c,stride,scale", [
+    (23, 40, 64, 1, 0.35), (24, 40, 128, 2, 0.8), (11, 17, 13, 1, 2.0),
+    (9, 12, 256, 1, 0.35), (8, 8, 8, 1, None), (15, 22, 40, 2, 3.0)])
+def test_deform_backward_input_gradient_from_the_same_ds(dev, dtype, h, w, c,
+                                                        stride, scale):
+    """The input gradient's kernels (the lists, then the gather, in one
+    pass and in two with the f32 sums carried) given the plain version's
+    own dS: bitwise the plain version's dX, whose arithmetic and order
+    they share (odd maps, ragged channels, both strides, the 576-term
+    pile)."""
+    from siammot_tpu_torch.ops import cuda
+    from siammot_tpu_torch.ops.deform_conv import (_BWD_SCATTER_ARGS,
+                                                   _bwd_geometry,
+                                                   _bwd_lists, _taps)
+    g = torch.Generator().manual_seed(24)
+    b, co = 2, 24
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.randn(b, h, w, c, generator=g).to(dtype)
+    if scale is None:
+        gy, gx = _taps(b, ho, wo, stride, 1, torch.device("cpu"))
+        off = torch.stack(torch.broadcast_tensors(3.25 - gy, 4.5 - gx), -1)
+        off = off.expand(b, ho, wo, 9, 2).reshape(b, ho, wo, 18)
+    else:
+        off = scale * torch.randn(b, ho, wo, 18, generator=g)
+    off = off.to(dtype).contiguous()
+    k = (torch.randn(3, 3, c, co, generator=g) / (9 * c) ** 0.5).to(dtype)
+    gr = torch.randn(b, ho, wo, co, generator=g).to(dtype)
+    want = deform_conv2d_bwd_plain(x, off, k, gr, stride,
+                                   need=(True, False, False))[0]
+    n = b * ho * wo
+    ds = (gr.reshape(n, co).float() @ k.reshape(9 * c, co).float().t()).to(
+        dtype).to(dev)
+    xd, od = x.to(dev), off.to(dev)
+    geometry = _bwd_geometry(xd, od, stride, 1)
+    lists = _bwd_lists(od, xd.shape, geometry)
+    fn = cuda.function("siammot_deform_bwd_scatter", _BWD_SCATTER_ARGS)
+    for passes in ([(0, n)], [(0, n // 3), (n // 3, n)]):
+        dx = torch.empty_like(xd)
+        acc = torch.empty(b * h * w, c, dtype=torch.float32, device=dev)
+        for i, (n0, n1) in enumerate(passes):
+            last = i == len(passes) - 1
+            part = ds[n0:n1].contiguous()
+            cuda.check("deform_bwd_scatter", fn(
+                cuda.ptr(xd), cuda.ptr(od), cuda.ptr(part), None,
+                *(cuda.ptr(t) for t in lists),
+                cuda.ptr(acc) if i else None, None if last else cuda.ptr(acc),
+                cuda.ptr(dx) if last else None, n0, n1, *geometry,
+                cuda.stream(xd.device)))
+        assert torch.equal(dx.cpu(), want), passes
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("stride,where", [
+    (1, "relative"), (1, "absolute"), (2, "relative"), (2, "absolute")])
+def test_deform_forward_one_hot_gives_the_samples(dev, dtype, stride, where):
+    """Kernel 9's forward with one-hot weights (Co = 9 C) gives
+    ``sample_plain``'s samples bit for bit on both routes (relative
+    offsets in (-0.5, 0) at stride 1: route A; the rest route B) with
+    coordinates in (-0.5, 0) that carry bits below 2^-8, where route B's
+    bf16 fraction rounds."""
+    from siammot_tpu_torch.ops.deform_conv import (_taps, in_window,
+                                                   sample_plain,
+                                                   window_route_possible)
+    g = torch.Generator().manual_seed(22)
+    b, h, w, c = 2, 24, 40, 16
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.randn(b, h, w, c, generator=g).to(dev, dtype)
+    off = -(torch.randint(1, 128, (b, ho, wo, 9, 2), generator=g) + 0.5) \
+        / 256
+    if where == "absolute":
+        gy, gx = _taps(b, ho, wo, stride, 1, torch.device("cpu"))
+        off = off - torch.stack(torch.broadcast_tensors(gy, gx), -1)
+    off = off.reshape(b, ho, wo, 18).to(dev, dtype).contiguous()
+    k = torch.eye(9 * c).reshape(3, 3, c, 9 * c).to(dev, dtype)
+    route_a = window_route_possible(x.shape, k.shape, stride, 1,
+                                    x.element_size()) and bool(in_window(off))
+    assert route_a == (stride == 1 and where == "relative")
+    got = deform_conv2d(x, off, k, stride).reshape(b, ho, wo, 9, c)
+    assert torch.equal(got, sample_plain(x, off, stride, 1, route_a))
+
+
+def test_deform_backward_memory_at_stage_3(dev):
+    """A bf16 call at DLA-102's training stage-3 shape (4 x 92x160x128)
+    allocates less than an [N, 9C] sample tensor beyond its outputs: S is
+    never written, and dS lives half at a time."""
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn(4, 92, 160, 128, generator=g).to(dev, torch.bfloat16)
+    off = (0.35 * torch.randn(4, 92, 160, 18, generator=g)).to(
+        dev, torch.bfloat16)
+    k = (torch.randn(3, 3, 128, 128, generator=g) / 34.0).to(
+        dev, torch.bfloat16)
+    gr = torch.randn(4, 92, 160, 128, generator=g).to(dev, torch.bfloat16)
+    deform_conv2d_bwd(x, off, k, gr, 1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = deform_conv2d_bwd(x, off, k, gr, 1)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base \
+        - sum(t.numel() * t.element_size() for t in got)
+    assert extra < 4 * 92 * 160 * 9 * 128 * 2
 
 
 def test_decode_kernel(dev):
