@@ -549,9 +549,12 @@ def check_decode(args, what):
 #  forward f32: the same operations except the order of the r*r sample
 #    sum -> 1e-5; bf16: that sum may round the other way -> one bf16 ulp
 #    at the largest magnitude, 2^-7 of it
-#  backward: f32 sums (atomic adds in the kernel, index_add_'s in the
-#    plain form) of up to a few hundred products an element, in no fixed
-#    order -> 1e-4
+#  backward: f32 sums of up to a few hundred products an element in two
+#    fixed orders that differ, the kernel's (ROIs, then each ROI's
+#    samples; a long list's chunks summed apart, then added in order) and
+#    index_add_'s in the plain form -> 1e-4, on the kernel's
+#    f32 sums (its f32 output); its output in the table's dtype must be
+#    those sums rounded, bit for bit, and two calls the same bits
 ROI_F32_REL, ROI_BF16_REL, ROI_BWD_REL = 1e-5, 2.0 ** -7, 1e-4
 
 
@@ -560,6 +563,7 @@ def check_roi_align(args, what):
     ``roi_align_fwd``'s arguments; rows not ``valid`` exactly zero;
     returns the max abs err."""
     from siammot_tpu_torch.ops.roi_align import roi_align_fwd, roi_align_plain
+    args = args[:7]  # roi_align_rows' arguments end with the layout
     k = roi_align_fwd(*args)
     p = roi_align_plain(*args)
     torch.cuda.synchronize()
@@ -571,13 +575,32 @@ def check_roi_align(args, what):
 
 def check_roi_align_bwd(args, what):
     """The gather pooler's backward kernel against its plain version on
-    ``roi_align_bwd``'s arguments; returns the max abs err."""
+    ``roi_align_bwd``'s arguments: in the table's dtype, bitwise the same
+    over two calls and bitwise its f32 sums rounded, those sums within
+    ``ROI_BWD_REL`` of the plain gradient's scale; returns the max abs
+    err."""
     from siammot_tpu_torch.ops.roi_align import (roi_align_bwd,
                                                  roi_align_bwd_plain)
+    p = roi_align_bwd_plain(*args[:7])
     k = roi_align_bwd(*args)
-    p = roi_align_bwd_plain(*args)
+    same_bits((k,), (roi_align_bwd(*args),), f"{what}: backward")
+    k32 = roi_align_bwd(*args, dtype=torch.float32)
     torch.cuda.synchronize()
-    return close_to_scale(k, p, ROI_BWD_REL, what)
+    if k.dtype != args[0].dtype or not torch.equal(
+            k32.to(k.dtype).view(torch.int16 if k.element_size() == 2
+                                 else torch.int32),
+            k.view(torch.int16 if k.element_size() == 2 else torch.int32)):
+        raise AssertionError(f"{what}: the {k.dtype} gradient is not its "
+                             "f32 sums rounded")
+    del k
+    return close_to_scale(k32, p, ROI_BWD_REL, what)
+
+
+def roi_bwd_args(args, grad, layout):
+    """``roi_align_bwd``'s arguments for ``roi_align_fwd``'s ``args``, an
+    upstream ``grad`` and the table's ``layout``."""
+    return (grad, args[1], args[2], args[3], tuple(args[0].shape), args[4],
+            args[5], layout)
 
 
 def close_to_scale(kernel, plain, rel, what):
@@ -1593,26 +1616,28 @@ def wide_sr_xcorr_passes(dev, report, g):
 def train_kernel_capture(steps):
     """Count and capture the training kernels' launches while a training
     run of ``steps`` steps runs: kernel 1 (``window_pool``), kernel 7
-    (``window_pool_bwd``) and kernel 6's three passes.  Yields (captured,
-    launches): ``captured`` keeps by reference what each kernel got at the
-    last step (and the bits of the last step's three table gradients),
-    ``launches`` is filled with each wrapper's count on exit; the counts
-    are set to 0 on entry."""
+    (``window_pool_bwd``), the gather pooler's two kernels and kernel 6's
+    three passes.  Yields (captured, launches): ``captured`` keeps by
+    reference what each kernel got at the last step (and the bits of the
+    last step's three table gradients, of kernel 7 and of the gather
+    backward), ``launches`` is filled with each wrapper's count on exit;
+    the counts are set to 0 on entry."""
     import siammot_tpu_torch.ops.roi_align as ra_mod
     import siammot_tpu_torch.ops.window_pool as wp_mod
     import siammot_tpu_torch.ops.xcorr as xc_mod
 
     captured = {"pool": [], "bwd": [], "forward": [], "grad_template": [],
                 "grad_search": [], "bwd_bits": [], "roi_align": [],
-                "roi_align_bwd": []}
+                "roi_align_bwd": [], "roi_bwd_bits": []}
 
     def capture(name, fn, keep):
         def wrapped(*args):
             out = fn(*args)
             captured[name] = (captured[name] + [args])[-keep:]
-            if name == "bwd":  # the last step's table gradients' bits
-                last = len(captured["bwd_bits"]) >= 3 * (steps - 1)
-                captured["bwd_bits"].append(tensor_bits(out) if last
+            bits = {"bwd": "bwd_bits", "roi_align_bwd": "roi_bwd_bits"}
+            if name in bits:  # the last step's table gradients' bits
+                last = len(captured[bits[name]]) >= 3 * (steps - 1)
+                captured[bits[name]].append(tensor_bits(out) if last
                                             else None)
             return out
         return wrapped
@@ -1693,6 +1718,49 @@ def count_train_launches(launches, steps, report, path,
         row["launches"] = row.get("launches", 0) + launches[name]
 
 
+def roi_tile_counts(args):
+    """ROIs on each tile's list of the gather backward
+    (``ops/roi_align.py:bwd_tile_lists``) for ``roi_align_bwd``'s
+    arguments -> (the most on a tile, the mean over the tiles with any)."""
+    from siammot_tpu_torch.ops.roi_align import bwd_tile_lists
+    _, rois, geom, scale, _, o, r, layout = args[:8]
+    counts = bwd_tile_lists(rois, geom, scale, o, r, layout)[0].sum(1)
+    return int(counts.max()), float(counts[counts > 0].float().mean()) \
+        if (counts > 0).any() else 0.0
+
+
+def check_gather_bwd_step(captured, report, path):
+    """The gather backward on the inputs and upstream gradients it got at
+    the last step of a run: against its plain version, launched again
+    bitwise the step's own table gradients, its device ms on those inputs
+    and the ROIs a tile meets."""
+    from siammot_tpu_torch.ops.roi_align import roi_align_bwd
+    if not captured["roi_align_bwd"]:
+        return
+    total = 0.0
+    row = report["roi_align_bwd"]
+    for k, (args, step_bits) in enumerate(zip(
+            captured["roi_align_bwd"], captured["roi_bwd_bits"][-3:])):
+        o = args[5]
+        what = f"{path} gather backward {k} ({o}x{o} outputs)"
+        err = check_roi_align_bwd(args, what)
+        if tensor_bits(roi_align_bwd(*args)) != step_bits:
+            raise AssertionError(f"{what}: launched again on the step's "
+                                 "inputs, other bits")
+        ms = device_ms(lambda: roi_align_bwd(*args), iters=3)
+        most, mean = roi_tile_counts(args)
+        total += ms
+        row.setdefault("step_sites", {})[f"{path} {k} {o}x{o}"] = dict(
+            ms=ms, max_abs_err=err, rois_per_tile_max=most,
+            rois_per_tile_mean=mean)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        log(f"    {what}: max abs err {err:.3g}, bitwise the step's own "
+            f"launch; {ms:.4f} ms device on these inputs; ROIs a table tile "
+            f"max {most}, mean {mean:.1f}")
+    log(f"    {path} gather backward, the last step's three sites: "
+        f"{total:.4f} ms device")
+
+
 def check_train_kernels(captured, report, path):
     """Each training kernel against its plain version on the inputs and
     upstream gradients it got at the last step of a run
@@ -1738,12 +1806,7 @@ def check_train_kernels(captured, report, path):
         err = check_roi_align(args, f"{path} gather {site}")
         report["roi_align"]["max_abs_err"] = max(
             report["roi_align"]["max_abs_err"], err)
-    for args in captured["roi_align_bwd"]:
-        err = check_roi_align_bwd(args, f"{path} gather backward, "
-                                        f"{args[0].shape[1]}x"
-                                        f"{args[0].shape[2]} outputs")
-        report["roi_align_bwd"]["max_abs_err"] = max(
-            report["roi_align_bwd"]["max_abs_err"], err)
+    check_gather_bwd_step(captured, report, path)
     for name, fn, plain in passes:
         args = captured[name][0]
         k = fn(*args)
@@ -4228,13 +4291,16 @@ def roi_bound(args):
     return bound(nbytes, live * o * o * c * (8 * r * r + 1), F32_FLOPS)
 
 
-def roi_bwd_bound(args):
+def roi_bwd_bound(args, f32_table=False):
     """The gather backward's least time: the upstream gradient read once,
-    the whole f32 table gradient written once, the geometry, against
-    8 r^2 + 1 operations a gradient element."""
-    grad, rois, geom, scale, shape, o, r = args
+    the whole table gradient written once in the table's dtype, as the
+    kernel writes it (``f32_table``: in f32, as the atomic scatter that
+    came before it wrote it), the geometry, against 8 r^2 + 1 operations a
+    gradient element."""
+    grad, rois, geom, scale, shape, o, r = args[:7]
     n, c = rois.shape[0], shape[1]
-    nbytes = (grad.numel() * grad.element_size() + shape[0] * c * 4
+    elt = 4 if f32_table else grad.element_size()
+    nbytes = (grad.numel() * grad.element_size() + shape[0] * c * elt
               + n * (16 + 16 + 4))
     return bound(nbytes, n * o * o * c * (8 * r * r + 1), F32_FLOPS)
 
@@ -4245,12 +4311,14 @@ def boxes_in(n, lo, hi, wh, g):
     return torch.cat([xy, xy + sz], -1)
 
 
-def roi_training_sites(g, gc, dev, dtype):
+def roi_training_sites(g, gc, dev, dtype, boxes=None):
     """11a's training sites on the FPN levels of four 2464x2048 frames
     (``dtype``): the box head's 4 x 256 sampled ROIs (7x7), 1024 track
     pairs' templates (7x7) and search regions (35x35, 256 px pad, from the
     paired frame, the level by the template box), as the AOT recipe's step
-    pools them -> {site: ``roi_align_fwd``'s arguments}."""
+    pools them; ``boxes``: (those ROIs, those templates) in place of
+    seeded ones spread over the frames -> ({site: ``roi_align_fwd``'s
+    arguments}, the table's layout)."""
     from siammot_tpu_torch.core.boxes import map_rois_to_levels
     from siammot_tpu_torch.models.emm import EMMConfig, make_search_region
     from siammot_tpu_torch.ops.roi_align import level_table
@@ -4259,8 +4327,9 @@ def roi_training_sites(g, gc, dev, dtype):
                          for h, w in AOT_HW], SCALES)
     ecfg = EMMConfig(7, SCALES, 2, 5.0, 0, 256, False, 0.1, False)
     img = torch.arange(4, dtype=torch.int32).repeat_interleave(N_TRAIN // 4)
-    props = boxes_in(N_TRAIN, 8, 600, AOT_FRAME, g)
-    src = boxes_in(N_TRAIN, 12, 300, AOT_FRAME, g)
+    props, src = boxes if boxes is not None else (
+        boxes_in(N_TRAIN, 8, 600, AOT_FRAME, g),
+        boxes_in(N_TRAIN, 12, 300, AOT_FRAME, g))
     src_lv = map_rois_to_levels(src, 2, 5)
     sites = {"box": (props, img, map_rois_to_levels(props, 2, 5), 7, 0),
              "template": (src, img, src_lv, 7, 0),
@@ -4271,7 +4340,7 @@ def roi_training_sites(g, gc, dev, dtype):
         geom, scale = table.geometry(ii.to(dev), lv.to(dev), pad)
         out[site] = (table.table, rois.to(dev).contiguous(), geom, scale, o,
                      2, None)
-    return out
+    return out, table.layout
 
 
 def roi_inference_sites(g, dev):
@@ -4319,9 +4388,11 @@ def roi_align_kernel_phase(dev, report):
     for row in (fwd, bwd):
         row.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                    sites={})
+    bwd["bound_f32_table_ms"] = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for site, args in roi_training_sites(g, gc, dev, dtype).items():
+        sites, layout = roi_training_sites(g, gc, dev, dtype)
+        for site, args in sites.items():
             what = f"training {site} {dname}"
             n, o = args[1].shape[0], args[4]
             err = check_roi_align(args, what)
@@ -4333,23 +4404,27 @@ def roi_align_kernel_phase(dev, report):
             grad = torch.randn(out.shape, generator=gc, device=dev,
                                dtype=torch.float32).to(dtype)
             del out
-            bargs = (grad, args[1], args[2], args[3], tuple(args[0].shape),
-                     o, 2)
+            bargs = roi_bwd_args(args, grad, layout)
             berr = check_roi_align_bwd(bargs, f"{what} backward")
             bms_k = device_ms(lambda: roi_align_bwd(*bargs), iters=3)
-            bpms = timed_ms(lambda: roi_align_bwd_plain(*bargs), iters=1,
-                            warmup=1)
+            bpms = timed_ms(lambda: roi_align_bwd_plain(*bargs[:7]),
+                            iters=1, warmup=1)
             bbms, bby = roi_bwd_bound(bargs)
+            fbms, _ = roi_bwd_bound(bargs, f32_table=True)
+            most, mean = roi_tile_counts(bargs)
             log(f"  roi_align {what}: N={n} {o}x{o} over a "
                 f"{tuple(args[0].shape)} table: forward {ms:.4f} ms device, "
                 f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
                 f"{err:.3g}; backward {bms_k:.4f} ms device, plain "
-                f"{bpms:.4f} ms, bound {bbms:.4f} ms ({bby}), max abs err "
-                f"{berr:.3g} (tol {ROI_BWD_REL} of the scale)")
+                f"{bpms:.4f} ms, bound {bbms:.4f} ms ({bby}; {fbms:.4f} ms "
+                f"with an f32 table), max abs err "
+                f"{berr:.3g} (tol {ROI_BWD_REL} of the scale), bitwise over "
+                f"two calls; ROIs a table tile max {most}, mean {mean:.1f}")
             fwd["sites"][what] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
                                       bound_by=by, max_abs_err=err)
             bwd["sites"][what] = dict(ms=bms_k, plain_ms=bpms,
                                       bound_ms=bbms, bound_by=bby,
+                                      bound_f32_table_ms=fbms,
                                       max_abs_err=berr)
             for row, e in ((fwd, err), (bwd, berr)):
                 row["max_abs_err"] = max(row["max_abs_err"], e)
@@ -4358,12 +4433,17 @@ def roi_align_kernel_phase(dev, report):
                                   (bwd, (bms_k, bpms, bbms))):
                     for key, v in zip(("ms", "plain_ms", "bound_ms"), vals):
                         row[key] += v
+                bwd["bound_f32_table_ms"] += fbms
             del grad, bargs
         torch.cuda.empty_cache()
     for row in (fwd, bwd):
         row["bound_by"] = max(
             (v for k, v in row["sites"].items() if "bfloat16" in k),
             key=lambda v: v["bound_ms"])["bound_by"]
+    log(f"  the bf16 AOT step's three sites: forward {fwd['ms']:.4f} ms "
+        f"device (bound {fwd['bound_ms']:.4f}), backward {bwd['ms']:.4f} ms "
+        f"(bound {bwd['bound_ms']:.4f} with the table in its dtype, "
+        f"{bwd['bound_f32_table_ms']:.4f} with an f32 table)")
     for site, args in roi_inference_sites(g, dev).items():
         what = f"inference {site} bfloat16"
         err = check_roi_align(args, what)
@@ -6383,7 +6463,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
              "ms_small", "decode_fps_720p", "nvdec",
-             "launches_by_path", "shapes", "step_sites")
+             "launches_by_path", "shapes", "step_sites",
+             "bound_f32_table_ms")
     kernels = [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                for r in report.values()]
     log(f"total {time.perf_counter() - t_start:.1f} s; DLA-34 "

@@ -27,7 +27,16 @@ then the bf16 DLA-34 frames' gap to the JAX step's bf16 rows
 (``ops/deform_conv.py:deform_conv2d_bwd``): at phase 2d's stage shapes
 (batch 1; stride 2, stride 1 in and out of the window; bf16 and f32) and
 at the 26 deformable layers of a DLA-102-DCN training step (4 x 736x1280
-bf16, seeded inputs), each split by kernel, and the step's sum.  Each is
+bf16, seeded inputs), each split by kernel, and the step's sum.
+``--only roi_align`` times the exact gather pooler's two kernels
+(``ops/cuda/roi_align.cu``) at phase 11a's sites: the AOT step's three
+training sites (1024 ROIs each over four 2464x2048 frames' levels, bf16
+and f32; the forward, and the backward on a seeded upstream gradient,
+bitwise over two calls) and the 720p inference sites (bf16, 37 of 128
+slots live), with the bf16 step's sums, then the same training sites in
+bf16 with the ROIs piled up: each frame's 256 box-head ROIs and 256
+track pairs around one object, as a step samples them around a few.
+Each is
 checked against its plain version and timed with ``chip_smoke.py``'s two
 timers:
 ``device_ms`` (a CUDA graph of the calls, replayed between events) and
@@ -54,9 +63,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=REPO,
                     help="directory holding the siammot_tpu_torch to time")
-    ap.add_argument("--only", choices=("predictor", "deform_bwd"),
-                    help="time kernels 3 and 8 (and the bf16 gap), or "
-                    "kernel 9's backward, alone")
+    ap.add_argument("--only", choices=("predictor", "deform_bwd",
+                                       "roi_align"),
+                    help="time kernels 3 and 8 (and the bf16 gap), kernel "
+                    "9's backward or the gather pooler's kernels alone")
     args_ = ap.parse_args()
     root = os.path.abspath(args_.root)
     sys.path.insert(0, root)
@@ -99,6 +109,8 @@ def main():
 
     if args_.only == "deform_bwd":
         deform_bwd_kernels(cs, dev, record)
+    elif args_.only == "roi_align":
+        roi_align_kernels(cs, dev, record)
     else:
         if args_.only != "predictor":
             other_kernels(cs, dev, record)
@@ -169,6 +181,91 @@ def deform_bwd_kernels(cs, dev, record):
         del x, off, k, gr
     cs.log(f"  deform_bwd, the training step's 26 layers: {step:.4f} ms "
            "device")
+
+
+def roi_align_kernels(cs, dev, record):
+    """The gather pooler's forward and backward at phase 11a's sites (its
+    seeds), each checked against its plain version, then the bf16 AOT
+    step's sums over its three sites and the inference frame's; then the
+    bf16 training sites with the ROIs piled up (:func:`piled_boxes`) and
+    their sums."""
+    import torch
+    from siammot_tpu_torch.ops.roi_align import roi_align_fwd
+    g = torch.Generator().manual_seed(11)
+    gc = torch.Generator(device=dev).manual_seed(11)
+    step = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        sites, layout = cs.roi_training_sites(g, gc, dev, dtype)
+        roi_training_kernels(cs, dev, record, sites, layout, gc, "training",
+                             step if dtype == torch.bfloat16 else {})
+        del sites
+        torch.cuda.empty_cache()
+    for site, args in cs.roi_inference_sites(g, dev).items():
+        what = f"inference {site} bfloat16"
+        step["frame"] = step.get("frame", 0.0) + record(
+            f"roi_align_fwd {what}", lambda: roi_align_fwd(*args),
+            cs.check_roi_align(args, what))[0]
+    cs.log(f"  gather pooler, the bf16 AOT step's three sites: forward "
+           f"{step['fwd']:.4f} ms, backward {step['bwd']:.4f} ms device; "
+           f"the inference frame's three: forward {step['frame']:.4f} ms")
+    g = torch.Generator().manual_seed(12)
+    gc = torch.Generator(device=dev).manual_seed(12)
+    piled = {}
+    sites, layout = cs.roi_training_sites(g, gc, dev, torch.bfloat16,
+                                          piled_boxes(cs, g))
+    roi_training_kernels(cs, dev, record, sites, layout, gc, "piled", piled)
+    cs.log(f"  gather pooler, the bf16 AOT step's three sites piled up: "
+           f"forward {piled['fwd']:.4f} ms, backward {piled['bwd']:.4f} ms "
+           "device")
+
+
+def roi_training_kernels(cs, dev, record, sites, layout, gc, kind, step):
+    """The gather forward and backward (on a seeded upstream gradient) at
+    each of ``sites``, checked and timed, the backward's longest tile list
+    logged; their device ms summed into ``step``."""
+    import torch
+    from siammot_tpu_torch.ops.roi_align import roi_align_bwd, roi_align_fwd
+    for site, args in sites.items():
+        dtype = args[0].dtype
+        what = f"{kind} {site} {str(dtype).split('.')[-1]}"
+        fms = record(f"roi_align_fwd {what}", lambda: roi_align_fwd(*args),
+                     cs.check_roi_align(args, what), iters=5)[0]
+        out = roi_align_fwd(*args)
+        grad = torch.randn(out.shape, generator=gc, device=dev,
+                           dtype=torch.float32).to(dtype)
+        del out
+        bargs = cs.roi_bwd_args(args, grad, layout)
+        bms = record(f"roi_align_bwd {what}", lambda: roi_align_bwd(*bargs),
+                     cs.check_roi_align_bwd(bargs, f"{what} backward"),
+                     iters=5)[0]
+        most, mean = cs.roi_tile_counts(bargs)
+        cs.log(f"    ROIs a table tile: max {most}, mean {mean:.1f}")
+        step["fwd"] = step.get("fwd", 0.0) + fms
+        step["bwd"] = step.get("bwd", 0.0) + bms
+        del grad, bargs
+
+
+def piled_boxes(cs, g):
+    """(box-head ROIs, template boxes), 1024 each, piled up as a training
+    step samples them around a few objects: one object a frame (60-150 x
+    120-300 px, seeded, inside the AOT frame), and each frame's 256
+    templates and 256 proposals around it, their centres moved and their
+    sides scaled by N(0, 0.05^2) (templates) and N(0, 0.2^2) (proposals)
+    of its size."""
+    import torch
+    per = cs.N_TRAIN // 4
+    sz = torch.tensor([60.0, 120.0]) + torch.tensor([90.0, 180.0]) \
+        * torch.rand(4, 2, generator=g)
+    ctr = sz / 2 + torch.rand(4, 2, generator=g) * (
+        torch.tensor(cs.AOT_FRAME, dtype=torch.float32) - sz)
+    ctr, sz = ctr.repeat_interleave(per, 0), sz.repeat_interleave(per, 0)
+
+    def around(jitter):
+        c = ctr + jitter * sz * torch.randn(ctr.shape, generator=g)
+        s = sz * torch.exp(jitter * torch.randn(sz.shape, generator=g))
+        return torch.cat([c - s / 2, c + s / 2], 1)
+
+    return around(0.2), around(0.05)
 
 
 def predictor_kernels(cs, dev, record):

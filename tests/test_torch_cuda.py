@@ -15,10 +15,13 @@ unmasked xcorr's three passes at the training shapes in every dtype mix
 and at other widths, the window pool at each site's size and window with
 every kind of ``valid``, the masked xcorr with 0, 1, 37 and 128 of 128
 slots live at 16x16, 61x61 and two generic widths, the pool's table
-gradient at the three training sites and under a crowded tile), small
-elsewhere. Kernel 2's live slots must equal kernel 6's output bit for
-bit, kernels 3, 7 and 8 must give the same bits from launch to launch,
-and kernel 8 kernel 3's bits.
+gradient at the three training sites and under a crowded tile, the
+gather pooler at each site's size with hundreds of ROIs on one spot),
+small elsewhere. Kernel 2's live slots must equal kernel 6's output bit
+for bit, kernels 3, 7 and 8 and the gather pooler's backward must give
+the same bits from launch to launch, kernel 8 kernel 3's bits, the
+gather backward its ordered plain form's (``roi_align_bwd_ordered``) and
+the gather forward its first version's (digests).
 Tolerances as in ``chip_smoke.py``: pool/xcorr f32 sums in another order
 (1e-4 + 1e-3|x|), predictor logits 3e-2 in bf16 (tower rounding) and
 1e-4 in f32, decode idx exact and scores 1e-5, deformable conv 2e-5 of
@@ -1138,10 +1141,11 @@ def test_roi_align_kernel_sites(dev, o, pad, dtype, live, c):
 @pytest.mark.parametrize("o,pad", [(7, 0), (35, 256)])
 @pytest.mark.parametrize("dtype", [_F32, _BF16])
 def test_roi_align_bwd_kernel(dev, o, pad, dtype):
-    """The gather pooler's backward (atomic f32 adds) against its plain
-    version within 1e-4 of the gradient's scale, and the autograd
-    Function's gradient in the maps against autograd through the plain
-    forward in f32."""
+    """The gather pooler's backward (a gather in a fixed order, no
+    atomics) against its plain version: its f32 sums within 1e-4 of the
+    gradient's scale, its output in the table's dtype those sums rounded
+    bit for bit; and the autograd Function's gradient in the maps against
+    autograd through the plain forward in f32."""
     from siammot_tpu_torch.ops.roi_align import (roi_align_bwd,
                                                  roi_align_bwd_plain,
                                                  roi_align_plain,
@@ -1151,15 +1155,221 @@ def test_roi_align_bwd_kernel(dev, o, pad, dtype):
     table = _roi_table(g, dev, dtype, 128)
     args = _roi_args(g, table, n, o, pad, None)
     up = torch.randn(n, o, o, 128, generator=g).to(dev, dtype)
-    bargs = (up, *args[1:4], tuple(table.table.shape), o, 2)
+    bargs = (up, *args[1:4], tuple(table.table.shape), o, 2, table.layout)
     got = roi_align_bwd(*bargs)
-    want = roi_align_bwd_plain(*bargs)
-    torch.testing.assert_close(got, want, rtol=0,
+    got32 = roi_align_bwd(*bargs, dtype=_F32)
+    want = roi_align_bwd_plain(*bargs[:7])
+    assert got.dtype == dtype
+    assert torch.equal(got, got32.to(dtype))
+    torch.testing.assert_close(got32, want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
     if dtype == _F32:
         t = table.table.clone().requires_grad_(True)
-        roi_align_rows(t, *args[1:6]).backward(up)
+        roi_align_rows(t, *args[1:6], None, table.layout).backward(up)
         t2 = table.table.clone().requires_grad_(True)
         roi_align_plain(t2, *args[1:6]).backward(up)
         torch.testing.assert_close(t.grad, t2.grad, rtol=0,
                                    atol=1e-4 * float(t2.grad.abs().max()))
+
+
+@pytest.mark.parametrize("o,pad", [(7, 0), (15, 0), (35, 256)])
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("c", [128, 20])
+def test_roi_align_bwd_kernel_in_its_order(dev, o, pad, dtype, c):
+    """The backward bitwise its plain form summed in the kernel's order
+    (``roi_align_bwd_ordered``: ROIs in order, then each ROI's bins and
+    their samples), in the table's dtype, the same bits from call to
+    call; the 16-byte and the scalar (C = 20) routes."""
+    from siammot_tpu_torch.ops.roi_align import (roi_align_bwd,
+                                                 roi_align_bwd_ordered)
+    g = torch.Generator().manual_seed(o * 3 + pad + c)
+    n = 24
+    table = _roi_table(g, dev, dtype, c)
+    args = _roi_args(g, table, n, o, pad, None)
+    up = torch.randn(n, o, o, c, generator=g).to(dev, dtype)
+    bargs = (up, *args[1:4], tuple(table.table.shape), o, 2, table.layout)
+    got = roi_align_bwd(*bargs)
+    assert got.dtype == dtype
+    assert torch.equal(got, roi_align_bwd(*bargs))
+    assert torch.equal(got, roi_align_bwd_ordered(*bargs))
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_roi_align_bwd_kernel_writes_every_row(dev, dtype):
+    """Every element of the table gradient is written: after a NaN-filled
+    block of the gradient's size is freed (the caching allocator hands it
+    back), the rows no ROI reaches are exactly 0 and nothing is NaN."""
+    from siammot_tpu_torch.ops.roi_align import (roi_align_bwd,
+                                                 roi_align_bwd_plain)
+    g = torch.Generator().manual_seed(3)
+    n, o = 16, 7
+    table = _roi_table(g, dev, dtype, 128)
+    args = _roi_args(g, table, n, o, 0, None)
+    up = torch.randn(n, o, o, 128, generator=g).to(dev, dtype)
+    bargs = (up, *args[1:4], tuple(table.table.shape), o, 2, table.layout)
+    want = roi_align_bwd_plain(*bargs[:7])
+    nan = torch.full(tuple(table.table.shape), float("nan"), dtype=dtype,
+                     device=dev)
+    ptr = nan.data_ptr()
+    del nan
+    got = roi_align_bwd(*bargs)
+    assert got.data_ptr() == ptr
+    assert not torch.isnan(got).any()
+    untouched = (want == 0).all(1)
+    assert untouched.sum() > table.table.shape[0] // 2
+    assert (got[untouched] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("o,pad", [(7, 0), (35, 256)])
+def test_roi_align_bwd_kernel_piled_up(dev, dtype, o, pad):
+    """Hundreds of ROIs on one spot (as a training step's pairs pile up
+    around a few objects): the backward's f32 sums within 1e-4 of the
+    plain gradient's scale, two calls bitwise alike and bitwise the
+    ordered form (its long lists cut into chunks)."""
+    from siammot_tpu_torch.ops.roi_align import (roi_align_bwd,
+                                                 roi_align_bwd_ordered,
+                                                 roi_align_bwd_plain)
+    g = torch.Generator().manual_seed(o + 1)
+    n = 600
+    table = _roi_table(g, dev, dtype, 128, images=1)
+    centre = torch.tensor([150.0, 90.0, 190.0, 130.0]) + pad
+    rois = (centre + 6 * torch.randn(n, 4, generator=g)).to(dev)
+    levels = torch.zeros(n, dtype=torch.int32, device=dev)
+    geom, scale = table.geometry(None, levels, pad)
+    up = torch.randn(n, o, o, 128, generator=g).to(dev, dtype)
+    bargs = (up, rois, geom, scale, tuple(table.table.shape), o, 2,
+             table.layout)
+    got = roi_align_bwd(*bargs)
+    assert torch.equal(got, roi_align_bwd(*bargs))
+    got32 = roi_align_bwd(*bargs, dtype=_F32)
+    assert torch.equal(got, got32.to(dtype))
+    want = roi_align_bwd_plain(*bargs[:7])
+    torch.testing.assert_close(got32, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(got, roi_align_bwd_ordered(*bargs))
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("q", [32, 64, None])
+def test_roi_align_bwd_kernel_long_lists_in_chunks(dev, dtype, q,
+                                                   monkeypatch):
+    """Long tile lists cut into chunks of 32 or 64 ROIs (as many partial
+    slots as that takes), or not cut (no slots): bitwise the ordered form
+    with the same slots, the same bits from call to call, the f32 sums
+    within 1e-4 of the plain gradient's scale."""
+    import siammot_tpu_torch.ops.roi_align as ra
+    g = torch.Generator().manual_seed(77)
+    n, o = 300, 7
+    table = _roi_table(g, dev, dtype, 128, images=1)
+    rois = (torch.tensor([150.0, 90.0, 190.0, 130.0])
+            + 6 * torch.randn(n, 4, generator=g)).to(dev)
+    levels = torch.zeros(n, dtype=torch.int32, device=dev)
+    geom, scale = table.geometry(None, levels, 0)
+    up = torch.randn(n, o, o, 128, generator=g).to(dev, dtype)
+    bargs = (up, rois, geom, scale, tuple(table.table.shape), o, 2,
+             table.layout)
+    on, _ = ra.bwd_tile_lists(*bargs[1:4], o, 2, table.layout)
+    lengths = on.sum(1)
+    parts = 0 if q is None else int(sum(-(-int(m) // q) for m in lengths
+                                        if m > q))
+    if q is not None:
+        assert parts > 0 and ra.bwd_chunk_size(lengths, parts) == q
+    monkeypatch.setattr(ra, "BWD_PARTS", parts)
+    got = ra.roi_align_bwd(*bargs)
+    assert torch.equal(got, ra.roi_align_bwd(*bargs))
+    assert torch.equal(got, ra.roi_align_bwd_ordered(*bargs))
+    got32 = ra.roi_align_bwd(*bargs, dtype=_F32)
+    want = ra.roi_align_bwd_plain(*bargs[:7])
+    torch.testing.assert_close(got32, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_roi_align_kernel_past_the_staged_shared_memory(dev, dtype):
+    """64 x 64 outputs at a sampling ratio of 4: the staged forward's
+    block would pass the 227 KB a block may hold, so the call takes the
+    unstaged kernel; against the plain version as at every site."""
+    from siammot_tpu_torch.ops.roi_align import roi_align_fwd, roi_align_plain
+    g = torch.Generator().manual_seed(64)
+    args = _roi_args(g, _roi_table(g, dev, dtype, 128), 6, 64, 0, None)
+    args = args[:5] + (4, None)
+    got = roi_align_fwd(*args)
+    want = roi_align_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_ROI_ATOL[dtype]
+                               * float(want.float().abs().max()))
+
+
+def test_roi_align_bwd_kernel_at_its_most_rois(dev):
+    """``BWD_MAX_ROIS`` ROIs (a tile's list fills the shared memory a
+    block may opt in to) launch and match the plain version; one more is
+    the wrapper's ValueError."""
+    from siammot_tpu_torch.ops.roi_align import (BWD_MAX_ROIS, roi_align_bwd,
+                                                 roi_align_bwd_plain)
+    g = torch.Generator().manual_seed(5)
+    n, o = BWD_MAX_ROIS, 2
+    table = _roi_table(g, dev, _F32, 4, images=1)
+    xy = torch.rand(n, 2, generator=g) * 300
+    rois = torch.cat([xy, xy + 8 + 8 * torch.rand(n, 2, generator=g)],
+                     1).to(dev)
+    levels = torch.zeros(n, dtype=torch.int32, device=dev)
+    geom, scale = table.geometry(None, levels, 0)
+    up = torch.randn(n, o, o, 4, generator=g).to(dev)
+    bargs = (up, rois, geom, scale, tuple(table.table.shape), o, 2,
+             table.layout)
+    got = roi_align_bwd(*bargs)
+    want = roi_align_bwd_plain(*bargs[:7])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    more = (torch.cat([up, up[:1]]), torch.cat([rois, rois[:1]]),
+            torch.cat([geom, geom[:1]]), torch.cat([scale, scale[:1]]))
+    with pytest.raises(ValueError, match="ROIs"):
+        roi_align_bwd(*more, *bargs[4:])
+
+
+def roi_fwd_digest(dev, o, pad, dtype, c):
+    """The gather forward's output bits on a seeded case at one site's
+    size and pad (48 ROIs, some dead): sha256 of the bytes, 16 hex
+    digits."""
+    import hashlib
+    from siammot_tpu_torch.ops.roi_align import roi_align_fwd
+    g = torch.Generator().manual_seed(1000 + o * 7 + pad + c)
+    n = 48
+    valid = torch.rand(n, generator=g) < 0.6
+    args = _roi_args(g, _roi_table(g, dev, dtype, c), n, o, pad, valid)
+    out = roi_align_fwd(*args).contiguous().cpu()
+    if dtype == _BF16:
+        out = out.view(torch.int16)
+    return hashlib.sha256(out.numpy().tobytes()).hexdigest()[:16]
+
+
+# the forward's bits at each site as the kernel's first version (a thread
+# an output column, its corners loaded from global memory) gave them:
+# (o, pad, dtype, C) -> roi_fwd_digest
+_ROI_FWD_DIGESTS = {
+    (7, 0, _F32, 128): "086a87e2a79b03e2",
+    (7, 0, _F32, 20): "bf628ffa0c7ffac6",
+    (7, 0, _BF16, 128): "31815b037a33fb61",
+    (7, 0, _BF16, 20): "7715ff2ad72979bd",
+    (15, 0, _F32, 128): "53f2395458491163",
+    (15, 0, _F32, 20): "b61cc16242ae82c4",
+    (15, 0, _BF16, 128): "30ccf8fbc7f5fc69",
+    (15, 0, _BF16, 20): "f73889528c51a1eb",
+    (30, 512, _F32, 128): "4cf96984a94fdc8b",
+    (30, 512, _F32, 20): "86401236a7131b94",
+    (30, 512, _BF16, 128): "80283ef2f85dcd2d",
+    (30, 512, _BF16, 20): "c55bc096be76f4d2",
+    (35, 256, _F32, 128): "b80dc98d07c03d92",
+    (35, 256, _F32, 20): "a0b82e42ff763f96",
+    (35, 256, _BF16, 128): "a831587af87f088a",
+    (35, 256, _BF16, 20): "4cd4003a61ed72da",
+}
+
+
+@pytest.mark.parametrize("key", sorted(_ROI_FWD_DIGESTS, key=str))
+def test_roi_align_kernel_digest(dev, key):
+    """The forward's output bit for bit the first version's at each
+    site's size and pad, both dtypes and routes."""
+    o, pad, dtype, c = key
+    assert roi_fwd_digest(dev, o, pad, dtype, c) == _ROI_FWD_DIGESTS[key]
