@@ -7,8 +7,10 @@ Phases, each printed as it finishes:
   0. the card (nvidia-smi name and power limit) and the torch/CUDA build;
   1. the build of every CUDA kernel from ``siammot_tpu_torch/ops/cuda``,
      the warpgroup MMA (HGMMA) instructions in the bf16 tower conv's
-     (kernels 3 and 8) and deformable conv's machine code (each must have
-     some; kernel 8's former FFMA tower and head pass must be gone), and the
+     (kernels 3 and 8) and deformable conv's machine code and the warp
+     MMA (HMMA) ones in kernel 6's template gradient's (each must have
+     some; kernel 8's former FFMA tower and head pass and kernel 6's
+     banded template-gradient fallback must be gone), and the
      decode's per-cell math as it runs: the FP32-pipe and MUFU (ex2, rcp)
      instructions of one cell_value() in ``decode_cell_probe``'s machine
      code, which the decode's bound counts (beside the earlier 30 flops a
@@ -222,9 +224,10 @@ Phases, each printed as it finishes:
      rendered at 2448x2048 and written by nvJPEG, from the bench weights,
      4 steps: losses finite, every weight moved, 3 gather forward and 3
      backward launches and one of each xcorr pass a step, each kernel
-     checked on the last step, s/it, peak memory and the kernel that
-     computes kernel 6's template gradient (by its launch rule) and its
-     device ms;
+     checked on the last step, s/it, peak memory, and kernel 6's
+     template gradient (the tensor-core kernel) on the last step's inputs:
+     device ms beside ``F.conv2d`` and the bytes bound, a second launch
+     bitwise the first;
      (11c) ``TPU.POOLER_WINDOWED`` False at 720p beside the windowed route
      in the same run, then the AOT recipe with the gather pooler on three
      2448x2048 frames; (11d) ``TPU.USE_PALLAS`` and ``DECODE_PALLAS``
@@ -805,17 +808,23 @@ def decode_bound(x4, u, window, n_decoded):
 
 # -- phases ------------------------------------------------------------------
 
-WGMMA_KERNELS = ("tower_conv_wgmma", "deform_wgmma")
+# the tensor-core kernels and their MMA instruction: warpgroup (HGMMA) for
+# the bf16 tower conv and deformable conv, warp-level (HMMA) for kernel
+# 6's template gradient
+MMA_KERNELS = {"tower_conv_wgmma": "HGMMA", "deform_wgmma": "HGMMA",
+               "xcorr_grad_template_mma": "HMMA"}
 # kernel 8's FFMA tower and the per-slot head pass, replaced by kernel 3's
-# kernels and heads_band
-GONE_KERNELS = ("tower_conv_blocked", "heads_tiled")
+# kernels and heads_band; kernel 6's banded template-gradient fallback,
+# replaced by xcorr_grad_template_mma
+GONE_KERNELS = ("tower_conv_blocked", "heads_tiled", "xcorr_band_kernel")
 
 
 def wgmma_instructions(cuda_lib):
-    """HGMMA instructions in each bf16 kernel's machine code (cuobjdump
-    -sass of the built library; ``tower_conv_wgmma`` runs the bf16 towers
-    of kernels 3 and 8); raises if one has none, or if a kernel of
-    ``GONE_KERNELS`` is still built."""
+    """MMA instructions in each tensor-core kernel's machine code
+    (cuobjdump -sass of the built library; ``tower_conv_wgmma`` runs the
+    bf16 towers of kernels 3 and 8): HGMMA or HMMA by ``MMA_KERNELS``;
+    raises if one has none, or if a kernel of ``GONE_KERNELS`` is still
+    built."""
     nvcc = cuda_lib._nvcc()
     out = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
                           "-sass", cuda_lib.library()._name],
@@ -828,12 +837,13 @@ def wgmma_instructions(cuda_lib):
             gone = [k for k in GONE_KERNELS if k in line]
             if gone:
                 raise AssertionError(f"{gone} is still in the library")
-            name = next((k for k in WGMMA_KERNELS if k in line), None)
-        elif name and "HGMMA" in line:
+            name = next((k for k in MMA_KERNELS if k in line), None)
+        elif name and MMA_KERNELS[name] in line:
             counts[name] = counts.get(name, 0) + 1
-    missing = [k for k in WGMMA_KERNELS if not counts.get(k)]
+    missing = [k for k in MMA_KERNELS if not counts.get(k)]
     if missing:
-        raise AssertionError(f"no HGMMA in the machine code of {missing}")
+        raise AssertionError(f"no MMA instruction in the machine code of "
+                             f"{missing}")
     return counts
 
 
@@ -857,6 +867,10 @@ KERNELS = {
                        replaces="siammot_tpu/ops/pallas/decode.py:174"),
     "xcorr": dict(source="siammot_tpu_torch/ops/cuda/xcorr.cu",
                   replaces="siammot_tpu/ops/pallas/xcorr.py:80"),
+    # its template gradient (the VJP's first call) on the tensor cores
+    "xcorr_grad_template": dict(
+        source="siammot_tpu_torch/ops/cuda/xcorr_grad.cu",
+        replaces="siammot_tpu/ops/pallas/xcorr.py:80"),
     "window_pool_bwd": dict(
         source="siammot_tpu_torch/ops/cuda/window_pool_bwd.cu",
         replaces="siammot_tpu/ops/pallas/window_pool.py:200"),
@@ -1326,16 +1340,50 @@ def close_scaled(kernel, plain, what):
     return err, rel
 
 
+def run_pass(fn, args):
+    """One of kernel 6's passes, ``fn(*args)``, and the report entry of the
+    kernel that ran it, read off the counters: ``xcorr_grad_template``
+    where the template gradient's tensor-core kernel launched, else
+    ``xcorr`` (``xcorr6_kernel``)."""
+    from siammot_tpu_torch.ops import xcorr as xc
+    before = xc._grad_template_mma.launches
+    out = fn(*args)
+    return out, ("xcorr_grad_template"
+                 if xc._grad_template_mma.launches != before else "xcorr")
+
+
+def template_grad_bound(search, grad):
+    """Kernel 6's template gradient: its inputs read and its f32 output
+    written once, its multiply-adds at the tensor cores' bf16 rate."""
+    k, hs, ws, c = search.shape
+    _, hg, wg, _ = grad.shape
+    ht, wt = hs - hg + 1, ws - wg + 1
+    nbytes = (search.numel() * search.element_size()
+              + grad.numel() * grad.element_size() + k * ht * wt * c * 4)
+    return bound(nbytes, 2.0 * k * c * ht * wt * hg * wg, BF16_TC_FLOPS)
+
+
 def xcorr_passes():
-    """(name, kernel wrapper, plain version) of kernel 6's three passes."""
+    """(name, kernel wrapper, plain version, yardstick) of kernel 6's three
+    passes.  Each is held to its plain version but the template gradient,
+    held to the exact correlation rounded once
+    (``ops/xcorr.py:xcorr_depthwise_exact``): its tensor-core kernel's sums
+    are near exact, where the plain version's f32 sums in JAX's order
+    stray past POOL_ATOL on their own near zero over SEARCH_REGION 5's
+    3721 taps (``tests/test_torch_xcorr_grad.py::
+    test_plain_f32_sums_against_the_exact_correlation``)."""
     from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
+                                             xcorr_depthwise_exact,
                                              xcorr_depthwise_plain,
                                              xcorr_grad_search,
                                              xcorr_grad_search_plain,
                                              xcorr_grad_template)
-    return (("forward", xcorr_depthwise, xcorr_depthwise_plain),
-            ("grad_template", xcorr_grad_template, xcorr_depthwise_plain),
-            ("grad_search", xcorr_grad_search, xcorr_grad_search_plain))
+    return (("forward", xcorr_depthwise, xcorr_depthwise_plain,
+             xcorr_depthwise_plain),
+            ("grad_template", xcorr_grad_template, xcorr_depthwise_plain,
+             xcorr_depthwise_exact),
+            ("grad_search", xcorr_grad_search, xcorr_grad_search_plain,
+             xcorr_grad_search_plain))
 
 
 def check_xcorr_autograd(search, template, grad, what, scaled=False):
@@ -1447,13 +1495,13 @@ def train_kernel_phase(dev, report, wide_sr=True):
     in_bytes = {"forward": (900 + 225) * C * 4, "grad_template":
                 (900 + 256) * C * 4, "grad_search": (256 + 225) * C * 4}
     out_elems = {"forward": 256, "grad_template": 225, "grad_search": 900}
-    xc = report["xcorr"]
-    xc.update(ms=0.0, host_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-              library_ms=0.0, max_abs_err=0.0, passes={})
-    for name, fn, plain in xcorr_passes():
+    report["xcorr"].update(ms=0.0, host_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                           library_ms=0.0, max_abs_err=0.0, passes={})
+    for name, fn, plain, yardstick in xcorr_passes():
         args = inputs[name]
-        k_out = fn(*args)
-        p_out = plain(*args)
+        k_out, row = run_pass(fn, args)
+        xc = report[row]
+        p_out = yardstick(*args)
         torch.cuda.synchronize()
         err, rel = close(k_out, p_out, POOL_ATOL, POOL_RTOL,
                          f"xcorr {name}")
@@ -1476,9 +1524,10 @@ def train_kernel_phase(dev, report, wide_sr=True):
                        ("library_ms", lms), ("bound_ms", bms)):
             xc[key] += v
         xc["max_abs_err"] = max(xc["max_abs_err"], err)
-    xc["bound_by"] = "operations"
+    report["xcorr"]["bound_by"] = "operations"
     err = check_xcorr_autograd(search, tmpl, up, "xcorr autograd")
-    xc["max_abs_err"] = max(xc["max_abs_err"], err)
+    report["xcorr"]["max_abs_err"] = max(report["xcorr"]["max_abs_err"], err)
+    default_template_grad(search, up, report)
     log(f"  xcorr autograd Function against autograd through the plain "
         f"version: max abs err {err:.3g}")
     del search, tmpl, up, s_nchw, t_w, up_nchw, up_w, inputs
@@ -1553,17 +1602,42 @@ def train_kernel_phase(dev, report, wide_sr=True):
                           key=lambda v: v["bound_ms"])["bound_by"]
 
 
+def default_template_grad(search, up, report):
+    """The template gradient's tensor-core kernel at the default training
+    shape (30x30 search, 16x16 g), which routes to xcorr6_kernel: both
+    kernels' device ms in one run, the route's reason, and the tensor-core
+    kernel against the exact correlation (:func:`xcorr_passes`)."""
+    from siammot_tpu_torch.ops.xcorr import (_grad_template_mma,
+                                             xcorr_depthwise_exact)
+    args = (search, up)
+    err, _ = close(_grad_template_mma(*args), xcorr_depthwise_exact(*args),
+                   POOL_ATOL, POOL_RTOL, "xcorr grad_template tensor cores")
+    ms = device_ms(lambda: _grad_template_mma(*args), iters=10)
+    bms, by = template_grad_bound(*args)
+    routed = report["xcorr"]["passes"]["grad_template"]["ms"]
+    log(f"  xcorr grad_template at the default shape on the tensor cores "
+        f"(not its route): {ms:.4f} ms device against xcorr6_kernel's "
+        f"{routed:.4f}, bound {bms:.4f} ms ({by}), max abs err {err:.3g}")
+    report["xcorr_grad_template"].setdefault("shapes", {})[
+        f"default 30x30, g 16x16 f32 N={search.shape[0]} (routed to "
+        f"xcorr6_kernel)"] = dict(ms=ms, xcorr6_ms=routed, bound_ms=bms,
+                                  bound_by=by, max_abs_err=err)
+
+
 N_WIDE = 256    # pairs of the SEARCH_REGION 5 shape check (a step has 1024)
 
 
 def wide_sr_xcorr_passes(dev, report, g):
     """Kernel 6's three passes at SEARCH_REGION 5's 75x75 x 15x15 ->
     61x61 (f32, N_WIDE pairs): the forward (four 16-wide segments a row),
-    the template gradient (61x61 taps: the banded fallback kernel) and the
-    search gradient (75x75 output in bands of 32 rows and 16-wide column
-    segments), each against its plain version, timed on the device."""
+    the template gradient (61x61 taps: the tensor-core kernel, its bound
+    the bytes, beside ``F.conv2d``; a second launch bitwise the first) and
+    the search gradient (75x75 output in bands of 32 rows and 16-wide
+    column segments), each against its yardstick (:func:`xcorr_passes`),
+    timed on the device."""
     import torch.nn.functional as F
     n = N_WIDE
+    from siammot_tpu_torch.ops.xcorr import _grad_template_mma
     search = torch.randn(n, 75, 75, C, generator=g).to(dev)
     tmpl = (0.1 * torch.randn(n, 15, 15, C, generator=g)).to(dev)
     up = torch.randn(n, 61, 61, C, generator=g).to(dev)
@@ -1583,26 +1657,31 @@ def wide_sr_xcorr_passes(dev, report, g):
                 "grad_search": 3721 + 225}
     out_elems = {"forward": 3721, "grad_template": 225, "grad_search": 5625}
     passes = {}
-    for name, fn, plain in xcorr_passes():
+    _grad_template_mma.launches = 0
+    for name, fn, plain, yardstick in xcorr_passes():
         args = inputs[name]
-        k_out = fn(*args)
-        p_out = plain(*args)
+        k_out, row = run_pass(fn, args)
+        p_out = yardstick(*args)
         torch.cuda.synchronize()
         if k_out.shape != p_out.shape:
             raise AssertionError(f"xcorr {name} 75x75: shape "
                                  f"{tuple(k_out.shape)}")
         err, rel = close(k_out, p_out, POOL_ATOL, POOL_RTOL,
                          f"xcorr {name} 75x75")
+        if name == "grad_template" and not torch.equal(k_out, fn(*args)):
+            raise AssertionError("xcorr grad_template 75x75: a second "
+                                 "launch gave other bits")
         del k_out, p_out
         ms = device_ms(lambda: fn(*args), iters=3, warmup=1)
         pms = timed_ms(lambda: plain(*args), iters=1, warmup=0)
         lms = timed_ms(library[name], iters=3, warmup=1)
-        bms, by = bound(n * (in_elems[name] + out_elems[name]) * C * 4,
-                        2.0 * macs, F32_FLOPS)
+        bms, by = (template_grad_bound(*args) if name == "grad_template"
+                   else bound(n * (in_elems[name] + out_elems[name]) * C * 4,
+                              2.0 * macs, F32_FLOPS))
         passes[name] = dict(ms=ms, plain_ms=pms, library_ms=lms,
                             bound_ms=bms, bound_by=by, max_abs_err=err)
-        report["xcorr"]["max_abs_err"] = max(report["xcorr"]["max_abs_err"],
-                                             err)
+        entry = report[row]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
         log(f"  xcorr {name} 75x75 x 15x15 -> 61x61 (SEARCH_REGION 5), "
             f"N={n} f32: kernel {ms:.4f} ms device, plain {pms:.4f} ms, "
             f"library {lms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
@@ -1610,6 +1689,17 @@ def wide_sr_xcorr_passes(dev, report, g):
             f"{POOL_RTOL}|x|)")
     report["xcorr"].setdefault("shapes", {})[
         f"75x75 x 15x15 -> 61x61 f32 N={n} (SEARCH_REGION 5)"] = passes
+    tg = report["xcorr_grad_template"]
+    tg.update({k: passes["grad_template"][k] for k in
+               ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    tg["max_abs_err"] = max(tg["max_abs_err"],
+                            passes["grad_template"]["max_abs_err"])
+    tg.setdefault("shapes", {})[
+        f"75x75 search, 61x61 g -> 15x15 f32 N={n} (SEARCH_REGION 5)"] = \
+        passes["grad_template"]
+    log(f"  xcorr_grad_template_mma (the tensor-core kernel): "
+        f"{_grad_template_mma.launches} launches in this check (not on a "
+        f"main path)")
 
 
 @contextlib.contextmanager
@@ -1652,7 +1742,7 @@ def train_kernel_capture(steps):
                (ra_mod, "roi_align_bwd",
                 capture("roi_align_bwd", ra_mod.roi_align_bwd, 3))]
     patches += [(xc_mod, fn.__name__, capture(name, fn, 1))
-                for name, fn, _ in passes]
+                for name, fn, _, _ in passes]
     originals = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, f in patches:
         setattr(m, n, f)
@@ -1664,7 +1754,11 @@ def train_kernel_capture(steps):
                 "roi_align": ra_mod.roi_align_fwd,
                 "roi_align_bwd": ra_mod.roi_align_bwd,
                 **{name: getattr(xc_mod, fn.__name__)
-                   for name, fn, _ in passes}}
+                   for name, fn, _, _ in passes}}
+    # the kernels inside kernel 6's wrappers: xcorr6_kernel (its
+    # unmasked launches) and the template gradient's tensor-core kernel
+    counters["xcorr6"] = xc_mod._launch
+    counters["grad_template_mma"] = xc_mod._grad_template_mma
     launches = {}
     try:
         for fn in counters.values():
@@ -1683,13 +1777,20 @@ def tensor_bits(t):
             float(t.sum(dtype=torch.float64)))
 
 
+# the default shape's template gradient (16-wide g) runs xcorr6_kernel;
+# "xcorr6" counts xcorr6_kernel's launches in kernel 6's three wrappers,
+# "grad_template_mma" the template gradient's tensor-core kernel's
 TRAIN_PER_STEP = {"window_pool": 3, "window_pool_bwd": 3, "forward": 1,
                   "grad_template": 1, "grad_search": 1, "roi_align": 0,
-                  "roi_align_bwd": 0}
-# the gather pooler's step (TPU.TRAIN_POOLER_WINDOWED False): its forward
-# and backward at the three sites in place of kernels 1 and 7
+                  "roi_align_bwd": 0, "xcorr6": 3, "grad_template_mma": 0}
+# SEARCH_REGION 5 (4b): the template gradient on the tensor cores
+WIDE_PER_STEP = TRAIN_PER_STEP | {"xcorr6": 2, "grad_template_mma": 1}
+# the AOT recipe's step (11b): the gather pooler (TPU.TRAIN_POOLER_WINDOWED
+# False), its forward and backward at the three sites in place of kernels
+# 1 and 7, and SEARCH_REGION 5 with template 7 (the tensor-core kernel)
 GATHER_PER_STEP = TRAIN_PER_STEP | {"window_pool": 0, "window_pool_bwd": 0,
-                                    "roi_align": 3, "roi_align_bwd": 3}
+                                    "roi_align": 3, "roi_align_bwd": 3,
+                                    "xcorr6": 2, "grad_template_mma": 1}
 
 
 def count_train_launches(launches, steps, report, path,
@@ -1707,13 +1808,15 @@ def count_train_launches(launches, steps, report, path,
                         ("window_pool_bwd", launches["window_pool_bwd"]),
                         ("roi_align", launches["roi_align"]),
                         ("roi_align_bwd", launches["roi_align_bwd"]),
-                        ("xcorr", sum(launches[n] for n, _, _ in passes))):
+                        ("xcorr", launches["xcorr6"]),
+                        ("xcorr_grad_template",
+                         launches["grad_template_mma"])):
         if not count:
             continue
         by_path = report[name].setdefault("launches_by_path", {})
         by_path[path] = by_path.get(path, 0) + count
         report[name]["launches"] += count
-    for name, _, _ in passes:
+    for name, _, _, _ in passes:
         row = report["xcorr"].setdefault("passes", {}).setdefault(name, {})
         row["launches"] = row.get("launches", 0) + launches[name]
 
@@ -1807,17 +1910,17 @@ def check_train_kernels(captured, report, path):
         report["roi_align"]["max_abs_err"] = max(
             report["roi_align"]["max_abs_err"], err)
     check_gather_bwd_step(captured, report, path)
-    for name, fn, plain in passes:
+    for name, fn, _, yardstick in passes:
         args = captured[name][0]
-        k = fn(*args)
-        p = plain(*args)
+        k, row = run_pass(fn, args)
+        p = yardstick(*args)
         torch.cuda.synchronize()
         err, rel = close_scaled(k, p, f"step xcorr {name}")
         log(f"    step xcorr {name}: inputs "
             f"{[(tuple(a.shape), str(a.dtype)) for a in args]}, max |plain| "
             f"{float(p.detach().abs().max()):.3g}, max abs err {err:.3g}")
-        report["xcorr"]["max_abs_err"] = max(report["xcorr"]["max_abs_err"],
-                                             err)
+        entry = report[row]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
     s_, t_ = captured["forward"][0]
     check_xcorr_autograd(s_, t_, captured["grad_search"][0][0],
                          "step xcorr autograd", scaled=True)
@@ -1826,7 +1929,8 @@ def check_train_kernels(captured, report, path):
 
 
 def train_phase(dev, report, card, path="training", overrides=(),
-                warmup=TRAIN_WARMUP, timed=TRAIN_TIMED):
+                warmup=TRAIN_WARMUP, timed=TRAIN_TIMED,
+                per_step=TRAIN_PER_STEP):
     """A training path end to end at full width: phase 4 (the default
     configuration, ``warmup`` + ``timed`` steps) and phase 4b (``overrides``
     ``SEARCH_REGION`` 5: a 75x75 search region, kernel 6's passes at 75
@@ -1873,7 +1977,7 @@ def train_phase(dev, report, card, path="training", overrides=(),
     for i, m in enumerate(metrics):
         if len(m) != 8 or not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"step {i + 1}: losses {m}")
-    count_train_launches(launches, steps, report, path)
+    count_train_launches(launches, steps, report, path, per_step)
 
     sec = np.array(log_.step_seconds[warmup:])
     first, last = metrics[0], metrics[-1]
@@ -4496,27 +4600,29 @@ def aot_dataset(dev, root):
     return len(rows)
 
 
-def template_grad_route(args):
-    """Which kernel computes kernel 6's template gradient on ``args`` (the
-    search and ``g``): the banded fallback (``xcorr_band_kernel``) or
-    ``xcorr6_kernel``, by the kernel's own launch rule
-    (``siammot_xcorr_takes_band``), with its device ms."""
-    from siammot_tpu_torch.ops import cuda as cuda_lib
+def template_grad_report(args):
+    """Kernel 6's template gradient on ``args`` (the search and ``g`` a
+    step gave it): the tensor-core kernel's device ms beside ``F.conv2d``
+    (f32, groups = K*C) on the same inputs and the bytes bound; a second
+    launch must give the same bits."""
+    import torch.nn.functional as F
+
     from siammot_tpu_torch.ops.xcorr import xcorr_grad_template
-    rule = cuda_lib.function("siammot_xcorr_takes_band", (cuda_lib.I,) * 8)
     s_, g_ = args
-    dtypes = (int(s_.dtype == torch.bfloat16),
-              int(g_.dtype == torch.bfloat16))
-    band = rule(*dtypes, s_.shape[0], *s_.shape[1:3], *g_.shape[1:3],
-                s_.shape[3])
-    # the rule's yardstick: SEARCH_REGION 5's 75x75 search with a 61x61 g
-    # is the shape known to take the fallback (phase 4b)
-    wide = rule(*dtypes, s_.shape[0], 75, 75, 61, 61, s_.shape[3])
-    if band < 0 or wide != 1:
-        raise AssertionError(f"11b: the launch rule gives {band} here, "
-                             f"{wide} at 75x75 with 61x61 taps")
+    k, hs, ws, c = s_.shape
+    hg, wg = g_.shape[1:3]
+    if not torch.equal(xcorr_grad_template(*args),
+                       xcorr_grad_template(*args)):
+        raise AssertionError("11b: the template gradient's second launch "
+                             "gave other bits")
     ms = device_ms(lambda: xcorr_grad_template(*args), iters=3)
-    return ("banded fallback" if band else "xcorr6_kernel"), ms
+    s_nchw = s_.float().permute(0, 3, 1, 2).reshape(1, k * c, hs, ws)
+    g_w = g_.float().permute(0, 3, 1, 2).reshape(k * c, 1, hg, wg)
+    lms = timed_ms(lambda: F.conv2d(s_nchw, g_w, groups=k * c), iters=3,
+                   warmup=1)
+    bms, by = template_grad_bound(*args)
+    return dict(route="xcorr_grad_template_mma (mma.sync on bf16 terms)",
+                route_ms=ms, library_ms=lms, bound_ms=bms, bound_by=by)
 
 
 def aot_train_net_phase(dev, report, card):
@@ -4527,7 +4633,8 @@ def aot_train_net_phase(dev, report, card):
     step's losses finite, every trained weight moved, per step exactly 3
     gather forward and 3 backward launches and one of each xcorr pass
     (kernels 1 and 7: none), each kernel checked on the last step; s/it,
-    peak memory, and the route of kernel 6's template gradient."""
+    peak memory, and kernel 6's template gradient on the last step's
+    inputs (:func:`template_grad_report`)."""
     from siammot_tpu_torch.engine.tensorboard_writer import read_events
     from siammot_tpu_torch.models.siammot import SiamMOT
     from siammot_tpu_torch.configs.defaults import get_cfg
@@ -4583,7 +4690,7 @@ def aot_train_net_phase(dev, report, card):
     still = [n for n in names if torch.equal(final[n], init[n])]
     if any(not n.endswith("bias") for n in still):
         raise AssertionError(f"11b: weights that did not move: {still}")
-    route, route_ms = template_grad_route(captured["grad_template"][0])
+    tg = template_grad_report(captured["grad_template"][0])
     sec = np.array(tlog.step_seconds[1:])
     log(f"  11b: {AOT_TRAIN_ITERS} steps in {wall:.1f} s wall: "
         f"{sec.mean():.4f} s/it over the last {len(sec)} (median "
@@ -4597,11 +4704,18 @@ def aot_train_net_phase(dev, report, card):
                     f"{steps[AOT_TRAIN_ITERS][k]:.4f}"
                     for k in sorted(steps[1])))
     s_, g_ = captured["grad_template"][0]
-    log(f"  11b: kernel 6's template gradient (search {tuple(s_.shape)}, "
-        f"g {tuple(g_.shape)}) takes {route}: {route_ms:.4f} ms device")
+    log(f"  11b: kernel 6's template gradient (search {tuple(s_.shape)} "
+        f"{s_.dtype}, g {tuple(g_.shape)} {g_.dtype}): {tg['route']}, "
+        f"{tg['route_ms']:.4f} ms device, F.conv2d {tg['library_ms']:.4f} "
+        f"ms, bound {tg['bound_ms']:.4f} ms ({tg['bound_by']}); a second "
+        f"launch bitwise the first")
+    report["xcorr_grad_template"].setdefault("shapes", {})[
+        f"11b step {tuple(s_.shape)} {str(s_.dtype)[6:]} x "
+        f"{tuple(g_.shape)} {str(g_.dtype)[6:]}"] = dict(
+            ms=tg["route_ms"], library_ms=tg["library_ms"],
+            bound_ms=tg["bound_ms"], bound_by=tg["bound_by"])
     check_train_kernels(captured, report, "aot_train_net")
-    return dict(s_it=float(sec.mean()), peak=peak, route=route,
-                route_ms=route_ms)
+    return dict(s_it=float(sec.mean()), peak=peak, **tg)
 
 
 def gather_inference_phase(dev, report, card, frames):
@@ -4736,7 +4850,7 @@ NCCL_RTOL = 1e-3
 # 7.3e-3 and 0.47 (12b).
 UPDATE_SPREAD, UPDATE_FLOOR = 4.0, 1e-3
 TRAIN_KERNEL_ROWS = ("window_pool", "window_pool_bwd", "roi_align",
-                     "roi_align_bwd", "xcorr")
+                     "roi_align_bwd", "xcorr", "xcorr_grad_template")
 
 
 def ddp_rank(argv):
@@ -6320,8 +6434,7 @@ def main():
     log(f"[1] built and loaded the CUDA kernels and nvdec.cu in "
         f"{time.perf_counter() - t0:.1f} s")
     hgmma = wgmma_instructions(cuda_lib)
-    log(f"  warpgroup MMA (HGMMA) instructions in the machine code: "
-        f"{hgmma}")
+    log(f"  MMA instructions in the machine code (HGMMA, HMMA): {hgmma}")
     CELL.update(cell_instructions(cuda_lib))
     log(f"  the decode's cell_value() in the machine code: {CELL['fp32']} "
         f"FP32-pipe and {CELL['mufu']} MUFU instructions of {CELL['all']} "
@@ -6386,7 +6499,7 @@ def main():
     ms_wide, _, peak_wide = train_phase(
         dev, report, card, path="wide_sr_training",
         overrides=("MODEL.TRACK_HEAD.SEARCH_REGION", 5.0),
-        warmup=WIDE_WARMUP, timed=WIDE_TIMED)
+        warmup=WIDE_WARMUP, timed=WIDE_TIMED, per_step=WIDE_PER_STEP)
     log(f"[4b] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

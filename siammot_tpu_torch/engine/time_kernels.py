@@ -36,6 +36,20 @@ bitwise over two calls) and the 720p inference sites (bf16, 37 of 128
 slots live), with the bf16 step's sums, then the same training sites in
 bf16 with the ROIs piled up: each frame's 256 box-head ROIs and 256
 track pairs around one object, as a step samples them around a few.
+``--only xcorr_grad`` times kernel 6's template gradient
+(``ops/xcorr.py:xcorr_grad_template``) at the default training shape (30x30
+search, 16x16 upstream gradient, N = 1024, bf16 and f32 search), the AOT
+recipe's (35x35 with 29x29, N = 1024, bf16 search), SEARCH_REGION 5's
+(75x75 with 61x61, N = 256, f32 and bf16 search), its training step's
+(N = 1024, bf16 search) and POOLER_RESOLUTION 20's (40x40 with 21x21,
+a 20x20 output, N = 1024, bf16 search), the gradient f32 throughout,
+each beside ``F.conv2d`` (f32, groups = N*C) and its bound; the routed
+kernel, JAX's f32 order and the exact correlation against one another
+at 35/29 and 75/61 on the card test's inputs; then the AOT recipe's
+other two kernel-6 passes, the forward (35x35 by 7x7) and the search
+gradient (29x29 with 7x7), bf16 as its step runs them.  At the default
+shape, whose route is ``xcorr6_kernel``, the tensor-core kernel is timed
+beside it.
 Each is
 checked against its plain version and timed with ``chip_smoke.py``'s two
 timers:
@@ -64,9 +78,10 @@ def main():
     ap.add_argument("--root", default=REPO,
                     help="directory holding the siammot_tpu_torch to time")
     ap.add_argument("--only", choices=("predictor", "deform_bwd",
-                                       "roi_align"),
+                                       "roi_align", "xcorr_grad"),
                     help="time kernels 3 and 8 (and the bf16 gap), kernel "
-                    "9's backward or the gather pooler's kernels alone")
+                    "9's backward, the gather pooler's kernels or kernel "
+                    "6's template gradient alone")
     args_ = ap.parse_args()
     root = os.path.abspath(args_.root)
     sys.path.insert(0, root)
@@ -111,11 +126,120 @@ def main():
         deform_bwd_kernels(cs, dev, record)
     elif args_.only == "roi_align":
         roi_align_kernels(cs, dev, record)
+    elif args_.only == "xcorr_grad":
+        xcorr_grad_kernels(cs, dev, record)
     else:
         if args_.only != "predictor":
             other_kernels(cs, dev, record)
         predictor_kernels(cs, dev, record)
     print("RESULT " + json.dumps(out), flush=True)
+
+
+def xcorr_grad_kernels(cs, dev, record):
+    """Kernel 6's template gradient at the training shapes, each beside
+    ``F.conv2d`` and its bound (:func:`chip_smoke.template_grad_bound`),
+    and held to the exact correlation (a tree without
+    ``xcorr_depthwise_exact``: to its plain version); its accuracy
+    readings (:func:`template_grad_accuracy`); then the AOT recipe's
+    forward and search gradient beside theirs."""
+    import torch
+    import torch.nn.functional as F
+    import siammot_tpu_torch.ops.xcorr as xc
+    from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
+                                             xcorr_depthwise_plain,
+                                             xcorr_grad_search,
+                                             xcorr_grad_search_plain,
+                                             xcorr_grad_template)
+    exact = getattr(xc, "xcorr_depthwise_exact", xcorr_depthwise_plain)
+    g = torch.Generator().manual_seed(9)
+    c = cs.C
+    bf, f32 = torch.bfloat16, torch.float32
+    for what, n, hs, hg, sdt in (("default", 1024, 30, 16, bf),
+                                 ("default", 1024, 30, 16, f32),
+                                 ("AOT", 1024, 35, 29, bf),
+                                 ("SEARCH_REGION 5", 256, 75, 61, f32),
+                                 ("SEARCH_REGION 5", 256, 75, 61, bf),
+                                 ("SEARCH_REGION 5 step", 1024, 75, 61, bf),
+                                 ("POOLER_RESOLUTION 20", 1024, 40, 21, bf)):
+        s = torch.randn(n, hs, hs, c, generator=g).to(dev, sdt)
+        up = torch.randn(n, hg, hg, c, generator=g).to(dev)
+        err = cs.close(xcorr_grad_template(s, up), exact(s, up),
+                       cs.POOL_ATOL, cs.POOL_RTOL, f"grad_template {what}")[0]
+        torch.cuda.empty_cache()
+        ms = record(f"xcorr grad_template {what} {hs}x{hs} g {hg}x{hg} "
+                    f"N={n} {str(sdt)[6:]}", lambda: xcorr_grad_template(
+                        s, up), err, iters=5)[0]
+        s_nchw = s.float().permute(0, 3, 1, 2).reshape(1, n * c, hs, hs)
+        g_w = up.permute(0, 3, 1, 2).reshape(n * c, 1, hg, hg)
+        lms = cs.timed_ms(lambda: F.conv2d(s_nchw, g_w, groups=n * c),
+                          iters=5, warmup=1)
+        bms, by = cs.template_grad_bound(s, up)
+        cs.log(f"    F.conv2d {lms:.4f} ms; bound {bms:.4f} ms ({by}); "
+               f"kernel {ms / bms:.2f}x its bound")
+        if hg == 16 and hasattr(xc, "_grad_template_mma"):
+            # the default shape routes to xcorr6_kernel: the tensor-core
+            # kernel beside it in the same call
+            err = cs.close(xc._grad_template_mma(s, up), exact(s, up),
+                           cs.POOL_ATOL, cs.POOL_RTOL,
+                           f"grad_template mma {what}")[0]
+            record(f"xcorr grad_template {what} on the tensor cores (not "
+                   f"routed) N={n} {str(sdt)[6:]}",
+                   lambda: xc._grad_template_mma(s, up), err, iters=5)
+        del s, up, s_nchw, g_w
+        torch.cuda.empty_cache()
+    if exact is not xcorr_depthwise_plain:
+        template_grad_accuracy(cs, dev, exact)
+    # the AOT recipe's other two passes: search and template bf16, the
+    # upstream gradient f32
+    n = 1024
+    s = torch.randn(n, 35, 35, c, generator=g).to(dev, bf)
+    t = (0.1 * torch.randn(n, 7, 7, c, generator=g)).to(dev, bf)
+    up = torch.randn(n, 29, 29, c, generator=g).to(dev)
+    macs = n * 29 * 29 * 7 * 7 * c
+    for name, fn, plain, args, nbytes in (
+            ("forward", xcorr_depthwise, xcorr_depthwise_plain, (s, t),
+             n * c * ((35 * 35 + 49) * 2 + 29 * 29 * 4)),
+            ("grad_search", xcorr_grad_search, xcorr_grad_search_plain,
+             (up, t), n * c * (29 * 29 * 4 + 49 * 2 + 35 * 35 * 4))):
+        err = cs.close(fn(*args), plain(*args), cs.POOL_ATOL, cs.POOL_RTOL,
+                       f"AOT {name}")[0]
+        ms = record(f"xcorr {name} AOT N={n} bfloat16", lambda: fn(*args),
+                    err, iters=5)[0]
+        bms, by = cs.bound(nbytes, 2.0 * macs, cs.F32_FLOPS)
+        cs.log(f"    bound {bms:.4f} ms ({by}); kernel {ms / bms:.2f}x its "
+               "bound")
+
+
+def template_grad_accuracy(cs, dev, exact):
+    """The template gradient as routed (``xcorr_grad_template``), the
+    plain version's f32 sums in JAX's order and the exact correlation
+    (``exact``), pairwise, on the inputs of ``tests/test_torch_cuda.py::
+    test_xcorr_grad_template_kernel`` (3 slots, 128 channels, N(0, 1), the
+    gradient f32, the search bf16 or f32) at the AOT recipe's 35/29 and
+    SEARCH_REGION 5's 75/61: the largest difference, the largest ratio
+    of the difference to the card tests' tolerance (atol 1e-4 + rtol 1e-3
+    of the second of the pair; past 1, ``assert_close`` fails) and the
+    elements past it."""
+    import torch
+    from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise_plain,
+                                             xcorr_grad_template)
+    k, c = 3, 128
+    for hs, hg in ((35, 29), (75, 61)):
+        for sdt in (torch.bfloat16, torch.float32):
+            g = torch.Generator().manual_seed(hs * hs + hg + c + k)
+            s = torch.randn(k, hs, hs, c, generator=g).to(dev, sdt)
+            up = torch.randn(k, hg, hg, c, generator=g).to(dev)
+            got = {"kernel": xcorr_grad_template(s, up),
+                   "JAX-order f32": xcorr_depthwise_plain(s, up),
+                   "exact": exact(s, up)}
+            for a, b in (("kernel", "JAX-order f32"), ("kernel", "exact"),
+                         ("JAX-order f32", "exact")):
+                d = (got[a].double() - got[b].double()).abs()
+                r = d / (cs.POOL_ATOL + cs.POOL_RTOL * got[b].double().abs())
+                cs.log(f"  accuracy {hs}/{hg} search {str(sdt)[6:]}: {a} "
+                       f"against {b}: max abs diff {float(d.max()):.4g}, "
+                       f"{float(r.max()):.4f} of the tolerance, "
+                       f"{int((r > 1).sum())} elements past it")
 
 
 def deform_bwd_kernels(cs, dev, record):

@@ -9,7 +9,14 @@
 
 #define SIAMMOT_API extern "C" __attribute__((visibility("default")))
 
-// dtype codes passed from Python: 0 = float32, 1 = bfloat16
+// dtype codes passed from Python: 0 = float32, 1 = bfloat16; FN<T0, T1>
+// for the codes of two inputs
+#define SIAMMOT_DISPATCH2(d0, d1, FN, ...)                              \
+  ((d0) == 1 ? ((d1) == 1 ? FN<__nv_bfloat16, __nv_bfloat16>(__VA_ARGS__) \
+                          : FN<__nv_bfloat16, float>(__VA_ARGS__))        \
+             : ((d1) == 1 ? FN<float, __nv_bfloat16>(__VA_ARGS__)         \
+                          : FN<float, float>(__VA_ARGS__)))
+
 __device__ __forceinline__ float load_f32(const float* p, size_t i) {
   return p[i];
 }

@@ -17,10 +17,13 @@
 // each, in every kernel of this file, so kernels 2 and 6 give the same
 // bits for a live slot.
 //
-// Bound on the H100: operations on the CUDA cores.  The op is depthwise
-// (no channel mixing), so it has no tensor-core form without extra work:
-// Ho*Wo*Ht*Wt fmas per channel against a few hundred kilobytes per slot
-// (7.55 G fmas a pass at the training shapes, 0.225 ms at 67 TFLOP/s).
+// Bound on the H100: operations on the CUDA cores.  Ho*Wo*Ht*Wt fmas per
+// channel against a few hundred kilobytes per slot (7.55 G fmas a pass at
+// the training shapes, 0.225 ms at 67 TFLOP/s).  The template gradient,
+// whose taps (g) are wider than its output, runs as per-row matrix
+// products on the tensor cores instead (xcorr_grad.cu), but for the
+// default training shape's 16-wide g, where this file's compile-time
+// form ran faster.
 //
 // Kernels 2 and 6 run one kernel, xcorr6_kernel, built to run near the
 // fma rate:
@@ -58,101 +61,9 @@
 //   ``valid``, no host sync), so the live items spread evenly over the
 //   blocks and the dead ones come last; a dead item reads nothing (its
 //   prefetch issues no copy) and writes its rows of zeros.
-// Templates too large for two stages in shared memory (a template
-// gradient over a wide search region, 61x61 taps) take the one other
-// kernel of this file, xcorr_band_kernel: one block per (slot, tile of 32
-// channels, band of 8 output rows), both inputs staged as f32 a template
-// row at a time, one shared-memory load per fma.  It is kept for that
-// fallback alone.
 #include <algorithm>
 
 #include "common.cuh"
-
-// -- the fallback for oversized taps ---------------------------------------
-constexpr int CT = 32;      // channels per block
-constexpr int BAND = 8;     // output rows per block
-constexpr int WO_BAND_MAX = 64;
-
-template <typename TS, typename TT>
-__device__ __forceinline__ void stage(const TS* s_g, const TT* t_g,
-                                      float* s_s, float* t_s, int ns,
-                                      int nt, int C, int c0) {
-  for (int e = threadIdx.x; e < ns * CT; e += blockDim.x) {
-    const int cc = e % CT, p = e / CT;
-    s_s[e] = c0 + cc < C ? load_f32(s_g, (size_t)p * C + c0 + cc) : 0.f;
-  }
-  for (int e = threadIdx.x; e < nt * CT; e += blockDim.x) {
-    const int cc = e % CT, p = e / CT;
-    t_s[e] = c0 + cc < C ? load_f32(t_g, (size_t)p * C + c0 + cc) : 0.f;
-  }
-}
-
-// block (slot, channel tile, band of BAND output rows); valid may be null
-template <typename TS, typename TT>
-__global__ void __launch_bounds__(BAND * CT)
-    xcorr_band_kernel(const TS* __restrict__ search,
-                      const TT* __restrict__ tmpl,
-                      const uint8_t* __restrict__ valid,
-                      float* __restrict__ out, int hs, int ws, int ht, int wt,
-                      int C) {
-  const int k = blockIdx.x;
-  const int c0 = blockIdx.y * CT;
-  const int y0 = blockIdx.z * BAND;
-  const int ho = hs - ht + 1, wo = ws - wt + 1;
-  const int c = threadIdx.x % CT;
-  const int r = threadIdx.x / CT;
-  const int oy = y0 + r;
-  const bool has_c = c0 + c < C, has_row = oy < ho;
-  float* out_row = out + (((size_t)k * ho + oy) * wo) * C + c0 + c;
-  if (valid != nullptr && !valid[k]) {
-    if (has_c && has_row)
-      for (int ox = 0; ox < wo; ++ox) out_row[(size_t)ox * C] = 0.f;
-    return;
-  }
-  extern __shared__ float smem[];
-  float* s_s = smem;                  // [BAND * ws][CT]: rows y0 + i ..
-  float* t_s = smem + BAND * ws * CT; // [wt][CT]: template row i
-  const TS* sk = search + (size_t)k * hs * ws * C;
-  const TT* tk = tmpl + (size_t)k * ht * wt * C;
-  float acc[WO_BAND_MAX];
-#pragma unroll
-  for (int ox = 0; ox < WO_BAND_MAX; ++ox) acc[ox] = 0.f;
-  for (int i = 0; i < ht; ++i) {
-    __syncthreads();  // previous row consumed
-    const int rows = min(BAND, hs - (y0 + i));
-    stage(sk + (size_t)(y0 + i) * ws * C, tk + (size_t)i * wt * C, s_s, t_s,
-          rows * ws, wt, C, c0);
-    __syncthreads();
-    if (!has_row) continue;
-    for (int j = 0; j < wt; ++j) {
-      const float t = t_s[j * CT + c];
-      const float* srow = s_s + (r * ws + j) * CT + c;
-#pragma unroll
-      for (int ox = 0; ox < WO_BAND_MAX; ++ox)
-        if (ox < wo) acc[ox] = fmaf(srow[ox * CT], t, acc[ox]);
-    }
-  }
-  if (has_c && has_row) {
-#pragma unroll
-    for (int ox = 0; ox < WO_BAND_MAX; ++ox)
-      if (ox < wo) out_row[(size_t)ox * C] = acc[ox];
-  }
-}
-
-template <typename TS, typename TT>
-static int launch_band(const void* search, const void* tmpl,
-                       const uint8_t* valid, float* out, int K, int hs,
-                       int ws, int ht, int wt, int C, cudaStream_t stream) {
-  const int ho = hs - ht + 1, wo = ws - wt + 1;
-  if (ho < 1 || wo < 1 || wo > WO_BAND_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(BAND * ws + wt) * CT * sizeof(float);
-  cudaError_t err = set_smem(xcorr_band_kernel<TS, TT>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(K, (C + CT - 1) / CT, (ho + BAND - 1) / BAND);
-  xcorr_band_kernel<TS, TT><<<grid, BAND * CT, smem, stream>>>(
-      (const TS*)search, (const TT*)tmpl, valid, out, hs, ws, ht, wt, C);
-  return (int)cudaGetLastError();
-}
 
 // -- kernels 2 and 6 -------------------------------------------------------
 namespace k6 {
@@ -486,18 +397,15 @@ static int launch(const void* a, const void* b, const uint8_t* valid,
   return (int)cudaGetLastError();
 }
 
-// mode XCORR: a the search, b the taps (the template, or g for the
-// template gradient), valid null or [K] (kernel 2); mode FULL: the search
-// gradient, a = g, b the template, valid null, in bands of `band_rows`
-// output rows (all of them: one band) and `segments` column segments.
-// With `takes_band`, nothing is launched: it is set to 1 where the taps
-// would take the banded fallback, else 0.
+// mode XCORR: a the search, b the template, valid null or [K] (kernel
+// 2); mode FULL: the search gradient, a = g, b the template, valid null,
+// in bands of `band_rows` output rows (all of them: one band) and
+// `segments` column segments.
 template <typename TA, typename TB>
 static int launch6(int mode, const void* a, const void* b,
                    const uint8_t* valid, float* out, int K, int ha, int wa,
                    int hb, int wb, int C, cudaStream_t stream,
-                   int band_rows = 0, int segments = 1,
-                   int* takes_band = nullptr) {
+                   int band_rows = 0, int segments = 1) {
   constexpr int TILE = sizeof(TA) == 2 && sizeof(TB) == 2 ? 16 : 8;
   constexpr int CAP = MAX_THREADS / TILE;  // row threads a block at most
   Shape sh{};
@@ -556,21 +464,8 @@ static int launch6(int mode, const void* a, const void* b,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  if (smem > (size_t)optin) {
-    // taps too large for two stages: the banded fallback (the full
-    // convolution's plan keeps its bands inside the limit)
-    if (mode == FULL) return (int)cudaErrorInvalidValue;
-    if (takes_band) {
-      *takes_band = 1;
-      return 0;
-    }
-    return launch_band<TA, TB>(a, b, valid, out, K, ha, wa, hb, wb, C,
-                               stream);
-  }
-  if (takes_band) {
-    *takes_band = 0;
-    return 0;
-  }
+  // the full convolution's plan keeps its bands inside the limit
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   if (mode == XCORR) {
     if (seg == 16)  // a 15-wide template: the forward, kernel 2
       return launch<XCORR, TILE, 16, 15, TA, TB>(a, b, valid, out, sh, smem,
@@ -594,13 +489,6 @@ static int launch6(int mode, const void* a, const void* b,
 }
 
 }  // namespace k6
-
-// dtype codes: 0 = float32, 1 = bfloat16, one per input
-#define SIAMMOT_DISPATCH2(d0, d1, FN, ...)                              \
-  ((d0) == 1 ? ((d1) == 1 ? FN<__nv_bfloat16, __nv_bfloat16>(__VA_ARGS__) \
-                          : FN<__nv_bfloat16, float>(__VA_ARGS__))        \
-             : ((d1) == 1 ? FN<float, __nv_bfloat16>(__VA_ARGS__)         \
-                          : FN<float, float>(__VA_ARGS__)))
 
 // Kernel 2: the masked xcorr (inference), one dtype for both inputs.
 SIAMMOT_API int siammot_xcorr_masked(const void* search, const void* tmpl,
@@ -639,20 +527,6 @@ SIAMMOT_API int siammot_xcorr_grad_search(const void* grad, int grad_dtype,
   return SIAMMOT_DISPATCH2(grad_dtype, tmpl_dtype, k6::launch6, k6::FULL,
                            grad, tmpl, nullptr, out, K, hg, wg, ht, wt, C,
                            (cudaStream_t)stream, band_rows, segments);
-}
-
-// Whether the unmasked xcorr of [K, hs, ws, C] with [K, ht, wt, C] taps
-// (the template gradient: the search with g) takes the banded fallback
-// kernel: 1, or xcorr6_kernel: 0; a negative CUDA error for shapes the
-// kernel refuses.  Launches nothing.
-SIAMMOT_API int siammot_xcorr_takes_band(int search_dtype, int tmpl_dtype,
-                                         int K, int hs, int ws, int ht,
-                                         int wt, int C) {
-  int band = 0;
-  const int err = SIAMMOT_DISPATCH2(
-      search_dtype, tmpl_dtype, k6::launch6, k6::XCORR, nullptr, nullptr,
-      nullptr, nullptr, K, hs, ws, ht, wt, C, (cudaStream_t)0, 0, 1, &band);
-  return err ? -err : band;
 }
 
 // Shared memory a block of the current device may opt in to, bytes.

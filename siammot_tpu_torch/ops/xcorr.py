@@ -11,9 +11,9 @@ and the two calls its custom VJP makes (``_xcorr_bwd``):
 of ``g`` with the template.  Per slot, ``[Hs, Ws, C] * [Ht, Wt, C] ->
 [Ho, Wo, C]`` f32, accumulated i-major; masked dead slots write zeros.
 
-On the H100 the op is bound by operations on the CUDA cores (it is
-depthwise, so there is no tensor-core form).  Kernels 2 and 6 run one CUDA
-kernel (``cuda/xcorr.cu:xcorr6_kernel``): a persistent grid over (slot,
+On the H100 kernels 2 and 6's xcorr and search gradient are bound by
+operations on the CUDA cores and run one CUDA kernel
+(``cuda/xcorr.cu:xcorr6_kernel``): a persistent grid over (slot,
 channel tile, band of output rows) items that stages the next item's
 inputs in their own dtype with ``cp.async`` while the current one
 computes; each thread streams its search (or ``g``) rows through the
@@ -28,10 +28,15 @@ bitwise kernel 6's.  The search gradient skips the taps that fall outside
 output rows, each staging only the rows of ``g`` it meets, and column
 segments, of 16 outputs for a 15-wide template (``g`` streamed through the
 template row in registers) and of at most 64 otherwise
-(:func:`grad_search_plan`).  Taps too large
-for two shared-memory stages (a template gradient over a 75x75 search
-region) take a banded fallback kernel, one shared-memory load per
-multiply-add.
+(:func:`grad_search_plan`).  The template gradient, whose taps (``g``) are
+wider than its output, runs on the tensor cores
+(``cuda/xcorr_grad.cu:xcorr_grad_template_mma``): per search row a small
+matrix product of shifted rows of ``g`` with a Hankel matrix of the row,
+``mma.sync`` on bf16 terms that hold the f32 inputs exactly, in
+compensated sums (:func:`grad_template_plan`), held on the card to the
+exact correlation (:func:`xcorr_depthwise_exact`); at
+the default training shape's 16-wide ``g`` ``xcorr6_kernel``'s
+compile-time form (15 outputs a segment) stays, being the faster there.
 """
 
 from __future__ import annotations
@@ -47,9 +52,15 @@ _ARGS_MASKED = (cuda.P, cuda.P, cuda.I, cuda.P, cuda.P, cuda.I, cuda.I,
 _ARGS = (cuda.P, cuda.I, cuda.P, cuda.I, cuda.P, cuda.I, cuda.I, cuda.I,
          cuda.I, cuda.I, cuda.I, cuda.P)
 _ARGS_GRAD_SEARCH = _ARGS[:-1] + (cuda.I, cuda.I, cuda.P)
+_ARGS_GRAD_TEMPLATE = _ARGS[:-1] + (cuda.I, cuda.P)
 _DTYPES = (torch.float32, torch.bfloat16)
 W_GEN = 64          # outputs a thread accumulates, generic widths
 MAX_THREADS = 256   # threads a block of the xcorr kernel at most
+GT_TILE = 8         # channels an item of the template gradient, a warp each
+# the upstream gradient's width whose template gradient keeps
+# xcorr6_kernel's compile-time form (the default training shape), which
+# ran faster there than the tensor-core kernel
+XCORR6_GRAD_WIDTH = 16
 
 
 def _check(what, a, b, valid=None):
@@ -69,18 +80,16 @@ def _check(what, a, b, valid=None):
     return k, c
 
 
-def _out_fits(what, ho, wo, w_max=32):
+def _out_fits(what, ho, wo, w_max):
     """Kernels 2 and 6's xcorr take outputs of any height, up to 64 wide
     (``w_max`` 64) or of any width for a 15- or 16-wide template, whose
     rows run in compile-time segments (``w_max`` None: SEARCH_REGION 5.5's
-    68-wide response); the template gradient is held to 32x32."""
+    68-wide response)."""
     if w_max is None:
         w_max = wo
-    if not (1 <= ho and 1 <= wo <= w_max) or (w_max == 32 and ho > 32):
-        limit = f"up to {w_max} wide" + (" and 32 high" if w_max == 32
-                                          else "")
-        raise ValueError(f"{what} kernel takes outputs {limit}, got "
-                         f"{ho}x{wo}")
+    if not (1 <= ho and 1 <= wo <= w_max):
+        raise ValueError(f"{what} kernel takes outputs up to {w_max} wide, "
+                         f"got {ho}x{wo}")
 
 
 def _xcorr_width(template) -> int | None:
@@ -134,6 +143,59 @@ def grad_search_plan(hg: int, wg: int, ht: int, wt: int, g_size: int,
         f"bytes of shared memory a block may use")
 
 
+def grad_template_plan(hs: int, ws: int, hg: int, wg: int, s_size: int,
+                       g_size: int, smem_limit: int) -> tuple:
+    """(n-tiles, row blocks, search rows an A tile serves, search rows a
+    band, shared-memory bytes) of the template gradient's kernel for a
+    ``[hs, ws]`` search of ``s_size``-byte elements and a ``[hg, wg]``
+    upstream gradient of ``g_size``-byte ones: ``cuda/xcorr_grad.cu:
+    geometry``'s layout.  Its output is up to 32 wide (one, two or four
+    n8 tiles) and of any height, cut into row blocks of equal height of
+    at most 16 (one m16 tile), each over its own ``hb + hg - 1`` search
+    rows; an A tile of 16 rows of ``g`` serves ``p = min(4 / n-tiles, 17
+    - hb)`` search rows.  The band is the tallest multiple of ``p`` (at
+    most a block's every search row) whose ring of ``g`` rows, split
+    planes and raw buffer fit two blocks an SM, else one; raises with the
+    limit where a band of ``p`` rows does not fit or the output is past
+    32 wide."""
+    ht, wt = hs - hg + 1, ws - wg + 1
+    if not (ht >= 1 and 1 <= wt <= 32 and hg >= 1 and wg >= 1):
+        raise ValueError(f"xcorr_grad_template kernel takes outputs up to "
+                         f"32 wide, got {ht}x{wt}")
+    blocks = -(-ht // 16)
+    hb = -(-ht // blocks)
+    nt = 1 if wt <= 8 else 2 if wt <= 16 else 4
+    p = min(4 // nt, 17 - hb)
+    ks = -(-wg // 16)
+    rb = 32 * (ks if ks <= 2 else -(-ks // 4) * 4)
+    key_div = 8 // min(rb // 16, 8)
+    srow = -(-2 * max(ws + 1, 8 * (2 * ks + nt - 2) + 16) // 16) * 16
+    tg, ts = (3 if g_size == 4 else 1), (3 if s_size == 4 else 1)
+
+    def smem(br):
+        ring = -(-(br + 16 - p) // key_div) * key_div
+        copy = br * srow
+        copy += (64 - copy % 128) % 128
+        s_bytes = max(ts * GT_TILE * (2 * copy + 16),
+                      hb * wt * GT_TILE * 4)
+        return (rb + tg * GT_TILE * (ring * rb + 16)
+                + -(-s_bytes // 16) * 16
+                + -(-br * wg * GT_TILE * g_size // 128) * 128
+                + -(-br * ws * GT_TILE * s_size // 128) * 128)
+
+    two = (smem_limit + 1024) // 2 - 1024   # two blocks an SM
+    tallest = -(-(hb + hg - 1) // p) * p
+    for budget in (two, smem_limit):
+        for br in range(tallest, 0, -p):
+            if smem(br) <= budget:
+                return nt, blocks, p, br, smem(br)
+    raise ValueError(
+        f"xcorr_grad_template: a band of {p} search rows of the {ws}-wide "
+        f"search and the ring of the {wg}-wide gradient take {smem(p)} "
+        f"bytes, past the {smem_limit} bytes of shared memory a block may "
+        f"use")
+
+
 @functools.cache
 def _smem_limit(device_index: int) -> int:
     """Shared memory a block may opt in to on the device, bytes."""
@@ -173,8 +235,9 @@ xcorr_depthwise_masked.launches = 0
 
 
 def _launch(name, a, b, out_hw, plan=()):
-    """One unmasked launch: ``siammot_xcorr``, or ``..._grad_search``
-    with its ``plan`` (:func:`grad_search_plan`)."""
+    """One unmasked launch of ``xcorr6_kernel``: ``siammot_xcorr``, or
+    ``..._grad_search`` with its ``plan`` (:func:`grad_search_plan`);
+    counted in ``_launch.launches``."""
     k, c = a.shape[0], a.shape[-1]
     out = torch.empty((k, *out_hw, c), dtype=torch.float32, device=a.device)
     fn = cuda.function(name, _ARGS_GRAD_SEARCH if plan else _ARGS)
@@ -182,7 +245,11 @@ def _launch(name, a, b, out_hw, plan=()):
         cuda.ptr(a), int(a.dtype == torch.bfloat16), cuda.ptr(b),
         int(b.dtype == torch.bfloat16), cuda.ptr(out), k, *a.shape[1:3],
         *b.shape[1:3], c, *plan, cuda.stream(a.device)))
+    _launch.launches += 1
     return out
+
+
+_launch.launches = 0
 
 
 def xcorr_depthwise(search: torch.Tensor,
@@ -207,17 +274,47 @@ def xcorr_grad_template(search: torch.Tensor,
                         grad: torch.Tensor) -> torch.Tensor:
     """Kernel 6, template gradient: ``xcorr(search, grad)`` -> [K, Ht, Wt,
     C] f32 (the search may be bf16 and the upstream gradient f32).  CUDA
-    tensors launch the unmasked xcorr kernel; CPU tensors take the plain
-    version."""
+    tensors launch a kernel: for a 16-wide ``grad`` (the default training
+    shape) ``xcorr6_kernel``'s compile-time form, which ran faster there
+    than the tensor-core kernel; else the tensor-core kernel
+    (:func:`_grad_template_mma`, outputs up to 32 wide).  CPU tensors take
+    the plain version."""
     if search.device.type == "cpu":
         return xcorr_depthwise_plain(search, grad)
     _check("xcorr_grad_template", search, grad)
-    ht = search.shape[1] - grad.shape[1] + 1
-    wt = search.shape[2] - grad.shape[2] + 1
-    _out_fits("xcorr_grad_template", ht, wt)
-    out = _launch("siammot_xcorr", search, grad, (ht, wt))
+    if grad.shape[2] == XCORR6_GRAD_WIDTH:
+        out = _launch("siammot_xcorr", search, grad,
+                      (search.shape[1] - grad.shape[1] + 1,
+                       search.shape[2] - grad.shape[2] + 1))
+    else:
+        out = _grad_template_mma(search, grad)
     xcorr_grad_template.launches += 1
     return out
+
+
+def _grad_template_mma(search, grad):
+    """The template gradient's tensor-core kernel
+    (``cuda/xcorr_grad.cu``) at any shape it takes
+    (:func:`grad_template_plan`)."""
+    _check("xcorr_grad_template", search, grad)
+    (k, hs, ws, c), (_, hg, wg, _) = search.shape, grad.shape
+    band_rows = grad_template_plan(
+        hs, ws, hg, wg, search.element_size(), grad.element_size(),
+        _smem_limit(search.device.index if search.device.index is not None
+                    else torch.cuda.current_device()))[3]
+    out = torch.empty((k, hs - hg + 1, ws - wg + 1, c), dtype=torch.float32,
+                      device=search.device)
+    cuda.check_extent("xcorr_grad_template", search, grad, out)
+    fn = cuda.function("siammot_xcorr_grad_template", _ARGS_GRAD_TEMPLATE)
+    cuda.check("xcorr_grad_template", fn(
+        cuda.ptr(search), int(search.dtype == torch.bfloat16),
+        cuda.ptr(grad), int(grad.dtype == torch.bfloat16), cuda.ptr(out), k,
+        hs, ws, hg, wg, c, band_rows, cuda.stream(search.device)))
+    _grad_template_mma.launches += 1
+    return out
+
+
+_grad_template_mma.launches = 0
 
 
 xcorr_grad_template.launches = 0
@@ -304,6 +401,29 @@ def xcorr_depthwise_plain(search, template, valid=None):
                       out=prod)
             acc += prod
     return acc
+
+
+def xcorr_depthwise_exact(search, template):
+    """The correlation summed in f64 and rounded once to f32: the yardstick
+    of the template gradient's tensor-core kernel on the card, whose sums
+    are near exact.  The plain version's f32 sums in JAX's order stray
+    from it on their own near zero over many taps (up to 1.8x atol 1e-4 +
+    rtol 1e-3 over SEARCH_REGION 5's 3721, N(0, 1) inputs).  A check, not
+    differentiated: inputs that require grad are detached."""
+    k, hs, ws, c = search.shape
+    _, ht, wt, _ = template.shape
+    ho, wo = hs - ht + 1, ws - wt + 1
+    s = search.detach().double()
+    t = template.detach().double()
+    acc = torch.zeros((k, ho, wo, c), dtype=torch.float64,
+                      device=search.device)
+    prod = torch.empty_like(acc)
+    for i in range(ht):
+        for j in range(wt):
+            torch.mul(s[:, i:i + ho, j:j + wo, :], t[:, i:i + 1, j:j + 1, :],
+                      out=prod)
+            acc += prod
+    return acc.float()
 
 
 def xcorr_grad_search_plain(grad, template):

@@ -806,14 +806,21 @@ _F32, _BF16 = torch.float32, torch.bfloat16
 
 
 def _xcorr_passes(search, tmpl, up, with_search_grad=True):
-    """(name, kernel output, plain output) of kernel 6's three passes."""
-    from siammot_tpu_torch.ops.xcorr import (xcorr_grad_search,
+    """(name, kernel output, plain output) of kernel 6's three passes; the
+    template gradient's yardstick is the exact correlation rounded once
+    (``xcorr_depthwise_exact``): its kernel's sums are near exact, where
+    f32 sums in JAX's order stray past the tolerance on their own over
+    SEARCH_REGION 5's 3721 taps
+    (``tests/test_torch_xcorr_grad.py::test_plain_f32_sums_against_the_
+    exact_correlation``)."""
+    from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise_exact,
+                                             xcorr_grad_search,
                                              xcorr_grad_search_plain,
                                              xcorr_grad_template)
     out = [("forward", xcorr_depthwise(search, tmpl),
             xcorr_depthwise_plain(search, tmpl)),
            ("grad_template", xcorr_grad_template(search, up),
-            xcorr_depthwise_plain(search, up))]
+            xcorr_depthwise_exact(search, up))]
     if with_search_grad:
         out.append(("grad_search", xcorr_grad_search(up, tmpl),
                     xcorr_grad_search_plain(up, tmpl)))
@@ -850,9 +857,9 @@ def test_xcorr_unmasked_other_shapes(dev, hs, ws, ht, wt, c, dtype):
     """Kernel 6 at widths without a compile-time form (its generic
     instantiation), 20 channels (element copies, a partial tile), and at
     SEARCH_REGION 5's 75x75 x 15x15 -> 61x61, where the template gradient
-    (61x61 taps) takes the banded fallback kernel; search gradients wider or
-    taller than 32 (9x40, 75x75) run in bands of output rows and column
-    segments."""
+    (61x61 taps) runs on the tensor cores like every template gradient;
+    search gradients wider or taller than 32 (9x40, 75x75) run in bands
+    of output rows and column segments."""
     g = torch.Generator().manual_seed(hs * ws + c)
     search = torch.randn(3, hs, ws, c, generator=g).to(dev, dtype)
     tmpl = (0.1 * torch.randn(3, ht, wt, c, generator=g)).to(dev, dtype)
@@ -866,8 +873,9 @@ def test_xcorr_unmasked_other_shapes(dev, hs, ws, ht, wt, c, dtype):
 def test_xcorr_passes_at_the_wide_search_region(dev, dtype):
     """Kernel 6's three passes at SEARCH_REGION 5's 75x75 x 15x15 ->
     61x61, search and template in ``dtype`` and the f32 upstream gradient
-    (a training step's mix): the search gradient's 75x75 output in bands
-    of 32 output rows and five 16-wide column segments."""
+    (a training step's mix): the template gradient's 3721 taps on the
+    tensor cores, the search gradient's 75x75 output in bands of 32 output
+    rows and five 16-wide column segments."""
     g = torch.Generator().manual_seed(41)
     search = torch.randn(4, 75, 75, 128, generator=g).to(dev, dtype)
     tmpl = (0.1 * torch.randn(4, 15, 15, 128, generator=g)).to(dev, dtype)
@@ -903,6 +911,67 @@ def test_xcorr_grad_search_past_32(dev, hg, ht, gdt, tdt):
     assert got.shape == (5, hg + ht - 1, hg + ht - 1, 128)
     torch.testing.assert_close(got, xcorr_grad_search_plain(up, tmpl),
                                atol=1e-4, rtol=1e-3)
+
+
+# kernel 6's template gradient on the tensor cores (cuda/xcorr_grad.cu):
+# search [K, hs, ws, C], upstream gradient [K, hg, wg, C]
+_GT_SHAPES = [(35, 35, 29, 29),    # the AOT recipe
+              (75, 75, 61, 61),    # SEARCH_REGION 5
+              (30, 30, 16, 16),    # the default training shape
+              (20, 24, 14, 20), (29, 29, 23, 23), (9, 40, 1, 38),
+              (40, 40, 21, 21),    # POOLER_RESOLUTION 20: two row blocks
+              (100, 100, 81, 81),  # ... at SEARCH_REGION 5
+              (60, 40, 19, 9)]     # 42x32: three row blocks, 32 wide
+
+
+@pytest.mark.parametrize("hs,ws,hg,wg", _GT_SHAPES)
+@pytest.mark.parametrize("sdt,gdt", [(_BF16, _F32), (_F32, _F32),
+                                     (_BF16, _BF16), (_F32, _BF16)])
+@pytest.mark.parametrize("c,k", [(128, 3), (20, 3), (256, 1), (128, 0)])
+def test_xcorr_grad_template_kernel(dev, hs, ws, hg, wg, sdt, gdt, c, k):
+    """The template gradient's tensor-core kernel against
+    ``xcorr_depthwise_exact`` (the exact correlation rounded once; see
+    :func:`_xcorr_passes`) at the AOT recipe's, SEARCH_REGION 5's, the
+    default (where the wrapper routes to ``xcorr6_kernel``), three generic
+    shapes and outputs past 16x16 (row blocks, four n8 tiles), the search
+    and the upstream gradient each in f32 or bf16 (f32 inputs split into
+    three bf16 terms), 128, 20 (element copies, a partial channel tile)
+    and 256 channels, 3, 1 and 0 slots; f32 sums in another order -> atol
+    1e-4, rtol 1e-3."""
+    from siammot_tpu_torch.ops.xcorr import (_grad_template_mma,
+                                             xcorr_depthwise_exact)
+    g = torch.Generator().manual_seed(hs * ws + hg + c + k)
+    search = torch.randn(k, hs, ws, c, generator=g).to(dev, sdt)
+    up = torch.randn(k, hg, wg, c, generator=g).to(dev, gdt)
+    got = _grad_template_mma(search, up)
+    want = xcorr_depthwise_exact(search, up)
+    assert got.shape == (k, hs - hg + 1, ws - wg + 1, c)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("hs,hg,sdt", [(75, 61, _BF16), (75, 61, _F32),
+                                       (35, 29, _BF16), (30, 16, _BF16),
+                                       (40, 21, _BF16)])
+def test_xcorr_grad_template_same_bits(dev, hs, hg, sdt):
+    """The template gradient has no atomics and a fixed summation order:
+    two launches give the same bits, at SEARCH_REGION 5's, the AOT
+    recipe's, the default and POOLER_RESOLUTION 20's shapes, over more
+    items than the persistent grid has blocks."""
+    from siammot_tpu_torch.ops.xcorr import _grad_template_mma
+    g = torch.Generator().manual_seed(hs + hg)
+    search = torch.randn(96, hs, hs, 128, generator=g).to(dev, sdt)
+    up = torch.randn(96, hg, hg, 128, generator=g).to(dev)
+    first = _grad_template_mma(search, up)
+    assert torch.equal(first, _grad_template_mma(search, up))
+
+
+def test_xcorr_grad_template_limits(dev):
+    """An output past 32 wide raises with the kernel's limit."""
+    from siammot_tpu_torch.ops.xcorr import xcorr_grad_template
+    search = torch.zeros(1, 40, 60, 8, device=dev)
+    with pytest.raises(ValueError, match="32 wide"):
+        xcorr_grad_template(search, torch.zeros(1, 23, 23, 8, device=dev))
 
 
 def _pool_case(dev, s, window, pad, dtype, c, seed):

@@ -17,6 +17,7 @@ from siammot_tpu.ops.pallas.xcorr import xcorr_depthwise_pallas
 from siammot_tpu.ops.xcorr import xcorr_depthwise_auto as jax_xcorr_auto
 from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
                                          xcorr_depthwise_auto,
+                                         xcorr_depthwise_exact,
                                          xcorr_depthwise_plain,
                                          xcorr_grad_search,
                                          xcorr_grad_search_plain,
@@ -145,3 +146,225 @@ def test_grad_search_plan():
         assert 2 * (-(-stage // 16) * 16) <= H100_SMEM
     with pytest.raises(ValueError, match=str(H100_SMEM)):
         grad_search_plan(61, 2000, 15, 15, 4, 4, H100_SMEM)
+
+
+# the card's kernel of the template gradient (``cuda/xcorr_grad.cu``):
+# its host plan and its arithmetic in plain PyTorch
+
+def split_terms(x, terms):
+    """``x`` as ``terms`` bf16 values whose sum is ``x``, as f32: the
+    template gradient kernel's split (hi = ``x`` rounded to bf16, to
+    nearest with ties away: 0x8000 added to its f32 bits and the low 16
+    cleared; then the same of the rest, ...; each difference exact in
+    f32).  Three terms hold an f32 exactly (the third's rest is zero); a
+    bf16 input is its own one term."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        bits = rest.view(torch.int32)
+        out.append(((bits + 0x8000) & -65536).view(torch.float32))
+        rest = rest - out[-1]
+    return out
+
+
+def xcorr_grad_template_split(search, grad, terms=None, order=2):
+    """The template gradient kernel's arithmetic in plain PyTorch: the
+    search and ``g`` split as the kernel splits them (three bf16 terms an
+    f32 input, one a bf16 one, or ``terms`` for both), the products of
+    the terms of indices ``ts + tg <= order`` (of order at most
+    2^-8``order``) summed in f64, rounded once to f32."""
+    ss = split_terms(search, terms or (3 if search.dtype == torch.float32
+                                       else 1))
+    gs = split_terms(grad, terms or (3 if grad.dtype == torch.float32
+                                     else 1))
+    k, hs, ws, c = search.shape
+    _, hg, wg, _ = grad.shape
+    ht, wt = hs - hg + 1, ws - wg + 1
+    acc = torch.zeros((k, ht, wt, c), dtype=torch.float64)
+    for i_s, s in enumerate(ss):
+        for i_g, g in enumerate(gs):
+            if i_s + i_g > order:
+                continue
+            s64, g64 = s.double(), g.double()
+            for i in range(hg):
+                for j in range(wg):
+                    acc += s64[:, i:i + ht, j:j + wt, :] \
+                        * g64[:, i:i + 1, j:j + 1, :]
+    return acc.float()
+
+
+def _gt_smem_ok(plan, limit):
+    nt, blocks, p, br, smem = plan
+    return smem <= limit and br % p == 0 and br >= p
+
+
+@pytest.mark.parametrize("hs,ws,hg,wg,s_size,g_size,want", [
+    (30, 30, 16, 16, 2, 4, (2, 1, 2, 30)),     # the default training step
+    (30, 30, 16, 16, 4, 4, (2, 1, 2, 18)),     # the f32 step
+    (35, 35, 29, 29, 2, 4, (1, 1, 4, 20)),     # the AOT recipe
+    (75, 75, 61, 61, 2, 4, (2, 1, 2, 8)),      # SEARCH_REGION 5's step
+    (75, 75, 61, 61, 4, 4, (2, 1, 2, 4)),      # SEARCH_REGION 5 in f32
+    (75, 75, 61, 61, 2, 2, (2, 1, 2, 16)),
+    (20, 24, 14, 20, 4, 4, (1, 1, 4, 12)),
+    (9, 40, 1, 38, 4, 4, (1, 1, 4, 4)),
+    (40, 40, 21, 21, 2, 4, (4, 2, 1, 18)),     # POOLER_RESOLUTION 20
+    (100, 100, 81, 81, 2, 4, (4, 2, 1, 1)),    # ... at SEARCH_REGION 5
+    (60, 40, 19, 9, 4, 4, (4, 3, 1, 14))])     # 42x32: three row blocks
+def test_grad_template_plan(hs, ws, hg, wg, s_size, g_size, want):
+    """The template gradient's plan for an H100's shared memory: one, two
+    or four n8 tiles by the output's width, row blocks of equal height up
+    to 16 by its height, an A tile for 4 search rows at a 7-high template
+    and 2 at a 15-high one, and the tallest band of whole steps whose
+    layout fits two blocks an SM (every search row at the default shape,
+    8 at SEARCH_REGION 5's training step, 20 of the AOT recipe's 35, one
+    at POOLER_RESOLUTION 20 and SEARCH_REGION 5's 81-wide gradient)."""
+    from siammot_tpu_torch.ops.xcorr import grad_template_plan
+    plan = grad_template_plan(hs, ws, hg, wg, s_size, g_size, H100_SMEM)
+    assert plan[:4] == want
+    nt, blocks, p, br, smem = plan
+    assert _gt_smem_ok(plan, (H100_SMEM + 1024) // 2 - 1024)
+    hb = -(-(hs - hg + 1) // blocks)
+    assert hb <= 16 and blocks * hb >= hs - hg + 1 > (blocks - 1) * hb
+    assert br <= -(-(hb + hg - 1) // p) * p
+
+
+def test_grad_template_plan_limits():
+    """Outputs past 32 wide and shared memory too small for one step's
+    band raise with the limit; a gradient past 64 wide (two segments of
+    four k-steps) still plans, for one block an SM where two do not
+    fit."""
+    from siammot_tpu_torch.ops.xcorr import grad_template_plan
+    with pytest.raises(ValueError, match="32 wide"):
+        grad_template_plan(40, 60, 23, 23, 2, 4, H100_SMEM)   # 18x38
+    with pytest.raises(ValueError, match="30000"):
+        grad_template_plan(75, 75, 61, 61, 4, 4, 30000)
+    plan = grad_template_plan(90, 130, 76, 116, 4, 4, H100_SMEM)
+    assert _gt_smem_ok(plan, H100_SMEM)
+    assert plan[4] > (H100_SMEM + 1024) // 2 - 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_terms_sum_to_the_input(dtype):
+    """Three bf16 terms hold an f32 exactly (their f64 sum is the input
+    bit for bit, across 2^-100 .. 2^126 and both signs; below that the
+    third term falls under bf16's normal range and keeps fewer bits); a
+    bf16 input is its own single term."""
+    rng = np.random.RandomState(7)
+    x = (rng.randn(4096) * np.exp2(rng.randint(-100, 127, 4096))).astype(
+        np.float32)
+    t = torch.from_numpy(x).to(dtype)
+    terms = split_terms(t, 3 if dtype == torch.float32 else 1)
+    total = sum(p.double() for p in terms)
+    assert torch.equal(total, t.double())
+    for p in terms:
+        assert torch.equal(p, p.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("hs,hg", [(35, 29), (75, 61)])
+def test_split_emulation_matches_jax_vjp(hs, hg):
+    """The template gradient kernel's arithmetic in plain PyTorch
+    (``xcorr_grad_template_split``: the search and the upstream gradient
+    split into bf16 terms as the kernel splits them, the products summed
+    in f64) against ``jax.vjp`` of the JAX package's
+    ``xcorr_depthwise_auto`` at the AOT recipe's 35x35 search with its
+    29x29 gradient and SEARCH_REGION 5's 75x75 with 61x61; 2 slots, 4
+    channels, f32 and the bf16 search of a training step.  JAX's own f32
+    sums of up to 3721 products -> 1e-5 of the largest value."""
+    rng = np.random.RandomState(hs + hg)
+    ht = hs - hg + 1
+    s = rng.randn(2, hs, hs, 4).astype(np.float32)
+    t = rng.randn(2, ht, ht, 4).astype(np.float32)
+    g = rng.randn(2, hg, hg, 4).astype(np.float32)
+    for sb in (s, np.array(jnp.asarray(s, jnp.bfloat16).astype(
+            jnp.float32))):
+        _, vjp = jax.vjp(jax_xcorr_auto, jnp.asarray(sb), jnp.asarray(t))
+        want = np.asarray(vjp(jnp.asarray(g))[1])
+        search = torch.from_numpy(sb)
+        if sb is not s:
+            search = search.to(torch.bfloat16)
+        got = xcorr_grad_template_split(search, torch.from_numpy(g))
+        assert got.dtype == torch.float32 and got.shape == (2, ht, ht, 4)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+def test_three_term_split_holds_the_card_tolerance(sdt):
+    """At SEARCH_REGION 5's 75x75 search and 61x61 gradient (4 slots, 32
+    channels, the card tests' N(0, 1) inputs), the kernel's split (three
+    bf16 terms an f32 input) stays within the card tests' tolerance,
+    atol 1e-4 + rtol 1e-3, of the exact correlation
+    (``xcorr_depthwise_exact``), where two terms with their three
+    products (hi*hi + hi*lo + lo*hi) stray past it near zero."""
+    rng = np.random.RandomState(61)
+    s = torch.from_numpy(rng.randn(4, 75, 75, 32).astype(np.float32)).to(sdt)
+    g = torch.from_numpy(rng.randn(4, 61, 61, 32).astype(np.float32))
+    exact = xcorr_depthwise_exact(s, g).double()
+    tol = 1e-4 + 1e-3 * exact.abs()
+
+    def worst(got):
+        return float(((got.double() - exact).abs() / tol).max())
+
+    assert worst(xcorr_grad_template_split(s, g)) < 0.05
+    assert worst(xcorr_grad_template_split(s, g, terms=2, order=1)) > 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ht,wt", [(7, 6), (33, 32)])
+def test_plain_xcorr_sums(dtype, ht, wt):
+    """``xcorr_depthwise_plain`` sums i-major in f32 at any number of taps
+    (7x6 and 33x32: bit for bit numpy's f32 products added in that order,
+    JAX's and ``xcorr6_kernel``'s order), through either of its two loops
+    (with and without autograd), masked slots zero; the card's yardstick
+    of the template gradient, ``xcorr_depthwise_exact``, is bit for bit
+    numpy's f64 sums rounded once to f32."""
+    rng = np.random.RandomState(ht)
+    hs, ws = ht + 13, wt + 12
+    s = torch.from_numpy(rng.randn(3, hs, ws, 5).astype(np.float32)).to(
+        dtype)
+    t = torch.from_numpy(rng.randn(3, ht, wt, 5).astype(np.float32)).to(
+        dtype)
+    wants = []
+    for ft in (np.float32, np.float64):
+        s_, t_ = s.float().numpy().astype(ft), t.float().numpy().astype(ft)
+        want = np.zeros((3, 14, 13, 5), ft)
+        for i in range(ht):
+            for j in range(wt):
+                want += s_[:, i:i + 14, j:j + 13] * t_[:, i:i + 1, j:j + 1]
+        wants.append(want.astype(np.float32))
+    want, exact = wants
+    assert np.array_equal(xcorr_depthwise_plain(s, t).numpy(), want)
+    st = s.clone().requires_grad_(True)
+    assert np.array_equal(xcorr_depthwise_plain(st, t).detach().numpy(),
+                          want)
+    valid = torch.tensor([True, False, True])
+    got = xcorr_depthwise_plain(s, t, valid).numpy()
+    assert np.array_equal(got[[0, 2]], want[[0, 2]]) and (got[1] == 0).all()
+    assert np.array_equal(xcorr_depthwise_exact(s, t).numpy(), exact)
+    assert np.array_equal(xcorr_depthwise_exact(st, t).numpy(), exact)
+
+
+def _card_tolerance_ratio(got, want):
+    """The largest |got - want| over the card tests' atol 1e-4 + rtol
+    1e-3 |want|: above 1, ``torch.testing.assert_close`` fails."""
+    return float(((got.double() - want.double()).abs()
+                  / (1e-4 + 1e-3 * want.double().abs())).max())
+
+
+@pytest.mark.parametrize("hs,hg,sdt,stray", [
+    (35, 29, torch.bfloat16, False), (35, 29, torch.float32, False),
+    (75, 61, torch.bfloat16, True), (75, 61, torch.float32, True)])
+def test_plain_f32_sums_against_the_exact_correlation(hs, hg, sdt, stray):
+    """Why the card holds the template gradient's kernel to
+    ``xcorr_depthwise_exact``: on the card test's own inputs
+    (``tests/test_torch_cuda.py::test_xcorr_grad_template_kernel``, 3
+    slots, 128 channels, N(0, 1), an f32 upstream gradient), the plain
+    version's f32 sums in JAX's order land within the card tolerance of
+    the exact correlation at the AOT recipe's 841 taps, and past it on
+    their own near zero at SEARCH_REGION 5's 3721."""
+    k, c = 3, 128
+    g = torch.Generator().manual_seed(hs * hs + hg + c + k)
+    search = torch.randn(k, hs, hs, c, generator=g).to(sdt)
+    up = torch.randn(k, hg, hg, c, generator=g)
+    ratio = _card_tolerance_ratio(xcorr_depthwise_plain(search, up),
+                                  xcorr_depthwise_exact(search, up))
+    assert (ratio > 1.0) == stray, ratio
