@@ -291,7 +291,16 @@ Phases, each printed as it finishes:
      ``tests/fixtures/video/h264_small.mp4`` in NVDEC's NV12 layout, each
      also cv2's frame by its SHA-256, once through a surface handle whose
      planes :func:`nv12_capture` reads back bitwise, and at 720p with its
-     time, the plain version's and its bound.  Where NVDEC decodes: every
+     time, the plain version's and its bound; the P016 and YUV444
+     kernels ``p016_to_rgb`` and ``yuv444_to_rgb`` bitwise their plain
+     versions and cv2's frames (by SHA-256, ``highbit_ref.json``) on every
+     frame of each clip of ``tools/make_torch_highbit_fixtures.py``
+     (HEVC Main 10 and Main 12, HEVC 4:4:4 at 8 and 10 bits, VP9 profile
+     2; their reference planes, ``highbit_planes.npz``, laid out as NVDEC
+     lays them), once each through a surface handle, and at 720p with
+     their times, the plain versions' and their bounds; the caps also at
+     every depth and chroma the port takes for HEVC, VP9 and AV1.  Where
+     NVDEC decodes: every
      NV12 plane of the H.264 MP4 and AVI bitwise x264's reconstruction,
      their RGB frames bitwise the plain conversion and cv2's,
      ``frame(i)`` in order and shuffled cv2's seek frames, the 720p
@@ -300,6 +309,7 @@ Phases, each printed as it finishes:
      in MP4, Matroska and WebM, H.264 in Matroska) by SHA-256 against
      ``containers_ref.json`` (cv2's RGB frames; libaom's planes for AV1),
      in order and by shuffled ``frame(i)``, or raising as the caps say;
+     each high-bit clip the same against ``highbit_ref.json``;
      (14b) the demo as in
      13b over ``h264_720p.mp4`` (the conversion kernel once a frame,
      kernels 1-4 as in 13b); (14c) MPEG-4 Part 2 raising as the caps say,
@@ -308,8 +318,9 @@ Phases, each printed as it finishes:
      caps query answers CUDA_ERROR_OUT_OF_MEMORY and
      ``NVIDIA_DRIVER_CAPABILITIES`` grants no ``video``), each reader and
      the demo raise that error on each clip (the new fixtures too), and
-     the NVDEC route is reported unverified: no frame decoded, and no
-     launch of the conversion kernel on a main path.  Any other caps
+     the NVDEC route is reported unverified for all three surfaces: no
+     frame decoded, and no launch of a conversion kernel on a main
+     path.  Any other caps
      failure fails the run;
   15. the demo over Matroska: ``siammot_tpu_torch.demos.demo``'s main
      function over 13b's 16 nvJPEG packets wrapped in a Matroska file
@@ -896,6 +907,11 @@ KERNELS = {
     # the colour conversion cv2 does inside cap.read() (swscale): no Pallas
     "nv12_to_rgb": dict(source="siammot_tpu_torch/data/nvdec.cu",
                         replaces="siammot_tpu/data/video_loader.py:31"),
+    # the same for 10- and 12-bit 4:2:0 (P016) and 4:4:4 (YUV444) surfaces
+    "p016_to_rgb": dict(source="siammot_tpu_torch/data/nvdec.cu",
+                        replaces="siammot_tpu/data/video_loader.py:31"),
+    "yuv444_to_rgb": dict(source="siammot_tpu_torch/data/nvdec.cu",
+                          replaces="siammot_tpu/data/video_loader.py:31"),
 }
 # launches a frame of each inference path (kernels not listed: none)
 MAIN_PATH = {"window_pool": 3, "xcorr_masked": 1, "emm_predictor": 1,
@@ -1065,9 +1081,11 @@ def _wrappers():
     from siammot_tpu_torch.ops.window_pool import window_pool
     from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
                                              xcorr_depthwise_masked)
-    from siammot_tpu_torch.data.nvdec import nv12_to_rgb
+    from siammot_tpu_torch.data.nvdec import (nv12_to_rgb, p016_to_rgb,
+                                              yuv444_to_rgb)
     return {"window_pool": window_pool, "roi_align": roi_align_fwd,
-            "nv12_to_rgb": nv12_to_rgb,
+            "nv12_to_rgb": nv12_to_rgb, "p016_to_rgb": p016_to_rgb,
+            "yuv444_to_rgb": yuv444_to_rgb,
             "xcorr_masked": xcorr_depthwise_masked, "xcorr": xcorr_depthwise,
             "emm_predictor": emm_predictor,
             "emm_predictor_blocked": emm_predictor_blocked,
@@ -6018,6 +6036,13 @@ STREAM_FIXTURES = ("h264_opengop.mkv", "mpeg4_small.mkv", "hevc_small.mp4",
                    "hevc_hev1.mp4", "hevc_small.mkv", "vp9_small.webm",
                    "vp8_small.webm", "vp9_small.mp4", "vp9_live.webm",
                    "av1_small.mp4", "av1_small.mkv")
+# the 10- and 12-bit and 4:4:4 clips of tools/make_torch_highbit_fixtures.py
+# (their planes in highbit_planes.npz, cv2's frames in highbit_ref.json)
+HIGHBIT_FIXTURES = ("hevc_main10.mp4", "hevc_main12.mkv", "hevc_444_8.mp4",
+                    "hevc_444_10.mkv", "vp9_p2.webm")
+# what the port decodes beyond 8-bit 4:2:0, by codec
+HIGHBIT_FORMATS = [(d, c) for d in (8, 10, 12) for c in ("4:2:0", "4:4:4")
+                   if (d, c) != (8, "4:2:0")]
 
 
 def sha(a) -> str:
@@ -6106,12 +6131,119 @@ def check_planes(planes, y, u, v, what):
                              f"reconstruction")
 
 
+def highbit_frame(y, u, v, depth, full_chroma, pitch, dev):
+    """Planes in NVDEC's P016 layout (luma rows, then from the even row
+    after them the interleaved Cb, Cr rows) or YUV444 layout (the three
+    planes ``chroma_row`` rows apart), 16-bit words with each sample in
+    the top ``depth`` bits (bytes at 8 bits), ``pitch`` samples a row,
+    the padding 0xA5, on ``dev``."""
+    from siammot_tpu_torch.data.nvdec import (chroma_row, nv12_rows,
+                                              yuv444_rows)
+    h, w = y.shape
+    wide = depth > 8
+    shift = (16 if wide else 8) - depth
+    c0 = chroma_row(h)
+    out = np.full((yuv444_rows(h) if full_chroma else nv12_rows(h), pitch),
+                  0xA5A5 if wide else 0xA5, np.uint16 if wide else np.uint8)
+    if full_chroma:
+        for k, p in enumerate((y, u, v)):
+            out[k * c0:k * c0 + h, :w] = p.astype(np.int64) << shift
+    else:
+        out[:h, :w] = y.astype(np.int64) << shift
+        uv = np.stack([u, v], -1).reshape(u.shape[0], -1).astype(np.int64)
+        out[c0:c0 + uv.shape[0], :uv.shape[1]] = uv << shift
+    return torch.from_numpy(out.view(np.int16) if wide else out).to(dev)
+
+
+def highbit_conversions(dev, report):
+    """14a: ``p016_to_rgb`` and ``yuv444_to_rgb`` bitwise their plain
+    versions and cv2's frames (by SHA-256) on every frame of each high-bit
+    clip's reference planes in NVDEC's layout (pitch 256 samples), once
+    each through a surface handle; at 720p each kernel's time, its plain
+    version's and its bytes bound."""
+    from siammot_tpu_torch.data import container, nvdec
+    from siammot_tpu_torch.utils.synth import render_scene
+
+    with open(os.path.join(VIDEO_DIR, "highbit_ref.json")) as f:
+        ref = json.load(f)
+    planes = np.load(os.path.join(VIDEO_DIR, "highbit_planes.npz"))
+    wrapper = {False: nvdec.p016_to_rgb, True: nvdec.yuv444_to_rgb}
+    plain = {False: nvdec.p016_to_rgb_plain, True: nvdec.yuv444_to_rgb_plain}
+    for name in HIGHBIT_FIXTURES:
+        codec = container.open_video(os.path.join(VIDEO_DIR, name)).format
+        depth, full = ref[name]["depth"], ref[name]["chroma"] == "4:4:4"
+        kw = {} if full else {"siting": nvdec.CHROMA_SITING[codec]}
+        key = name.replace(".", "_")
+        ys, us, vs = (planes[f"{key}_{k}"] for k in "yuv")
+        for i in range(len(ys)):
+            x = highbit_frame(ys[i], us[i], vs[i], depth, full, PITCH, dev)
+            k = wrapper[full](x, SMALL_W, SMALL_H, depth, **kw)
+            p = plain[full](x.cpu(), SMALL_W, SMALL_H, depth, **kw)
+            if not torch.equal(k.cpu(), p) \
+                    or sha(k.cpu()) != ref[name]["sha256"][i]:
+                raise AssertionError(
+                    f"14a: {wrapper[full].__name__} on {name}'s frame {i} is "
+                    f"not bitwise its plain version and cv2's")
+        size = x.element_size()
+        surface = nvdec.Surface(
+            x.data_ptr(), x.data_ptr() + nvdec.chroma_row(SMALL_H) * PITCH
+            * size, PITCH * size, SMALL_W, SMALL_H, dev)
+        if not torch.equal(wrapper[full](surface, depth=depth, **kw).cpu(), p):
+            raise AssertionError(f"14a: {wrapper[full].__name__} on a "
+                                 f"surface handle of {name} is not its plain "
+                                 f"version")
+        log(f"  {wrapper[full].__name__}: {name} ({codec}, {depth}-bit "
+            f"{ref[name]['chroma']}), {len(ys)} frames of {SMALL_W}x{SMALL_H}"
+            f" (the reference planes, pitch {PITCH}) bitwise the plain "
+            f"version and cv2's frames, also through a surface handle")
+    # at 720p: the scene's frame as 10-bit planes (BT.601 limited range)
+    rgb = render_scene(1, HP)[0][0][0, :H].astype(np.int64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y10 = ((66 * r + 129 * g + 25 * b + 128) >> 6) + 64
+    u10 = ((-38 * r - 74 * g + 112 * b + 128) >> 6) + 512
+    v10 = ((112 * r - 94 * g - 18 * b + 128) >> 6) + 512
+    sub = [((c.reshape(H // 2, 2, W // 2, 2).sum((1, 3)) + 2) >> 2)
+           for c in (u10, v10)]
+    hpos, hcoef, vpos, vcoef = nvdec.chroma_filters(W, H, nvdec.SITING_LEFT)
+    cases = {
+        "p016_to_rgb": (highbit_frame(y10, *sub, 10, False, W, dev),
+                        (10, nvdec.SITING_LEFT), False,
+                        # luma 2 B, chroma 1 B a pixel; 3 B out; the filters
+                        W * H * 6 + 4 * (hpos.size + hcoef.size + vpos.size
+                                         + vcoef.size),
+                        # a multiply-add each tap, per pixel pair and plane
+                        W * H * 2 * vcoef.shape[1] * (hcoef.shape[1] + 1)),
+        "yuv444_to_rgb": (highbit_frame(y10, u10, v10, 10, True, W, dev),
+                          (10,), True, W * H * (6 + 3), W * H * 12)}
+    for name, (x, args, full, nbytes, flops) in cases.items():
+        k = wrapper[full](x, W, H, *args)
+        if not torch.equal(k.cpu(), plain[full](x.cpu(), W, H, *args)):
+            raise AssertionError(f"14a: {name} at 720p is not bitwise its "
+                                 f"plain version")
+        ms = device_ms(lambda: wrapper[full](x, W, H, *args))
+        plain_ms = timed_ms(lambda: plain[full](x, W, H, *args), iters=3,
+                            warmup=1)
+        bound_ms, by = bound(nbytes, flops, F32_FLOPS)
+        report[name].update(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            library_ms=None, max_abs_err=0.0, shapes={"720p": [H, W]})
+        log(f"  {name} at {W}x{H}, 10 bits: {ms:.4f} ms (bound "
+            f"{bound_ms:.5f} ms, {by}), plain {plain_ms:.4f} ms; no single "
+            f"PyTorch call computes it")
+    x8 = highbit_frame(*(c.clip(0, 1023) >> 2 for c in (y10, u10, v10)), 8,
+                       True, W, dev)
+    ms8 = device_ms(lambda: nvdec.yuv444_to_rgb(x8, W, H, 8))
+    report["yuv444_to_rgb"]["ms_8bit"] = ms8
+    log(f"  yuv444_to_rgb at {W}x{H}, 8 bits: {ms8:.4f} ms (bound "
+        f"{bound(W * H * 6, W * H * 12, F32_FLOPS)[0]:.5f} ms)")
+
+
 def conversion_phase(dev, report):
     """14a: the conversion kernel bitwise its plain version on every frame
     of x264's reconstruction of the small clip (NVDEC's layout, pitch
     256), each also cv2's frame by its SHA-256, once through a surface
     handle under :func:`nv12_capture`; at 720p its time, the plain
-    version's and the bound."""
+    version's and the bound; then :func:`highbit_conversions`."""
     from siammot_tpu_torch.data import nvdec
     from siammot_tpu_torch.utils.synth import render_scene
 
@@ -6155,20 +6287,29 @@ def conversion_phase(dev, report):
     log(f"  nv12_to_rgb at {W}x{H}: {ms:.4f} ms (bound {bound_ms:.5f} ms, "
         f"bytes), plain {plain_ms:.4f} ms; no single PyTorch call computes "
         f"it")
+    highbit_conversions(dev, report)
 
 
 def nvdec_state(dev):
     """``libnvcuvid.so.1`` must load; then ``cuvidGetDecoderCaps`` for each
-    codec: {codec: caps dict, or the ``NvdecError`` it raised}."""
-    from siammot_tpu_torch.data import nvdec
+    codec at 8-bit 4:2:0, and for HEVC, VP9 and AV1 also at every other
+    depth and chroma the port takes: {codec or (codec, depth, chroma):
+    caps dict, or the ``NvdecError`` it raised}."""
+    from siammot_tpu_torch.data import container, nvdec
     nvdec.load_decoder()
     state = {}
-    for codec in nvdec.CODEC_IDS:
+    asks = [(c, 8, "4:2:0") for c in nvdec.CODEC_IDS]
+    asks += [(c, d, ch) for c in container.HIGH_BIT_FORMATS
+             for d, ch in HIGHBIT_FORMATS]
+    for codec, depth, chroma in asks:
+        key = codec if (depth, chroma) == (8, "4:2:0") \
+            else (codec, depth, chroma)
         try:
-            state[codec] = nvdec.decoder_caps(codec, dev)
+            state[key] = nvdec.decoder_caps(codec, dev, depth, chroma)
         except nvdec.NvdecError as e:
-            state[codec] = e
-        log(f"  cuvidGetDecoderCaps {codec} at 8-bit 4:2:0: {state[codec]}")
+            state[key] = e
+        log(f"  cuvidGetDecoderCaps {codec} at {depth}-bit {chroma}: "
+            f"{state[key]}")
     return state
 
 
@@ -6214,7 +6355,8 @@ def nvdec_withheld_readers(dev):
     from siammot_tpu_torch.data.video_loader import video_frames
     from siammot_tpu_torch.demos.video_iterator import build_video_iterator
     for name in ("h264_small.mp4", "h264_small.avi", "h264_720p.mp4",
-                 "mpeg4_small.mp4", "mpeg4_small.avi") + STREAM_FIXTURES:
+                 "mpeg4_small.mp4", "mpeg4_small.avi") + STREAM_FIXTURES \
+            + HIGHBIT_FIXTURES:
         path = os.path.join(VIDEO_DIR, name)
         # the frames the file shows (a live WebM's CAP_PROP_FRAME_COUNT
         # estimate is negative)
@@ -6337,6 +6479,42 @@ def nvdec_streams(dev, state):
             f"reference's, also by frame(i) in shuffled order")
 
 
+def nvdec_highbit(dev, state):
+    """Where NVDEC answers: each high-bit clip whose format the caps list,
+    its RGB frames (P016 or YUV444 surfaces through their conversion
+    kernels) in order and by shuffled ``frame(i)`` cv2's by SHA-256; a
+    format the caps do not list raises, naming it."""
+    from siammot_tpu_torch.data import container, nvdec
+    with open(os.path.join(VIDEO_DIR, "highbit_ref.json")) as f:
+        ref = json.load(f)
+    for name in HIGHBIT_FIXTURES:
+        video = container.open_video(os.path.join(VIDEO_DIR, name))
+        depth, chroma = ref[name]["depth"], ref[name]["chroma"]
+        caps = state[(video.format, depth, chroma)]
+        surface = nvdec.surface_format(chroma, depth)
+        if not caps["supported"] \
+                or not caps["output_format_mask"] >> surface & 1:
+            try:
+                video.frame(0, dev)
+            except NotImplementedError as e:
+                log(f"  {name}: raises as the caps say: {e}")
+                continue
+            raise AssertionError(f"14a {name} decoded though the caps say "
+                                 f"{depth}-bit {chroma} {video.format} is "
+                                 f"unsupported")
+        want = ref[name]["sha256"]
+        got = [sha(f) for f in video.frames(dev)]
+        if got != want:
+            raise AssertionError(f"14a {name}: NVDEC's frames are not cv2's "
+                                 f"({len(got)} of {len(want)})")
+        for i in np.random.RandomState(0).permutation(len(want)):
+            if sha(video.frame(int(i), dev)) != want[i]:
+                raise AssertionError(f"14a {name}: frame({i}) is not cv2's "
+                                     f"frame {i}")
+        log(f"  {name}: {len(got)} {depth}-bit {chroma} {video.format} "
+            f"frames bitwise cv2's, also by frame(i) in shuffled order")
+
+
 def nvdec_mpeg4(dev, state):
     """14c: MPEG-4 Part 2 raises as the caps say; where the caps list it,
     its gap to cv2's frames is printed and the run fails: its IDCT is
@@ -6393,18 +6571,21 @@ def video_phase(dev, report, card):
                 "the demo read h264_720p.mp4")
             log(f"[14b] the demo over h264_720p.mp4 raises NVDEC's error: "
                 f"{e}")
-            report["nv12_to_rgb"]["nvdec"] = (
-                f"unverified: no frame decoded on the card ({withheld}); no "
-                f"launch on a main path")
+            for name in ("nv12_to_rgb", "p016_to_rgb", "yuv444_to_rgb"):
+                report[name]["nvdec"] = (
+                    f"unverified: no frame decoded on the card ({withheld}); "
+                    f"no launch on a main path")
             return None
         nvdec_h264(dev, report)
         nvdec_streams(dev, state)
+        nvdec_highbit(dev, state)
         log(f"  14a wall time {time.perf_counter() - t0:.1f} s")
         log("[14b] siammot_tpu_torch.demos.demo over h264_720p.mp4 "
             "(NVDEC), bench weights, person config:")
         shown = demo_run(dev, report, card, tmp, h264,
                          {**MAIN_PATH, "nv12_to_rgb": 1}, "demo_h264", "14b")
-        report["nv12_to_rgb"]["nvdec"] = "decodes"
+        for name in ("nv12_to_rgb", "p016_to_rgb", "yuv444_to_rgb"):
+            report[name]["nvdec"] = "decodes"
         log("[14c] MPEG-4 Part 2:")
         nvdec_mpeg4(dev, state)
     return shown
@@ -6575,7 +6756,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("host_ms", "kernels", "sites", "training_sites", "passes",
-             "ms_small", "decode_fps_720p", "nvdec",
+             "ms_small", "ms_8bit", "decode_fps_720p", "nvdec",
              "launches_by_path", "shapes", "step_sites",
              "bound_f32_table_ms")
     kernels = [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
@@ -6641,8 +6822,9 @@ def main():
            f"({100 * video['step_share']:.1f}% in the step), NVDEC decode "
            f"{report['nv12_to_rgb']['decode_fps_720p']:.1f} frames/s at "
            f"720p")
-        + f"; nv12_to_rgb {report['nv12_to_rgb']['ms']:.4f} ms at 720p; "
-        f"card {card}")
+        + f"; nv12_to_rgb {report['nv12_to_rgb']['ms']:.4f} ms, p016_to_rgb "
+        f"{report['p016_to_rgb']['ms']:.4f} ms, yuv444_to_rgb "
+        f"{report['yuv444_to_rgb']['ms']:.4f} ms at 720p; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """What the port reads in a video stream's own headers, before any decoder
 sees it: which packets are keyframes (a decoder may start there) and the
-stream's bit depth and chroma format (the port's NVDEC route decodes
-8-bit 4:2:0 only).
+stream's bit depth and chroma format (the port's NVDEC route decodes 8-,
+10- and 12-bit 4:2:0 and 4:4:4 HEVC, VP9 and AV1, and 8-bit 4:2:0 of the
+others).
 
   * H.264 and HEVC: NAL units (Annex B, or length-prefixed as MP4 and
     Matroska store them).  A keyframe holds an IDR slice (H.264, NAL type

@@ -7,7 +7,8 @@ route of the device (Matroska and WebM: ``data/matroska.py``, into the same
     decoder (``data/native.py``: libjpeg on the CPU, nvJPEG on the card).
   * H.264, HEVC, MPEG-4 Part 2 (Visual), VP8, VP9 and AV1: NVIDIA's
     hardware decoder on the card (``data/nvdec.py``), fed the elementary
-    stream this module makes from the samples, 8-bit 4:2:0 only (the
+    stream this module makes from the samples: HEVC, VP9 and AV1 at 8, 10
+    or 12 bits, 4:2:0 or 4:4:4, the others at 8-bit 4:2:0 only (the
     stream's own headers say, ``data/codecs.py``; any other raises before
     a decoder opens).  The port has no CPU decoder for them: a decode on
     the CPU raises ``NotImplementedError`` naming the codec and NVDEC.
@@ -115,12 +116,20 @@ def no_decoder(path: str, codec: str) -> NotImplementedError:
         f"the card's machine has no decoder for other codecs")
 
 
+# the formats NVDEC decodes past 8-bit 4:2:0, and the (bit depth, chroma
+# format) pairs it takes of them (to NV12, P016 or YUV444 surfaces)
+HIGH_BIT_FORMATS = (HEVC, VP9, AV1)
+DECODABLE = {(d, c) for d in (8, 10, 12) for c in ("4:2:0", "4:4:4")}
+
+
 def not_decodable(path: str, fmt: str, depth: int,
                   chroma: str) -> NotImplementedError:
+    which = ("8-, 10- or 12-bit 4:2:0 or 4:4:4" if fmt in HIGH_BIT_FORMATS
+             else "8-bit 4:2:0 only")
     return NotImplementedError(
         f"{path}: a {depth}-bit {chroma} {fmt} stream: the port decodes "
-        f"{fmt} through NVDEC at 8-bit 4:2:0 only (NV12 surfaces and the "
-        f"8-bit conversion to RGB); this stream is {depth}-bit and "
+        f"{fmt} through NVDEC at {which} (NV12, P016 and YUV444 surfaces "
+        f"and their conversions to RGB); this stream is {depth}-bit and "
         f"{chroma}")
 
 
@@ -425,12 +434,15 @@ class Video:
     def decodable(self) -> tuple:
         """(bit depth, chroma format) of the stream, from the container's
         record or the stream's own headers; raises where the port's NVDEC
-        route cannot decode it (anything but 8-bit 4:2:0), before a
-        session opens."""
+        route cannot decode it, before a session opens: HEVC, VP9 and AV1
+        at 8, 10 or 12 bits, 4:2:0 or 4:4:4, decode; H.264, MPEG-4 Part 2
+        and VP8 at 8-bit 4:2:0 only; 4:0:0 and 4:2:2 nowhere."""
         if self.stream_format is None:
             self.stream_format = self._read_format()
         depth, chroma = self.stream_format
-        if (depth, chroma) != (8, "4:2:0"):
+        taken = DECODABLE if self.format in HIGH_BIT_FORMATS \
+            else {(8, "4:2:0")}
+        if (depth, chroma) not in taken:
             raise not_decodable(self.path, self.format, depth, chroma)
         return depth, chroma
 
@@ -482,10 +494,10 @@ class Video:
     def session(self, device) -> nvdec.Session:
         """A new NVDEC session for this stream on ``device`` (a CUDA
         device; the CPU raises)."""
-        self.decodable()
+        depth, chroma = self.decodable()
         if torch.device(device).type != "cuda":
             raise no_cpu_decoder(self.path, self.format, self.codec)
-        return nvdec.Session(self.format, device, self.path)
+        return nvdec.Session(self.format, device, self.path, depth, chroma)
 
     def _check_size(self, img: np.ndarray, what: str) -> np.ndarray:
         if img.shape[:2] != (self.height, self.width):

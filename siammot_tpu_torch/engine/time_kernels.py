@@ -47,7 +47,10 @@ each beside ``F.conv2d`` (f32, groups = N*C) and its bound; the routed
 kernel, JAX's f32 order and the exact correlation against one another
 at 35/29 and 75/61 on the card test's inputs; then the AOT recipe's
 other two kernel-6 passes, the forward (35x35 by 7x7) and the search
-gradient (29x29 with 7x7), bf16 as its step runs them.  At the default
+gradient (29x29 with 7x7), bf16 as its step runs them, each beside its
+PyTorch call (``F.conv2d`` on the same bf16 inputs, ``F.conv_transpose2d``
+of the f32 gradient by the template in f32; groups = N*C), which of the
+two is faster and by what factor.  At the default
 shape, whose route is ``xcorr6_kernel``, the tensor-core kernel is timed
 beside it.
 Each is
@@ -141,7 +144,9 @@ def xcorr_grad_kernels(cs, dev, record):
     and held to the exact correlation (a tree without
     ``xcorr_depthwise_exact``: to its plain version); its accuracy
     readings (:func:`template_grad_accuracy`); then the AOT recipe's
-    forward and search gradient beside theirs."""
+    forward and search gradient beside their bounds and their PyTorch
+    calls, ``F.conv2d`` and ``F.conv_transpose2d`` grouped by slot and
+    channel (``groups`` = N * C)."""
     import torch
     import torch.nn.functional as F
     import siammot_tpu_torch.ops.xcorr as xc
@@ -196,18 +201,43 @@ def xcorr_grad_kernels(cs, dev, record):
     t = (0.1 * torch.randn(n, 7, 7, c, generator=g)).to(dev, bf)
     up = torch.randn(n, 29, 29, c, generator=g).to(dev)
     macs = n * 29 * 29 * 7 * 7 * c
-    for name, fn, plain, args, nbytes in (
+    # the one PyTorch call of each, channels first and grouped by slot and
+    # channel (the layouts made outside the timed call): the forward
+    # F.conv2d on the same bf16 search and template, the search gradient
+    # F.conv_transpose2d of the f32 gradient by the template in f32 (the
+    # call takes one dtype)
+    t_w = t.permute(0, 3, 1, 2).reshape(n * c, 1, 7, 7)
+    s_nchw = s.permute(0, 3, 1, 2).reshape(1, n * c, 35, 35)
+    up_nchw = up.permute(0, 3, 1, 2).reshape(1, n * c, 29, 29)
+    t_w32 = t_w.float()
+
+    def nhwc(x, h):
+        return x.reshape(n, c, h, h).permute(0, 2, 3, 1)
+    for name, fn, plain, args, nbytes, lib, call in (
             ("forward", xcorr_depthwise, xcorr_depthwise_plain, (s, t),
-             n * c * ((35 * 35 + 49) * 2 + 29 * 29 * 4)),
+             n * c * ((35 * 35 + 49) * 2 + 29 * 29 * 4), "F.conv2d",
+             lambda: F.conv2d(s_nchw, t_w, groups=n * c)),
             ("grad_search", xcorr_grad_search, xcorr_grad_search_plain,
-             (up, t), n * c * (29 * 29 * 4 + 49 * 2 + 35 * 35 * 4))):
-        err = cs.close(fn(*args), plain(*args), cs.POOL_ATOL, cs.POOL_RTOL,
+             (up, t), n * c * (29 * 29 * 4 + 49 * 2 + 35 * 35 * 4),
+             "F.conv_transpose2d",
+             lambda: F.conv_transpose2d(up_nchw, t_w32, groups=n * c))):
+        want = plain(*args)
+        err = cs.close(fn(*args), want, cs.POOL_ATOL, cs.POOL_RTOL,
                        f"AOT {name}")[0]
         ms = record(f"xcorr {name} AOT N={n} bfloat16", lambda: fn(*args),
                     err, iters=5)[0]
+        got = nhwc(call(), want.shape[1]).float()
+        lerr = float((got - want.float()).abs().max())
+        lms = cs.timed_ms(call, iters=5, warmup=1)
         bms, by = cs.bound(nbytes, 2.0 * macs, cs.F32_FLOPS)
-        cs.log(f"    bound {bms:.4f} ms ({by}); kernel {ms / bms:.2f}x its "
-               "bound")
+        faster = "the kernel" if ms < lms else lib
+        cs.log(f"    {lib} {lms:.4f} ms (max abs diff to the plain version "
+               f"{lerr:.3g}); {faster} faster by "
+               f"{max(ms, lms) / min(ms, lms):.2f}x; bound {bms:.4f} ms "
+               f"({by}); kernel {ms / bms:.2f}x its bound")
+        del got, want
+    del s, t, up, t_w, s_nchw, up_nchw, t_w32
+    torch.cuda.empty_cache()
 
 
 def template_grad_accuracy(cs, dev, exact):

@@ -21,7 +21,8 @@ small elsewhere. Kernel 2's live slots must equal kernel 6's output bit
 for bit, kernels 3, 7 and 8 and the gather pooler's backward must give
 the same bits from launch to launch, kernel 8 kernel 3's bits, the
 gather backward its ordered plain form's (``roi_align_bwd_ordered``) and
-the gather forward its first version's (digests).
+the gather forward its first version's (digests); the P016 and YUV444
+video conversions (``data/nvdec.cu``) their plain versions bit for bit.
 Tolerances as in ``chip_smoke.py``: pool/xcorr f32 sums in another order
 (1e-4 + 1e-3|x|), predictor logits 3e-2 in bf16 (tower rounding) and
 1e-4 in f32, decode idx exact and scores 1e-5, deformable conv 2e-5 of
@@ -1442,3 +1443,43 @@ def test_roi_align_kernel_digest(dev, key):
     site's size and pad, both dtypes and routes."""
     o, pad, dtype, c = key
     assert roi_fwd_digest(dev, o, pad, dtype, c) == _ROI_FWD_DIGESTS[key]
+
+
+@pytest.mark.parametrize("case", [(1280, 720, 10, "left"),
+                                  (1280, 720, 12, "center"),
+                                  (200, 121, 10, "left"), (64, 9, 12, "top")])
+def test_p016_to_rgb_kernel(dev, case):
+    """The P016 conversion kernel bitwise its plain version on random
+    words (the samples in the top bits), at each chroma siting."""
+    from siammot_tpu_torch.data import nvdec
+    w, h, depth, where = case
+    siting = {"left": nvdec.SITING_LEFT, "center": nvdec.SITING_CENTER,
+              "top": (0, 0)}[where]
+    rng = np.random.RandomState(w + h + depth)
+    words = rng.randint(0, 1 << 16, (nvdec.nv12_rows(h), w + 64)) \
+        & ~((1 << (16 - depth)) - 1)
+    frame = torch.from_numpy(words.astype(np.uint16).view(np.int16))
+    got = nvdec.p016_to_rgb(frame.to(dev), w, h, depth, siting)
+    assert torch.equal(got.cpu(), nvdec.p016_to_rgb_plain(frame, w, h, depth,
+                                                          siting))
+
+
+@pytest.mark.parametrize("case", [(1280, 720, 8), (1280, 720, 10),
+                                  (1280, 720, 12), (101, 7, 10)])
+def test_yuv444_to_rgb_kernel(dev, case):
+    """The YUV444 conversion kernel bitwise its plain version on random
+    bytes or words, swscale's 32-bit wrap included."""
+    from siammot_tpu_torch.data import nvdec
+    w, h, depth = case
+    rng = np.random.RandomState(w + h + depth)
+    rows = nvdec.yuv444_rows(h)
+    if depth == 8:
+        frame = torch.from_numpy(rng.randint(0, 256, (rows, w + 3))
+                                 .astype(np.uint8))
+    else:
+        words = rng.randint(0, 1 << 16, (rows, w + 3)) \
+            & ~((1 << (16 - depth)) - 1)
+        frame = torch.from_numpy(words.astype(np.uint16).view(np.int16))
+    got = nvdec.yuv444_to_rgb(frame.to(dev), w, h, depth)
+    assert torch.equal(got.cpu(), nvdec.yuv444_to_rgb_plain(frame, w, h,
+                                                            depth))

@@ -412,8 +412,8 @@ SCRIPT = textwrap.dedent("""
 
     # the video readers: every committed clip demuxes (AVI, MP4, Matroska,
     # WebM), its Motion JPEG decodes on the CPU, and its H.264, HEVC,
-    # MPEG-4 Part 2, VP8, VP9 or AV1 decode on the CPU raises naming
-    # NVDEC; the conversion of x264's reconstruction (on the CPU: the
+    # MPEG-4 Part 2, VP8, VP9 or AV1 decode on the CPU (8-bit 4:2:0, or
+    # 10- and 12-bit and 4:4:4) raises naming NVDEC; the conversion of x264's reconstruction (on the CPU: the
     # plain version) is cv2's frames of the MP4
     import hashlib
     from siammot_tpu_torch.data.nvdec import nv12_to_rgb
@@ -421,7 +421,7 @@ SCRIPT = textwrap.dedent("""
     vid = os.path.join(REPO, "tests", "fixtures", "video")
     clips = [n for n in sorted(os.listdir(vid)) if n.endswith((
         ".mp4", ".avi", ".mkv", ".webm"))]
-    assert len(clips) == 18, clips
+    assert len(clips) == 23, clips
     for name in clips:
         if name.startswith("mjpeg"):
             next(iter(video_frames(os.path.join(vid, name))))

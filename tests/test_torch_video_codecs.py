@@ -438,12 +438,14 @@ def test_nvdec_errors_carry_the_drivers_code(code):
 
 # Video Codec SDK 12.x on LP64 Linux (unsigned long is 8 bytes)
 LAYOUTS = {
-    "DecodeCaps": (88, {"eCodecType": 0, "bIsSupported": 24,
+    "DecodeCaps": (88, {"eCodecType": 0, "eChromaFormat": 4,
+                        "nBitDepthMinus8": 8, "bIsSupported": 24,
                         "nOutputFormatMask": 26, "nMaxWidth": 28,
                         "nMaxMBCount": 36, "nMinWidth": 40,
                         "reserved3": 48}),
     "DecodeCreateInfo": (176, {"ulNumDecodeSurfaces": 16, "CodecType": 24,
                                "ChromaFormat": 28, "ulCreationFlags": 32,
+                               "bitDepthMinus8": 40,
                                "ulMaxWidth": 56, "display_area": 80,
                                "OutputFormat": 88, "DeinterlaceMode": 92,
                                "ulTargetWidth": 96,
@@ -453,6 +455,8 @@ LAYOUTS = {
                          "raw_output_dptr": 40, "output_stream": 56,
                          "Reserved": 64, "histogram_dptr": 248}),
     "VideoFormat": (64, {"progressive_sequence": 12,
+                         "bit_depth_luma_minus8": 13,
+                         "bit_depth_chroma_minus8": 14,
                          "min_num_decode_surfaces": 15, "coded_width": 16,
                          "display_area": 24, "chroma_format": 40,
                          "video_signal_description": 56,

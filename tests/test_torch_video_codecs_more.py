@@ -23,10 +23,12 @@ demuxer is held to a CPU decoder through the elementary stream it makes:
   NVDEC session that reorders as a B-frame decoder does;
 * metadata against the JAX package's ``video_metadata`` and the demo
   iterator against the JAX demo's;
-* what raises: a CPU decode, naming the codec and NVDEC; a 10-bit or
-  4:0:0 stream (HEVC SPS, VP9 header, ``vpcC``, ``av1C``), naming its bit
-  depth and chroma format before any driver call; a codec the card's
-  caps do not list, naming the codec and the card;
+* what raises: a CPU decode, naming the codec and NVDEC; a 4:0:0 stream
+  (``av1C``), naming its bit depth and chroma format before any driver
+  call; a 10-bit stream (HEVC SPS, VP9 header, ``vpcC``, ``av1C``)
+  reaches ``cuvidGetDecoderCaps`` at its own depth and chroma on a card
+  device (the driver stood in); a codec the card's caps do not list,
+  naming the codec, depth, chroma and the card;
 * the NVDEC codec IDs of ``nvdec.py`` and ``nvdec.cu`` agree.
 """
 
@@ -324,6 +326,38 @@ def no_driver(monkeypatch):
     monkeypatch.setattr(nvdec, "library", called)
 
 
+def caps_query(monkeypatch) -> list:
+    """``cuvidGetDecoderCaps`` stood in: each query recorded, each answered
+    "not supported" (so a session raises right after it); the card's name
+    stood in."""
+    calls = []
+
+    def caps(codec, device, depth=8, chroma="4:2:0"):
+        calls.append((codec, depth, chroma))
+        return dict(supported=0, output_format_mask=0)
+    monkeypatch.setattr(nvdec, "library", lambda: None)
+    monkeypatch.setattr(nvdec, "decoder_caps", caps)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda d=None: "NVIDIA H100 80GB HBM3")
+    return calls
+
+
+def reaches_the_caps(monkeypatch, video, codec, what):
+    """On a card device the session asks the caps at the stream's own
+    depth and chroma (``what``) and raises naming them and the card; on
+    the CPU it raises naming NVDEC, with no query."""
+    calls = caps_query(monkeypatch)
+    with pytest.raises(NotImplementedError) as err:
+        video.session("cuda:0")
+    depth, chroma = what.split("-bit ")
+    assert calls == [(codec, int(depth), chroma)]
+    assert f"{what} {codec}" in str(err.value)
+    assert "NVIDIA H100 80GB HBM3" in str(err.value)
+    with pytest.raises(NotImplementedError, match="NVDEC"):
+        video.session("cpu")
+    assert len(calls) == 1
+
+
 def ue(v: int) -> str:
     bits = bin(v + 1)[2:]
     return "0" * (len(bits) - 1) + bits
@@ -377,13 +411,9 @@ def test_ten_bit_hevc_raises_before_the_driver(tmp_path, monkeypatch):
     fx.write_mkv(path, "V_MPEGH/ISO/HEVC", fx.hvcc_record(units, True),
                  fx.demuxed(fixture("hevc_small.mkv")))
     video = container.open_video(path)
-    no_driver(monkeypatch)
-    for device in ("cuda:0", "cpu"):
-        with pytest.raises(NotImplementedError,
-                           match="10-bit 4:2:0 HEVC stream") as err:
-            video.session(device)
-        assert "8-bit 4:2:0 only" in str(err.value)
-    with pytest.raises(NotImplementedError, match="10-bit"):
+    assert video.decodable() == (10, "4:2:0")
+    reaches_the_caps(monkeypatch, video, "HEVC", "10-bit 4:2:0")
+    with pytest.raises(NotImplementedError, match="10-bit 4:2:0 HEVC"):
         list(video_frames(path, "cuda:0"))
 
 
@@ -411,9 +441,8 @@ def test_ten_bit_vp9_raises_before_the_driver(tmp_path, monkeypatch, name):
         assert data[at] >> 4 == 8
         path = patched(tmp_path, name, at, 0x20, "ten.mp4")  # 8 | 2
     video = container.open_video(path)
-    no_driver(monkeypatch)
-    with pytest.raises(NotImplementedError, match="10-bit 4:2:0 VP9"):
-        video.session("cuda:0")
+    assert video.decodable() == (10, "4:2:0")
+    reaches_the_caps(monkeypatch, video, "VP9", "10-bit 4:2:0")
 
 
 @pytest.mark.parametrize("mask,what", [(0x40, "10-bit 4:2:0"),
@@ -425,9 +454,13 @@ def test_av1c_high_bitdepth_and_mono_chrome_raise(tmp_path, monkeypatch,
     assert data[at - 2] == 0x81
     path = patched(tmp_path, "av1_small.mkv", at, mask, "av1.mkv")
     video = container.open_video(path)
-    no_driver(monkeypatch)
-    with pytest.raises(NotImplementedError, match=f"{what} AV1"):
-        video.session("cuda:0")
+    if what == "10-bit 4:2:0":
+        reaches_the_caps(monkeypatch, video, "AV1", what)
+        return
+    no_driver(monkeypatch)                  # 4:0:0: before the driver
+    for device in ("cuda:0", "cpu"):
+        with pytest.raises(NotImplementedError, match=f"{what} AV1"):
+            video.session(device)
 
 
 @pytest.mark.parametrize("codec", ["VP8", "AV1", "HEVC", "VP9"])
@@ -435,12 +468,13 @@ def test_unsupported_caps_raise_naming_the_codec_and_the_card(monkeypatch,
                                                               codec):
     monkeypatch.setattr(nvdec, "library", lambda: None)
     monkeypatch.setattr(nvdec, "decoder_caps",
-                        lambda c, d: dict(supported=0, max_width=0))
+                        lambda c, d, depth, chroma: dict(
+                            supported=0, max_width=0, output_format_mask=0))
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda d=None: "NVIDIA H100 80GB HBM3")
     with pytest.raises(NotImplementedError) as err:
         nvdec.Session(codec, "cuda:0", "clip")
-    assert f"does not decode {codec}" in str(err.value)
+    assert f"does not decode 8-bit 4:2:0 {codec}" in str(err.value)
     assert "NVIDIA H100 80GB HBM3" in str(err.value)
 
 

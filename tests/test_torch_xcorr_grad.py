@@ -26,6 +26,15 @@ from siammot_tpu_torch.ops.xcorr import (xcorr_depthwise,
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two CPU threads: the suite runs several files at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def inputs():
     rng = np.random.RandomState(4)

@@ -249,41 +249,83 @@ X265_OPTS = {"input-res": f"{W}x{H}", "fps": str(FPS), "bframes": "3",
              "crf": "30", "log-level": "error"}
 
 
-def x265_encode(frames) -> list:
-    """RGB frames -> packets in decode order (dicts: ``data``, Annex B with
-    the parameter sets in band before each IRAP; ``pts``; ``dts``;
-    ``key``).  ``x265_picture`` (build 199): ``pts`` at byte 0, ``dts`` at
-    8, ``planes`` at 24, ``stride`` at 48; ``x265_nal``: type, size,
-    payload pointer."""
+_vp, _i, _s = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
+X265_API = {"param_alloc": ("x265_param_alloc", _vp),
+            "param_free": ("x265_param_free", None, _vp),
+            "param_parse": ("x265_param_parse", _i, _vp, _s, _s),
+            "param_default_preset": ("x265_param_default_preset", _i, _vp,
+                                     _s, _s),
+            "picture_alloc": ("x265_picture_alloc", _vp),
+            "picture_free": ("x265_picture_free", None, _vp),
+            "picture_init": ("x265_picture_init", None, _vp, _vp),
+            "encoder_open": ("x265_encoder_open_199", _vp, _vp),
+            "encoder_encode": ("x265_encoder_encode", _i, _vp,
+                               ctypes.POINTER(_vp),
+                               ctypes.POINTER(ctypes.c_uint32), _vp, _vp),
+            "encoder_close": ("x265_encoder_close", None, _vp)}
+
+
+def x265_api(depth: int) -> dict:
+    """The functions of libx265's build for ``depth`` bits (8, 10 or 12),
+    from ``x265_api_get_199(depth)``'s table: each entry's place in the
+    table is where the 8-bit table holds the exported symbol of that
+    name."""
     lib = ctypes.CDLL("libx265.so.199")
     vp = ctypes.c_void_p
-    lib.x265_param_alloc.restype = vp
-    lib.x265_picture_alloc.restype = vp
-    lib.x265_encoder_open_199.restype = vp
-    lib.x265_param_default_preset.argtypes = [vp, ctypes.c_char_p,
-                                              ctypes.c_char_p]
-    lib.x265_param_parse.argtypes = [vp, ctypes.c_char_p, ctypes.c_char_p]
-    lib.x265_picture_init.argtypes = [vp, vp]
-    lib.x265_encoder_open_199.argtypes = [vp]
-    lib.x265_encoder_encode.argtypes = [vp, ctypes.POINTER(vp),
-                                        ctypes.POINTER(ctypes.c_uint32), vp,
-                                        vp]
-    for fn in ("x265_encoder_close", "x265_picture_free", "x265_param_free"):
-        getattr(lib, fn).argtypes = [vp]
-    param = lib.x265_param_alloc()
-    if lib.x265_param_default_preset(param, b"medium", None):
+    lib.x265_api_get_199.restype = vp
+    lib.x265_api_get_199.argtypes = [ctypes.c_int]
+    base, table = lib.x265_api_get_199(8), lib.x265_api_get_199(depth)
+    if not table:
+        raise RuntimeError(f"libx265.so.199 has no {depth}-bit build")
+    words = struct.unpack("<40Q", ctypes.string_at(base + 48, 320))
+    out = {}
+    for key, (name, *sig) in X265_API.items():
+        at = 48 + 8 * words.index(ctypes.cast(getattr(lib, name), vp).value)
+        ptr, = struct.unpack("<Q", ctypes.string_at(table + at, 8))
+        out[key] = ctypes.CFUNCTYPE(*sig)(ptr)
+    return out
+
+
+def x265_encode(frames) -> list:
+    """RGB frames -> packets in decode order (:func:`x265_encode_planes`
+    of their 8-bit I420 planes with ``X265_OPTS``)."""
+    planes = []
+    for rgb in frames:
+        i420 = cv2.cvtColor(np.ascontiguousarray(rgb),
+                            cv2.COLOR_RGB2YUV_I420)
+        planes.append([i420[:H], i420[H:H + H // 4].reshape(H // 2, W // 2),
+                       i420[H + H // 4:].reshape(H // 2, W // 2)])
+    return x265_encode_planes(planes, X265_OPTS)[0]
+
+
+def x265_encode_planes(planes, opts: dict, depth: int = 8) -> tuple:
+    """Y, U, V planes (one triple a frame; 4:2:0 or, with ``opts``'
+    ``input-csp`` i444, 4:4:4) -> (packets in decode order, the encoder's
+    reconstruction of each frame in display order).  A packet is a dict:
+    ``data``, Annex B with the parameter sets in band before each IRAP;
+    ``pts``; ``dts``; ``key``.  At ``depth`` > 8 the planes are 16-bit
+    words holding ``depth``-bit samples (libx265's ``depth``-bit build).
+    ``x265_picture`` (build 199): ``pts`` at byte 0, ``dts`` at 8,
+    ``planes`` at 24, ``stride`` at 48 (bytes); ``x265_nal``: type, size,
+    payload pointer.  The reconstruction is ``pic_out``'s planes."""
+    x = x265_api(depth)
+    vp = ctypes.c_void_p
+    dtype = np.uint8 if depth == 8 else np.uint16
+    param = x["param_alloc"]()
+    if x["param_default_preset"](param, b"medium", None):
         raise RuntimeError("x265_param_default_preset failed")
-    for k, v in X265_OPTS.items():
-        if lib.x265_param_parse(param, k.encode(), v.encode()):
+    for k, v in opts.items():
+        if x["param_parse"](param, k.encode(), v.encode()):
             raise RuntimeError(f"x265 refuses {k}={v}")
-    enc = lib.x265_encoder_open_199(param)
+    enc = x["encoder_open"](param)
     if not enc:
         raise RuntimeError("x265_encoder_open failed")
-    pic_in, pic_out = lib.x265_picture_alloc(), lib.x265_picture_alloc()
-    lib.x265_picture_init(param, pic_in)
-    lib.x265_picture_init(param, pic_out)
+    pic_in, pic_out = x["picture_alloc"](), x["picture_alloc"]()
+    x["picture_init"](param, pic_in)
+    x["picture_init"](param, pic_out)
     nals, count = vp(), ctypes.c_uint32()
-    packets = []
+    packets, recon = [], {}
+    shapes = [p.shape for p in planes[0]]
 
     def take(got):
         if got > 0:
@@ -292,55 +334,57 @@ def x265_encode(frames) -> list:
             for i in range(count.value):
                 _, size, ptr = struct.unpack_from("<IIQ", table, 16 * i)
                 data += ctypes.string_at(ptr, size)
-            pts, dts = struct.unpack_from("<qq", ctypes.string_at(pic_out,
-                                                                   16))
+            head = ctypes.string_at(pic_out, 64)
+            pts, dts = struct.unpack_from("<qq", head)
+            frame = []
+            for (ph, pw), ptr, stride in zip(
+                    shapes, struct.unpack_from("<3Q", head, 24),
+                    struct.unpack_from("<3i", head, 48)):
+                rows = np.frombuffer(ctypes.string_at(ptr, stride * ph),
+                                     dtype).reshape(ph, -1)
+                frame.append(np.ascontiguousarray(rows[:, :pw]))
+            recon[pts] = frame
             key = any(16 <= codecs.nal_type(codecs.HEVC, u) <= 23
                       for u in codecs.nal_units(data, 0))
             packets.append(dict(data=data, pts=pts, dts=dts, key=key))
 
     keep = []
     try:
-        for t, rgb in enumerate(frames):
-            i420 = cv2.cvtColor(np.ascontiguousarray(rgb),
-                                cv2.COLOR_RGB2YUV_I420)
-            planes = [np.ascontiguousarray(i420[:H]),
-                      np.ascontiguousarray(i420[H:H + H // 4].reshape(
-                          H // 2, W // 2)),
-                      np.ascontiguousarray(i420[H + H // 4:].reshape(
-                          H // 2, W // 2))]
-            keep = planes
-            head = ctypes.string_at(pic_in, 64)
-            buf = bytearray(head)
+        for t, frame in enumerate(planes):
+            frame = [np.ascontiguousarray(p, dtype) for p in frame]
+            keep.append(frame)
+            buf = bytearray(ctypes.string_at(pic_in, 64))
             struct.pack_into("<q", buf, 0, t)
-            struct.pack_into("<3Q", buf, 24, *(p.ctypes.data for p in planes))
-            struct.pack_into("<3i", buf, 48, W, W // 2, W // 2)
+            struct.pack_into("<3Q", buf, 24, *(p.ctypes.data for p in frame))
+            struct.pack_into("<3i", buf, 48, *(p.strides[0] for p in frame))
             ctypes.memmove(pic_in, bytes(buf), 64)
-            take(lib.x265_encoder_encode(enc, ctypes.byref(nals),
-                                         ctypes.byref(count), pic_in,
-                                         pic_out))
+            take(x["encoder_encode"](enc, ctypes.byref(nals),
+                                     ctypes.byref(count), pic_in, pic_out))
         while True:
-            got = lib.x265_encoder_encode(enc, ctypes.byref(nals),
-                                          ctypes.byref(count), None, pic_out)
+            got = x["encoder_encode"](enc, ctypes.byref(nals),
+                                      ctypes.byref(count), None, pic_out)
             if got <= 0:
                 break
             take(got)
     finally:
         del keep
-        lib.x265_encoder_close(enc)
-        lib.x265_picture_free(pic_in)
-        lib.x265_picture_free(pic_out)
-        lib.x265_param_free(param)
-    return packets
+        x["encoder_close"](enc)
+        x["picture_free"](pic_in)
+        x["picture_free"](pic_out)
+        x["param_free"](param)
+    return packets, [recon[t] for t in sorted(recon)]
 
 
-def hvcc_record(units: list, complete: bool) -> bytes:
+def hvcc_record(units: list, complete: bool, depth: int = 8,
+                chroma: int = 1) -> bytes:
     """An ``hvcC`` body (ISO/IEC 14496-15 8.3.3) of a VPS, SPS and PPS:
     the profile, tier and level bytes copied from the SPS, 4-byte NAL
-    lengths, 8-bit 4:2:0."""
+    lengths, ``depth`` bits and ``chroma_format_idc`` ``chroma``."""
     sps = codecs.unescape(next(u for u in units
                                if codecs.nal_type(codecs.HEVC, u) == 33))
-    body = bytes([1]) + sps[3:15] + bytes([0xF0, 0, 0xFC, 0xFD, 0xF8, 0xF8,
-                                           0, 0, 0x0F, 3])
+    body = bytes([1]) + sps[3:15] + bytes([0xF0, 0, 0xFC, 0xFC | chroma,
+                                           0xF8 | depth - 8,
+                                           0xF8 | depth - 8, 0, 0, 0x0F, 3])
     for kind in (32, 33, 34):
         unit = next(u for u in units
                     if codecs.nal_type(codecs.HEVC, u) == kind)
